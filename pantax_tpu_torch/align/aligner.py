@@ -1,0 +1,448 @@
+"""Short-read aligner, PyTorch port of pantax_tpu/align/aligner.py.
+
+The query path per read batch (``query_batch``): unpack and reverse
+complement, canonical k-mer hashing and seed selection, seed lookup (CHD
+perfect hash, or bucketed bisection), diagonal vote on both strands and the
+strand union, banded DP extension (K1, ops/extend.py), node projection, and
+the best / location-deduped second-best scores that give mapq.  Every step
+keeps the JAX function's dtypes and tie order (first index on argmax), so the
+packed [4, B] result rows are bit-identical to ``_query_batch_packed``.
+
+Hashes are uint32 in the reference.  Torch's uint32 lacks most kernels, so
+they are carried in int64 and masked to 32 bits after each multiply
+(``_mul32``); the oracle is pantax_tpu.align.encode.kmer_hashes.
+
+The numpy code that makes the device tables (seed lookup, CHD placement,
+text packing) lives in the reference's JAX module, so its counterpart is
+here.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from .. import _host
+from ..ops.extend import NEG, banded_extend, packed_layout
+
+__all__ = [
+    "Aligner", "build_bucket_table", "build_seed_lookup",
+    "pack_result_rows", "pack_text2d", "packed_layout", "query_batch",
+]
+
+_M32 = 0xFFFFFFFF
+_CHD_GOLD = 0x9E3779B9  # displacement salt (build/device must agree)
+_HASH_BASE = 0x9E3779B1
+
+
+# ---------------------------------------------------------------------------
+# host-side tables (numpy counterparts of the reference's, array-equal)
+# ---------------------------------------------------------------------------
+def pack_text2d(text: np.ndarray) -> np.ndarray:
+    """Nibble-pack the 256-padded index text into [T/256, 128] uint8 rows.
+    The CUDA extension reads the unpacked int8 text; the packed form is the
+    layout of the reference's row-gather window fetch."""
+    c = np.ascontiguousarray(text).reshape(-1, 256).astype(np.uint8)
+    return c[:, 0::2] | (c[:, 1::2] << 4)
+
+
+def build_bucket_table(seed_keys: np.ndarray) -> tuple[int, np.ndarray]:
+    """bucket_lo[b] = first index in the sorted key table whose key >=
+    (b << (32 - bits)), ~1/32 key per bucket, capped at 2^24 buckets."""
+    n = max(len(seed_keys), 1)
+    bits = int(np.clip(int(np.ceil(np.log2(n))) + 5, 12, 24))
+    size = 1 << bits
+    bounds = np.arange(size + 1, dtype=np.uint64) << np.uint64(32 - bits)
+    lo = np.searchsorted(seed_keys.astype(np.uint64), bounds).astype(np.int32)
+    return bits, lo
+
+
+def _build_chd(keys: np.ndarray):
+    """Displacement-hash (CHD) placement of distinct uint32 keys: (slot int64
+    [n], disp int32 [2^mb], mb, T), or None when placement does not converge.
+    Same greedy rounds as the reference (native C++ when available)."""
+    n = len(keys)
+    mb = min(max(int(np.ceil(np.log2(max(n, 2)))) + 1, 1), 26)
+    m = 1 << mb
+    Tb = max(int(np.ceil(np.log2(max(n, 1) * 1.3))), 1)
+    T = 1 << Tb
+    native = _host.chd_build_native(keys.astype(np.uint32), mb, Tb)
+    if native is not None and native is not False:
+        slot, disp = native
+        return slot, disp, mb, T
+    if native is False:
+        return None
+    mask = np.uint32(T - 1)
+    b = (keys >> np.uint32(32 - mb)).astype(np.int64)
+    order = np.argsort(b, kind="stable")
+    keys_s = keys[order]
+    b_s = b[order]
+    disp = np.zeros(m, dtype=np.int32)
+    occupied = np.zeros(T, dtype=bool)
+    claim = np.zeros(T, dtype=np.int64)
+    slot_s = np.full(n, -1, dtype=np.int64)
+    pend_keys, pend_bucket = keys_s, b_s
+    pend_kidx = np.arange(n, dtype=np.int64)
+    d = 1
+    while len(pend_keys) and d < (1 << 16):
+        salt = np.uint32((_CHD_GOLD * d) & _M32)
+        slots = (_host.mix32(pend_keys ^ salt) & mask).astype(np.int64)
+        rid = np.arange(len(slots), dtype=np.int64)
+        claim[slots] = rid
+        bad = occupied[slots] | (claim[slots] != rid)
+        seg = np.flatnonzero(
+            np.concatenate([[True], pend_bucket[1:] != pend_bucket[:-1]])
+        )
+        seg_len = np.diff(np.concatenate([seg, [len(bad)]]))
+        seg_bad = np.maximum.reduceat(bad.astype(np.int8), seg) > 0
+        win = np.repeat(~seg_bad, seg_len)
+        wslots = slots[win]
+        occupied[wslots] = True
+        slot_s[pend_kidx[win]] = wslots
+        disp[pend_bucket[seg][~seg_bad]] = d
+        keep = ~win
+        pend_keys = pend_keys[keep]
+        pend_bucket = pend_bucket[keep]
+        pend_kidx = pend_kidx[keep]
+        d += 1
+    if len(pend_keys):
+        return None
+    slot = np.empty(n, dtype=np.int64)
+    slot[order] = slot_s
+    return slot, disp, mb, T
+
+
+def build_seed_lookup(seed_keys: np.ndarray, seed_pos: np.ndarray,
+                      hits_per_seed: int = 4):
+    """(table, positions, bucket_bits, aux, plan) from the sorted seed table:
+    the CHD slot table with hits inline (plan -1), or the key-sorted run
+    table for bucketed bisection (plan = bisection steps >= 0)."""
+    S = len(seed_keys)
+    pos = np.ascontiguousarray(seed_pos.astype(np.int32))
+    if S == 0:
+        return (np.zeros((1, 2 + hits_per_seed), np.int32),
+                np.zeros(1, np.int32), 1, np.zeros(2, np.int32), -1)
+    starts = np.flatnonzero(
+        np.concatenate([[True], seed_keys[1:] != seed_keys[:-1]])
+    ).astype(np.int64)
+    ends = np.concatenate([starts[1:], [S]])
+    run_keys = np.ascontiguousarray(seed_keys[starts]).astype(np.uint32)
+    chd = _build_chd(run_keys)
+    if chd is not None:
+        slot, disp, mb, T = chd
+        table = np.zeros((T, 2 + hits_per_seed), dtype=np.int32)
+        table[slot, 0] = run_keys.view(np.int32)
+        table[slot, 1] = (ends - starts).astype(np.int32)
+        pos_wide = np.lib.stride_tricks.sliding_window_view(
+            np.pad(pos, (0, hits_per_seed)), hits_per_seed
+        )
+        table[slot, 2:] = pos_wide[starts]
+        return table, np.zeros(1, np.int32), mb, disp, -1
+    run_table = np.stack([run_keys.view(np.int32), starts.astype(np.int32),
+                          (ends - starts).astype(np.int32)], axis=1)
+    bits, lo = build_bucket_table(seed_keys[starts])
+    occ = int(np.diff(lo).max()) if len(lo) > 1 else 0
+    steps = int(np.ceil(np.log2(occ + 1))) if occ > 0 else 0
+    return np.ascontiguousarray(run_table), pos, bits, lo, steps
+
+
+# ---------------------------------------------------------------------------
+# seed stage (plain torch)
+# ---------------------------------------------------------------------------
+def _mul32(h, c: int):
+    """(h * c) mod 2^32 for h in [0, 2^32) held in int64, without int64
+    overflow: split the constant into 16-bit halves."""
+    lo = h * (c & 0xFFFF)
+    hi = ((h * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix32(h):
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def unpack_reads(codes, read_len):
+    """int8 codes [B, L] -> [B, L4]: width rounded up to a multiple of 4 and
+    every column at or past read_len set to 4, as the reference's read wire
+    (pack_codes / pack_codes2 + _unpack_reads_j) delivers them."""
+    B, L = codes.shape
+    if L % 4:
+        codes = torch.nn.functional.pad(codes, (0, 4 - L % 4), value=4)
+    cols = torch.arange(codes.shape[1], device=codes.device)
+    return torch.where(cols < read_len[:, None], codes, 4).to(torch.int8)
+
+
+def rev_codes(codes, lens):
+    """Left-aligned reverse complement of right-padded codes (a gather)."""
+    B, Lr = codes.shape
+    cols = torch.arange(Lr, device=codes.device)
+    src = (lens.to(torch.int64)[:, None] - 1 - cols).clamp(0, Lr - 1)
+    rev = torch.gather(codes, 1, src)
+    ok = (cols < lens[:, None]) & (rev < 4)
+    return torch.where(ok, 3 - rev, 4).to(torch.int8)
+
+
+def kmer_hashes(codes, k: int):
+    """codes int8 [B, L] -> (mixed canonical hash, int64 holding uint32
+    [B, n], valid bool [B, n])."""
+    B, L = codes.shape
+    n = L - k + 1
+    c = codes.to(torch.int64)
+    pows = [1]
+    for _ in range(1, k):
+        pows.append((pows[-1] * _HASH_BASE) & _M32)
+    hf = torch.zeros((B, n), dtype=torch.int64, device=codes.device)
+    hr = torch.zeros_like(hf)
+    invalid = torch.zeros((B, n), dtype=torch.bool, device=codes.device)
+    for i in range(k):
+        ci = c[:, i:i + n]
+        hf = (hf + ci * pows[k - 1 - i]) & _M32
+        hr = (hr + (3 - ci) * pows[i]) & _M32
+        invalid |= ci == 4
+    return _mix32(torch.minimum(hf, hr)), ~invalid
+
+
+def select_seeds(hashes, valid, density_bits: int, s_max: int):
+    """The first s_max sampled positions per read (-1 padded), their hashes
+    and validity.  Each sampled position's rank is unique in its row, so a
+    scatter places it; unsampled positions write -1 / 0 to a sink column."""
+    mask = valid & ((hashes & ((1 << density_bits) - 1)) == 0)
+    B, n = mask.shape
+    rank = torch.cumsum(mask.to(torch.int32), dim=1)
+    keep = mask & (rank <= s_max)
+    slot = torch.where(keep, rank - 1, s_max).to(torch.int64)
+    pos = torch.arange(n, dtype=torch.int32, device=mask.device).expand(B, n)
+    sel_pos = torch.full((B, s_max + 1), -1, dtype=torch.int32,
+                         device=mask.device)
+    sel_pos.scatter_(1, slot, torch.where(keep, pos, -1))
+    sel_hash = torch.zeros((B, s_max + 1), dtype=torch.int64,
+                           device=mask.device)
+    sel_hash.scatter_(1, slot, torch.where(keep, hashes, 0))
+    sel_pos, sel_hash = sel_pos[:, :s_max], sel_hash[:, :s_max]
+    return sel_pos, sel_hash, sel_pos >= 0
+
+
+def lookup_hits(run_table, seed_pos, bucket_lo, bucket_bits: int, steps: int,
+                sel_hash, sel_valid, hits_per_seed: int):
+    """Text positions of each read seed, [B, S, C] int32, and their validity:
+    the CHD slot table (steps < 0) or bucketed bisection (steps >= 0)."""
+    D = run_table.shape[0]
+    b = sel_hash >> (32 - bucket_bits)
+    c = torch.arange(hits_per_seed, device=sel_hash.device)
+    if steps < 0:
+        if run_table.shape[-1] != 2 + hits_per_seed:
+            raise ValueError("CHD table width does not match hits_per_seed")
+        d = bucket_lo[b].to(torch.int64) & _M32
+        slot = _mix32(sel_hash ^ _mul32(d, _CHD_GOLD)) & (D - 1)
+        row = run_table[slot]
+        key = row[..., 0].to(torch.int64) & _M32
+        ok = (key == sel_hash) & sel_valid
+        rlen = torch.where(ok, row[..., 1], 0)
+        return row[..., 2:], ok[..., None] & (c < rlen[..., None])
+    S_len = seed_pos.shape[0]
+    lo = bucket_lo[b]
+    hi = bucket_lo[b + 1]
+    lo_s, hi_s = lo, hi
+    keys_col = run_table[:, 0].to(torch.int64) & _M32
+    for _ in range(steps):
+        mid = (lo_s + hi_s) >> 1
+        key_mid = keys_col[mid.clamp(0, D - 1)]
+        go_right = (key_mid < sel_hash) & (lo_s < hi_s)
+        lo_s = torch.where(go_right, mid + 1, lo_s)
+        hi_s = torch.where(go_right, hi_s, torch.maximum(mid, lo_s))
+    row = run_table[lo_s.clamp(0, D - 1)]
+    key_j = row[..., 0].to(torch.int64) & _M32
+    found = (key_j == sel_hash) & (lo_s < hi) & sel_valid
+    idx = row[..., 1][..., None] + c
+    pos = seed_pos[idx.clamp(0, S_len - 1)]
+    return pos, found[..., None] & (c < row[..., 2][..., None])
+
+
+def vote_diagonals(diags, valid, band: int, top_k: int):
+    """Top-k candidate diagonals per read by vote count within +-band
+    (pairwise counts, then argmax with kill-within-band)."""
+    BIG = 2**30
+    d = torch.where(valid, diags, BIG)
+    close = ((d[:, :, None] - d[:, None, :]).abs() <= band)
+    close &= valid[:, None, :] & valid[:, :, None]
+    counts = close.sum(dim=2, dtype=torch.int32)
+    del close
+    cand_d, cand_v = [], []
+    for _ in range(top_k):
+        best = torch.argmax(counts, dim=1, keepdim=True)  # first index on ties
+        bd = torch.gather(d, 1, best)
+        cand_d.append(bd[:, 0])
+        cand_v.append(torch.gather(counts, 1, best)[:, 0])
+        counts = torch.where((d - bd).abs() <= band, 0, counts)
+    return torch.stack(cand_d, dim=1), torch.stack(cand_v, dim=1)
+
+
+def all_candidates(text, run_table, seed_pos, bucket_lo, tstart, tnode,
+                   codes_fwd, codes_rev, read_len, cfg_static):
+    """Scored candidates per read, both strands folded: (scores, ts, te,
+    matches, strand, node, off), all [B, K]."""
+    (k, density_bits, bucket_bits, steps, s_max, hits, top_k, pad, match,
+     mismatch, gap) = cfg_static[:11]
+    B, Lr = codes_fwd.shape
+    W = Lr + 2 * pad
+    n_extra = (W + 255) // 256
+    T = text.shape[0] - n_extra * 256  # the reference's text2d bound
+
+    hashes, valid = kmer_hashes(codes_fwd, k)
+    sel_pos, sel_hash, sel_valid = select_seeds(hashes, valid, density_bits,
+                                                s_max)
+    del hashes, valid
+    hit_pos, hit_valid = lookup_hits(run_table, seed_pos, bucket_lo,
+                                     bucket_bits, steps, sel_hash, sel_valid,
+                                     hits)
+    p = sel_pos[..., None]
+    d_fwd = (hit_pos - p).reshape(B, -1)
+    d_rev = (hit_pos - (read_len[:, None, None] - k - p)).reshape(B, -1)
+    hv = hit_valid.reshape(B, -1)
+    cd_f, cv_f = vote_diagonals(d_fwd, hv, band=pad, top_k=top_k)
+    cd_r, cv_r = vote_diagonals(d_rev, hv, band=pad, top_k=top_k)
+
+    # strand union: the top_k best-voted candidates across both strands;
+    # ties favour the forward slots
+    K = top_k
+    diag_u = torch.cat([cd_f, cd_r], dim=1)
+    vote_u = torch.cat([cv_f, cv_r], dim=1)
+    cols2k = torch.arange(2 * K, device=diag_u.device)
+    sel_cols = []
+    v = vote_u
+    for _ in range(K):
+        b = torch.argmax(v, dim=1)
+        sel_cols.append(b)
+        v = torch.where(cols2k == b[:, None], -1, v)
+    sel = torch.stack(sel_cols, dim=1)
+    cand_diag = torch.gather(diag_u, 1, sel)
+    cand_votes = torch.gather(vote_u, 1, sel)
+    strand = (sel >= K).to(torch.int8)
+
+    read_rep = torch.where((strand == 1)[:, :, None], codes_rev[:, None, :],
+                           codes_fwd[:, None, :]).reshape(B * K, Lr)
+    len_rep = read_len.repeat_interleave(K)
+    flat_w0 = (cand_diag - pad).clamp(0, T - W).reshape(-1).contiguous()
+    score, start_off, end_off, matches = banded_extend(
+        text, flat_w0, read_rep.contiguous(), len_rep, pad, match, mismatch,
+        gap,
+    )
+    scores = torch.where(cand_votes > 0, score.reshape(B, K), NEG)
+    ts = (flat_w0 + start_off).reshape(B, K)
+    te = (flat_w0 + end_off).reshape(B, K)
+    matches = matches.reshape(B, K)
+
+    i0 = torch.searchsorted(tstart, ts, right=True) - 1
+    i0 = i0.clamp(0, tnode.shape[0] - 1)
+    return scores, ts, te, matches, strand, tnode[i0], ts - tstart[i0]
+
+
+def query_batch(text, run_table, seed_pos, bucket_lo, tstart, tnode,
+                codes, read_len, cfg_static):
+    """Counterpart of the reference's ``_query_batch``: per-read (ts, te,
+    score, matches, mapq, strand, aligned) with the reference's dtypes
+    (int32 x5, int8, bool).  ``codes`` int8 [B, L], ``read_len`` int32 [B]."""
+    mapq_scale, min_score_frac = cfg_static[11], cfg_static[12]
+    codes_fwd = unpack_reads(codes, read_len)
+    codes_rev = rev_codes(codes_fwd, read_len)
+    scores, ts, te, matches, strand, node, off = all_candidates(
+        text, run_table, seed_pos, bucket_lo, tstart, tnode,
+        codes_fwd, codes_rev, read_len, cfg_static,
+    )
+    best = torch.argmax(scores, dim=1, keepdim=True)
+
+    def take(a):
+        return torch.gather(a, 1, best)[:, 0]
+
+    s1 = take(scores)
+    same_loc = (node == take(node)[:, None]) & (off == take(off)[:, None])
+    s2 = torch.where(same_loc, NEG, scores).amax(dim=1)
+    # float32 products truncated to int32, as XLA computes them
+    f32 = torch.float32
+    min_score = (torch.tensor(min_score_frac, dtype=f32)
+                 * read_len.to(f32)).to(torch.int32)
+    aligned = s1 >= min_score
+    gap_q = (torch.tensor(mapq_scale, dtype=f32) * (s1 - s2).to(f32))
+    mapq = torch.where(s2 <= NEG // 2, 60,
+                       gap_q.to(torch.int32).clamp(0, 60)).to(torch.int32)
+    return (take(ts), take(te), s1, take(matches),
+            torch.where(aligned, mapq, 0), take(strand), aligned)
+
+
+def pack_result_rows(res7):
+    """The 7-tuple query result as one int32 [4, B]: text_start, text_end,
+    (score << 16 | matches), (mapq << 2 | strand << 1 | aligned); scores are
+    clipped to int16 (only the NEG sentinel clips)."""
+    ts, te, score, matches, mapq, strand, aligned = res7
+    i32 = torch.int32
+    hi = (score.clamp(-32768, 32767).to(i32) * 65536) | (matches.to(i32) & 0xFFFF)
+    flags = (mapq.to(i32) << 2) | (strand.to(i32) << 1) | aligned.to(i32)
+    return torch.stack([ts.to(i32), te.to(i32), hi, flags])
+
+
+# ---------------------------------------------------------------------------
+# module
+# ---------------------------------------------------------------------------
+class Aligner(nn.Module):
+    """The index's device tables as buffers, plus the query entry points.
+
+    ``lookup`` is build_seed_lookup's 5-tuple for this index (see
+    convert.aligner_from_reference, which builds it)."""
+
+    def __init__(self, index, lookup, cfg=None, *, device):
+        super().__init__()
+        if index.text_len % 256:
+            raise ValueError("index text must be 256-padded (rebuild the align index)")
+        self.index = index
+        self.cfg = cfg or _host.AlignConfig()
+        run_table, seed_pos, self.bucket_bits, bucket_lo, self.lookup_steps = lookup
+        dev = torch.device(device)
+
+        def put(name, arr, dtype):
+            self.register_buffer(
+                name, torch.from_numpy(np.array(arr, dtype=dtype)).to(dev))
+
+        put("text", index.text, np.int8)
+        put("run_table", run_table, np.int32)
+        put("seed_pos", seed_pos, np.int32)
+        put("bucket_lo", bucket_lo, np.int32)
+        put("tstart", index.tstart, np.int32)
+        put("tnode", index.tnode, np.int32)
+
+    @property
+    def device(self) -> torch.device:
+        return self.text.device
+
+    def static(self) -> tuple:
+        c = self.cfg
+        return (
+            self.index.k, self.index.density_bits, self.bucket_bits,
+            self.lookup_steps, c.max_seeds, c.hits_per_seed,
+            c.max_candidates, c.extension_band, c.match, c.mismatch,
+            c.gap_extend, c.mapq_scale, c.min_score_frac,
+        )
+
+    def upload(self, codes: np.ndarray, lens: np.ndarray):
+        """Host batch -> (codes int8 [B, L], read_len int32 [B]) on the
+        aligner's device; CUDA uploads go through pinned memory,
+        non-blocking."""
+        c = torch.from_numpy(np.ascontiguousarray(codes, dtype=np.int8))
+        n = torch.from_numpy(np.ascontiguousarray(lens, dtype=np.int32))
+        if self.device.type == "cuda":
+            return (c.pin_memory().to(self.device, non_blocking=True),
+                    n.pin_memory().to(self.device, non_blocking=True))
+        return c.to(self.device), n.to(self.device)
+
+    def query(self, codes, read_len):
+        """The per-read 7-tuple for a batch already on the device."""
+        return query_batch(self.text, self.run_table, self.seed_pos,
+                           self.bucket_lo, self.tstart, self.tnode,
+                           codes, read_len, self.static())
+
+    def query_packed(self, codes, read_len):
+        """Packed int32 [4, B] rows (the reference's _query_batch_packed)."""
+        return pack_result_rows(self.query(codes, read_len))

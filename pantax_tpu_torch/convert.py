@@ -1,0 +1,50 @@
+"""Carry state from the reference into the port.
+
+This system has no weights: its parameters are its device tables.  The
+align index (host numpy, shared with the reference) gives the Aligner's
+tables; a reference FusedTables' device arrays give the port's fused
+tables, so both packages run on identical tables in the parity tests.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .align.aligner import Aligner, build_seed_lookup
+from .ops.fused import FusedSpecies, FusedTables
+
+
+def aligner_from_reference(index, cfg, device) -> Aligner:
+    """The port's Aligner over the reference's AlignIndex."""
+    lookup = build_seed_lookup(index.seed_keys, index.seed_pos,
+                               cfg.hits_per_seed)
+    return Aligner(index, lookup, cfg, device=device)
+
+
+def fused_tables_from_reference(jax_tables, device) -> FusedTables:
+    """A reference FusedTables (pantax_tpu.ops.fused) -> the port's, with its
+    device arrays copied through numpy."""
+    t = jax_tables
+
+    def host(a, dtype):
+        return np.asarray(a).astype(dtype, copy=False)
+
+    species = [
+        FusedSpecies(range_=s.range_, ridx=s.ridx, off=s.off,
+                     num_nodes=s.num_nodes, trio_lo=s.trio_lo,
+                     trio_hi=s.trio_hi, paths=s.paths, nodes_len=s.nodes_len,
+                     trio_index=s.trio_index)
+        for s in t.species
+    ]
+    return FusedTables(
+        species=species, ranges=list(t.ranges),
+        hap_offsets=host(t.hap_offsets_d, np.int32),
+        hap_range=host(t.hap_range_d, np.int32),
+        pos_lo=host(t.pos_lo_d, np.int32),
+        nodes_len=host(t.nodes_len_d, np.int32),
+        base_offset=host(t.base_offset_d, np.int32),
+        trio_len=host(t.trio_len_d, np.int32),
+        trio_seg=host(t.trio_seg_d, np.int32),
+        has_dups=bool(t.has_dups), win_shift=int(t.win_shift),
+        pos_steps=int(t.pos_steps), N_pad=int(t.N_pad), TB_pad=int(t.TB_pad),
+        U_pad=int(t.U_pad), device=device,
+    )

@@ -1,0 +1,215 @@
+"""Banded glocal DP extension with the window fetch fused in (K1).
+
+Port of pantax_tpu/ops/extend_pallas.py:171 ``banded_extend_pallas``, which
+computes exactly what the JAX main path runs with XLA as
+aligner._extract_windows + aligner._banded_extend.  Two versions of one
+function live here:
+
+- the CUDA kernel, ``csrc/banded_extend.cu``, built with nvcc for sm_90a at
+  first use into a git-ignored build directory and bound with ctypes;
+- ``banded_extend_plain``, the plain torch version (window gather, then the
+  DP as a Python loop over the read columns on [Wb, N] int32 tensors).
+
+``banded_extend`` takes the plain version only for CPU tensors.  On a CUDA
+tensor it launches the kernel or raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+NEG = -(10**6)
+_SH_MATCH = 5
+
+# Launch counts, one per function; the kernel's count grows only where the
+# kernel is launched, the plain count where the plain DP runs in its place.
+LAUNCHES = {"banded_extend": 0, "banded_extend_plain": 0}
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "banded_extend.cu"
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+_lib: ctypes.CDLL | None = None
+BUILD_LOG = ""  # nvcc's output (ptxas register/spill report) of the last build
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def packed_layout(Lr: int) -> tuple[int, int]:
+    """(sh_score, bias) for reads of padded length Lr (Lr <= 8192); same
+    layout as pantax_tpu.align.aligner.packed_layout."""
+    if Lr > 8192:
+        raise ValueError(f"read length {Lr} exceeds the packed-cell DP limit")
+    m_bits = int(Lr + 1).bit_length()
+    sh_score = _SH_MATCH + m_bits
+    bias_bits = int(2 * Lr + 64).bit_length()
+    if sh_score + bias_bits + 1 > 31:
+        raise ValueError(f"packed DP cell overflow for Lr={Lr}")
+    return sh_score, 1 << bias_bits
+
+
+def _check_band(pad: int) -> None:
+    if 2 * pad >= 1 << _SH_MATCH:
+        # start_off spans [0, 2*pad]; wider bands overflow the 5-bit field
+        raise ValueError(
+            f"extension band {pad} too wide for the packed cell layout "
+            f"(needs 2*band < {1 << _SH_MATCH})"
+        )
+
+
+def _unpack_cell(cell, b_best, read_len, sh_score: int, bias: int):
+    score = (cell >> sh_score) - bias
+    matches = (cell >> _SH_MATCH) & ((1 << (sh_score - _SH_MATCH)) - 1)
+    start_off = cell & ((1 << _SH_MATCH) - 1)
+    end_off = (read_len - 1) + b_best.to(torch.int32) + 1
+    return score, start_off, end_off, matches
+
+
+def banded_extend_plain(text, w0, reads, read_len, pad: int, match: int,
+                        mismatch: int, gap: int):
+    """Plain torch version of the kernel: (score, start_off, end_off,
+    matches), int32 [N] each, window = text[w0 : w0 + Lr + 2*pad] (positions
+    clamped into the text)."""
+    _check_band(pad)
+    N, Lr = reads.shape
+    sh_score, bias = packed_layout(Lr)
+    Wb = 2 * pad
+    dev = text.device
+    cols = torch.arange(Lr + Wb, device=dev)
+    idx = (w0.to(torch.int64)[:, None] + cols).clamp_(0, text.shape[0] - 1)
+    winT = text[idx].to(torch.int32).T.contiguous()    # [W, N]
+    readT = reads.to(torch.int32).T.contiguous()       # [Lr, N]
+    rl = read_len.to(torch.int32)
+    d_score = 1 << sh_score
+    gap_p = gap * d_score
+    mis_d = mismatch * d_score
+    ok_gain = (match - mismatch) * d_score + (1 << _SH_MATCH)
+
+    def sub_packed(i):
+        row = winT[i:i + Wb]
+        x = readT[i]
+        ok = (row == x) & (x < 4) & (row < 4)
+        return mis_d + ok.to(torch.int32) * ok_gain
+
+    band = torch.arange(Wb, dtype=torch.int32, device=dev)[:, None]
+    state = (bias << sh_score) + band + sub_packed(0)
+    for i in range(1, Lr):
+        v = state + sub_packed(i)
+        v[:-1] = torch.maximum(v[:-1], state[1:] + gap_p)
+        for b in range(1, Wb):
+            v[b] = torch.maximum(v[b], v[b - 1] + gap_p)
+        state = torch.where(i < rl, v, state)
+    out = torch.where(rl >= 1, state, NEG)
+    b_best = torch.argmax(out, dim=0)  # first band row reaching the max
+    cell = torch.gather(out, 0, b_best[None])[0]
+    return _unpack_cell(cell, b_best, rl, sh_score, bias)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin)")
+    return path
+
+
+def build_dir() -> Path:
+    """Where compiled kernels go: $PANTAX_TORCH_BUILD, else ``build/`` beside
+    the package (git-ignored)."""
+    env = os.environ.get("PANTAX_TORCH_BUILD")
+    return Path(env) if env else _SRC.parent.parent.parent / "build"
+
+
+def build_kernels() -> ctypes.CDLL:
+    """Compile csrc/banded_extend.cu (once per source content) and load it."""
+    global _lib, BUILD_LOG
+    if _lib is not None:
+        return _lib
+    src = _SRC.read_bytes()
+    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    out_dir = build_dir() / "kernels"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / f"banded_extend_{tag}.so"
+    if not so.exists():
+        tmp = out_dir / f".banded_extend_{tag}.{os.getpid()}.so"
+        proc = subprocess.run(
+            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
+            capture_output=True, text=True,
+        )
+        BUILD_LOG = proc.stdout + proc.stderr
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {_SRC}:\n{BUILD_LOG}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.banded_extend_launch.restype = i32
+    lib.banded_extend_launch.argtypes = [
+        vp, i64, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
+        vp, vp, vp, vp, vp,
+    ]
+    _lib = lib
+    return lib
+
+
+def banded_extend_cuda(text, w0, reads, read_len, pad: int, match: int,
+                       mismatch: int, gap: int):
+    """Launch the CUDA kernel on the current stream (no synchronise)."""
+    _check_band(pad)
+    if not 1 <= pad <= 8:
+        raise ValueError(f"CUDA kernel takes pad 1..8 (band rows <= 16), got {pad}")
+    dev = text.device
+    for name, t, dtype, ndim in (("text", text, torch.int8, 1),
+                                 ("w0", w0, torch.int32, 1),
+                                 ("reads", reads, torch.int8, 2),
+                                 ("read_len", read_len, torch.int32, 1)):
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name} must be on {dev} (got {t.device})")
+        if t.dtype != dtype or t.dim() != ndim:
+            raise ValueError(f"{name} must be {dtype} with {ndim} dims")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    N, Lr = reads.shape
+    if w0.shape[0] != N or read_len.shape[0] != N:
+        raise ValueError("w0, reads and read_len disagree on N")
+    sh_score, bias = packed_layout(Lr)
+    outs = [torch.empty(N, dtype=torch.int32, device=dev) for _ in range(4)]
+    lib = build_kernels()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.banded_extend_launch(
+            text.data_ptr(), text.numel(), w0.data_ptr(), reads.data_ptr(),
+            read_len.data_ptr(), N, Lr, pad, match, mismatch, gap,
+            sh_score, bias, *(o.data_ptr() for o in outs), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"banded_extend kernel launch failed: CUDA error {rc}")
+    LAUNCHES["banded_extend"] += 1
+    return tuple(outs)
+
+
+def banded_extend(text, w0, reads, read_len, pad: int, match: int,
+                  mismatch: int, gap: int):
+    """(score, start_off, end_off, matches), int32 [N] each, for every
+    candidate window text[w0[i] : w0[i] + Lr + 2*pad] against reads[i]
+    (read_len[i] bases); window coordinates, like aligner._banded_extend."""
+    if text.device.type == "cpu":
+        LAUNCHES["banded_extend_plain"] += 1
+        return banded_extend_plain(text, w0, reads, read_len, pad, match,
+                                   mismatch, gap)
+    if text.device.type != "cuda":
+        raise ValueError(f"banded_extend runs on cpu or cuda, not {text.device}")
+    return banded_extend_cuda(text, w0, reads, read_len, pad, match,
+                              mismatch, gap)

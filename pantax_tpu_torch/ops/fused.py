@@ -1,0 +1,557 @@
+"""Fused align -> classify -> coverage pipeline and the short-read profiling
+entry point, PyTorch port of pantax_tpu/ops/fused.py (range-decomposition
+path).
+
+Per read batch, one pass on the device: the aligner query, the haplotype
+classification, and ~12 scatter-adds per read into five accumulators
+(``classify_scatter_ranges``).  Segment-space depth diffs fold into the
+node / base / trio accumulators once at finish (``expand_ranges``), then the
+coverage finalize runs and the host profile tail (species stage, strain
+filters, two-stage PAO, report) writes the tables.
+
+Only the range decomposition is ported: it is what the reference picks on
+every DB whose haplotypes never revisit a node within one read's span.
+The windowed / dup-graph path, paired feeds, interval feeds and the device
+tail raise NotImplementedError naming their ROADMAP item.
+
+Accumulator layout: every scatter target carries one extra sink slot that
+takes the reference's out-of-range "drop" indices (torch's index_add_
+raises on them) and is sliced off.  Node-base and trio sums are integers:
+they accumulate in int64, exactly and in any order, and become float32 at
+the finalize, which checks they stay below 2^24 (where float32 is exact,
+so the result equals the reference's float32 sums).
+"""
+from __future__ import annotations
+
+import csv
+import os
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+
+from .. import _host
+from .coverage_device import build_padded_tables, coverage_finalize
+
+
+# ---------------------------------------------------------------------------
+# host-side tables (numpy counterparts of the reference's, array-equal)
+# ---------------------------------------------------------------------------
+def build_pos_lookup(tstart: np.ndarray, text_len: int):
+    """(pos_lo int32 [nb+1], win_shift, steps) for locate_segment."""
+    M = len(tstart)
+    b = int(np.clip(int(np.ceil(np.log2(max(M, 2)))) + 2, 8, 22))
+    t_bits = int(np.ceil(np.log2(max(text_len, 2))))
+    win_shift = max(t_bits - b, 0)
+    nb = 1 << max(t_bits - win_shift, 1)
+    bounds = np.arange(nb + 1, dtype=np.int64) << win_shift
+    pos_lo = np.searchsorted(tstart.astype(np.int64), bounds, side="right")
+    pos_lo = pos_lo.astype(np.int32)
+    occ = int(np.diff(pos_lo).max()) if nb else 0
+    steps = int(np.ceil(np.log2(occ + 1))) if occ > 0 else 0
+    return pos_lo, win_shift, steps
+
+
+def _window_has_dup_nodes(index, W: int = 64) -> bool:
+    """True iff some haplotype visits the same node twice within any window
+    of W consecutive segments."""
+    tnode = np.asarray(index.tnode)
+    if len(tnode) < 2:
+        return False
+    hap = np.searchsorted(index.hap_offsets, index.tstart, side="right") - 1
+    for k in range(1, min(W, len(tnode))):
+        if ((tnode[:-k] == tnode[k:]) & (hap[:-k] == hap[k:])).any():
+            return True
+    return False
+
+
+def node_span_bound(index, read_pad: int, band: int = 16) -> int:
+    """Static bound on how many text segments one alignment can span."""
+    tstart = np.asarray(index.tstart, dtype=np.int64)
+    if len(tstart) < 2:
+        return 1
+    W = read_pad + band + 2
+    i = np.arange(len(tstart) - 1)
+    te = tstart[i + 1] - 1 + W
+    return int((np.searchsorted(tstart, te, side="left") - i).max()) + 1
+
+
+def _build_trio_seg(index, species, hap_range) -> np.ndarray:
+    """trio_seg[i]: the global unique-trio index matched by the 3-window of
+    consecutive text segments (i, i+1, i+2) of one haplotype, or -1."""
+    tn = np.asarray(index.tnode, dtype=np.int64)
+    M = len(tn)
+    trio_seg = np.full(M, -1, dtype=np.int32)
+    if M < 3:
+        return trio_seg
+    seg_hap = np.searchsorted(index.hap_offsets, index.tstart, side="right") - 1
+    seg_hap = np.clip(seg_hap, 0, len(hap_range) - 1)
+    same_hap = seg_hap[:-2] == seg_hap[2:]
+    win_range = hap_range[seg_hap[:-2]]
+    wa, wb, wc = tn[:-2] - 1, tn[1:-1] - 1, tn[2:] - 1
+    for sp in species:
+        sel = np.flatnonzero(same_hap & (win_range == sp.ridx))
+        if not len(sel) or sp.trio_index.num_unique == 0:
+            continue
+        wins = np.stack([wa[sel] - sp.off, wb[sel] - sp.off, wc[sel] - sp.off],
+                        axis=1)
+        m = sp.trio_index.match(wins)
+        trio_seg[sel] = np.where(m >= 0, m + sp.trio_lo, -1).astype(np.int32)
+    return trio_seg
+
+
+@dataclass
+class FusedSpecies:
+    range_: object          # SpeciesRange
+    ridx: int               # index into the species-range table
+    off: int                # global 0-based node offset (range.start - 1)
+    num_nodes: int
+    trio_lo: int            # slice of the global trio table
+    trio_hi: int
+    paths: dict             # name -> node array (local)
+    nodes_len: np.ndarray
+    trio_index: object      # TrioIndex
+
+
+class FusedTables(nn.Module):
+    """Global classification and coverage tables (buffers) plus per-species
+    metadata for the profile tail."""
+
+    def __init__(self, *, species, ranges, hap_offsets, hap_range, pos_lo,
+                 nodes_len, base_offset, trio_len, trio_seg, has_dups: bool,
+                 win_shift: int, pos_steps: int, N_pad: int, TB_pad: int,
+                 U_pad: int, device):
+        super().__init__()
+        self.species = species
+        self.ranges = ranges
+        self.has_dups = has_dups
+        self.win_shift = win_shift
+        self.pos_steps = pos_steps
+        self.N_pad, self.TB_pad, self.U_pad = N_pad, TB_pad, U_pad
+        dev = torch.device(device)
+        for name, arr in (("hap_offsets", hap_offsets),
+                          ("hap_range", hap_range), ("pos_lo", pos_lo),
+                          ("nodes_len", nodes_len),
+                          ("base_offset", base_offset),
+                          ("trio_len", trio_len), ("trio_seg", trio_seg)):
+            self.register_buffer(
+                name, torch.from_numpy(np.array(arr, dtype=np.int32)).to(dev))
+
+    @property
+    def device(self) -> torch.device:
+        return self.nodes_len.device
+
+
+def build_fused_tables(db, index, device) -> FusedTables:
+    """Global coverage/classification tables + per-species metadata."""
+    ranges = _host.load_species_range(db.range_file)
+    N = max(r.end for r in ranges)
+    nodes_len = np.ones(N, dtype=np.int64)
+    trio_len, species = [], []
+    t_off = 0
+    for rj, r in enumerate(ranges):
+        g = db.load_graph(r.species)
+        off = r.start - 1
+        nodes_len[off:off + g.num_nodes] = g.nodes_len
+        paths = g.paths_dict()
+        ti = _host.build_trio_index(g.nodes_len, paths)
+        u = ti.num_unique
+        if u:
+            trio_len.append(np.asarray(ti.trio_len))
+        species.append(FusedSpecies(
+            range_=r, ridx=rj, off=off, num_nodes=g.num_nodes,
+            trio_lo=t_off, trio_hi=t_off + u, paths=paths,
+            nodes_len=g.nodes_len, trio_index=ti,
+        ))
+        t_off += u
+    tl = np.concatenate(trio_len) if trio_len else np.zeros(0, np.int64)
+    t = build_padded_tables(nodes_len, tl)
+    range_of_species = {r.species: j for j, r in enumerate(ranges)}
+    hap_range = np.array([range_of_species.get(s, -1) for s in index.hap_species],
+                         dtype=np.int32)
+    pos_lo, win_shift, steps = build_pos_lookup(
+        index.tstart.astype(np.int64), index.text_len)
+    return FusedTables(
+        species=species, ranges=ranges,
+        hap_offsets=index.hap_offsets.astype(np.int32), hap_range=hap_range,
+        pos_lo=pos_lo, nodes_len=t.nodes_len, base_offset=t.base_offset,
+        trio_len=t.trio_len,
+        trio_seg=_build_trio_seg(index, species, hap_range),
+        has_dups=_window_has_dup_nodes(index), win_shift=win_shift,
+        pos_steps=steps, N_pad=t.N_pad, TB_pad=t.TB_pad, U_pad=t.U_pad,
+        device=device,
+    )
+
+
+# ---------------------------------------------------------------------------
+# device step (plain torch)
+# ---------------------------------------------------------------------------
+def locate_segment(tstart, pos_lo, win_shift: int, steps: int, ts):
+    """searchsorted(tstart, ts, side='right') - 1 by a static-depth
+    in-bucket bisection (the reference's locate_segment)."""
+    M = tstart.shape[0]
+    b = (ts >> win_shift).to(torch.int64)
+    lo_s, hi_s = pos_lo[b], pos_lo[b + 1]
+    for _ in range(steps):
+        mid = (lo_s + hi_s) >> 1
+        key = tstart[mid.clamp(0, M - 1)]
+        go_right = (key <= ts) & (lo_s < hi_s)
+        lo_s = torch.where(go_right, mid + 1, lo_s)
+        hi_s = torch.where(go_right, hi_s, torch.maximum(mid, lo_s))
+    return (lo_s - 1).clamp(0, M - 1)
+
+
+def _add(acc, idx, val) -> None:
+    acc.index_add_(0, idx.to(torch.int64), val.to(acc.dtype))
+
+
+def classify_scatter_ranges(ts, te, aligned, tables: FusedTables, tstart,
+                            tnode, acc) -> torch.Tensor:
+    """Classify aligned intervals by haplotype and add their coverage to
+    ``acc`` = (bases, diff, trio, seg_node_depth, seg_trio_depth) in place;
+    returns ridx.  Per read: bases and per-base diffs of the first and last
+    segments directly, middle segments and trio windows as segment-space
+    depth diffs (folded by expand_ranges), and the two end-window trio
+    corrections."""
+    acc_bases, acc_diff, acc_trio, acc_sn, acc_st = acc
+    t = tables
+    h = (torch.searchsorted(t.hap_offsets, ts, right=True) - 1).clamp(
+        0, t.hap_range.shape[0] - 1)
+    ridx = torch.where(aligned, t.hap_range[h], -1)
+    live = aligned & (ridx >= 0) & (te > ts)
+
+    i0 = locate_segment(tstart, t.pos_lo, t.win_shift, t.pos_steps, ts)
+    i1 = locate_segment(tstart, t.pos_lo, t.win_shift, t.pos_steps,
+                        torch.maximum(te - 1, ts))
+    span = i1 - i0 + 1
+    multi = live & (span >= 2)
+    trio3 = live & (span >= 3)
+
+    n0 = tnode[i0] - 1
+    n1 = tnode[i1] - 1
+    rs = ts - tstart[i0]
+    rem = te - tstart[i1]
+    nlen0 = t.nodes_len[n0]
+    nlen1 = t.nodes_len[n1]
+    tgt = te - ts
+
+    N = t.N_pad  # sink slot
+    first_val = torch.where(multi, nlen0 - rs, tgt)
+    _add(acc_bases, torch.cat([torch.where(live, n0, N),
+                               torch.where(multi, n1, N)]),
+         torch.cat([first_val, rem]))
+
+    TB = t.TB_pad  # the diff array's last entry, excluded by the finalize
+    bo0, bo1 = t.base_offset[n0], t.base_offset[n1]
+    first_hi = torch.where(multi, nlen0, rs + tgt)
+    d_lo = torch.cat([torch.where(live, bo0 + rs, TB),
+                      torch.where(multi, bo1, TB)])
+    d_hi = torch.cat([torch.where(live, bo0 + first_hi, TB),
+                      torch.where(multi, bo1 + rem, TB)])
+    _add(acc_diff, d_lo, torch.ones_like(d_lo))
+    _add(acc_diff, d_hi, -torch.ones_like(d_hi))
+
+    S = acc_sn.shape[0] - 1  # sink slot
+    one = torch.ones_like(i0)
+    _add(acc_sn, torch.where(multi, i0 + 1, S), one)
+    _add(acc_sn, torch.where(multi, i1, S), -one)
+    _add(acc_st, torch.where(trio3, i0, S), one)
+    _add(acc_st, torch.where(trio3, i1 - 1, S), -one)
+
+    U = t.U_pad  # sink slot
+    m0 = t.trio_seg[i0]
+    m1 = t.trio_seg[(i1 - 2).clamp(min=0)]
+    _add(acc_trio, torch.cat([torch.where(trio3 & (m0 >= 0), m0, U),
+                              torch.where(trio3 & (m1 >= 0), m1, U)]),
+         torch.cat([-rs, -(nlen1 - rem)]))
+    return ridx
+
+
+def expand_ranges(acc, tables: FusedTables, tnode) -> None:
+    """Fold the segment-space depth diffs into the node / base-diff / trio
+    accumulators in place: depth[i] full copies of segment i's node and
+    depth_t[w] full sums of trio window w.  One pass over all M segments."""
+    acc_bases, acc_diff, acc_trio, acc_sn, acc_st = acc
+    t = tables
+    M = tnode.shape[0]
+    n = tnode - 1
+    nlen = t.nodes_len[n]
+    depth_n = torch.cumsum(acc_sn[:M], dim=0).to(torch.int32)
+    _add(acc_bases, n, depth_n.to(torch.int64) * nlen)
+    bo = t.base_offset[n]
+    live = depth_n != 0
+    TB = t.TB_pad
+    _add(acc_diff, torch.where(live, bo, TB), depth_n)
+    _add(acc_diff, torch.where(live, bo + nlen, TB), -depth_n)
+    depth_t = torch.cumsum(acc_st[:M], dim=0).to(torch.int32)
+    ar = torch.arange(M, device=tnode.device)
+    i1c = (ar + 1).clamp(max=M - 1)
+    i2c = (ar + 2).clamp(max=M - 1)
+    w3 = nlen + t.nodes_len[tnode[i1c] - 1] + t.nodes_len[tnode[i2c] - 1]
+    t_idx = torch.where((depth_t != 0) & (t.trio_seg >= 0), t.trio_seg, t.U_pad)
+    _add(acc_trio, t_idx, depth_t.to(torch.int64) * w3)
+
+
+def narrow_per_read_nov(ts, te, mapq, aligned, ridx):
+    """Per-read columns in the reference's narrow types: ts int32, span
+    int16, mapq int8, aligned bool, ridx int16."""
+    return (ts.to(torch.int32), (te - ts).to(torch.int16),
+            mapq.to(torch.int8), aligned, ridx.to(torch.int16))
+
+
+def fused_step_ranges(aligner, tables: FusedTables, codes, read_len, acc):
+    """One batch: aligner query + range scatter into ``acc`` (in place);
+    returns narrow_per_read_nov's five per-read columns."""
+    ts, te, _score, _matches, mapq, _strand, aligned = aligner.query(
+        codes, read_len)
+    ridx = classify_scatter_ranges(ts, te, aligned, tables, aligner.tstart,
+                                   aligner.tnode, acc)
+    return narrow_per_read_nov(ts, te, mapq, aligned, ridx)
+
+
+# ---------------------------------------------------------------------------
+# pipeline and profiling entry points
+# ---------------------------------------------------------------------------
+@dataclass
+class FusedResult:
+    """FusedPipeline.finish() output: the three dense coverage arrays on the
+    device (node_abundance f32 [N_pad], trio_abundance f32 [U_pad],
+    node_base_cov int32 [N_pad]) and the per-read host columns."""
+
+    na_d: torch.Tensor
+    ta_d: torch.Tensor
+    bc_d: torch.Tensor
+    reads: dict
+
+    def host(self):
+        """(na float64, ta float64, bc int32) numpy, as the host tail reads
+        them."""
+        return (self.na_d.cpu().numpy().astype(np.float64),
+                self.ta_d.cpu().numpy().astype(np.float64),
+                self.bc_d.cpu().numpy())
+
+
+class FusedPipeline:
+    """Incremental fused align+coverage: feed() read chunks (cut into fixed
+    ``batch`` dispatches), finish() once.  The accumulators stay on the
+    device between feeds."""
+
+    def __init__(self, aligner, tables: FusedTables, batch: int):
+        self.aligner = aligner
+        self.tables = tables
+        self.batch = batch
+        self.use_ranges: bool | None = None
+        self.n_batches = 0
+        dev = aligner.device
+        M = aligner.tnode.shape[0]
+        z = torch.zeros
+        self.acc = (
+            z(tables.N_pad + 1, dtype=torch.int64, device=dev),
+            z(tables.TB_pad + 1, dtype=torch.int32, device=dev),
+            z(tables.U_pad + 1, dtype=torch.int64, device=dev),
+            z(M + 1, dtype=torch.int32, device=dev),
+            z(M + 1, dtype=torch.int32, device=dev),
+        )
+        self._per_read = []  # (n_valid, ids | None, lens, (mapq, aligned, ridx))
+
+    def _decide_ranges(self, read_pad: int) -> bool:
+        """The range scatter needs dup-free windows over one read's whole
+        segment span (the reference's _decide_ranges, without its A/B
+        environment override)."""
+        tables, index = self.tables, self.aligner.index
+        if tables.has_dups:
+            return False
+        bound = node_span_bound(index, read_pad,
+                                self.aligner.cfg.extension_band)
+        return bound <= 64 or not _window_has_dup_nodes(index, W=bound)
+
+    def feed(self, codes, lens, ids=None) -> None:
+        if self.use_ranges is None:
+            self.use_ranges = self._decide_ranges(codes.shape[1])
+        if not self.use_ranges:
+            raise NotImplementedError(
+                "windowed / dup-graph coverage (haplotypes that revisit a "
+                "node) is not ported yet: ROADMAP M9"
+            )
+        B = self.batch
+        for lo in range(0, len(lens), B):
+            hi = min(lo + B, len(lens))
+            b_codes, b_lens = codes[lo:hi], lens[lo:hi]
+            if hi - lo < B:
+                b_codes = np.vstack([b_codes, np.full(
+                    (B - (hi - lo), codes.shape[1]), 4, np.int8)])
+                b_lens = np.concatenate(
+                    [b_lens, np.zeros(B - (hi - lo), b_lens.dtype)])
+            codes_d, lens_d = self.aligner.upload(b_codes, b_lens)
+            # ts / span are dropped: the host tail never reads them
+            _ts, _span, *core = fused_step_ranges(
+                self.aligner, self.tables, codes_d, lens_d, self.acc)
+            self._per_read.append((hi - lo, ids[lo:hi] if ids is not None
+                                   else None, np.asarray(lens[lo:hi]), core))
+            self.n_batches += 1
+
+    def feed_paired(self, *args, **kw):
+        raise NotImplementedError("paired-end feeds are not ported yet: ROADMAP M8")
+
+    def feed_intervals(self, *args, **kw):
+        raise NotImplementedError(
+            "interval (long-read) feeds are not ported yet: ROADMAP M10")
+
+    def finish(self) -> FusedResult:
+        t = self.tables
+        expand_ranges(self.acc, t, self.aligner.tnode)
+        acc_b, acc_d, acc_t = self.acc[:3]
+        na, ta, bc = coverage_finalize(
+            acc_b[:t.N_pad], acc_d, acc_t[:t.U_pad], t.nodes_len,
+            t.base_offset, t.trio_len,
+        )
+        reads = {k: np.zeros(0, np.int64)
+                 for k in ("mapq", "aligned", "ridx", "read_len")}
+        ids_all = None
+        if self._per_read:
+            if self._per_read[0][1] is not None:
+                ids_all = [i for _, ids, _, _ in self._per_read for i in ids]
+            for name, j in (("mapq", 0), ("aligned", 1), ("ridx", 2)):
+                reads[name] = np.concatenate([
+                    cols[j][:m].cpu().numpy()
+                    for m, _, _, cols in self._per_read
+                ])
+            reads["read_len"] = np.concatenate(
+                [lens for _, _, lens, _ in self._per_read])
+            self._per_read = []
+        reads["ids"] = ids_all
+        return FusedResult(na, ta, bc, reads)
+
+
+def profile_fused(aligner, codes, lens, index, db, cfg, out_dir, batch: int,
+                  tables: FusedTables | None = None,
+                  stage_out: dict | None = None) -> bool:
+    """One-shot fused species + strain profiling over a codes matrix."""
+    if tables is None:
+        tables = build_fused_tables(db, index, device=aligner.device)
+    t0 = time.time()
+    pipe = FusedPipeline(aligner, tables, batch)
+    pipe.feed(codes, lens)
+    result = pipe.finish()  # the per-read download synchronises the device
+    if stage_out is not None:
+        stage_out["align_cover_s"] = time.time() - t0
+        stage_out["n_aligned"] = int(result.reads["aligned"].sum())
+        stage_out["n_batches"] = pipe.n_batches
+    return profile_from_fused_result(result, tables, index, db, cfg, out_dir)
+
+
+def _write_classification_tsv(out_path, keep_rows, ids, ridx, mapq, read_len,
+                              sp_names) -> None:
+    """reads_classification.tsv (id, mapq, species, read_len; no header),
+    byte-identical to the reference's writers: tab-separated, fields quoted
+    only where they hold a tab, quote or newline."""
+    u_col = np.where(ridx >= 0, ridx, len(sp_names) - 1)
+    species = [str(s) for s in sp_names]
+    if ids is not None:
+        id_col = [ids[i] for i in keep_rows]
+    else:
+        id_col = [f"R{i}" for i in keep_rows.tolist()]
+    with open(out_path, "w", newline="") as f:
+        csv.writer(f, delimiter="\t", lineterminator="\n").writerows(
+            zip(id_col, mapq.tolist(), [species[u] for u in u_col.tolist()],
+                read_len.tolist())
+        )
+
+
+def profile_from_fused_result(result: FusedResult, tables: FusedTables,
+                              index, db, cfg, out_dir) -> bool:
+    """Write the species + strain tables and reads_classification.tsv from a
+    FusedPipeline.finish() result."""
+    reads = result.reads
+    keep_rows = np.flatnonzero(reads["aligned"])
+    out = os.fspath(out_dir)
+    os.makedirs(out, exist_ok=True)
+    ridx = reads["ridx"][keep_rows]
+    mapq = reads["mapq"][keep_rows]
+    read_len = reads["read_len"][keep_rows]
+    sp_names = np.array([r.species for r in tables.ranges] + ["U"],
+                        dtype=object)
+    ok = _profile_fused_tail(tables, db, cfg, out,
+                             (ridx, mapq, read_len, sp_names, result))
+    _write_classification_tsv(os.path.join(out, "reads_classification.tsv"),
+                              keep_rows, reads["ids"], ridx, mapq, read_len,
+                              sp_names)
+    return ok
+
+
+def _tail_mode(tables: FusedTables, cfg) -> str:
+    """The reference's tail choice: 'auto' keeps na/ta/bc on the device when
+    their download would be large (>= 4 MB)."""
+    mode = getattr(cfg, "tail", "auto")
+    if mode in ("host", "device"):
+        return mode
+    return "device" if tables.N_pad * 8 + tables.U_pad * 4 >= 4 << 20 else "host"
+
+
+def _profile_fused_tail(tables: FusedTables, db, cfg, out, profile_input) -> bool:
+    """Species stage, strain filters, two-stage PAO and report (host tail)."""
+    from ..profile.engine import finish_two_stage, prepare_two_stage
+    from ..profile.report import abundance_constraint, abundance_est
+    from ..profile.species import read_species_mean_len, species_profiling_codes
+
+    ridx, mapq, read_len, sp_names, result = profile_input
+    keep = ridx >= 0
+    profile = species_profiling_codes(
+        ridx[keep], sp_names[:-1], read_len[keep], mapq[keep],
+        read_species_mean_len(db.stats_file), filtered=cfg.filtered,
+    )
+    profile.save(os.path.join(out, "species_abundance.txt"))
+    if not cfg.strain:
+        return True
+    if _tail_mode(tables, cfg) == "device":
+        raise NotImplementedError(
+            "the device profile tail is not ported yet (ROADMAP M5): "
+            "set cfg.tail = 'host'"
+        )
+
+    abundant = dict(zip(profile.species_taxid,
+                        profile.predicted_abundance.tolist()))
+    selected = []
+    for sp in tables.species:
+        r = sp.range_
+        if cfg.mode == 0 and r.is_pan != 0:
+            continue
+        if cfg.mode == 1 and r.is_pan != 1:
+            continue
+        if cfg.designated_species and r.species not in cfg.designated_species:
+            continue
+        if abundant.get(r.species, 0.0) <= cfg.min_species_abundance:
+            continue
+        selected.append(sp)
+    # species with zero classified reads are skipped entirely
+    counts = np.bincount(ridx[keep].astype(np.int64),
+                         minlength=len(tables.ranges))
+    active = [sp for sp in selected if counts[sp.ridx]]
+
+    node_abund, trio_abund, node_base_cov = result.host()
+    prepared = []
+    for sp in active:
+        na = node_abund[sp.off:sp.off + sp.num_nodes]
+        ta = trio_abund[sp.trio_lo:sp.trio_hi]
+        bc = node_base_cov[sp.off:sp.off + sp.num_nodes]
+        state = _host.OtuState(otu=sp.range_.species,
+                               hap_metrics=[_host.HapMetrics() for _ in sp.paths])
+        na_opt = np.where(na > cfg.min_depth, na, 0.0)
+        _host.first_filter_paths(state, sp.paths, sp.trio_index.hap_matrix,
+                                 ta, na_opt, cfg)
+        job = None
+        if state.possible_paths_idx:
+            job = prepare_two_stage(state, sp.num_nodes, sp.paths, na, bc,
+                                    sp.nodes_len, cfg)
+        prepared.append((state, job))
+    finish_two_stage([j for _, j in prepared if j is not None], cfg,
+                     device=tables.device)
+    metrics = []
+    for state, _ in prepared:
+        abundance_constraint(profile, state.hap_metrics)
+        metrics.extend(state.hap_metrics)
+    abundance_est(cfg, metrics, _host.read_genomes_info(db.genomes_info_file),
+                  out)
+    return True

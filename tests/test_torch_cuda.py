@@ -1,0 +1,82 @@
+"""Tests of the port that need the card (marker ``cuda``; they skip where
+torch sees no GPU).  jax-free, so they run on the GPU machine:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from pantax_tpu_torch import _host
+from pantax_tpu_torch.benchmarks import simulate_read_batch, tiny_db
+from pantax_tpu_torch.convert import aligner_from_reference
+from pantax_tpu_torch.ops import extend
+
+pytestmark = pytest.mark.cuda
+MATCH, MIS, GAP = 1, -1, -2
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _case(rng, pad, N, Lr, T=8192):
+    text = np.concatenate([rng.integers(0, 4, size=T).astype(np.int8),
+                           np.full(1024, 4, dtype=np.int8)])
+    w0 = rng.integers(0, T - (Lr + 2 * pad) - 8, size=N).astype(np.int32)
+    start = w0 + pad + rng.integers(-4, 5, size=N)
+    reads = text[start[:, None] + np.arange(Lr)]
+    noise = rng.random((N, Lr)) < 0.05
+    reads = np.where(noise, rng.integers(0, 4, size=(N, Lr)), reads).astype(np.int8)
+    reads[rng.random((N, Lr)) < 0.01] = 4  # ambiguous bases
+    lens = rng.integers(Lr // 2, Lr + 1, size=N).astype(np.int32)
+    lens[:2] = (0, 1)
+    reads[np.arange(Lr)[None, :] >= lens[:, None]] = 4
+    return text, w0, reads, lens
+
+
+@pytest.mark.parametrize("pad", [1, 4, 5, 8])
+@pytest.mark.parametrize("Lr", [96, 160])
+def test_kernel_matches_plain(cuda, pad, Lr):
+    rng = np.random.default_rng(pad * 1000 + Lr)
+    args = [torch.from_numpy(a).to(cuda) for a in _case(rng, pad, 1000, Lr)]
+    ker = extend.banded_extend_cuda(*args, pad, MATCH, MIS, GAP)
+    plain = extend.banded_extend_plain(*args, pad, MATCH, MIS, GAP)
+    torch.cuda.synchronize()
+    for k, p, name in zip(ker, plain, ("score", "start", "end", "matches")):
+        assert torch.equal(k, p), name
+
+
+def test_wrapper_launches_kernel_on_cuda(cuda):
+    rng = np.random.default_rng(0)
+    args = [torch.from_numpy(a).to(cuda) for a in _case(rng, 4, 300, 160)]
+    extend.reset_launch_counts()
+    extend.banded_extend(*args, 4, MATCH, MIS, GAP)
+    assert extend.LAUNCHES == {"banded_extend": 1, "banded_extend_plain": 0}
+
+
+def test_kernel_rejects_bad_inputs(cuda):
+    rng = np.random.default_rng(0)
+    text, w0, reads, lens = [torch.from_numpy(a).to(cuda)
+                             for a in _case(rng, 4, 64, 96)]
+    with pytest.raises(ValueError):
+        extend.banded_extend_cuda(text, w0.long(), reads, lens, 4, 1, -1, -2)
+    with pytest.raises(ValueError):
+        extend.banded_extend_cuda(text.cpu(), w0, reads, lens, 4, 1, -1, -2)
+    with pytest.raises(ValueError):
+        extend.banded_extend_cuda(text, w0, reads, lens, 9, 1, -1, -2)
+
+
+def test_query_rows_cpu_equal_cuda(cuda, tmp_path):
+    db = tiny_db(tmp_path / "tiny")
+    index = _host.build_align_index(db)
+    codes, lens, _ = simulate_read_batch(index, 2048, 150, 0.01, seed=3,
+                                         indel_rate=0.01)
+    rows = []
+    for dev in ("cpu", cuda):
+        al = aligner_from_reference(index, _host.AlignConfig(), dev)
+        rows.append(al.query_packed(*al.upload(codes, lens)).cpu())
+    assert torch.equal(rows[0], rows[1])

@@ -1,0 +1,66 @@
+"""The port on a machine without jax, pandas and pyarrow: in a subprocess
+that blocks those imports, pantax_tpu_torch builds a complete database (no
+species silently dropped) and runs the short-read slice on the CPU to the
+four output tables."""
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent("""
+    import importlib.abc
+    import os
+    import sys
+
+    BLOCKED = ("jax", "jaxlib", "pandas", "pyarrow")
+
+    class Blocker(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ModuleNotFoundError(f"blocked: {name}", name=name)
+            return None
+
+    for mod in list(sys.modules):
+        if mod.split(".")[0] in BLOCKED:
+            del sys.modules[mod]
+    sys.meta_path.insert(0, Blocker())
+
+    from pantax_tpu_torch import _host
+    from pantax_tpu_torch.benchmarks import simulate_read_batch, tiny_db
+    from pantax_tpu_torch.convert import aligner_from_reference
+    from pantax_tpu_torch.ops.fused import profile_fused
+
+    db = tiny_db()
+    species = [line.split()[0] for line in open(db.range_file)
+               if line.strip() and not line.startswith("species")]
+    assert sorted(species) == ["101", "202"], species
+    index = _host.build_align_index(db)
+    assert len(index.hap_names) == 4, index.hap_names
+    aligner = aligner_from_reference(index, _host.AlignConfig(), "cpu")
+    codes, lens, _ = simulate_read_batch(index, 1024, 150, 0.01, seed=3)
+    cfg = _host.ProfilingConfig.for_read_type("short")
+    cfg.tail = "host"
+    out = sys.argv[1]
+    assert profile_fused(aligner, codes, lens, index, db, cfg, out, 512)
+    for name in ("species_abundance.txt", "strain_abundance.txt",
+                 "ori_strain_abundance.txt", "reads_classification.tsv"):
+        assert os.path.getsize(os.path.join(out, name)) > 0, name
+    rows = open(os.path.join(out, "strain_abundance.txt")).read().splitlines()
+    assert len(rows) == 5, rows
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("NOJAX_OK")
+""")
+
+
+def test_port_runs_without_jax_pandas_pyarrow(tmp_path):
+    env = dict(os.environ, TMPDIR=str(tmp_path),
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT, str(tmp_path / "out")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NOJAX_OK" in proc.stdout
