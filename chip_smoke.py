@@ -6,17 +6,33 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. require a CUDA device; print the card's name and power limit;
-2. build the banded-DP kernel (K1, csrc/banded_extend.cu) with nvcc;
+2. build the banded-DP kernels (K1 and K2, csrc/banded_extend.cu) with
+   nvcc and print ptxas's register report;
 3. hold K1 against its plain torch version on the card, bit for bit on all
    four outputs, at the main path's shape (131072 candidates, 160-base
    reads, pad 4) over the smoke DB's text and at a pad-8 random case, and
    time both;
 4. run the port on the tiny 2-species DB on the CPU (plain versions) and on
-   the GPU (kernel): packed query rows and na/ta/bc must be identical;
+   the GPU (kernels): packed query rows, na/ta/bc and the align_long_reads
+   arrays of 16 long reads must be identical;
 5. drive the main path: profile_fused over scale_db at its defaults (10
    species x 3 strains x 1 Mb), 1M simulated 150 bp reads, batch 65536,
    host tail, ADMM; K1 must be launched once per batch and the plain DP
-   never; all 10 species and 30 strains must be reported.
+   never; all 10 species and 30 strains must be reported;
+6. hold the DP over given windows (K2) against its plain version, bit for
+   bit on all four outputs, at the long-read rescue pass's shape (16384
+   chunks of 512 bases, pad 8, windows of 528 cut from the smoke DB's text)
+   and at a pad-4 random case with N bases; hold K1 to the same outputs on
+   the same candidates (K1 fetches the windows itself) and at the seeded
+   pass's shape (32768 candidates of 512 bases, pad 8); time K2, its plain
+   version and K1, and K2 at 2048 to 131072 rows;
+7. drive the long-read path over the same DB: 50,000 simulated HiFi-like
+   reads of 8192 bp, align_long_reads with the hifi preset (chunk 512,
+   seed stride 2) at batch 16384, FusedPipeline.feed_intervals, finish,
+   and the long-read profile (host tail, ADMM); K1 must be launched once
+   per seeded batch, K2 once per rescue batch, the plain DPs never; >= 95%
+   of the reads emitted, >= 99% species accuracy, 10 species and 30
+   strains.
 
 The line before last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.  Databases and the kernel build go under
@@ -26,6 +42,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -34,12 +51,18 @@ import numpy as np
 import torch
 
 from pantax_tpu_torch import _host
-from pantax_tpu_torch.benchmarks import scale_db, simulate_read_batch, tiny_db
+from pantax_tpu_torch.align.long_read import (
+    LONG_READ_PRESETS, LONG_READ_SEED_STRIDE, align_long_reads,
+)
+from pantax_tpu_torch.benchmarks import (
+    scale_db, simulate_long_reads, simulate_read_batch, tiny_db,
+)
 from pantax_tpu_torch.convert import aligner_from_reference
 from pantax_tpu_torch.device import require_cuda
 from pantax_tpu_torch.ops import extend
 from pantax_tpu_torch.ops.fused import (
-    FusedPipeline, build_fused_tables, profile_fused,
+    FusedPipeline, build_fused_tables, profile_from_fused_result,
+    profile_fused,
 )
 
 KERNEL = {
@@ -48,8 +71,18 @@ KERNEL = {
     "source": "pantax_tpu_torch/csrc/banded_extend.cu",
     "replaces": "pantax_tpu/ops/extend_pallas.py:171",
 }
+KERNEL2 = {
+    "name": "banded_extend_windows",
+    "route": "cuda",
+    "source": "pantax_tpu_torch/csrc/banded_extend.cu",
+    "replaces": "pantax_tpu/ops/extend_pallas.py:316",
+}
 MATCH, MISMATCH, GAP = 1, -1, -2
 N_READS, BATCH = 1_000_000, 65536
+# the long path: run_long_e2e_benchmark's read length, read type and batch;
+# its 100,000 reads halved for the run's time (the host simulator alone
+# costs ~0.36 ms a read)
+N_LONG, LONG_LEN, LONG_BATCH, READ_TYPE = 50_000, 8192, 16384, "hifi"
 
 
 def card_line() -> str:
@@ -114,6 +147,80 @@ def check_kernel(text_np: np.ndarray, dev, N: int, Lr: int, pad: int,
     return err, ms, plain_ms
 
 
+def windows_case(text_np: np.ndarray, dev, N: int, Lr: int, pad: int,
+                 seed: int, n_bases: float = 0.0):
+    """dp_case candidates with their windows text[w0 : w0 + Lr + 2*pad]
+    cut out (and a share ``n_bases`` of N codes put into windows and
+    reads), on ``dev``: (w0, windows, reads, read_len)."""
+    rng = np.random.default_rng(seed + 100)
+    w0, reads, lens = dp_case(text_np, N, Lr, pad, seed)
+    windows = text_np[w0[:, None] + np.arange(Lr + 2 * pad)]
+    if n_bases:
+        windows = np.where(rng.random(windows.shape) < n_bases, 4, windows)
+        reads = np.where(rng.random(reads.shape) < n_bases, 4, reads)
+    return [torch.from_numpy(np.ascontiguousarray(a, dtype=d)).to(dev)
+            for a, d in ((w0, np.int32), (windows, np.int8),
+                         (reads, np.int8), (lens, np.int32))]
+
+
+def check_windows_kernel(text_np: np.ndarray, dev, N: int, Lr: int, pad: int,
+                         seed: int, n_bases: float, timed: bool):
+    """K2 against its plain version on windows cut from ``text_np`` at
+    dp_case positions (with a share ``n_bases`` of N codes in windows and
+    reads).  Without N codes the windows are the text's own, so K1 on the
+    same candidates must give the same outputs: it is held to them too.
+    With ``timed``, K2, the plain version and K1 are timed.  Returns (K2's
+    err, K1's err or None, K2 ms, plain ms, K1 ms)."""
+    w0, *args = windows_case(text_np, dev, N, Lr, pad, seed, n_bases)
+    ker = extend.banded_extend_windows_cuda(*args, pad, MATCH, MISMATCH, GAP)
+    plain = extend.banded_extend_windows_plain(*args, pad, MATCH, MISMATCH,
+                                               GAP)
+    torch.cuda.synchronize()
+    err = max(int((k - p).abs().max()) for k, p in zip(ker, plain))
+    for k, p, name in zip(ker, plain, ("score", "start", "end", "matches")):
+        if not torch.equal(k, p):
+            raise AssertionError(f"K2 != plain on {name} at N={N} Lr={Lr} pad={pad}")
+    W = args[0].shape[1]
+    print(f"K2 == plain at N={N} Lr={Lr} pad={pad} W={W} "
+          f"(4 outputs bit-identical)")
+    text = torch.from_numpy(text_np).to(dev)
+    err1 = None
+    if not n_bases:
+        k1 = extend.banded_extend_cuda(text, w0, *args[1:], pad, MATCH,
+                                       MISMATCH, GAP)
+        torch.cuda.synchronize()
+        err1 = max(int((k - p).abs().max()) for k, p in zip(k1, plain))
+        for k, p, name in zip(k1, plain, ("score", "start", "end", "matches")):
+            if not torch.equal(k, p):
+                raise AssertionError(
+                    f"K1 != plain on {name} at N={N} Lr={Lr} pad={pad}")
+        print("K1 == plain on the same candidates (4 outputs bit-identical)")
+    if not timed:
+        return err, err1, None, None, None
+    ms = cuda_ms(lambda: extend.banded_extend_windows_cuda(
+        *args, pad, MATCH, MISMATCH, GAP), 50)
+    plain_ms = cuda_ms(lambda: extend.banded_extend_windows_plain(
+        *args, pad, MATCH, MISMATCH, GAP), 3)
+    k1_ms = cuda_ms(lambda: extend.banded_extend_cuda(
+        text, w0, *args[1:], pad, MATCH, MISMATCH, GAP), 50)
+    print(f"K2 {ms:.4f} ms, plain torch {plain_ms:.3f} ms, K1 on the same "
+          f"candidates {k1_ms:.4f} ms at N={N} Lr={Lr} pad={pad}")
+    return err, err1, ms, plain_ms, k1_ms
+
+
+def k2_scaling(text_np: np.ndarray, dev, Lr: int, pad: int) -> None:
+    """K2's time against the number of rows at the rescue shape: a time
+    that stays flat while N grows says the card had idle issue slots
+    (latency-bound); a time that grows with N says it had none."""
+    parts = []
+    for N in (2048, 4096, 8192, 16384, 32768, 65536, 131072):
+        _w0, *args = windows_case(text_np, dev, N, Lr, pad, seed=N)
+        ms = cuda_ms(lambda: extend.banded_extend_windows_cuda(
+            *args, pad, MATCH, MISMATCH, GAP), 20)
+        parts.append(f"{N}: {ms:.4f}")
+    print(f"K2 ms by rows at Lr={Lr} pad={pad}: {', '.join(parts)}")
+
+
 def cross_device_check(build: str, dev) -> None:
     """The port on CPU (plain versions) and on the GPU (kernel) agree."""
     db = tiny_db(os.path.join(build, "tiny_db"))
@@ -140,11 +247,57 @@ def cross_device_check(build: str, dev) -> None:
         raise AssertionError("tiny DB: fewer than 90% of reads aligned")
     print(f"tiny DB: CPU == CUDA on {len(lens)} reads (rows, na/ta/bc, per-read)")
 
+    # the long-read path: seeded K1 at Lr 512, pad 8, and the rescue K2
+    reads, _ = simulate_long_reads(index, 16, 4096, seed=9)
+    arrs = []
+    for d in ("cpu", dev):
+        aligner = aligner_from_reference(
+            index, _host.AlignConfig.for_read_type("long"), d)
+        arrs.append(align_long_reads(aligner, reads, chunk=512, batch_size=256,
+                                     seed_stride=2, as_arrays=True))
+    cpu, gpu = arrs
+    if cpu.read_ids != gpu.read_ids or not all(
+            np.array_equal(getattr(cpu, k), getattr(gpu, k))
+            for k in ("ts", "te", "mapq", "read_len")):
+        raise AssertionError("tiny DB: CPU and CUDA long-read arrays differ")
+    if len(gpu.read_ids) < 0.9 * len(reads):
+        raise AssertionError("tiny DB: fewer than 90% of long reads emitted")
+    print(f"tiny DB: CPU == CUDA on {len(reads)} long reads (align_long_reads "
+          f"arrays, {len(gpu.read_ids)} emitted)")
+
 
 def read_table(path):
     lines = open(path).read().splitlines()
     head = lines[0].split("\t")
     return [dict(zip(head, ln.split("\t"))) for ln in lines[1:]]
+
+
+def check_tables(out: str, truth_species, n_reads: int, n_out: int,
+                 what: str):
+    """Species accuracy over reads_classification.tsv (ids: one letter and
+    the read's index), the fraction of reads ``what`` (``n_out`` of
+    ``n_reads``) and the species / strain tables; raises below the smoke's
+    bars."""
+    n_ok = n_cls = 0
+    with open(os.path.join(out, "reads_classification.tsv")) as f:
+        for line in f:
+            rid, _mapq, sp, _len = line.rstrip("\n").split("\t")
+            n_cls += 1
+            n_ok += truth_species[int(rid[1:])] == sp
+    species = read_table(os.path.join(out, "species_abundance.txt"))
+    strains = read_table(os.path.join(out, "strain_abundance.txt"))
+    acc = n_ok / max(n_cls, 1)
+    print(f"{what} fraction {n_out / n_reads:.4f}, species accuracy "
+          f"{acc:.4f} over {n_cls} classified reads, {len(species)} species "
+          f"rows, {len(strains)} strain rows")
+    if len(species) != 10 or len(strains) != 30:
+        raise AssertionError(f"expected 10 species and 30 strains, got "
+                             f"{len(species)} and {len(strains)}")
+    ab = np.array([float(r["predicted_abundance"]) for r in strains])
+    if not (np.isfinite(ab).all() and abs(ab.sum() - 1.0) < 1e-6):
+        raise AssertionError("strain abundances are not finite or do not sum to 1")
+    if n_out / n_reads < 0.95 or acc < 0.99:
+        raise AssertionError(f"{what} fraction or species accuracy too low")
 
 
 def main_path(build: str, dev):
@@ -181,36 +334,82 @@ def main_path(build: str, dev):
     print(f"align+cover {align_s:.3f} s, profile {wall - align_s:.3f} s, "
           f"e2e {wall:.3f} s for {N_READS} reads "
           f"({N_READS / wall:.0f} reads/s e2e)")
-    aligned_frac = stage["n_aligned"] / N_READS
-    # species accuracy: reads_classification.tsv rows are R<read index>
-    truth_species = np.asarray(index.hap_species, dtype=object)[hap]
-    n_ok = n_cls = 0
-    with open(os.path.join(out, "reads_classification.tsv")) as f:
-        for line in f:
-            rid, _mapq, sp, _len = line.rstrip("\n").split("\t")
-            n_cls += 1
-            n_ok += truth_species[int(rid[1:])] == sp
-    species = read_table(os.path.join(out, "species_abundance.txt"))
-    strains = read_table(os.path.join(out, "strain_abundance.txt"))
-    print(f"aligned fraction {aligned_frac:.4f}, species accuracy "
-          f"{n_ok / max(n_cls, 1):.4f} over {n_cls} classified reads, "
-          f"{len(species)} species rows, {len(strains)} strain rows")
     print(f"K1 launches {launches['banded_extend']} for {stage['n_batches']} "
           f"batches; plain DP runs {launches['banded_extend_plain']}")
-
     if launches["banded_extend"] != stage["n_batches"]:
         raise AssertionError("K1 was not launched exactly once per batch")
     if launches["banded_extend_plain"] != 0:
         raise AssertionError("the plain DP ran on the CUDA main path")
-    if len(species) != 10 or len(strains) != 30:
-        raise AssertionError(f"expected 10 species and 30 strains, got "
-                             f"{len(species)} and {len(strains)}")
-    ab = np.array([float(r["predicted_abundance"]) for r in strains])
-    if not (np.isfinite(ab).all() and abs(ab.sum() - 1.0) < 1e-6):
-        raise AssertionError("strain abundances are not finite or do not sum to 1")
-    if aligned_frac < 0.95 or n_ok / max(n_cls, 1) < 0.99:
-        raise AssertionError("aligned fraction or species accuracy too low")
-    return launches["banded_extend"], err1, ms, plain_ms
+    # reads_classification.tsv rows are R<read index>
+    check_tables(out, np.asarray(index.hap_species, dtype=object)[hap],
+                 N_READS, stage["n_aligned"], "aligned")
+    return (launches["banded_extend"], err1, ms, plain_ms), (db, index, tables)
+
+
+def long_path(build: str, dev, db, index, tables):
+    """Phase 7: the long-read path over the smoke DB."""
+    aligner = aligner_from_reference(
+        index, _host.AlignConfig.for_read_type("long"), dev)
+    chunk, stride = LONG_READ_PRESETS[READ_TYPE], LONG_READ_SEED_STRIDE[READ_TYPE]
+    t0 = time.time()
+    reads, hap = simulate_long_reads(index, N_LONG, LONG_LEN, seed=9)
+    print(f"simulated {N_LONG} reads of {LONG_LEN} bp in {time.time() - t0:.2f} s")
+    # warm-up on a slice (first launches, pinned-memory pool), not timed
+    align_long_reads(aligner, reads[:512], chunk=chunk, batch_size=LONG_BATCH,
+                     seed_stride=stride, as_arrays=True)
+
+    cfg = _host.ProfilingConfig.for_read_type("long")
+    cfg.tail = "host"
+    cfg.solver = "admm"
+    out = os.path.join(build, "smoke_long_out")
+    shutil.rmtree(out, ignore_errors=True)
+    stage = {}
+    extend.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    merged = align_long_reads(aligner, reads, chunk=chunk,
+                              batch_size=LONG_BATCH, seed_stride=stride,
+                              as_arrays=True, stage_out=stage)
+    t_align = time.time() - t0
+    pipe = FusedPipeline(aligner, tables, LONG_BATCH)
+    pipe.feed_intervals(merged.ts, merged.te, merged.mapq, merged.read_len,
+                        ids=merged.read_ids)
+    result = pipe.finish()  # the per-read columns are host arrays
+    torch.cuda.synchronize()
+    t_feed = time.time() - t0 - t_align
+    profile_from_fused_result(result, tables, index, db, cfg, out)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(extend.LAUNCHES)
+
+    mb = N_LONG * LONG_LEN / 1e6
+    print(f"long: align {t_align:.3f} s (chunking {stage['chunk_s']:.3f} s, "
+          f"seeded pass {stage['seeded_s']:.3f} s, rescue pass "
+          f"{stage['rescue_s']:.3f} s, host merge "
+          f"{t_align - stage['chunk_s'] - stage['seeded_s'] - stage['rescue_s']:.3f} s), "
+          f"feed+finish {t_feed:.3f} s, profile {wall - t_align - t_feed:.3f} s, "
+          f"e2e {wall:.3f} s for {N_LONG} reads ({mb:.1f} Mb): "
+          f"{mb / t_align:.2f} Mb/s align, {mb / wall:.2f} Mb/s e2e")
+    print(f"long: {stage['n_chunks']} chunks, {stage['n_seeded']} seeded in "
+          f"{stage['seeded_batches']} batches, {stage['n_rescue']} rescued "
+          f"in {stage['rescue_batches']} batches, "
+          f"{pipe.n_interval_batches} interval batches")
+    print(f"long: K1 launches {launches['banded_extend']}, K2 launches "
+          f"{launches['banded_extend_windows']}; plain DP runs "
+          f"{launches['banded_extend_plain']} (K1) and "
+          f"{launches['banded_extend_windows_plain']} (K2)")
+    if launches["banded_extend"] != stage["seeded_batches"]:
+        raise AssertionError("K1 was not launched exactly once per seeded batch")
+    if (launches["banded_extend_windows"] != stage["rescue_batches"]
+            or stage["rescue_batches"] == 0):
+        raise AssertionError("K2 was not launched exactly once per rescue batch")
+    if launches["banded_extend_plain"] or launches["banded_extend_windows_plain"]:
+        raise AssertionError("a plain DP ran on the CUDA long-read path")
+    if pipe.n_interval_batches != -(-len(merged.read_ids) // LONG_BATCH):
+        raise AssertionError("unexpected number of interval batches")
+    check_tables(out, np.asarray(index.hap_species, dtype=object)[hap],
+                 N_LONG, len(merged.read_ids), "emitted")
+    return launches
 
 
 def main() -> None:
@@ -219,22 +418,44 @@ def main() -> None:
     build = str(extend.build_dir())
     t0 = time.time()
     extend.build_kernels()
-    print(f"K1 build {time.time() - t0:.2f} s")
-    ptxas = [ln for ln in extend.BUILD_LOG.splitlines() if "registers" in ln]
-    for ln in ptxas:
-        print("  ptxas:", ln.strip())
+    print(f"kernel build (K1, K2) {time.time() - t0:.2f} s")
+    entry = ""
+    for ln in extend.BUILD_LOG.splitlines():
+        m = re.search(r"(banded_extend\w*_kernel)ILi(\d+)E", ln)
+        if m:
+            entry = f"{m[1]}<{m[2]}>"
+        elif "registers" in ln:
+            print(f"  ptxas: {entry}: {ln.split(':', 1)[1].strip()}")
 
     rng = np.random.default_rng(0)
     text8 = np.concatenate([rng.integers(0, 4, size=8192).astype(np.int8),
                             np.full(1024, 4, np.int8)])
     err2, _, _ = check_kernel(text8, dev, 4096, 96, 8, seed=2, timed=False)
     cross_device_check(build, dev)
-    launches, err1, ms, plain_ms = main_path(build, dev)
+    (launches, err1, ms, plain_ms), (db, index, tables) = main_path(build, dev)
 
-    print(json.dumps({"kernels": [dict(
-        KERNEL, launches=launches, max_abs_err=max(err1, err2), ms=ms,
-        plain_ms=plain_ms,
-    )]}))
+    chunk = LONG_READ_PRESETS[READ_TYPE]
+    err_k2, err1_r, ms2, plain_ms2, k1_ms = check_windows_kernel(
+        index.text, dev, LONG_BATCH, chunk, 8, seed=4, n_bases=0.0,
+        timed=True)
+    err_k2r, _, _, _, _ = check_windows_kernel(
+        text8, dev, 4096, 96, 4, seed=5, n_bases=0.01, timed=False)
+    k2_scaling(index.text, dev, chunk, 8)
+    # K1 at the seeded pass's shape (two strands per chunk), over this text
+    err1_l, _, _ = check_kernel(index.text, dev, 2 * LONG_BATCH, chunk, 8,
+                                seed=6, timed=False)
+    long_launches = long_path(build, dev, db, index, tables)
+
+    print(json.dumps({"kernels": [
+        dict(KERNEL, launches=launches + long_launches["banded_extend"],
+             launches_by_path={"short": launches,
+                               "long": long_launches["banded_extend"]},
+             max_abs_err=max(err1, err2, err1_r, err1_l), ms=ms,
+             plain_ms=plain_ms),
+        dict(KERNEL2, launches=long_launches["banded_extend_windows"],
+             max_abs_err=max(err_k2, err_k2r), ms=ms2, plain_ms=plain_ms2,
+             k1_same_candidates_ms=k1_ms),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

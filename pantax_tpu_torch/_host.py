@@ -50,24 +50,28 @@ if not _jax_available():
     _register_bare_packages()
 
 from pantax_tpu.align.encode import _mix32 as mix32  # noqa: E402
+from pantax_tpu.align.encode import encode_seq  # noqa: E402
 from pantax_tpu.align.index import build_align_index  # noqa: E402
 from pantax_tpu.config import AlignConfig, ProfilingConfig  # noqa: E402
 from pantax_tpu.db.construct import build_database, load_database  # noqa: E402
 from pantax_tpu.graph.core import load_species_range  # noqa: E402
 from pantax_tpu.graph.trio import build_trio_index  # noqa: E402
-from pantax_tpu.io.fastx import write_fasta  # noqa: E402
+from pantax_tpu.io.fastx import iter_fastx, write_fasta  # noqa: E402
+from pantax_tpu.io.gaf import GafRecord  # noqa: E402
 from pantax_tpu.io.metadata import (  # noqa: E402
     GenomeInfo, read_genomes_info, write_genomes_info,
 )
 from pantax_tpu.profile.filters import (  # noqa: E402
     HapMetrics, OtuState, first_filter_paths, second_filter_paths,
 )
+from pantax_tpu.sim import revcomp  # noqa: E402
 from pantax_tpu.utils.native import chd_build_native  # noqa: E402
 
 __all__ = [
-    "AlignConfig", "GenomeInfo", "HapMetrics", "OtuState", "ProfilingConfig",
-    "build_align_index", "build_database", "build_trio_index",
-    "chd_build_native", "first_filter_paths", "load_database",
-    "load_species_range", "mix32", "read_genomes_info", "second_filter_paths",
+    "AlignConfig", "GafRecord", "GenomeInfo", "HapMetrics", "OtuState",
+    "ProfilingConfig", "build_align_index", "build_database",
+    "build_trio_index", "chd_build_native", "encode_seq",
+    "first_filter_paths", "iter_fastx", "load_database", "load_species_range",
+    "mix32", "read_genomes_info", "revcomp", "second_filter_paths",
     "write_fasta", "write_genomes_info",
 ]

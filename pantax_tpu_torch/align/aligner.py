@@ -1,4 +1,4 @@
-"""Short-read aligner, PyTorch port of pantax_tpu/align/aligner.py.
+"""Aligner, PyTorch port of pantax_tpu/align/aligner.py.
 
 The query path per read batch (``query_batch``): unpack and reverse
 complement, canonical k-mer hashing and seed selection, seed lookup (CHD
@@ -7,6 +7,10 @@ strand union, banded DP extension (K1, ops/extend.py), node projection, and
 the best / location-deduped second-best scores that give mapq.  Every step
 keeps the JAX function's dtypes and tie order (first index on argmax), so the
 packed [4, B] result rows are bit-identical to ``_query_batch_packed``.
+
+The seed-free extension at host-predicted windows (``extend_batch``, the
+long-read rescue pass) gathers its windows from the text and runs the DP
+over them (K2); its rows are bit-identical to ``_extend_batch``.
 
 Hashes are uint32 in the reference.  Torch's uint32 lacks most kernels, so
 they are carried in int64 and masked to 32 bits after each multiply
@@ -18,16 +22,21 @@ here.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 from torch import nn
 
 from .. import _host
-from ..ops.extend import NEG, banded_extend, packed_layout
+from ..ops.extend import (
+    NEG, banded_extend, banded_extend_windows, extract_windows, packed_layout,
+)
 
 __all__ = [
-    "Aligner", "build_bucket_table", "build_seed_lookup",
-    "pack_result_rows", "pack_text2d", "packed_layout", "query_batch",
+    "Aligner", "BatchResult", "build_bucket_table", "build_seed_lookup",
+    "extend_batch", "extract_windows", "pack_result_rows", "pack_text2d",
+    "packed_layout", "query_batch", "unpack_result_rows",
 ]
 
 _M32 = 0xFFFFFFFF
@@ -281,6 +290,12 @@ def vote_diagonals(diags, valid, band: int, top_k: int):
     return torch.stack(cand_d, dim=1), torch.stack(cand_v, dim=1)
 
 
+def _text_bound(text, Lr: int, pad: int) -> tuple[int, int]:
+    """(W, T): window width and the reference's text2d bound on w0 + W."""
+    W = Lr + 2 * pad
+    return W, text.shape[0] - (W + 255) // 256 * 256
+
+
 def all_candidates(text, run_table, seed_pos, bucket_lo, tstart, tnode,
                    codes_fwd, codes_rev, read_len, cfg_static):
     """Scored candidates per read, both strands folded: (scores, ts, te,
@@ -288,9 +303,7 @@ def all_candidates(text, run_table, seed_pos, bucket_lo, tstart, tnode,
     (k, density_bits, bucket_bits, steps, s_max, hits, top_k, pad, match,
      mismatch, gap) = cfg_static[:11]
     B, Lr = codes_fwd.shape
-    W = Lr + 2 * pad
-    n_extra = (W + 255) // 256
-    T = text.shape[0] - n_extra * 256  # the reference's text2d bound
+    W, T = _text_bound(text, Lr, pad)
 
     hashes, valid = kmer_hashes(codes_fwd, k)
     sel_pos, sel_hash, sel_valid = select_seeds(hashes, valid, density_bits,
@@ -373,6 +386,29 @@ def query_batch(text, run_table, seed_pos, bucket_lo, tstart, tnode,
             torch.where(aligned, mapq, 0), take(strand), aligned)
 
 
+def extend_batch(text, codes, read_len, w0, strand, cfg_static):
+    """Counterpart of the reference's ``_extend_batch``: the banded DP of
+    each read (reverse-complemented where strand == 1) at window start w0,
+    clipped into the text; mapq 0.  Packed int32 [4, B] rows."""
+    pad, match, mismatch, gap = cfg_static[7:11]
+    min_score_frac = cfg_static[12]
+    codes_fwd = unpack_reads(codes, read_len)
+    codes_rev = rev_codes(codes_fwd, read_len)
+    read = torch.where((strand == 1)[:, None], codes_rev, codes_fwd)
+    W, T = _text_bound(text, read.shape[1], pad)
+    w0c = w0.to(torch.int32).clamp(0, T - W)
+    score, start_off, end_off, matches = banded_extend_windows(
+        extract_windows(text, w0c, W), read.contiguous(), read_len, pad,
+        match, mismatch, gap,
+    )
+    f32 = torch.float32
+    min_score = (torch.tensor(min_score_frac, dtype=f32)
+                 * read_len.to(f32)).to(torch.int32)
+    return pack_result_rows((w0c + start_off, w0c + end_off, score, matches,
+                             torch.zeros_like(score), strand,
+                             score >= min_score))
+
+
 def pack_result_rows(res7):
     """The 7-tuple query result as one int32 [4, B]: text_start, text_end,
     (score << 16 | matches), (mapq << 2 | strand << 1 | aligned); scores are
@@ -382,6 +418,30 @@ def pack_result_rows(res7):
     hi = (score.clamp(-32768, 32767).to(i32) * 65536) | (matches.to(i32) & 0xFFFF)
     flags = (mapq.to(i32) << 2) | (strand.to(i32) << 1) | aligned.to(i32)
     return torch.stack([ts.to(i32), te.to(i32), hi, flags])
+
+
+@dataclass
+class BatchResult:
+    """Per-read best alignment in text coordinates (host numpy), as the
+    reference's BatchResult."""
+
+    text_start: np.ndarray   # int32 [B]
+    text_end: np.ndarray     # int32 [B] (exclusive)
+    score: np.ndarray        # int32 [B]
+    matches: np.ndarray      # int32 [B]
+    mapq: np.ndarray         # int32 [B]
+    strand: np.ndarray       # int8 [B] 0=+ 1=-
+    aligned: np.ndarray      # bool [B]
+
+
+def unpack_result_rows(rows) -> BatchResult:
+    """Packed [4, B] rows (a tensor on any device) -> host BatchResult; the
+    reference's Aligner._unpack_result / collect."""
+    ts, te, hi, flags = rows.cpu().numpy()
+    return BatchResult(
+        ts, te, hi >> 16, hi & 0xFFFF, (flags >> 2) & 0x3F,
+        ((flags >> 1) & 1).astype(np.int8), (flags & 1).astype(bool),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -426,16 +486,18 @@ class Aligner(nn.Module):
             c.gap_extend, c.mapq_scale, c.min_score_frac,
         )
 
+    def put(self, arr: np.ndarray, dtype):
+        """Host array -> tensor on the aligner's device; CUDA uploads go
+        through pinned memory, non-blocking."""
+        t = torch.from_numpy(np.ascontiguousarray(arr, dtype=dtype))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
     def upload(self, codes: np.ndarray, lens: np.ndarray):
         """Host batch -> (codes int8 [B, L], read_len int32 [B]) on the
-        aligner's device; CUDA uploads go through pinned memory,
-        non-blocking."""
-        c = torch.from_numpy(np.ascontiguousarray(codes, dtype=np.int8))
-        n = torch.from_numpy(np.ascontiguousarray(lens, dtype=np.int32))
-        if self.device.type == "cuda":
-            return (c.pin_memory().to(self.device, non_blocking=True),
-                    n.pin_memory().to(self.device, non_blocking=True))
-        return c.to(self.device), n.to(self.device)
+        aligner's device."""
+        return self.put(codes, np.int8), self.put(lens, np.int32)
 
     def query(self, codes, read_len):
         """The per-read 7-tuple for a batch already on the device."""
@@ -446,3 +508,14 @@ class Aligner(nn.Module):
     def query_packed(self, codes, read_len):
         """Packed int32 [4, B] rows (the reference's _query_batch_packed)."""
         return pack_result_rows(self.query(codes, read_len))
+
+    def extend_packed(self, codes: np.ndarray, lens: np.ndarray,
+                      w0: np.ndarray, strand: np.ndarray):
+        """Seed-free banded extension of a host batch at predicted window
+        starts ``w0`` (text coordinates); ``strand`` picks the forward or
+        reverse-complement read per row.  Packed int32 [4, B] rows on the
+        device (the reference's dispatch_extend)."""
+        codes_d, lens_d = self.upload(codes, lens)
+        return extend_batch(self.text, codes_d, lens_d,
+                            self.put(w0, np.int32),
+                            self.put(strand, np.int32), self.static())

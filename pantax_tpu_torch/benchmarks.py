@@ -1,6 +1,6 @@
 """Synthetic workloads for the port: the reference's community databases and
-its vectorized read simulator (pantax_tpu/benchmarks.py imports the JAX
-Aligner at its top, so these are counterparts; a test holds them equal)."""
+its short- and long-read simulators (pantax_tpu/benchmarks.py imports the
+JAX Aligner at its top, so these are counterparts; tests hold them equal)."""
 from __future__ import annotations
 
 import os
@@ -12,6 +12,7 @@ import numpy as np
 from . import _host
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+_CODE2BASE = np.frombuffer(b"ACGTN", dtype=np.uint8)
 
 
 def tiny_db(root: str | os.PathLike | None = None):
@@ -110,3 +111,41 @@ def simulate_read_batch(index, n_reads: int, read_len: int, error_rate: float,
     codes[flip] = np.roll(rc, read_len - L, axis=1)  # left-align
     lens = np.full(n_reads, read_len, dtype=np.int64)
     return codes, lens, hap
+
+
+def simulate_long_reads(index, n_reads: int, read_len: int,
+                        sub_rate: float = 0.004, ins_rate: float = 0.003,
+                        del_rate: float = 0.003, seed: int = 0,
+                        hap_weights=None):
+    """HiFi/ONT-like long reads with substitutions and 1 bp indels, sampled
+    from the index text, half reverse-complemented: ([(read_id, seq
+    bytes)], truth hap per read)."""
+    rng = np.random.default_rng(seed)
+    H = len(index.hap_names)
+    if hap_weights is None:
+        hap = rng.integers(0, H, size=n_reads)
+    else:
+        w = np.asarray(hap_weights, dtype=np.float64)
+        hap = rng.choice(H, size=n_reads, p=w / w.sum())
+    spans = np.diff(index.hap_offsets) - 1
+    margin = int(read_len * max(del_rate, 0.01) * 4) + 64
+    starts = (index.hap_offsets[hap] + rng.integers(
+        0, np.maximum(spans[hap] - read_len - margin, 1))).astype(np.int64)
+    reads = []
+    for i in range(n_reads):
+        tmpl = index.text[starts[i]:starts[i] + read_len + margin]
+        ev = rng.random(read_len)
+        is_del = ev < del_rate
+        is_ins = (ev >= del_rate) & (ev < del_rate + ins_rate)
+        shift = np.cumsum(is_del.astype(np.int64) - is_ins.astype(np.int64))
+        codes = tmpl[np.clip(np.arange(read_len) + shift, 0,
+                             len(tmpl) - 1)].copy()
+        codes[is_ins] = rng.integers(0, 4, size=int(is_ins.sum()),
+                                     dtype=np.int8)
+        sub = rng.random(read_len) < sub_rate
+        codes[sub] = rng.integers(0, 4, size=int(sub.sum()), dtype=np.int8)
+        seq = _CODE2BASE[np.clip(codes, 0, 4)].tobytes()
+        if rng.random() < 0.5:
+            seq = _host.revcomp(seq)
+        reads.append((f"L{i}", seq))
+    return reads, hap

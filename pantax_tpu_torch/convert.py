@@ -44,7 +44,8 @@ def fused_tables_from_reference(jax_tables, device) -> FusedTables:
         base_offset=host(t.base_offset_d, np.int32),
         trio_len=host(t.trio_len_d, np.int32),
         trio_seg=host(t.trio_seg_d, np.int32),
-        has_dups=bool(t.has_dups), win_shift=int(t.win_shift),
+        has_dups=bool(t.has_dups), hap_dup=np.asarray(t.hap_dup, dtype=bool),
+        win_shift=int(t.win_shift),
         pos_steps=int(t.pos_steps), N_pad=int(t.N_pad), TB_pad=int(t.TB_pad),
         U_pad=int(t.U_pad), device=device,
     )

@@ -1,17 +1,23 @@
-"""Banded glocal DP extension with the window fetch fused in (K1).
+"""Banded glocal DP extension: K1 (window fetch fused in) and K2 (windows
+given).
 
-Port of pantax_tpu/ops/extend_pallas.py:171 ``banded_extend_pallas``, which
-computes exactly what the JAX main path runs with XLA as
-aligner._extract_windows + aligner._banded_extend.  Two versions of one
-function live here:
+Ports of the two Pallas kernels of pantax_tpu/ops/extend_pallas.py:
+``banded_extend_pallas`` (:171), which computes exactly what the JAX main
+path runs with XLA as aligner._extract_windows + aligner._banded_extend,
+and ``banded_extend_pallas_dponly`` (:316), which is aligner._banded_extend
+over windows already extracted.  Each has two versions here:
 
-- the CUDA kernel, ``csrc/banded_extend.cu``, built with nvcc for sm_90a at
-  first use into a git-ignored build directory and bound with ctypes;
-- ``banded_extend_plain``, the plain torch version (window gather, then the
-  DP as a Python loop over the read columns on [Wb, N] int32 tensors).
+- the CUDA kernels, ``csrc/banded_extend.cu`` (one shared device DP), built
+  with nvcc for sm_90a at first use into a git-ignored build directory and
+  bound with ctypes;
+- ``banded_extend_windows_plain``, the plain torch DP (a Python loop over
+  the read columns on [Wb, N] int32 tensors), and ``banded_extend_plain``,
+  which gathers the windows from the text (``extract_windows``) and calls
+  it.
 
-``banded_extend`` takes the plain version only for CPU tensors.  On a CUDA
-tensor it launches the kernel or raises; nothing falls back.
+``banded_extend`` and ``banded_extend_windows`` take the plain version only
+for CPU tensors.  On a CUDA tensor they launch the kernel or raise; nothing
+falls back.
 """
 from __future__ import annotations
 
@@ -29,7 +35,8 @@ _SH_MATCH = 5
 
 # Launch counts, one per function; the kernel's count grows only where the
 # kernel is launched, the plain count where the plain DP runs in its place.
-LAUNCHES = {"banded_extend": 0, "banded_extend_plain": 0}
+LAUNCHES = {"banded_extend": 0, "banded_extend_plain": 0,
+            "banded_extend_windows": 0, "banded_extend_windows_plain": 0}
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "banded_extend.cu"
 _NVCC_FLAGS = (
@@ -75,19 +82,36 @@ def _unpack_cell(cell, b_best, read_len, sh_score: int, bias: int):
     return score, start_off, end_off, matches
 
 
+def extract_windows(text, w0, W: int):
+    """window[i] = text[w0[i] : w0[i] + W], int8 [N, W]: a row gather over
+    the int8 text (positions clamped into it; the aligner clips w0 so that
+    real windows never need it)."""
+    cols = torch.arange(W, device=text.device)
+    idx = (w0.to(torch.int64)[:, None] + cols).clamp_(0, text.shape[0] - 1)
+    return text[idx]
+
+
 def banded_extend_plain(text, w0, reads, read_len, pad: int, match: int,
                         mismatch: int, gap: int):
-    """Plain torch version of the kernel: (score, start_off, end_off,
-    matches), int32 [N] each, window = text[w0 : w0 + Lr + 2*pad] (positions
-    clamped into the text)."""
+    """Plain torch version of K1: (score, start_off, end_off, matches),
+    int32 [N] each, window = text[w0 : w0 + Lr + 2*pad] (positions clamped
+    into the text)."""
+    _check_band(pad)
+    return banded_extend_windows_plain(
+        extract_windows(text, w0, reads.shape[1] + 2 * pad), reads, read_len,
+        pad, match, mismatch, gap)
+
+
+def banded_extend_windows_plain(windows, reads, read_len, pad: int,
+                                match: int, mismatch: int, gap: int):
+    """Plain torch version of K2, aligner._banded_extend: the DP of read i
+    against windows[i] (int8 [N, W], W >= Lr + 2*pad - 1)."""
     _check_band(pad)
     N, Lr = reads.shape
     sh_score, bias = packed_layout(Lr)
     Wb = 2 * pad
-    dev = text.device
-    cols = torch.arange(Lr + Wb, device=dev)
-    idx = (w0.to(torch.int64)[:, None] + cols).clamp_(0, text.shape[0] - 1)
-    winT = text[idx].to(torch.int32).T.contiguous()    # [W, N]
+    dev = windows.device
+    winT = windows.to(torch.int32).T.contiguous()      # [W, N]
     readT = reads.to(torch.int32).T.contiguous()       # [Lr, N]
     rl = read_len.to(torch.int32)
     d_score = 1 << sh_score
@@ -134,7 +158,8 @@ def build_dir() -> Path:
 
 
 def build_kernels() -> ctypes.CDLL:
-    """Compile csrc/banded_extend.cu (once per source content) and load it."""
+    """Compile csrc/banded_extend.cu (K1 and K2; once per source content)
+    and load it."""
     global _lib, BUILD_LOG
     if _lib is not None:
         return _lib
@@ -160,44 +185,85 @@ def build_kernels() -> ctypes.CDLL:
         vp, i64, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
         vp, vp, vp, vp, vp,
     ]
+    lib.banded_extend_windows_launch.restype = i32
+    lib.banded_extend_windows_launch.argtypes = [
+        vp, i32, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
+        vp, vp, vp, vp, vp,
+    ]
     _lib = lib
     return lib
 
 
-def banded_extend_cuda(text, w0, reads, read_len, pad: int, match: int,
-                       mismatch: int, gap: int):
-    """Launch the CUDA kernel on the current stream (no synchronise)."""
+def _check_cuda_args(pad: int, tensors) -> torch.device:
+    """The checks both kernels' wrappers make: pad 1..8, and every tensor
+    on one CUDA device (any other device raises) with its dtype, rank and
+    contiguity."""
     _check_band(pad)
     if not 1 <= pad <= 8:
         raise ValueError(f"CUDA kernel takes pad 1..8 (band rows <= 16), got {pad}")
-    dev = text.device
-    for name, t, dtype, ndim in (("text", text, torch.int8, 1),
-                                 ("w0", w0, torch.int32, 1),
-                                 ("reads", reads, torch.int8, 2),
-                                 ("read_len", read_len, torch.int32, 1)):
+    dev = tensors[0][1].device
+    for name, t, dtype, ndim in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name} must be on {dev} (got {t.device})")
         if t.dtype != dtype or t.dim() != ndim:
             raise ValueError(f"{name} must be {dtype} with {ndim} dims")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    N, Lr = reads.shape
-    if w0.shape[0] != N or read_len.shape[0] != N:
-        raise ValueError("w0, reads and read_len disagree on N")
-    sh_score, bias = packed_layout(Lr)
+    return dev
+
+
+def _launch(fn_name: str, dev, N: int, *args):
+    """Call ``fn_name`` of the kernel library with ``args``, four fresh
+    int32 [N] outputs and the current stream (no synchronise); raise on the
+    CUDA error it returns."""
     outs = [torch.empty(N, dtype=torch.int32, device=dev) for _ in range(4)]
     lib = build_kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.banded_extend_launch(
-            text.data_ptr(), text.numel(), w0.data_ptr(), reads.data_ptr(),
-            read_len.data_ptr(), N, Lr, pad, match, mismatch, gap,
-            sh_score, bias, *(o.data_ptr() for o in outs), stream,
-        )
+        rc = getattr(lib, fn_name)(*args, *(o.data_ptr() for o in outs),
+                                   stream)
     if rc != 0:
-        raise RuntimeError(f"banded_extend kernel launch failed: CUDA error {rc}")
-    LAUNCHES["banded_extend"] += 1
+        raise RuntimeError(f"{fn_name} failed: CUDA error {rc}")
     return tuple(outs)
+
+
+def banded_extend_cuda(text, w0, reads, read_len, pad: int, match: int,
+                       mismatch: int, gap: int):
+    """Launch K1 on the current stream (no synchronise)."""
+    dev = _check_cuda_args(pad, (("text", text, torch.int8, 1),
+                                 ("w0", w0, torch.int32, 1),
+                                 ("reads", reads, torch.int8, 2),
+                                 ("read_len", read_len, torch.int32, 1)))
+    N, Lr = reads.shape
+    if w0.shape[0] != N or read_len.shape[0] != N:
+        raise ValueError("w0, reads and read_len disagree on N")
+    outs = _launch("banded_extend_launch", dev, N, text.data_ptr(),
+                   text.numel(), w0.data_ptr(), reads.data_ptr(),
+                   read_len.data_ptr(), N, Lr, pad, match, mismatch, gap,
+                   *packed_layout(Lr))
+    LAUNCHES["banded_extend"] += 1
+    return outs
+
+
+def banded_extend_windows_cuda(windows, reads, read_len, pad: int,
+                               match: int, mismatch: int, gap: int):
+    """Launch K2 on the current stream (no synchronise)."""
+    dev = _check_cuda_args(pad, (("windows", windows, torch.int8, 2),
+                                 ("reads", reads, torch.int8, 2),
+                                 ("read_len", read_len, torch.int32, 1)))
+    N, Lr = reads.shape
+    W = windows.shape[1]
+    if windows.shape[0] != N or read_len.shape[0] != N:
+        raise ValueError("windows, reads and read_len disagree on N")
+    if Lr < 1 or W < Lr + 2 * pad - 1:
+        raise ValueError(f"windows of width {W} do not cover reads of "
+                         f"{Lr} bases at pad {pad} (need >= {Lr + 2 * pad - 1})")
+    outs = _launch("banded_extend_windows_launch", dev, N,
+                   windows.data_ptr(), W, reads.data_ptr(),
+                   read_len.data_ptr(), N, Lr, pad, match, mismatch, gap,
+                   *packed_layout(Lr))
+    LAUNCHES["banded_extend_windows"] += 1
+    return outs
 
 
 def banded_extend(text, w0, reads, read_len, pad: int, match: int,
@@ -209,7 +275,17 @@ def banded_extend(text, w0, reads, read_len, pad: int, match: int,
         LAUNCHES["banded_extend_plain"] += 1
         return banded_extend_plain(text, w0, reads, read_len, pad, match,
                                    mismatch, gap)
-    if text.device.type != "cuda":
-        raise ValueError(f"banded_extend runs on cpu or cuda, not {text.device}")
     return banded_extend_cuda(text, w0, reads, read_len, pad, match,
                               mismatch, gap)
+
+
+def banded_extend_windows(windows, reads, read_len, pad: int, match: int,
+                          mismatch: int, gap: int):
+    """aligner._banded_extend: (score, start_off, end_off, matches), int32
+    [N] each, of reads[i] (read_len[i] bases) against windows[i]."""
+    if windows.device.type == "cpu":
+        LAUNCHES["banded_extend_windows_plain"] += 1
+        return banded_extend_windows_plain(windows, reads, read_len, pad,
+                                           match, mismatch, gap)
+    return banded_extend_windows_cuda(windows, reads, read_len, pad, match,
+                                      mismatch, gap)

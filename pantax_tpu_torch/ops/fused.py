@@ -11,8 +11,11 @@ filters, two-stage PAO, report) writes the tables.
 
 Only the range decomposition is ported: it is what the reference picks on
 every DB whose haplotypes never revisit a node within one read's span.
-The windowed / dup-graph path, paired feeds, interval feeds and the device
-tail raise NotImplementedError naming their ROADMAP item.
+Interval feeds (the long-read flow's merged per-read alignments) take the
+same range scatter without the query (``feed_intervals``).  The
+windowed / dup-graph path (and the interval rows on haplotypes that revisit
+a node), paired feeds and the device tail raise NotImplementedError naming
+their ROADMAP item.
 
 Accumulator layout: every scatter target carries one extra sink slot that
 takes the reference's out-of-range "drop" indices (torch's index_add_
@@ -121,12 +124,14 @@ class FusedTables(nn.Module):
 
     def __init__(self, *, species, ranges, hap_offsets, hap_range, pos_lo,
                  nodes_len, base_offset, trio_len, trio_seg, has_dups: bool,
-                 win_shift: int, pos_steps: int, N_pad: int, TB_pad: int,
-                 U_pad: int, device):
+                 hap_dup, win_shift: int, pos_steps: int, N_pad: int,
+                 TB_pad: int, U_pad: int, device):
         super().__init__()
         self.species = species
         self.ranges = ranges
         self.has_dups = has_dups
+        # host bool [H]: haplotype path visits some node twice
+        self.hap_dup = np.asarray(hap_dup, dtype=bool)
         self.win_shift = win_shift
         self.pos_steps = pos_steps
         self.N_pad, self.TB_pad, self.U_pad = N_pad, TB_pad, U_pad
@@ -173,13 +178,23 @@ def build_fused_tables(db, index, device) -> FusedTables:
                          dtype=np.int32)
     pos_lo, win_shift, steps = build_pos_lookup(
         index.tstart.astype(np.int64), index.text_len)
+    # a haplotype that visits some node twice: the range decomposition would
+    # count bases the reference credits only at the first occurrence
+    hap_dup = np.zeros(len(index.hap_species), dtype=bool)
+    seg_hap = np.clip(np.searchsorted(index.hap_offsets, index.tstart,
+                                      side="right") - 1, 0, len(hap_dup) - 1)
+    tn = np.asarray(index.tnode, dtype=np.int64)
+    for h in range(len(hap_dup)):
+        nodes_h = tn[seg_hap == h]
+        hap_dup[h] = len(np.unique(nodes_h)) != len(nodes_h)
     return FusedTables(
         species=species, ranges=ranges,
         hap_offsets=index.hap_offsets.astype(np.int32), hap_range=hap_range,
         pos_lo=pos_lo, nodes_len=t.nodes_len, base_offset=t.base_offset,
         trio_len=t.trio_len,
         trio_seg=_build_trio_seg(index, species, hap_range),
-        has_dups=_window_has_dup_nodes(index), win_shift=win_shift,
+        has_dups=_window_has_dup_nodes(index), hap_dup=hap_dup,
+        win_shift=win_shift,
         pos_steps=steps, N_pad=t.N_pad, TB_pad=t.TB_pad, U_pad=t.U_pad,
         device=device,
     )
@@ -335,8 +350,8 @@ class FusedResult:
 
 class FusedPipeline:
     """Incremental fused align+coverage: feed() read chunks (cut into fixed
-    ``batch`` dispatches), finish() once.  The accumulators stay on the
-    device between feeds."""
+    ``batch`` dispatches) and feed_intervals() pre-aligned intervals, then
+    finish() once.  The accumulators stay on the device between feeds."""
 
     def __init__(self, aligner, tables: FusedTables, batch: int):
         self.aligner = aligner
@@ -344,6 +359,7 @@ class FusedPipeline:
         self.batch = batch
         self.use_ranges: bool | None = None
         self.n_batches = 0
+        self.n_interval_batches = 0
         dev = aligner.device
         M = aligner.tnode.shape[0]
         z = torch.zeros
@@ -355,6 +371,8 @@ class FusedPipeline:
             z(M + 1, dtype=torch.int32, device=dev),
         )
         self._per_read = []  # (n_valid, ids | None, lens, (mapq, aligned, ridx))
+        self._int_reads = None  # interval feeds' host columns, per feed
+        self._int_ids = None
 
     def _decide_ranges(self, read_pad: int) -> bool:
         """The range scatter needs dup-free windows over one read's whole
@@ -395,9 +413,62 @@ class FusedPipeline:
     def feed_paired(self, *args, **kw):
         raise NotImplementedError("paired-end feeds are not ported yet: ROADMAP M8")
 
-    def feed_intervals(self, *args, **kw):
-        raise NotImplementedError(
-            "interval (long-read) feeds are not ported yet: ROADMAP M10")
+    def feed_intervals(self, ts, te, mapq, read_len, ids=None,
+                       aligned=None) -> None:
+        """Feed pre-aligned text intervals (the long-read flow's merged
+        per-read alignments) instead of read codes.  Per-read columns
+        (mapq / ridx / read_len) are computed on the host; the rows on
+        dup-free haplotypes go through the range scatter in ``batch``-row
+        dispatches.  Rows on haplotypes that revisit a node (the
+        reference's windowed and host-residual sub-paths) raise."""
+        aligner, tables, B = self.aligner, self.tables, self.batch
+        index = aligner.index
+        ts = np.asarray(ts, dtype=np.int64)
+        te = np.asarray(te, dtype=np.int64)
+        mapq = np.asarray(mapq, dtype=np.int64)
+        read_len = np.asarray(read_len, dtype=np.int64)
+        al = (np.ones(len(ts), dtype=bool) if aligned is None
+              else np.asarray(aligned, dtype=bool))
+
+        hap_range = tables.hap_range.cpu().numpy()
+        hap = np.clip(np.searchsorted(index.hap_offsets, ts, side="right") - 1,
+                      0, len(hap_range) - 1)
+        ridx = np.where(al, hap_range[hap], -1).astype(np.int64)
+        ok = al & (ridx >= 0) & (te > ts)
+        dup = tables.hap_dup[hap]
+        if (ok & dup).any():
+            raise NotImplementedError(
+                "interval rows on haplotypes that revisit a node (windowed "
+                "and host-residual coverage) are not ported yet: ROADMAP M9"
+            )
+
+        if self._int_reads is None:
+            self._int_reads = {"mapq": [], "aligned": [], "ridx": [],
+                               "read_len": []}
+            self._int_ids = [] if ids is not None else None
+        for k, v in (("mapq", mapq), ("aligned", al), ("ridx", ridx),
+                     ("read_len", read_len)):
+            self._int_reads[k].append(v)
+        if ids is not None and self._int_ids is not None:
+            self._int_ids.extend(ids)
+
+        rows = np.flatnonzero(ok)
+        for lo in range(0, len(rows), B):
+            r = rows[lo:lo + B]
+            c_ts = np.zeros(B, np.int32)
+            c_te = np.zeros(B, np.int32)
+            c_live = np.zeros(B, bool)
+            c_ts[:len(r)] = ts[r]
+            c_te[:len(r)] = te[r]
+            c_live[:len(r)] = True
+            # the reference's _interval_range_step: the range scatter
+            # without the query (the per-read columns are host-computed)
+            classify_scatter_ranges(
+                aligner.put(c_ts, np.int32), aligner.put(c_te, np.int32),
+                aligner.put(c_live, bool), tables, aligner.tstart,
+                aligner.tnode, self.acc,
+            )
+            self.n_interval_batches += 1
 
     def finish(self) -> FusedResult:
         t = self.tables
@@ -421,6 +492,15 @@ class FusedPipeline:
             reads["read_len"] = np.concatenate(
                 [lens for _, _, lens, _ in self._per_read])
             self._per_read = []
+        if self._int_reads is not None:
+            # interval-fed rows (host-computed columns) follow codes rows
+            for k in ("mapq", "aligned", "ridx", "read_len"):
+                parts = self._int_reads[k]
+                reads[k] = np.concatenate(
+                    [reads[k]] + parts if len(reads[k]) else parts)
+            if self._int_ids is not None:
+                ids_all = (ids_all or []) + self._int_ids
+            self._int_reads = self._int_ids = None
         reads["ids"] = ids_all
         return FusedResult(na, ta, bc, reads)
 

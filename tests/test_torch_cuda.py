@@ -8,7 +8,10 @@ import pytest
 import torch
 
 from pantax_tpu_torch import _host
-from pantax_tpu_torch.benchmarks import simulate_read_batch, tiny_db
+from pantax_tpu_torch.align.long_read import align_long_reads
+from pantax_tpu_torch.benchmarks import (
+    simulate_long_reads, simulate_read_batch, tiny_db,
+)
 from pantax_tpu_torch.convert import aligner_from_reference
 from pantax_tpu_torch.ops import extend
 
@@ -39,7 +42,7 @@ def _case(rng, pad, N, Lr, T=8192):
 
 
 @pytest.mark.parametrize("pad", [1, 4, 5, 8])
-@pytest.mark.parametrize("Lr", [96, 160])
+@pytest.mark.parametrize("Lr", [96, 160, 512])
 def test_kernel_matches_plain(cuda, pad, Lr):
     rng = np.random.default_rng(pad * 1000 + Lr)
     args = [torch.from_numpy(a).to(cuda) for a in _case(rng, pad, 1000, Lr)]
@@ -55,7 +58,10 @@ def test_wrapper_launches_kernel_on_cuda(cuda):
     args = [torch.from_numpy(a).to(cuda) for a in _case(rng, 4, 300, 160)]
     extend.reset_launch_counts()
     extend.banded_extend(*args, 4, MATCH, MIS, GAP)
-    assert extend.LAUNCHES == {"banded_extend": 1, "banded_extend_plain": 0}
+    assert extend.LAUNCHES == {
+        "banded_extend": 1, "banded_extend_plain": 0,
+        "banded_extend_windows": 0, "banded_extend_windows_plain": 0,
+    }
 
 
 def test_kernel_rejects_bad_inputs(cuda):
@@ -68,6 +74,97 @@ def test_kernel_rejects_bad_inputs(cuda):
         extend.banded_extend_cuda(text.cpu(), w0, reads, lens, 4, 1, -1, -2)
     with pytest.raises(ValueError):
         extend.banded_extend_cuda(text, w0, reads, lens, 9, 1, -1, -2)
+
+
+def _windows_case(rng, pad, N, Lr):
+    text, w0, reads, lens = _case(rng, pad, N, Lr, T=max(8192, 4 * Lr))
+    W = Lr + 2 * pad
+    windows = text[w0[:, None] + np.arange(W)]
+    return windows, reads, lens
+
+
+@pytest.mark.parametrize("pad", [1, 4, 5, 8])
+@pytest.mark.parametrize("Lr", [96, 512])
+def test_windows_kernel_matches_plain(cuda, pad, Lr):
+    rng = np.random.default_rng(pad * 1000 + Lr + 7)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _windows_case(rng, pad, 1000, Lr)]
+    ker = extend.banded_extend_windows_cuda(*args, pad, MATCH, MIS, GAP)
+    plain = extend.banded_extend_windows_plain(*args, pad, MATCH, MIS, GAP)
+    torch.cuda.synchronize()
+    for k, p, name in zip(ker, plain, ("score", "start", "end", "matches")):
+        assert torch.equal(k, p), name
+
+
+def test_windows_wrapper_launches_kernel_on_cuda(cuda):
+    rng = np.random.default_rng(1)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _windows_case(rng, 8, 300, 512)]
+    extend.reset_launch_counts()
+    extend.banded_extend_windows(*args, 8, MATCH, MIS, GAP)
+    assert extend.LAUNCHES == {
+        "banded_extend": 0, "banded_extend_plain": 0,
+        "banded_extend_windows": 1, "banded_extend_windows_plain": 0,
+    }
+
+
+def test_windows_kernel_rejects_bad_inputs(cuda):
+    rng = np.random.default_rng(0)
+    windows, reads, lens = [torch.from_numpy(a).to(cuda)
+                            for a in _windows_case(rng, 4, 64, 96)]
+    with pytest.raises(ValueError):  # W < Lr + 2*pad - 1
+        extend.banded_extend_windows_cuda(windows[:, :100].contiguous(),
+                                          reads, lens, 4, 1, -1, -2)
+    with pytest.raises(ValueError):
+        extend.banded_extend_windows_cuda(windows, reads, lens, 9, 1, -1, -2)
+    with pytest.raises(ValueError):
+        extend.banded_extend_windows_cuda(windows.int(), reads, lens, 4, 1,
+                                          -1, -2)
+    with pytest.raises(ValueError):
+        extend.banded_extend_windows_cuda(windows, reads, lens.long(), 4, 1,
+                                          -1, -2)
+
+
+def test_extend_rows_cpu_equal_cuda(cuda, tmp_path):
+    db = tiny_db(tmp_path / "tiny")
+    index = _host.build_align_index(db)
+    rng = np.random.default_rng(5)
+    B, chunk = 512, 512
+    start = rng.integers(0, len(index.text) - 2048, size=B)
+    codes = index.text[start[:, None] + np.arange(chunk)].astype(np.int8)
+    lens = np.full(B, chunk, dtype=np.int64)
+    lens[:2] = (0, 1)
+    w0 = start - 8 + rng.integers(-3, 4, size=B)
+    w0[2:4] = (-20, len(index.text))
+    strand = np.zeros(B, dtype=np.int8)
+    rows = []
+    for dev in ("cpu", cuda):
+        al = aligner_from_reference(
+            index, _host.AlignConfig.for_read_type("long"), dev)
+        rows.append(al.extend_packed(codes, lens, w0, strand).cpu())
+    assert torch.equal(rows[0], rows[1])
+    assert (rows[1][3] & 1).float().mean() > 0.9
+
+
+def test_align_long_reads_cpu_equal_cuda(cuda, tmp_path):
+    """The long-read path (seeded K1 at Lr 512, pad 8, and the rescue K2)
+    gives the same alignment arrays on the CPU and on the card."""
+    db = tiny_db(tmp_path / "tiny")
+    index = _host.build_align_index(db)
+    reads, _ = simulate_long_reads(index, 16, 4096, seed=9)
+    got = []
+    for dev in ("cpu", cuda):
+        al = aligner_from_reference(
+            index, _host.AlignConfig.for_read_type("long"), dev)
+        extend.reset_launch_counts()
+        got.append(align_long_reads(al, reads, chunk=512, batch_size=256,
+                                    seed_stride=2, as_arrays=True))
+    assert extend.LAUNCHES["banded_extend"] > 0
+    assert extend.LAUNCHES["banded_extend_windows"] > 0
+    assert got[0].read_ids == got[1].read_ids
+    for name in ("ts", "te", "mapq", "read_len"):
+        np.testing.assert_array_equal(getattr(got[0], name),
+                                      getattr(got[1], name), err_msg=name)
 
 
 def test_query_rows_cpu_equal_cuda(cuda, tmp_path):

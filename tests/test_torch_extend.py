@@ -1,7 +1,7 @@
-"""K1 (banded DP extension) in the PyTorch port against the JAX reference:
-the plain torch version must equal the Pallas kernel (interpret mode) and
-the XLA DP bit for bit (the CUDA kernel is held to the plain version in
-test_torch_cuda.py, on the card)."""
+"""K1 and K2 (banded DP extension) in the PyTorch port against the JAX
+reference: the plain torch versions must equal the Pallas kernels
+(interpret mode) and the XLA DP bit for bit (the CUDA kernels are held to
+the plain versions in test_torch_cuda.py, on the card)."""
 import numpy as np
 import pytest
 import torch
@@ -10,9 +10,12 @@ import jax.numpy as jnp
 
 from pantax_tpu.align.aligner import _banded_extend
 from pantax_tpu.align.aligner import packed_layout as ref_packed_layout
-from pantax_tpu.ops.extend_pallas import banded_extend_pallas
+from pantax_tpu.ops.extend_pallas import (
+    banded_extend_pallas, banded_extend_pallas_dponly,
+)
 from pantax_tpu_torch.ops.extend import (
-    LAUNCHES, banded_extend, banded_extend_plain, packed_layout,
+    LAUNCHES, banded_extend, banded_extend_plain, banded_extend_windows,
+    packed_layout,
 )
 
 MATCH, MIS, GAP = 1, -1, -2
@@ -55,6 +58,33 @@ def test_plain_matches_pallas_and_xla(seed, pad):
                          torch.from_numpy(reads), torch.from_numpy(lens),
                          pad, MATCH, MIS, GAP)
     assert LAUNCHES["banded_extend_plain"] == before + 1
+    for x, p, o, name in zip(xla, pallas, port, NAMES):
+        assert o.dtype == torch.int32, name
+        np.testing.assert_array_equal(np.asarray(x), o.numpy(), err_msg=name)
+        np.testing.assert_array_equal(np.asarray(p), o.numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("N,Lr,pad", [(64, 96, 4), (64, 96, 8), (32, 512, 8)])
+def test_windows_plain_matches_pallas_dponly_and_xla(N, Lr, pad):
+    """K2's plain version against the DP-only Pallas kernel and the XLA DP,
+    with N bases in reads and windows and rows of read_len 0 and 1."""
+    rng = np.random.default_rng(N + Lr + pad)
+    text, w0, reads, lens = _case(rng, pad, N=N, Lr=Lr)
+    reads[rng.random(reads.shape) < 0.01] = 4
+    W = Lr + 2 * pad
+    windows = np.stack([text[s : s + W] for s in w0])
+    windows[rng.random(windows.shape) < 0.01] = 4
+    args = (jnp.asarray(windows), jnp.asarray(reads), jnp.asarray(lens))
+    xla = _banded_extend(*args, pad, MATCH, MIS, GAP)
+    pallas = banded_extend_pallas_dponly(*args, pad, MATCH, MIS, GAP,
+                                         block=32, interpret=True)
+    before = dict(LAUNCHES)
+    port = banded_extend_windows(torch.from_numpy(windows),
+                                 torch.from_numpy(reads),
+                                 torch.from_numpy(lens), pad, MATCH, MIS, GAP)
+    assert LAUNCHES["banded_extend_windows_plain"] == (
+        before["banded_extend_windows_plain"] + 1)
+    assert LAUNCHES["banded_extend_plain"] == before["banded_extend_plain"]
     for x, p, o, name in zip(xla, pallas, port, NAMES):
         assert o.dtype == torch.int32, name
         np.testing.assert_array_equal(np.asarray(x), o.numpy(), err_msg=name)

@@ -3,6 +3,7 @@ reference (CPU, plain versions): host-side tables array-equal, na/ta/bc and
 per-read columns bit-identical, HiGHS output files byte-identical, the
 pandas-free writers byte-identical to pandas."""
 import copy
+import dataclasses
 import filecmp
 
 import numpy as np
@@ -66,6 +67,7 @@ def test_fused_tables_array_equal(tiny):
     for name in ("has_dups", "win_shift", "pos_steps", "N_pad", "TB_pad",
                  "U_pad"):
         assert getattr(built, name) == getattr(s.ref_tables, name), name
+    np.testing.assert_array_equal(built.hap_dup, s.ref_tables.hap_dup)
     tstart = s.index.tstart.astype(np.int64)
     for a, b in zip(port_fused.build_pos_lookup(tstart, s.index.text_len),
                     ref_fused.build_pos_lookup(tstart, s.index.text_len)):
@@ -90,6 +92,24 @@ def test_fused_tables_array_equal(tiny):
         np.testing.assert_array_equal(np.asarray(getattr(ours, name)),
                                       np.asarray(getattr(theirs, name)),
                                       err_msg=name)
+
+
+def test_hap_dup_matches_reference_on_a_revisiting_hap(tiny):
+    """A copy of the index in which one haplotype revisits a node (its
+    second segment's node set to its first's): the port's hap_dup marks that
+    haplotype, and only it, as the reference's does."""
+    s = tiny
+    h = 1
+    lo, hi = s.index.hap_offsets[h], s.index.hap_offsets[h + 1]
+    segs = np.flatnonzero((s.index.tstart >= lo) & (s.index.tstart < hi))
+    assert len(segs) >= 2
+    tnode = s.index.tnode.copy()
+    tnode[segs[1]] = tnode[segs[0]]
+    index = dataclasses.replace(s.index, tnode=tnode)
+    built = port_fused.build_fused_tables(s.db, index, "cpu")
+    want = ref_fused.build_fused_tables(s.db, index).hap_dup
+    np.testing.assert_array_equal(built.hap_dup, want)
+    assert np.flatnonzero(built.hap_dup).tolist() == [h]
 
 
 def test_locate_segment_matches_searchsorted(tiny):
@@ -301,9 +321,13 @@ def test_unported_paths_raise(tiny, reads, tmp_path):
     pp = port_fused.FusedPipeline(tiny.aligner, tiny.tables, batch=64)
     with pytest.raises(NotImplementedError, match="M8"):
         pp.feed_paired()
-    with pytest.raises(NotImplementedError, match="M10"):
-        pp.feed_intervals()
     codes, lens, _ = reads
+    dup_hap = port_fused.FusedPipeline(tiny.aligner, tiny.tables, batch=64)
+    dup_hap.tables = copy.copy(tiny.tables)
+    dup_hap.tables.hap_dup = np.ones_like(tiny.tables.hap_dup)
+    hap0 = tiny.index.hap_offsets[0]
+    with pytest.raises(NotImplementedError, match="M9"):
+        dup_hap.feed_intervals([hap0 + 10], [hap0 + 5000], [60], [4990])
     dup = port_fused.FusedPipeline(tiny.aligner, tiny.tables, batch=64)
     dup.tables = copy.copy(tiny.tables)
     dup.tables.has_dups = True

@@ -1,7 +1,7 @@
 """The port on a machine without jax, pandas and pyarrow: in a subprocess
 that blocks those imports, pantax_tpu_torch builds a complete database (no
-species silently dropped) and runs the short-read slice on the CPU to the
-four output tables."""
+species silently dropped) and runs the short-read slice and the long-read
+slice on the CPU to the four output tables."""
 import os
 import subprocess
 import sys
@@ -28,9 +28,17 @@ SCRIPT = textwrap.dedent("""
     sys.meta_path.insert(0, Blocker())
 
     from pantax_tpu_torch import _host
-    from pantax_tpu_torch.benchmarks import simulate_read_batch, tiny_db
+    from pantax_tpu_torch.align.long_read import (
+        LONG_READ_PRESETS, LONG_READ_SEED_STRIDE, align_long_reads,
+    )
+    from pantax_tpu_torch.benchmarks import (
+        simulate_long_reads, simulate_read_batch, tiny_db,
+    )
     from pantax_tpu_torch.convert import aligner_from_reference
-    from pantax_tpu_torch.ops.fused import profile_fused
+    from pantax_tpu_torch.ops.fused import (
+        FusedPipeline, build_fused_tables, profile_from_fused_result,
+        profile_fused,
+    )
 
     db = tiny_db()
     species = [line.split()[0] for line in open(db.range_file)
@@ -49,6 +57,26 @@ SCRIPT = textwrap.dedent("""
         assert os.path.getsize(os.path.join(out, name)) > 0, name
     rows = open(os.path.join(out, "strain_abundance.txt")).read().splitlines()
     assert len(rows) == 5, rows
+
+    long_al = aligner_from_reference(
+        index, _host.AlignConfig.for_read_type("long"), "cpu")
+    reads, _ = simulate_long_reads(index, 16, 4096, seed=9)
+    arr = align_long_reads(long_al, reads, chunk=LONG_READ_PRESETS["hifi"],
+                           batch_size=256,
+                           seed_stride=LONG_READ_SEED_STRIDE["hifi"],
+                           as_arrays=True)
+    assert len(arr.read_ids) >= 14, arr.read_ids
+    pipe = FusedPipeline(long_al, build_fused_tables(db, index, "cpu"), 256)
+    pipe.feed_intervals(arr.ts, arr.te, arr.mapq, arr.read_len,
+                        ids=arr.read_ids)
+    cfg = _host.ProfilingConfig.for_read_type("long")
+    cfg.tail = "host"
+    long_out = sys.argv[1] + "_long"
+    assert profile_from_fused_result(pipe.finish(), pipe.tables, index, db,
+                                     cfg, long_out)
+    for name in ("species_abundance.txt", "strain_abundance.txt",
+                 "ori_strain_abundance.txt", "reads_classification.tsv"):
+        assert os.path.getsize(os.path.join(long_out, name)) > 0, name
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("NOJAX_OK")
