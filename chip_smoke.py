@@ -32,7 +32,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and the long-read profile (host tail, ADMM); K1 must be launched once
    per seeded batch, K2 once per rescue batch, the plain DPs never; >= 95%
    of the reads emitted, >= 99% species accuracy, 10 species and 30
-   strains.
+   strains;
+8. drive the paired path over the same DB: 500,000 simulated FR pairs of
+   150 bp mates (fragments uniform in 250-500 bp, 1% substitutions and
+   0.05% indels per mate), FusedPipeline.feed_paired at 32768 pairs a
+   batch, finish, and the device profile tail (ADMM), timed after one warm
+   call; K1 must be launched once per paired batch (the joint mate query
+   over 131072 candidates, phase 3's shape) and the plain DP never; >= 99%
+   of the reads aligned, >= 99% species accuracy, 10 species and 30
+   strains; then the host tail on the same FusedResult must report the
+   same strains with abundances within 2e-4.
 
 The line before last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.  Databases and the kernel build go under
@@ -61,8 +70,8 @@ from pantax_tpu_torch.convert import aligner_from_reference
 from pantax_tpu_torch.device import require_cuda
 from pantax_tpu_torch.ops import extend
 from pantax_tpu_torch.ops.fused import (
-    FusedPipeline, build_fused_tables, profile_from_fused_result,
-    profile_fused,
+    FusedPipeline, _ensure_tail_tables, _tail_mode, build_fused_tables,
+    profile_from_fused_result, profile_fused,
 )
 
 KERNEL = {
@@ -83,6 +92,8 @@ N_READS, BATCH = 1_000_000, 65536
 # its 100,000 reads halved for the run's time (the host simulator alone
 # costs ~0.36 ms a read)
 N_LONG, LONG_LEN, LONG_BATCH, READ_TYPE = 50_000, 8192, 16384, "hifi"
+# the paired path: 1M reads as 500,000 pairs, in 16 batches
+N_PAIRS, PAIR_BATCH, MATE_LEN = 500_000, 32768, 150
 
 
 def card_line() -> str:
@@ -273,11 +284,11 @@ def read_table(path):
 
 
 def check_tables(out: str, truth_species, n_reads: int, n_out: int,
-                 what: str):
+                 what: str, min_frac: float = 0.95):
     """Species accuracy over reads_classification.tsv (ids: one letter and
     the read's index), the fraction of reads ``what`` (``n_out`` of
-    ``n_reads``) and the species / strain tables; raises below the smoke's
-    bars."""
+    ``n_reads``, at least ``min_frac``) and the species / strain tables;
+    raises below the smoke's bars."""
     n_ok = n_cls = 0
     with open(os.path.join(out, "reads_classification.tsv")) as f:
         for line in f:
@@ -296,7 +307,7 @@ def check_tables(out: str, truth_species, n_reads: int, n_out: int,
     ab = np.array([float(r["predicted_abundance"]) for r in strains])
     if not (np.isfinite(ab).all() and abs(ab.sum() - 1.0) < 1e-6):
         raise AssertionError("strain abundances are not finite or do not sum to 1")
-    if n_out / n_reads < 0.95 or acc < 0.99:
+    if n_out / n_reads < min_frac or acc < 0.99:
         raise AssertionError(f"{what} fraction or species accuracy too low")
 
 
@@ -412,6 +423,137 @@ def long_path(build: str, dev, db, index, tables):
     return launches
 
 
+def simulate_pairs(index, n: int, seed: int, sub: float = 0.01,
+                   indel: float = 0.0005):
+    """FR mate pairs over the index text: fragments uniform in 250-500 bp
+    on a uniform haplotype; in the fragment's frame mate 1 is its first
+    MATE_LEN bases and mate 2 the reverse complement of its last, and half
+    the fragments are read from the other strand (mates swapped).  Each
+    mate gets substitutions and 1 bp indels as simulate_read_batch makes
+    them.  Returns ((codes1, lens1, codes2, lens2), truth hap per pair)."""
+    rng = np.random.default_rng(seed)
+    hap = rng.integers(0, len(index.hap_names), size=n)
+    spans = np.diff(index.hap_offsets) - 1
+    frag = rng.integers(250, 501, size=n)
+    starts = (index.hap_offsets[hap] + rng.integers(
+        0, np.maximum(spans[hap] - frag - 64, 1))).astype(np.int64)
+    cols = np.arange(MATE_LEN)
+    mates = []
+    for origin in (starts, starts + frag - MATE_LEN):
+        ev = rng.random((n, MATE_LEN))
+        shift = np.cumsum((ev < indel / 2).astype(np.int64)
+                          - ((ev >= indel / 2) & (ev < indel)), axis=1)
+        m = index.text[origin[:, None] + np.clip(cols + shift, 0, None)]
+        is_ins = (ev >= indel / 2) & (ev < indel)
+        m[is_ins] = rng.integers(0, 4, size=int(is_ins.sum()), dtype=np.int8)
+        sub_m = rng.random(m.shape) < sub
+        m[sub_m] = rng.integers(0, 4, size=int(sub_m.sum()), dtype=np.int8)
+        mates.append(m)
+    end = mates[1][:, ::-1]
+    mates[1] = np.where(end < 4, 3 - end, 4).astype(np.int8)
+    swap = rng.random(n) < 0.5
+    L = -(-MATE_LEN // 32) * 32
+    out = []
+    for m in (np.where(swap[:, None], mates[1], mates[0]),
+              np.where(swap[:, None], mates[0], mates[1])):
+        codes = np.full((n, L), 4, np.int8)
+        codes[:, :MATE_LEN] = m
+        out += [codes, np.full(n, MATE_LEN, np.int64)]
+    return tuple(out), hap
+
+
+def strain_abundance(out: str) -> dict:
+    return {r["genome_ID"]: float(r["predicted_abundance"])
+            for r in read_table(os.path.join(out, "strain_abundance.txt"))}
+
+
+def paired_path(build: str, dev, db, index, tables):
+    """Phase 8: paired reads over the smoke DB, the device tail, and the host
+    tail on the same result."""
+    aligner = aligner_from_reference(index, _host.AlignConfig(), dev)
+    t0 = time.time()
+    (c1, l1, c2, l2), hap = simulate_pairs(index, N_PAIRS, seed=13)
+    ids1 = [f"A{i}" for i in range(N_PAIRS)]
+    ids2 = [f"B{i}" for i in range(N_PAIRS)]
+    print(f"simulated {N_PAIRS} pairs of {MATE_LEN} bp mates in "
+          f"{time.time() - t0:.2f} s")
+    cfg = _host.ProfilingConfig.for_read_type("short")
+    cfg.solver = "admm"
+    print(f"paired: tail 'auto' resolves to '{_tail_mode(tables, cfg)}' on "
+          f"this DB (N_pad {tables.N_pad}, U_pad {tables.U_pad}: "
+          f"{(tables.N_pad * 8 + tables.U_pad * 4) / 2**20:.1f} MiB of "
+          f"na/ta/bc)")
+    cfg.tail = "device"
+    t0 = time.time()
+    _ensure_tail_tables(tables)
+    torch.cuda.synchronize()
+    print(f"paired: tail tables {time.time() - t0:.3f} s")
+
+    out = os.path.join(build, "smoke_paired_out")
+    shutil.rmtree(out, ignore_errors=True)
+    extend.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    pipe = FusedPipeline(aligner, tables, PAIR_BATCH)
+    pipe.feed_paired(c1, l1, c2, l2, ids1=ids1, ids2=ids2)
+    result = pipe.finish()  # the per-read download synchronises the device
+    t_align = time.time() - t0
+    times = {}
+    for rep in ("cold", "warm"):  # the first call pays first uses
+        stage = {}
+        torch.cuda.synchronize()
+        t1 = time.time()
+        profile_from_fused_result(result, tables, index, db, cfg, out,
+                                  stage_out=stage)
+        torch.cuda.synchronize()
+        times[rep] = (time.time() - t1, stage)
+    launches = dict(extend.LAUNCHES)
+
+    cfg.tail = "host"
+    out_host = os.path.join(build, "smoke_paired_host_out")
+    shutil.rmtree(out_host, ignore_errors=True)
+    stage_h = {}
+    torch.cuda.synchronize()
+    t1 = time.time()
+    profile_from_fused_result(result, tables, index, db, cfg, out_host,
+                              stage_out=stage_h)
+    torch.cuda.synchronize()
+    t_host = time.time() - t1
+
+    n_aligned = int(result.reads["aligned"].sum())
+    t_dev, stage_d = times["warm"]
+
+    def stages(st):
+        return ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+
+    print(f"paired: align+cover {t_align:.3f} s for {N_PAIRS} pairs "
+          f"({pipe.n_batches} batches); profile with the device tail "
+          f"{t_dev:.3f} s warm ({stages(stage_d)}), first call "
+          f"{times['cold'][0]:.3f} s; with the host tail {t_host:.3f} s "
+          f"({stages(stage_h)}); e2e {t_align + t_dev:.3f} s (device tail, "
+          f"{2 * N_PAIRS / (t_align + t_dev):.0f} reads/s)")
+    print(f"paired: K1 launches {launches['banded_extend']} for "
+          f"{pipe.n_batches} batches; plain DP runs "
+          f"{launches['banded_extend_plain']}")
+    if launches["banded_extend"] != pipe.n_batches or pipe.n_batches != -(
+            -N_PAIRS // PAIR_BATCH):
+        raise AssertionError("K1 was not launched exactly once per paired batch")
+    if launches["banded_extend_plain"] != 0:
+        raise AssertionError("the plain DP ran on the CUDA paired path")
+    # reads_classification.tsv rows are A<pair index> / B<pair index>
+    check_tables(out, np.asarray(index.hap_species, dtype=object)[hap],
+                 2 * N_PAIRS, n_aligned, "aligned", min_frac=0.99)
+    dev_ab, host_ab = strain_abundance(out), strain_abundance(out_host)
+    if set(dev_ab) != set(host_ab):
+        raise AssertionError("device and host tails report different strains")
+    diff = max(abs(dev_ab[k] - host_ab[k]) for k in dev_ab)
+    print(f"paired: device and host tails report the same {len(dev_ab)} "
+          f"strains; abundances differ by at most {diff:.3g}")
+    if diff > 2e-4:
+        raise AssertionError("device and host tail abundances differ by > 2e-4")
+    return launches["banded_extend"]
+
+
 def main() -> None:
     dev = require_cuda()
     print(card_line())
@@ -445,11 +587,14 @@ def main() -> None:
     err1_l, _, _ = check_kernel(index.text, dev, 2 * LONG_BATCH, chunk, 8,
                                 seed=6, timed=False)
     long_launches = long_path(build, dev, db, index, tables)
+    paired_launches = paired_path(build, dev, db, index, tables)
 
     print(json.dumps({"kernels": [
-        dict(KERNEL, launches=launches + long_launches["banded_extend"],
+        dict(KERNEL, launches=(launches + long_launches["banded_extend"]
+                               + paired_launches),
              launches_by_path={"short": launches,
-                               "long": long_launches["banded_extend"]},
+                               "long": long_launches["banded_extend"],
+                               "paired": paired_launches},
              max_abs_err=max(err1, err2, err1_r, err1_l), ms=ms,
              plain_ms=plain_ms),
         dict(KERNEL2, launches=long_launches["banded_extend_windows"],

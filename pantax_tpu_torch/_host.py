@@ -64,6 +64,7 @@ from pantax_tpu.io.metadata import (  # noqa: E402
 from pantax_tpu.profile.filters import (  # noqa: E402
     HapMetrics, OtuState, first_filter_paths, second_filter_paths,
 )
+from pantax_tpu.profile.filters import _round2 as round2  # noqa: E402
 from pantax_tpu.sim import revcomp  # noqa: E402
 from pantax_tpu.utils.native import chd_build_native  # noqa: E402
 
@@ -72,6 +73,6 @@ __all__ = [
     "ProfilingConfig", "build_align_index", "build_database",
     "build_trio_index", "chd_build_native", "encode_seq",
     "first_filter_paths", "iter_fastx", "load_database", "load_species_range",
-    "mix32", "read_genomes_info", "revcomp", "second_filter_paths",
+    "mix32", "read_genomes_info", "revcomp", "round2", "second_filter_paths",
     "write_fasta", "write_genomes_info",
 ]

@@ -8,6 +8,11 @@ the best / location-deduped second-best scores that give mapq.  Every step
 keeps the JAX function's dtypes and tie order (first index on argmax), so the
 packed [4, B] result rows are bit-identical to ``_query_batch_packed``.
 
+Mate pairs (``query_batch_paired``) take one candidate pass over both mates
+and score the K x K candidate pairs jointly (fragment bonus, rescue, pair
+mapq); their packed [8, B] rows are bit-identical to
+``_query_batch_paired_packed``.
+
 The seed-free extension at host-predicted windows (``extend_batch``, the
 long-read rescue pass) gathers its windows from the text and runs the DP
 over them (K2); its rows are bit-identical to ``_extend_batch``.
@@ -36,7 +41,8 @@ from ..ops.extend import (
 __all__ = [
     "Aligner", "BatchResult", "build_bucket_table", "build_seed_lookup",
     "extend_batch", "extract_windows", "pack_result_rows", "pack_text2d",
-    "packed_layout", "query_batch", "unpack_result_rows",
+    "packed_layout", "query_batch", "query_batch_paired",
+    "unpack_result_rows",
 ]
 
 _M32 = 0xFFFFFFFF
@@ -354,6 +360,22 @@ def all_candidates(text, run_table, seed_pos, bucket_lo, tstart, tnode,
     return scores, ts, te, matches, strand, tnode[i0], ts - tstart[i0]
 
 
+def _frac_of(frac: float, read_len):
+    """int32(float32(frac) * read_len): the float32 product truncated to
+    int32, as XLA computes the reference's score thresholds."""
+    f32 = torch.float32
+    return (torch.tensor(frac, dtype=f32) * read_len.to(f32)).to(torch.int32)
+
+
+def _gap_mapq(best, second, mapq_scale: float):
+    """mapq from the best and second-best score: 60 without a second,
+    else clip(int32(float32(scale) * (best - second)), 0, 60)."""
+    gap_q = torch.tensor(mapq_scale, dtype=torch.float32) * (best - second).to(
+        torch.float32)
+    return torch.where(second <= NEG // 2, 60,
+                       gap_q.to(torch.int32).clamp(0, 60)).to(torch.int32)
+
+
 def query_batch(text, run_table, seed_pos, bucket_lo, tstart, tnode,
                 codes, read_len, cfg_static):
     """Counterpart of the reference's ``_query_batch``: per-read (ts, te,
@@ -374,16 +396,85 @@ def query_batch(text, run_table, seed_pos, bucket_lo, tstart, tnode,
     s1 = take(scores)
     same_loc = (node == take(node)[:, None]) & (off == take(off)[:, None])
     s2 = torch.where(same_loc, NEG, scores).amax(dim=1)
-    # float32 products truncated to int32, as XLA computes them
-    f32 = torch.float32
-    min_score = (torch.tensor(min_score_frac, dtype=f32)
-                 * read_len.to(f32)).to(torch.int32)
-    aligned = s1 >= min_score
-    gap_q = (torch.tensor(mapq_scale, dtype=f32) * (s1 - s2).to(f32))
-    mapq = torch.where(s2 <= NEG // 2, 60,
-                       gap_q.to(torch.int32).clamp(0, 60)).to(torch.int32)
+    aligned = s1 >= _frac_of(min_score_frac, read_len)
+    mapq = _gap_mapq(s1, s2, mapq_scale)
     return (take(ts), take(te), s1, take(matches),
             torch.where(aligned, mapq, 0), take(strand), aligned)
+
+
+def query_batch_paired(text, run_table, seed_pos, bucket_lo, tstart, tnode,
+                       codes1, len1, codes2, len2, cfg_static,
+                       frag_max: int, pair_bonus: int, rescue_frac: float):
+    """Counterpart of the reference's ``_query_batch_paired``: joint
+    fragment-model alignment of B mate pairs.  Both mates' candidates come
+    from one ``all_candidates`` pass over the 2B reads (one K1 launch); a
+    candidate pair on opposite strands within ``frag_max`` earns
+    ``pair_bonus``; the best pair (first index over the flattened K*K axis)
+    places both mates; a weak mate of a consistent fragment is kept at
+    ``rescue_frac``.  Returns two 7-tuples (mate 1, mate 2) as query_batch.
+    Mate code matrices of different widths are padded with 4 to the wider."""
+    mapq_scale, min_score_frac = cfg_static[11], cfg_static[12]
+    B = len1.shape[0]
+    f1, f2 = unpack_reads(codes1, len1), unpack_reads(codes2, len2)
+    Lw = max(f1.shape[1], f2.shape[1])
+    codes_fwd = torch.cat([
+        torch.nn.functional.pad(f, (0, Lw - f.shape[1]), value=4)
+        for f in (f1, f2)])
+    lens = torch.cat([len1, len2])
+    codes_rev = rev_codes(codes_fwd, lens)
+    scores, ts, te, matches, strand, node, off = all_candidates(
+        text, run_table, seed_pos, bucket_lo, tstart, tnode,
+        codes_fwd, codes_rev, lens, cfg_static,
+    )
+    K = scores.shape[1]
+    s1, s2 = scores[:B], scores[B:]
+    ts1, ts2 = ts[:B], ts[B:]
+    n1, n2 = node[:B], node[B:]
+    o1, o2 = off[:B], off[B:]
+    ok = ((strand[:B, :, None] != strand[B:, None, :])
+          & ((ts1[:, :, None] - ts2[:, None, :]).abs() <= frag_max)
+          & (s1 > NEG // 2)[:, :, None] & (s2 > NEG // 2)[:, None, :])
+    pairf = (s1[:, :, None] + s2[:, None, :]
+             + ok.to(torch.int32) * pair_bonus).reshape(B, K * K)
+    best = torch.argmax(pairf, dim=1, keepdim=True)  # first index on ties
+    bi, bj = best // K, best % K
+
+    def t1(a):
+        return torch.gather(a[:B], 1, bi)[:, 0]
+
+    def t2(a):
+        return torch.gather(a[B:], 1, bj)[:, 0]
+
+    p_best = torch.gather(pairf, 1, best)[:, 0]
+    ok_best = torch.gather(ok.reshape(B, K * K), 1, best)[:, 0]
+
+    # joint second best: the best pair whose mates are not both at the
+    # chosen graph locations
+    same1 = (n1 == t1(node)[:, None]) & (o1 == t1(off)[:, None])
+    same2 = (n2 == t2(node)[:, None]) & (o2 == t2(off)[:, None])
+    same_pair = (same1[:, :, None] & same2[:, None, :]).reshape(B, K * K)
+    p_second = torch.where(same_pair, NEG, pairf).amax(dim=1)
+    pair_mapq = _gap_mapq(p_best, p_second, mapq_scale)
+
+    s1b, s2b = t1(scores), t2(scores)
+    al1 = s1b >= _frac_of(min_score_frac, len1)
+    al2 = s2b >= _frac_of(min_score_frac, len2)
+    # fragment rescue: a consistent weak mate is kept when its partner
+    # clears the normal threshold on its own
+    aligned1 = al1 | (ok_best & al2 & (s1b >= _frac_of(rescue_frac, len1)))
+    aligned2 = al2 | (ok_best & al1 & (s2b >= _frac_of(rescue_frac, len2)))
+    # per-mate mapq: the joint gap for a consistent fragment, else the
+    # mate's own single-end gap
+    own1 = _gap_mapq(s1b, torch.where(same1, NEG, s1).amax(dim=1), mapq_scale)
+    own2 = _gap_mapq(s2b, torch.where(same2, NEG, s2).amax(dim=1), mapq_scale)
+    mapq1 = torch.where(ok_best, pair_mapq, own1)
+    mapq2 = torch.where(ok_best, pair_mapq, own2)
+    return (
+        (t1(ts), t1(te), s1b, t1(matches), torch.where(aligned1, mapq1, 0),
+         t1(strand), aligned1),
+        (t2(ts), t2(te), s2b, t2(matches), torch.where(aligned2, mapq2, 0),
+         t2(strand), aligned2),
+    )
 
 
 def extend_batch(text, codes, read_len, w0, strand, cfg_static):
@@ -401,12 +492,9 @@ def extend_batch(text, codes, read_len, w0, strand, cfg_static):
         extract_windows(text, w0c, W), read.contiguous(), read_len, pad,
         match, mismatch, gap,
     )
-    f32 = torch.float32
-    min_score = (torch.tensor(min_score_frac, dtype=f32)
-                 * read_len.to(f32)).to(torch.int32)
     return pack_result_rows((w0c + start_off, w0c + end_off, score, matches,
                              torch.zeros_like(score), strand,
-                             score >= min_score))
+                             score >= _frac_of(min_score_frac, read_len)))
 
 
 def pack_result_rows(res7):
@@ -508,6 +596,29 @@ class Aligner(nn.Module):
     def query_packed(self, codes, read_len):
         """Packed int32 [4, B] rows (the reference's _query_batch_packed)."""
         return pack_result_rows(self.query(codes, read_len))
+
+    def query_paired(self, codes1, len1, codes2, len2):
+        """The joint mate-pair query on batches already on the device: two
+        per-read 7-tuples (mate 1, mate 2)."""
+        c = self.cfg
+        return query_batch_paired(
+            self.text, self.run_table, self.seed_pos, self.bucket_lo,
+            self.tstart, self.tnode, codes1, len1, codes2, len2,
+            self.static(), c.frag_max, c.pair_bonus, c.rescue_frac)
+
+    def query_paired_packed(self, codes1, len1, codes2, len2):
+        """Packed int32 [8, B] rows, mate 1's four then mate 2's (the
+        reference's _query_batch_paired_packed)."""
+        r1, r2 = self.query_paired(codes1, len1, codes2, len2)
+        return torch.cat([pack_result_rows(r1), pack_result_rows(r2)])
+
+    def align_paired_codes(self, codes1: np.ndarray, lens1: np.ndarray,
+                           codes2: np.ndarray, lens2: np.ndarray):
+        """Joint mate-pair alignment of a host batch -> (BatchResult mate 1,
+        BatchResult mate 2), the reference's align_paired_codes."""
+        rows = self.query_paired_packed(*self.upload(codes1, lens1),
+                                        *self.upload(codes2, lens2))
+        return unpack_result_rows(rows[:4]), unpack_result_rows(rows[4:])
 
     def extend_packed(self, codes: np.ndarray, lens: np.ndarray,
                       w0: np.ndarray, strand: np.ndarray):

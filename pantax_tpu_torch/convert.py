@@ -7,10 +7,14 @@ tables, so both packages run on identical tables in the parity tests.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
 
 from .align.aligner import Aligner, build_seed_lookup
 from .ops.fused import FusedSpecies, FusedTables
+from .ops.profile_tail import TailTables
 
 
 def aligner_from_reference(index, cfg, device) -> Aligner:
@@ -49,3 +53,19 @@ def fused_tables_from_reference(jax_tables, device) -> FusedTables:
         pos_steps=int(t.pos_steps), N_pad=int(t.N_pad), TB_pad=int(t.TB_pad),
         U_pad=int(t.U_pad), device=device,
     )
+
+
+def tail_tables_from_reference(jax_tt, device) -> TailTables:
+    """A reference TailTables (pantax_tpu.ops.profile_tail) -> the port's:
+    its device arrays as int32 tensors on ``device``, its host metadata
+    as it is."""
+    dev = {"trio_hap": "trio_hap_d", "path_node": "path_node_d",
+           "path_hap": "path_hap_d", "node_species": "node_species_d"}
+    kw = {}
+    for f in dataclasses.fields(TailTables):
+        if f.name in dev:
+            a = np.asarray(getattr(jax_tt, dev[f.name]), dtype=np.int32)
+            kw[f.name] = torch.from_numpy(a.copy()).to(device)
+        else:
+            kw[f.name] = getattr(jax_tt, f.name)
+    return TailTables(**kw)

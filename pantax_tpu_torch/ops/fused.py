@@ -6,16 +6,19 @@ Per read batch, one pass on the device: the aligner query, the haplotype
 classification, and ~12 scatter-adds per read into five accumulators
 (``classify_scatter_ranges``).  Segment-space depth diffs fold into the
 node / base / trio accumulators once at finish (``expand_ranges``), then the
-coverage finalize runs and the host profile tail (species stage, strain
-filters, two-stage PAO, report) writes the tables.
+coverage finalize runs and the profile tail (species stage, strain
+filters, two-stage PAO, report) writes the tables: the host tail over
+downloaded arrays, or the device tail (ops/profile_tail.py) over the
+arrays where they lie.
 
 Only the range decomposition is ported: it is what the reference picks on
 every DB whose haplotypes never revisit a node within one read's span.
-Interval feeds (the long-read flow's merged per-read alignments) take the
-same range scatter without the query (``feed_intervals``).  The
-windowed / dup-graph path (and the interval rows on haplotypes that revisit
-a node), paired feeds and the device tail raise NotImplementedError naming
-their ROADMAP item.
+Paired feeds run the joint mate query and scatter both mates
+(``feed_paired``); interval feeds (the long-read flow's merged per-read
+alignments) take the same range scatter without the query
+(``feed_intervals``).  The windowed / dup-graph path (and the interval rows
+on haplotypes that revisit a node) raises NotImplementedError naming its
+ROADMAP item.
 
 Accumulator layout: every scatter target carries one extra sink slot that
 takes the reference's out-of-range "drop" indices (torch's index_add_
@@ -326,6 +329,18 @@ def fused_step_ranges(aligner, tables: FusedTables, codes, read_len, acc):
     return narrow_per_read_nov(ts, te, mapq, aligned, ridx)
 
 
+def fused_step_paired_ranges(aligner, tables: FusedTables, codes1, len1,
+                             codes2, len2, acc):
+    """One paired batch: the joint mate query + the range scatter of the
+    [2B] mate intervals (mate 1 then mate 2) into ``acc`` (in place);
+    returns narrow_per_read_nov's five [2B] per-read columns."""
+    r1, r2 = aligner.query_paired(codes1, len1, codes2, len2)
+    ts, te, mapq, aligned = (torch.cat([r1[i], r2[i]]) for i in (0, 1, 4, 6))
+    ridx = classify_scatter_ranges(ts, te, aligned, tables, aligner.tstart,
+                                   aligner.tnode, acc)
+    return narrow_per_read_nov(ts, te, mapq, aligned, ridx)
+
+
 # ---------------------------------------------------------------------------
 # pipeline and profiling entry points
 # ---------------------------------------------------------------------------
@@ -349,9 +364,10 @@ class FusedResult:
 
 
 class FusedPipeline:
-    """Incremental fused align+coverage: feed() read chunks (cut into fixed
-    ``batch`` dispatches) and feed_intervals() pre-aligned intervals, then
-    finish() once.  The accumulators stay on the device between feeds."""
+    """Incremental fused align+coverage: feed() read chunks or
+    feed_paired() mate pairs (cut into fixed ``batch`` dispatches) and
+    feed_intervals() pre-aligned intervals, then finish() once.  The
+    accumulators stay on the device between feeds."""
 
     def __init__(self, aligner, tables: FusedTables, batch: int):
         self.aligner = aligner
@@ -385,33 +401,63 @@ class FusedPipeline:
                                 self.aligner.cfg.extension_band)
         return bound <= 64 or not _window_has_dup_nodes(index, W=bound)
 
-    def feed(self, codes, lens, ids=None) -> None:
+    def _require_ranges(self, read_pad: int) -> None:
         if self.use_ranges is None:
-            self.use_ranges = self._decide_ranges(codes.shape[1])
+            self.use_ranges = self._decide_ranges(read_pad)
         if not self.use_ranges:
             raise NotImplementedError(
                 "windowed / dup-graph coverage (haplotypes that revisit a "
                 "node) is not ported yet: ROADMAP M9"
             )
+
+    def _upload_slice(self, codes, lens, lo: int, hi: int):
+        """Rows [lo, hi) as one ``batch``-row dispatch on the device (the
+        last batch padded with empty reads)."""
+        B = self.batch
+        b_codes, b_lens = codes[lo:hi], lens[lo:hi]
+        if hi - lo < B:
+            b_codes = np.vstack([b_codes, np.full(
+                (B - (hi - lo), codes.shape[1]), 4, np.int8)])
+            b_lens = np.concatenate(
+                [b_lens, np.zeros(B - (hi - lo), b_lens.dtype)])
+        return self.aligner.upload(b_codes, b_lens)
+
+    def feed(self, codes, lens, ids=None) -> None:
+        self._require_ranges(codes.shape[1])
         B = self.batch
         for lo in range(0, len(lens), B):
             hi = min(lo + B, len(lens))
-            b_codes, b_lens = codes[lo:hi], lens[lo:hi]
-            if hi - lo < B:
-                b_codes = np.vstack([b_codes, np.full(
-                    (B - (hi - lo), codes.shape[1]), 4, np.int8)])
-                b_lens = np.concatenate(
-                    [b_lens, np.zeros(B - (hi - lo), b_lens.dtype)])
-            codes_d, lens_d = self.aligner.upload(b_codes, b_lens)
             # ts / span are dropped: the host tail never reads them
             _ts, _span, *core = fused_step_ranges(
-                self.aligner, self.tables, codes_d, lens_d, self.acc)
+                self.aligner, self.tables,
+                *self._upload_slice(codes, lens, lo, hi), self.acc)
             self._per_read.append((hi - lo, ids[lo:hi] if ids is not None
                                    else None, np.asarray(lens[lo:hi]), core))
             self.n_batches += 1
 
-    def feed_paired(self, *args, **kw):
-        raise NotImplementedError("paired-end feeds are not ported yet: ROADMAP M8")
+    def feed_paired(self, codes1, lens1, codes2, lens2, ids1=None,
+                    ids2=None) -> None:
+        """Joint fragment-model feed: each ``batch`` of mate pairs goes
+        through one paired query (pair scoring, rescue, pair mapq) and one
+        range scatter of both mates.  Per-read rows come out as a mate-1
+        block and then a mate-2 block per batch."""
+        n = len(lens1)
+        if len(lens2) != n:
+            raise ValueError("paired feed requires equal mate counts")
+        self._require_ranges(max(codes1.shape[1], codes2.shape[1]))
+        B = self.batch
+        for lo in range(0, n, B):
+            hi = min(lo + B, n)
+            _ts, _span, *core = fused_step_paired_ranges(
+                self.aligner, self.tables,
+                *self._upload_slice(codes1, lens1, lo, hi),
+                *self._upload_slice(codes2, lens2, lo, hi), self.acc)
+            for half, ids, lens in ((slice(0, B), ids1, lens1),
+                                    (slice(B, 2 * B), ids2, lens2)):
+                self._per_read.append((
+                    hi - lo, ids[lo:hi] if ids is not None else None,
+                    np.asarray(lens[lo:hi]), [c[half] for c in core]))
+            self.n_batches += 1
 
     def feed_intervals(self, ts, te, mapq, read_len, ids=None,
                        aligned=None) -> None:
@@ -540,10 +586,21 @@ def _write_classification_tsv(out_path, keep_rows, ids, ridx, mapq, read_len,
         )
 
 
+def _lap(stage_out: dict | None, name: str, t0: float) -> float:
+    """Record the seconds since ``t0`` as ``stage_out[name]``; returns now."""
+    t = time.perf_counter()
+    if stage_out is not None:
+        stage_out[name] = t - t0
+    return t
+
+
 def profile_from_fused_result(result: FusedResult, tables: FusedTables,
-                              index, db, cfg, out_dir) -> bool:
+                              index, db, cfg, out_dir,
+                              stage_out: dict | None = None) -> bool:
     """Write the species + strain tables and reads_classification.tsv from a
-    FusedPipeline.finish() result."""
+    FusedPipeline.finish() result.  ``stage_out`` receives the stage
+    seconds: species_s, strain_s (filters and PAO), report_s and
+    classify_tsv_s."""
     reads = result.reads
     keep_rows = np.flatnonzero(reads["aligned"])
     out = os.fspath(out_dir)
@@ -554,10 +611,13 @@ def profile_from_fused_result(result: FusedResult, tables: FusedTables,
     sp_names = np.array([r.species for r in tables.ranges] + ["U"],
                         dtype=object)
     ok = _profile_fused_tail(tables, db, cfg, out,
-                             (ridx, mapq, read_len, sp_names, result))
+                             (ridx, mapq, read_len, sp_names, result),
+                             stage_out)
+    t0 = time.perf_counter()
     _write_classification_tsv(os.path.join(out, "reads_classification.tsv"),
                               keep_rows, reads["ids"], ridx, mapq, read_len,
                               sp_names)
+    _lap(stage_out, "classify_tsv_s", t0)
     return ok
 
 
@@ -570,26 +630,99 @@ def _tail_mode(tables: FusedTables, cfg) -> str:
     return "device" if tables.N_pad * 8 + tables.U_pad * 4 >= 4 << 20 else "host"
 
 
-def _profile_fused_tail(tables: FusedTables, db, cfg, out, profile_input) -> bool:
-    """Species stage, strain filters, two-stage PAO and report (host tail)."""
+def _ensure_tail_tables(tables: FusedTables):
+    """The device tail's TailTables, built once per FusedTables."""
+    from .profile_tail import build_tail_tables
+
+    tt = getattr(tables, "_tail_tables", None)
+    if tt is None:
+        tt = tables._tail_tables = build_tail_tables(tables)
+    return tt
+
+
+def _device_tail_solve(tables: FusedTables, cfg, active, result,
+                       stats_pre) -> list:
+    """Strain filters and two-stage PAO over the device-resident na/ta/bc
+    (ops/profile_tail.py): the stats launched by dispatch_tail_stats
+    (``stats_pre``) collected, the first filter on the host, batched device
+    solves.  Species whose valid-node count exceeds the node-sampling cap
+    take the host solve (the sampling's RNG needs host rows).  Returns the
+    OtuStates in ``active`` order."""
+    from ..profile.engine import finish_two_stage, prepare_two_stage
+    from .profile_tail import (
+        collect_tail_stats, first_filter_from_stats, solve_two_stage_device,
+    )
+
+    if not active:
+        return []
+    tt = _ensure_tail_tables(tables)
+    stats = collect_tail_stats(stats_pre)
+    cap = 500 if cfg.sample_test else cfg.sample_nodes
+    out_states, jobs, states, host_jobs = [], [], [], []
+    for sp in active:
+        si = sp.ridx
+        names = sorted(sp.paths)
+        state = _host.OtuState(otu=sp.range_.species,
+                               hap_metrics=[_host.HapMetrics() for _ in names])
+        first_filter_from_stats(state, si, tt, stats, names, cfg)
+        out_states.append(state)
+        if not state.possible_paths_idx:
+            continue
+        g_lo = int(tt.sp_hap_lo[si])
+        for h in state.possible_paths_idx:
+            pl = np.float32(tt.path_len[g_lo + h])
+            pc = np.float32(stats.path_cov[g_lo + h])
+            # the float32 division of the host matvec path (both sums are
+            # exact integers)
+            state.hap_metrics[h].path_cov_ratio = float(pc / pl) if pl > 0 else 0.0
+        if cap and stats.sp_valid[si] > cap:
+            host_jobs.append((sp, state))
+        else:
+            jobs.append((si, list(state.possible_paths_idx),
+                         1.05 * float(stats.sp_max[si])))
+            states.append(state)
+    if jobs:
+        solve_two_stage_device(tt, result.na_d, jobs, states, cfg, stats.sp_max)
+    if host_jobs:
+        hj = []
+        for sp, state in host_jobs:
+            sl = slice(sp.off, sp.off + sp.num_nodes)
+            hj.append(prepare_two_stage(
+                state, sp.num_nodes, sp.paths,
+                result.na_d[sl].cpu().numpy().astype(np.float64),
+                result.bc_d[sl].cpu().numpy(), sp.nodes_len, cfg))
+        finish_two_stage(hj, cfg, device=tables.device)
+    return out_states
+
+
+def _profile_fused_tail(tables: FusedTables, db, cfg, out, profile_input,
+                        stage_out: dict | None = None) -> bool:
+    """Species stage, strain filters, two-stage PAO and report, over the
+    host tail or the device tail (``_tail_mode``)."""
     from ..profile.engine import finish_two_stage, prepare_two_stage
     from ..profile.report import abundance_constraint, abundance_est
     from ..profile.species import read_species_mean_len, species_profiling_codes
 
     ridx, mapq, read_len, sp_names, result = profile_input
     keep = ridx >= 0
+    t0 = time.perf_counter()
+    device_tail = cfg.strain and _tail_mode(tables, cfg) == "device"
+    stats_pre = None
+    if device_tail:
+        # launched before the species stage, which it overlaps on a GPU
+        from .profile_tail import dispatch_tail_stats
+
+        stats_pre = dispatch_tail_stats(_ensure_tail_tables(tables),
+                                        result.na_d, result.ta_d, result.bc_d,
+                                        cfg.min_depth)
     profile = species_profiling_codes(
         ridx[keep], sp_names[:-1], read_len[keep], mapq[keep],
         read_species_mean_len(db.stats_file), filtered=cfg.filtered,
     )
     profile.save(os.path.join(out, "species_abundance.txt"))
+    t0 = _lap(stage_out, "species_s", t0)
     if not cfg.strain:
         return True
-    if _tail_mode(tables, cfg) == "device":
-        raise NotImplementedError(
-            "the device profile tail is not ported yet (ROADMAP M5): "
-            "set cfg.tail = 'host'"
-        )
 
     abundant = dict(zip(profile.species_taxid,
                         profile.predicted_abundance.tolist()))
@@ -610,28 +743,35 @@ def _profile_fused_tail(tables: FusedTables, db, cfg, out, profile_input) -> boo
                          minlength=len(tables.ranges))
     active = [sp for sp in selected if counts[sp.ridx]]
 
-    node_abund, trio_abund, node_base_cov = result.host()
-    prepared = []
-    for sp in active:
-        na = node_abund[sp.off:sp.off + sp.num_nodes]
-        ta = trio_abund[sp.trio_lo:sp.trio_hi]
-        bc = node_base_cov[sp.off:sp.off + sp.num_nodes]
-        state = _host.OtuState(otu=sp.range_.species,
-                               hap_metrics=[_host.HapMetrics() for _ in sp.paths])
-        na_opt = np.where(na > cfg.min_depth, na, 0.0)
-        _host.first_filter_paths(state, sp.paths, sp.trio_index.hap_matrix,
-                                 ta, na_opt, cfg)
-        job = None
-        if state.possible_paths_idx:
-            job = prepare_two_stage(state, sp.num_nodes, sp.paths, na, bc,
-                                    sp.nodes_len, cfg)
-        prepared.append((state, job))
-    finish_two_stage([j for _, j in prepared if j is not None], cfg,
-                     device=tables.device)
+    if device_tail:
+        states = _device_tail_solve(tables, cfg, active, result, stats_pre)
+    else:
+        node_abund, trio_abund, node_base_cov = result.host()
+        prepared = []
+        for sp in active:
+            na = node_abund[sp.off:sp.off + sp.num_nodes]
+            ta = trio_abund[sp.trio_lo:sp.trio_hi]
+            bc = node_base_cov[sp.off:sp.off + sp.num_nodes]
+            state = _host.OtuState(
+                otu=sp.range_.species,
+                hap_metrics=[_host.HapMetrics() for _ in sp.paths])
+            na_opt = np.where(na > cfg.min_depth, na, 0.0)
+            _host.first_filter_paths(state, sp.paths, sp.trio_index.hap_matrix,
+                                     ta, na_opt, cfg)
+            job = None
+            if state.possible_paths_idx:
+                job = prepare_two_stage(state, sp.num_nodes, sp.paths, na, bc,
+                                        sp.nodes_len, cfg)
+            prepared.append((state, job))
+        finish_two_stage([j for _, j in prepared if j is not None], cfg,
+                         device=tables.device)
+        states = [state for state, _ in prepared]
+    t0 = _lap(stage_out, "strain_s", t0)
     metrics = []
-    for state, _ in prepared:
+    for state in states:
         abundance_constraint(profile, state.hap_metrics)
         metrics.extend(state.hap_metrics)
     abundance_est(cfg, metrics, _host.read_genomes_info(db.genomes_info_file),
                   out)
+    _lap(stage_out, "report_s", t0)
     return True

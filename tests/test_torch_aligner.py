@@ -16,6 +16,8 @@ from pantax_tpu_torch.align import aligner as port
 from pantax_tpu_torch.benchmarks import scale_db, simulate_read_batch, tiny_db
 from pantax_tpu_torch.convert import aligner_from_reference
 
+from _torch_helpers import reference_on_one_device  # noqa: F401 (autouse)
+
 
 @pytest.fixture(scope="module")
 def tiny(tmp_path_factory):

@@ -14,6 +14,11 @@ from pantax_tpu_torch.benchmarks import (
 )
 from pantax_tpu_torch.convert import aligner_from_reference
 from pantax_tpu_torch.ops import extend
+from pantax_tpu_torch.ops.fused import (
+    FusedPipeline, build_fused_tables, profile_from_fused_result,
+)
+
+from _torch_helpers import assert_tables_agree, simulate_pairs
 
 pytestmark = pytest.mark.cuda
 MATCH, MIS, GAP = 1, -1, -2
@@ -177,3 +182,45 @@ def test_query_rows_cpu_equal_cuda(cuda, tmp_path):
         al = aligner_from_reference(index, _host.AlignConfig(), dev)
         rows.append(al.query_packed(*al.upload(codes, lens)).cpu())
     assert torch.equal(rows[0], rows[1])
+
+
+def test_paired_rows_cpu_equal_cuda(cuda, tmp_path):
+    """The joint mate query: one K1 launch per paired batch on the card,
+    packed [8, B] rows equal to the CPU's."""
+    db = tiny_db(tmp_path / "tiny")
+    index = _host.build_align_index(db)
+    c1, l1, c2, l2 = simulate_pairs(index, 2048, seed=3)
+    l2[:3] = (0, 40, 149)
+    rows = []
+    for dev in ("cpu", cuda):
+        al = aligner_from_reference(index, _host.AlignConfig(), dev)
+        extend.reset_launch_counts()
+        rows.append(al.query_paired_packed(*al.upload(c1, l1),
+                                           *al.upload(c2, l2)).cpu())
+    assert extend.LAUNCHES["banded_extend"] == 1
+    assert extend.LAUNCHES["banded_extend_plain"] == 0
+    assert torch.equal(rows[0], rows[1])
+    assert (rows[1][3] & 1).float().mean() > 0.95
+
+
+def test_device_tail_cpu_agrees_with_cuda(cuda, tmp_path):
+    """feed_paired and the device tail on the CPU and on the card: the
+    classification identical, the tables within the port's tail bars
+    (_torch_helpers.assert_tables_agree, abundances within 2e-4)."""
+    db = tiny_db(tmp_path / "tiny")
+    index = _host.build_align_index(db)
+    pairs = simulate_pairs(index, 4096, seed=4)
+    cfg = _host.ProfilingConfig.for_read_type("short")
+    cfg.tail = "device"
+    outs = []
+    for dev in ("cpu", cuda):
+        al = aligner_from_reference(index, _host.AlignConfig(), dev)
+        pipe = FusedPipeline(al, build_fused_tables(db, index, dev), 1024)
+        pipe.feed_paired(*pairs)
+        out = tmp_path / torch.device(dev).type
+        assert profile_from_fused_result(pipe.finish(), pipe.tables, index, db,
+                                         cfg, out)
+        outs.append(out)
+    assert ((outs[0] / "reads_classification.tsv").read_text()
+            == (outs[1] / "reads_classification.tsv").read_text())
+    assert_tables_agree(outs[0], outs[1], abundance_tol=2e-4)

@@ -26,6 +26,8 @@ from pantax_tpu_torch.profile import report as port_report
 from pantax_tpu_torch.profile import species as port_species
 from pantax_tpu_torch.profile.pao import solve_pao_batch
 
+from _torch_helpers import reference_on_one_device  # noqa: F401 (autouse)
+
 OUT_FILES = ("species_abundance.txt", "strain_abundance.txt",
              "ori_strain_abundance.txt", "reads_classification.tsv")
 TABLE_BUFFERS = ("hap_offsets", "hap_range", "pos_lo", "nodes_len",
@@ -318,9 +320,8 @@ def test_species_writer_byte_identical_to_pandas(filtered, tmp_path):
 
 
 def test_unported_paths_raise(tiny, reads, tmp_path):
-    pp = port_fused.FusedPipeline(tiny.aligner, tiny.tables, batch=64)
-    with pytest.raises(NotImplementedError, match="M8"):
-        pp.feed_paired()
+    """The windowed / dup-graph coverage (M9) raises; the paired feed and
+    the device tail (M5), which raised before they were ported, run."""
     codes, lens, _ = reads
     dup_hap = port_fused.FusedPipeline(tiny.aligner, tiny.tables, batch=64)
     dup_hap.tables = copy.copy(tiny.tables)
@@ -333,12 +334,20 @@ def test_unported_paths_raise(tiny, reads, tmp_path):
     dup.tables.has_dups = True
     with pytest.raises(NotImplementedError, match="M9"):
         dup.feed(codes[:64], lens[:64])
+    with pytest.raises(NotImplementedError, match="M9"):
+        dup.feed_paired(codes[:64], lens[:64], codes[64:128], lens[64:128])
     cfg = _host.ProfilingConfig.for_read_type("short")
     cfg.tail = "device"
-    with pytest.raises(NotImplementedError, match="M5"):
-        port_fused.profile_fused(tiny.aligner, codes[:256], lens[:256],
-                                 tiny.index, tiny.db, cfg, tmp_path, 256,
-                                 tables=tiny.tables)
+    assert port_fused.profile_fused(tiny.aligner, codes[:256], lens[:256],
+                                    tiny.index, tiny.db, cfg, tmp_path, 256,
+                                    tables=tiny.tables)
+    assert (tmp_path / "strain_abundance.txt").read_text().count("\n") > 1
+    # 'auto' picks the device tail on a large DB
+    cfg.tail = "auto"
+    big = copy.copy(tiny.tables)
+    assert port_fused._tail_mode(big, cfg) == "host"
+    big.N_pad = 1 << 20
+    assert port_fused._tail_mode(big, cfg) == "device"
 
 
 def test_finalize_refuses_inexact_float32_sums():

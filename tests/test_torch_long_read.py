@@ -27,6 +27,8 @@ from pantax_tpu_torch.convert import (
 from pantax_tpu_torch.ops import extend
 from pantax_tpu_torch.ops import fused as port_fused
 
+from _torch_helpers import reference_on_one_device  # noqa: F401 (autouse)
+
 OUT_FILES = ("species_abundance.txt", "strain_abundance.txt",
              "ori_strain_abundance.txt", "reads_classification.tsv")
 CHUNK, BATCH = 512, 512

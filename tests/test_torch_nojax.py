@@ -1,7 +1,8 @@
 """The port on a machine without jax, pandas and pyarrow: in a subprocess
 that blocks those imports, pantax_tpu_torch builds a complete database (no
-species silently dropped) and runs the short-read slice and the long-read
-slice on the CPU to the four output tables."""
+species silently dropped) and runs the short-read slice, the paired slice
+with the device tail and the long-read slice on the CPU to the four output
+tables."""
 import os
 import subprocess
 import sys
@@ -58,6 +59,18 @@ SCRIPT = textwrap.dedent("""
     rows = open(os.path.join(out, "strain_abundance.txt")).read().splitlines()
     assert len(rows) == 5, rows
 
+    from _torch_helpers import simulate_pairs
+
+    pipe = FusedPipeline(aligner, build_fused_tables(db, index, "cpu"), 512)
+    pipe.feed_paired(*simulate_pairs(index, 1024, seed=4))
+    cfg = _host.ProfilingConfig.for_read_type("short")
+    cfg.tail = "device"
+    paired_out = sys.argv[1] + "_paired"
+    assert profile_from_fused_result(pipe.finish(), pipe.tables, index, db,
+                                     cfg, paired_out)
+    rows = open(os.path.join(paired_out, "strain_abundance.txt")).read()
+    assert len(rows.splitlines()) == 5, rows
+
     long_al = aligner_from_reference(
         index, _host.AlignConfig.for_read_type("long"), "cpu")
     reads, _ = simulate_long_reads(index, 16, 4096, seed=9)
@@ -84,8 +97,11 @@ SCRIPT = textwrap.dedent("""
 
 
 def test_port_runs_without_jax_pandas_pyarrow(tmp_path):
-    env = dict(os.environ, TMPDIR=str(tmp_path),
-               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    # one intra-op thread: the slices are small, and under a parallel test
+    # run a thread per core in every process oversubscribes the CPU
+    env = dict(os.environ, TMPDIR=str(tmp_path), OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests"),
+                                           os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT, str(tmp_path / "out")],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=600,
