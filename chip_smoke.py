@@ -25,7 +25,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and at a pad-4 random case with N bases; hold K1 to the same outputs on
    the same candidates (K1 fetches the windows itself) and at the seeded
    pass's shape (32768 candidates of 512 bases, pad 8); time K2, its plain
-   version and K1, and K2 at 2048 to 131072 rows;
+   version and K1, K2 at 2048 to 131072 rows, and K1 and its plain version
+   at the seeded pass's shape;
 7. drive the long-read path over the same DB: 50,000 simulated HiFi-like
    reads of 8192 bp, align_long_reads with the hifi preset (chunk 512,
    seed stride 2) at batch 16384, FusedPipeline.feed_intervals, finish,
@@ -41,9 +42,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
    over 131072 candidates, phase 3's shape) and the plain DP never; >= 99%
    of the reads aligned, >= 99% species accuracy, 10 species and 30
    strains; then the host tail on the same FusedResult must report the
-   same strains with abundances within 2e-4.
+   same strains with abundances within 2e-4;
+9. drive the dup-graph path over dup_db at its defaults (10 species x 3
+   strains of 15625 64 bp nodes, a repeat node every 8 path steps, so
+   every haplotype revisits a node and the fused path takes the windowed
+   scatter): (a) has_dups set, the range scatter refused, the node window
+   printed; (b) profile_fused on 1M simulated 150 bp reads at batch 65536,
+   tail "auto", with K1 once per batch, the plain DP never, >= 99%
+   aligned, >= 99% species accuracy, 10 species and 30 strains, and the
+   windowed classify+scatter timed per batch; (c) the first 65536 reads
+   fed at the automatic window and at a window of 3 segments (which sends
+   a third of them to the host residual): identical na/ta/bc; (d) 500,000
+   FR pairs through feed_paired with K1 once per paired batch and (b)'s
+   bars; (e) 5,000 HiFi-like 8 kb reads through align_long_reads and
+   feed_intervals (every row on a revisiting haplotype: the windowed
+   scatter or the host residual), >= 95% emitted, >= 99% species accuracy,
+   10 species and 30 strains.  Phase 4 also holds the windowed feeds of a small dup community CPU ==
+   CUDA.
 
-The line before last is a JSON record of the kernels; the last line is
+The line before last is a JSON record of the kernels, each with its time,
+its plain version's, and the bound the card's peaks put on the same work
+(this run's inputs: read bytes and window bytes over the HBM rate, 5
+instructions per DP cell over the SMs' instruction issue rate); the last
+line is
 {"ok": true, "device": {...}}.  Databases and the kernel build go under
 build/ (git-ignored).
 """
@@ -64,14 +85,15 @@ from pantax_tpu_torch.align.long_read import (
     LONG_READ_PRESETS, LONG_READ_SEED_STRIDE, align_long_reads,
 )
 from pantax_tpu_torch.benchmarks import (
-    scale_db, simulate_long_reads, simulate_read_batch, tiny_db,
+    dup_db, scale_db, simulate_long_reads, simulate_read_batch, tiny_db,
 )
 from pantax_tpu_torch.convert import aligner_from_reference
 from pantax_tpu_torch.device import require_cuda
 from pantax_tpu_torch.ops import extend
 from pantax_tpu_torch.ops.fused import (
     FusedPipeline, _ensure_tail_tables, _tail_mode, build_fused_tables,
-    profile_from_fused_result, profile_fused,
+    classify_scatter, classify_scatter_ranges, profile_from_fused_result,
+    profile_fused,
 )
 
 KERNEL = {
@@ -94,6 +116,17 @@ N_READS, BATCH = 1_000_000, 65536
 N_LONG, LONG_LEN, LONG_BATCH, READ_TYPE = 50_000, 8192, 16384, "hifi"
 # the paired path: 1M reads as 500,000 pairs, in 16 batches
 N_PAIRS, PAIR_BATCH, MATE_LEN = 500_000, 32768, 150
+# the dup-graph path's long reads: few, since every row takes the windowed
+# scatter or the host residual
+N_DUP_LONG = 5000
+# the bound: HBM bytes/s of an H100 SXM (published), and the DP's
+# instructions per cell at their fewest on sm_90 (match test, score select,
+# diagonal add, and the up and the left add+max as one DPX instruction each)
+HBM_BYTES_PER_S = 3.35e12
+DP_OPS_PER_CELL = 5
+# opcodes whose counts in the kernels' SASS say how the DP was compiled
+SASS_OPS = ("VIADDMNMX", "VIMNMX", "IMNMX", "IADD3", "IMAD", "ISETP", "SEL",
+            "LOP3")
 
 
 def card_line() -> str:
@@ -103,6 +136,52 @@ def card_line() -> str:
         check=True, capture_output=True, text=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def issue_ops_per_s() -> float:
+    """The card's instruction issue peak: SMs x 4 schedulers x 32 lanes x
+    the maximum SM clock (nvidia-smi clocks.max.sm).  No mix of pipes (the
+    ALU, IMAD on the FMA pipe, DPX) issues more than one warp instruction
+    per scheduler per clock, so this bounds the DP whatever nvcc emits."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60,
+    )
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 128 * mhz * 1e6
+
+
+def sass_counts(lib_path: str) -> str:
+    """Counts of SASS_OPS in the built kernels (cuobjdump beside nvcc), or
+    why there are none."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    try:
+        out = subprocess.run([tool, "-sass", lib_path], check=True,
+                             capture_output=True, text=True, timeout=120)
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"not available ({type(e).__name__})"
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]+)",
+                     out.stdout)
+    return ", ".join(f"{op} {ops.count(op)}" for op in SASS_OPS)
+
+
+def dp_bound(lens: np.ndarray, Lr: int, pad: int,
+             issue_peak: float) -> tuple[float, str]:
+    """(bound ms, what bounds it) of the banded DP over candidates with
+    read lengths ``lens``: the rows it runs (min(len, Lr) each) times 2*pad
+    band cells at DP_OPS_PER_CELL instructions, over ``issue_peak``;
+    against the read and window bytes those rows touch plus w0, read_len
+    and the four int32 outputs, over the HBM rate."""
+    rows = np.minimum(np.asarray(lens, dtype=np.int64), Lr)
+    wb = 2 * pad
+    ops = float(rows.sum()) * wb * DP_OPS_PER_CELL
+    nbytes = float(rows.sum() + (rows + wb - 1).sum() + 6 * 4 * len(rows))
+    t_ops, t_bytes = ops / issue_peak, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def dp_case(text: np.ndarray, N: int, Lr: int, pad: int, seed: int):
@@ -276,6 +355,43 @@ def cross_device_check(build: str, dev) -> None:
     print(f"tiny DB: CPU == CUDA on {len(reads)} long reads (align_long_reads "
           f"arrays, {len(gpu.read_ids)} emitted)")
 
+    # the windowed scatter on a small dup-graph community: codes, paired
+    # and interval feeds, at the automatic window and at 3 segments (the
+    # host residual)
+    db = dup_db(os.path.join(build, "dup_small"), n_species=2, strains=2,
+                n_blocks=400)
+    index = _host.build_align_index(db)
+    codes, lens, _ = simulate_read_batch(index, 3000, 150, 0.01, seed=3)
+    pairs, _ = simulate_pairs(index, 1500, seed=4)
+    h0 = index.hap_offsets[:-1]  # per haplotype a windowed and a residual row
+    ts, te = np.concatenate([h0 + 10, h0 + 1000]), np.concatenate([h0 + 400,
+                                                                   h0 + 4000])
+    iv = (ts, te, np.full(len(ts), 60), te - ts)
+    for L_cap in (None, 3):
+        res = []
+        for d in ("cpu", dev):
+            aligner = aligner_from_reference(index, cfg, d)
+            pipe = FusedPipeline(aligner, build_fused_tables(db, index, d),
+                                 1024, L_cap)
+            pipe.feed(codes, lens)
+            pipe.feed_paired(*pairs)
+            pipe.feed_intervals(*iv)
+            r = pipe.finish()
+            res.append((r.na_d.cpu(), r.ta_d.cpu(), r.bc_d.cpu(), r.reads,
+                        r.n_overflow))
+        (na_c, ta_c, bc_c, reads_c, ov_c), (na_g, ta_g, bc_g, reads_g, ov_g) = res
+        if not (torch.equal(na_c, na_g) and torch.equal(ta_c, ta_g)
+                and torch.equal(bc_c, bc_g) and ov_c == ov_g and all(
+                    np.array_equal(reads_c[k], reads_g[k])
+                    for k in ("mapq", "aligned", "ridx", "read_len"))):
+            raise AssertionError(f"dup community: CPU and CUDA windowed feeds "
+                                 f"differ at L_cap={L_cap}")
+        if pipe.use_ranges or (ov_g > 0) != (L_cap is not None):
+            raise AssertionError("dup community: not the windowed scatter, or "
+                                 "no overflow at the forced window")
+        print(f"dup community: CPU == CUDA on the windowed feeds at L_cap "
+              f"{pipe.L_cap} (na/ta/bc, per-read, {ov_g} overflowing reads)")
+
 
 def read_table(path):
     lines = open(path).read().splitlines()
@@ -287,8 +403,8 @@ def check_tables(out: str, truth_species, n_reads: int, n_out: int,
                  what: str, min_frac: float = 0.95):
     """Species accuracy over reads_classification.tsv (ids: one letter and
     the read's index), the fraction of reads ``what`` (``n_out`` of
-    ``n_reads``, at least ``min_frac``) and the species / strain tables;
-    raises below the smoke's bars."""
+    ``n_reads``, at least ``min_frac``) and the species / strain tables
+    (10 species and 30 strains); raises below the smoke's bars."""
     n_ok = n_cls = 0
     with open(os.path.join(out, "reads_classification.tsv")) as f:
         for line in f:
@@ -554,13 +670,183 @@ def paired_path(build: str, dev, db, index, tables):
     return launches["banded_extend"]
 
 
+def dup_path(build: str, dev):
+    """Phase 9: the dup-graph community through the windowed scatter.
+    Returns K1's launches by path and K2's on the long reads."""
+    t0 = time.time()
+    db = dup_db(os.path.join(build, "dup_db"))
+    index = _host.build_align_index(db)
+    tables = build_fused_tables(db, index, dev)
+    print(f"dup DB build (or cache load) + index + tables: "
+          f"{time.time() - t0:.2f} s, text {index.text_len} bases, "
+          f"{len(index.hap_names)} haplotypes, has_dups {tables.has_dups}, "
+          f"{int(tables.hap_dup.sum())} revisiting haplotypes")
+    if not (tables.has_dups and tables.hap_dup.all()):
+        raise AssertionError("dup DB: haplotypes do not revisit nodes")
+    aligner = aligner_from_reference(index, _host.AlignConfig(), dev)
+    codes, lens, hap = simulate_read_batch(index, N_READS, 150, 0.01, seed=3)
+    truth = np.asarray(index.hap_species, dtype=object)
+
+    # (b) single-end reads through profile_fused, tail "auto"
+    cfg = _host.ProfilingConfig.for_read_type("short")
+    cfg.solver = "admm"
+    out = os.path.join(build, "smoke_dup_out")
+    shutil.rmtree(out, ignore_errors=True)
+    stage = {}
+    extend.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    profile_fused(aligner, codes, lens, index, db, cfg, out, BATCH,
+                  tables=tables, stage_out=stage)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(extend.LAUNCHES)
+    L_cap = stage["L_cap"]
+    if L_cap is None:
+        raise AssertionError("dup DB: profile_fused took the range scatter")
+    align_s = stage["align_cover_s"]
+    print(f"dup: windowed scatter at L_cap {L_cap} (tail '{_tail_mode(tables, cfg)}'); "
+          f"align+cover {align_s:.3f} s, profile {wall - align_s:.3f} s, "
+          f"e2e {wall:.3f} s for {N_READS} reads "
+          f"({N_READS / wall:.0f} reads/s e2e); {stage['n_overflow']} "
+          f"overflowing reads")
+    print(f"dup: K1 launches {launches['banded_extend']} for "
+          f"{stage['n_batches']} batches; plain DP runs "
+          f"{launches['banded_extend_plain']}")
+    if launches["banded_extend"] != stage["n_batches"]:
+        raise AssertionError("K1 was not launched exactly once per batch")
+    if launches["banded_extend_plain"] != 0:
+        raise AssertionError("the plain DP ran on the CUDA dup path")
+    check_tables(out, truth[hap], N_READS, stage["n_aligned"], "aligned",
+                 min_frac=0.99)
+    by_path = {"dup_short": launches["banded_extend"]}
+
+    # the windowed classify+scatter of one batch, against the range scatter
+    # of the same intervals (same reads, not exact on this DB: timing only)
+    up = aligner.upload(codes[:BATCH], lens[:BATCH])
+    ts, te, _s, _m, _q, _st, aligned = aligner.query(*up)
+    pipe = FusedPipeline(aligner, tables, BATCH)
+    win_ms = cuda_ms(lambda: classify_scatter(
+        ts, te, aligned, tables, aligner.tstart, aligner.tnode, pipe.acc,
+        L_cap), 20)
+    rng_ms = cuda_ms(lambda: classify_scatter_ranges(
+        ts, te, aligned, tables, aligner.tstart, aligner.tnode, pipe.acc), 20)
+    print(f"dup: windowed classify+scatter {win_ms:.3f} ms per batch of "
+          f"{BATCH} reads at L_cap {L_cap} (the range scatter over the same "
+          f"intervals {rng_ms:.3f} ms)")
+
+    # (c) the first batch at the automatic window and at 3 segments
+    res = []
+    for cap in (L_cap, 3):
+        pipe = FusedPipeline(aligner, tables, BATCH, cap)
+        pipe.feed(codes[:BATCH], lens[:BATCH])
+        res.append(pipe.finish())
+    (auto, forced) = res
+    if not (torch.equal(auto.na_d, forced.na_d)
+            and torch.equal(auto.ta_d, forced.ta_d)
+            and torch.equal(auto.bc_d, forced.bc_d)):
+        raise AssertionError("dup: na/ta/bc differ between L_cap "
+                             f"{L_cap} and 3")
+    print(f"dup: na/ta/bc identical at L_cap {L_cap} ({auto.n_overflow} "
+          f"overflowing) and L_cap 3 ({forced.n_overflow} overflowing of "
+          f"{BATCH}, through the host residual)")
+    if forced.n_overflow <= 0:
+        raise AssertionError("dup: L_cap 3 forced no overflow")
+
+    # (d) pairs through the windowed paired step
+    (c1, l1, c2, l2), phap = simulate_pairs(index, N_PAIRS, seed=13)
+    ids1 = [f"A{i}" for i in range(N_PAIRS)]
+    ids2 = [f"B{i}" for i in range(N_PAIRS)]
+    out = os.path.join(build, "smoke_dup_paired_out")
+    shutil.rmtree(out, ignore_errors=True)
+    extend.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    pipe = FusedPipeline(aligner, tables, PAIR_BATCH)
+    pipe.feed_paired(c1, l1, c2, l2, ids1=ids1, ids2=ids2)
+    result = pipe.finish()
+    t_align = time.time() - t0
+    stage = {}
+    profile_from_fused_result(result, tables, index, db, cfg, out,
+                              stage_out=stage)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(extend.LAUNCHES)
+    split = ", ".join(f"{k} {v:.3f}" for k, v in stage.items())
+    print(f"dup paired: align+cover {t_align:.3f} s for {N_PAIRS} pairs "
+          f"({pipe.n_batches} batches, L_cap {pipe.L_cap}, "
+          f"{result.n_overflow} overflowing reads), profile "
+          f"{wall - t_align:.3f} s ({split}), e2e {wall:.3f} s; K1 launches "
+          f"{launches['banded_extend']}, plain DP runs "
+          f"{launches['banded_extend_plain']}")
+    if pipe.use_ranges or launches["banded_extend"] != pipe.n_batches:
+        raise AssertionError("K1 was not launched once per windowed paired batch")
+    if launches["banded_extend_plain"] != 0:
+        raise AssertionError("the plain DP ran on the CUDA dup paired path")
+    check_tables(out, truth[phap], 2 * N_PAIRS,
+                 int(result.reads["aligned"].sum()), "aligned", min_frac=0.99)
+    by_path["dup_paired"] = launches["banded_extend"]
+
+    # (e) long reads: every row on a revisiting haplotype
+    long_al = aligner_from_reference(
+        index, _host.AlignConfig.for_read_type("long"), dev)
+    chunk, stride = LONG_READ_PRESETS[READ_TYPE], LONG_READ_SEED_STRIDE[READ_TYPE]
+    reads, lhap = simulate_long_reads(index, N_DUP_LONG, LONG_LEN, seed=9)
+    cfg = _host.ProfilingConfig.for_read_type("long")
+    cfg.solver = "admm"
+    out = os.path.join(build, "smoke_dup_long_out")
+    shutil.rmtree(out, ignore_errors=True)
+    stage = {}
+    extend.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    merged = align_long_reads(long_al, reads, chunk=chunk,
+                              batch_size=LONG_BATCH, seed_stride=stride,
+                              as_arrays=True, stage_out=stage)
+    t_align = time.time() - t0
+    pipe = FusedPipeline(long_al, tables, LONG_BATCH)
+    pipe.feed_intervals(merged.ts, merged.te, merged.mapq, merged.read_len,
+                        ids=merged.read_ids)
+    result = pipe.finish()
+    torch.cuda.synchronize()
+    t_feed = time.time() - t0 - t_align
+    profile_from_fused_result(result, tables, index, db, cfg, out)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(extend.LAUNCHES)
+    print(f"dup long: align {t_align:.3f} s, feed+finish {t_feed:.3f} s, "
+          f"profile {wall - t_align - t_feed:.3f} s for {N_DUP_LONG} reads; "
+          f"interval rows {pipe.interval_rows} in {pipe.n_interval_batches} "
+          f"windowed batches; K1 launches {launches['banded_extend']} "
+          f"({stage['seeded_batches']} seeded batches), K2 launches "
+          f"{launches['banded_extend_windows']} ({stage['rescue_batches']} "
+          f"rescue batches); plain DP runs {launches['banded_extend_plain']} "
+          f"(K1) and {launches['banded_extend_windows_plain']} (K2)")
+    if (launches["banded_extend"] != stage["seeded_batches"]
+            or launches["banded_extend_windows"] != stage["rescue_batches"]):
+        raise AssertionError("dup long: K1 / K2 not once per seeded / rescue batch")
+    if launches["banded_extend_plain"] or launches["banded_extend_windows_plain"]:
+        raise AssertionError("a plain DP ran on the CUDA dup long-read path")
+    if pipe.interval_rows["range"]:
+        raise AssertionError("dup long: rows took the range scatter")
+    check_tables(out, truth[lhap], N_DUP_LONG, len(merged.read_ids),
+                 "emitted")
+    by_path["dup_long"] = launches["banded_extend"]
+    return by_path, launches["banded_extend_windows"]
+
+
 def main() -> None:
     dev = require_cuda()
     print(card_line())
+    issue_peak = issue_ops_per_s()
+    print(f"issue peak {issue_peak / 1e12:.2f} T instructions/s (SMs x 128 "
+          f"lanes x the maximum SM clock); HBM {HBM_BYTES_PER_S / 1e12:.2f} "
+          f"TB/s")
     build = str(extend.build_dir())
     t0 = time.time()
-    extend.build_kernels()
+    lib = extend.build_kernels()
     print(f"kernel build (K1, K2) {time.time() - t0:.2f} s")
+    print(f"SASS of K1 and K2: {sass_counts(lib._name)}")
     entry = ""
     for ln in extend.BUILD_LOG.splitlines():
         m = re.search(r"(banded_extend\w*_kernel)ILi(\d+)E", ln)
@@ -575,30 +861,45 @@ def main() -> None:
     err2, _, _ = check_kernel(text8, dev, 4096, 96, 8, seed=2, timed=False)
     cross_device_check(build, dev)
     (launches, err1, ms, plain_ms), (db, index, tables) = main_path(build, dev)
+    bound1, by1 = dp_bound(dp_case(index.text, 2 * BATCH, 160, 4, seed=1)[2],
+                           160, 4, issue_peak)
 
     chunk = LONG_READ_PRESETS[READ_TYPE]
     err_k2, err1_r, ms2, plain_ms2, k1_ms = check_windows_kernel(
         index.text, dev, LONG_BATCH, chunk, 8, seed=4, n_bases=0.0,
         timed=True)
+    bound2, by2 = dp_bound(dp_case(index.text, LONG_BATCH, chunk, 8, seed=4)[2],
+                           chunk, 8, issue_peak)
     err_k2r, _, _, _, _ = check_windows_kernel(
         text8, dev, 4096, 96, 4, seed=5, n_bases=0.01, timed=False)
     k2_scaling(index.text, dev, chunk, 8)
     # K1 at the seeded pass's shape (two strands per chunk), over this text
-    err1_l, _, _ = check_kernel(index.text, dev, 2 * LONG_BATCH, chunk, 8,
-                                seed=6, timed=False)
+    err1_l, ms1_l, _ = check_kernel(index.text, dev, 2 * LONG_BATCH, chunk, 8,
+                                    seed=6, timed=True)
+    bound1_l, _ = dp_bound(dp_case(index.text, 2 * LONG_BATCH, chunk, 8,
+                                   seed=6)[2], chunk, 8, issue_peak)
+    print(f"bounds: K1 {bound1:.4f} ms ({by1}) at N={2 * BATCH} Lr=160 pad=4, "
+          f"{bound1_l:.4f} ms at N={2 * LONG_BATCH} Lr={chunk} pad=8; K2 "
+          f"{bound2:.4f} ms ({by2}) at N={LONG_BATCH} Lr={chunk} pad=8")
     long_launches = long_path(build, dev, db, index, tables)
     paired_launches = paired_path(build, dev, db, index, tables)
+    dup_launches, dup_k2 = dup_path(build, dev)
 
+    k1_by_path = {"short": launches, "long": long_launches["banded_extend"],
+                  "paired": paired_launches, **dup_launches}
+    k2_by_path = {"long": long_launches["banded_extend_windows"],
+                  "dup_long": dup_k2}
     print(json.dumps({"kernels": [
-        dict(KERNEL, launches=(launches + long_launches["banded_extend"]
-                               + paired_launches),
-             launches_by_path={"short": launches,
-                               "long": long_launches["banded_extend"],
-                               "paired": paired_launches},
+        dict(KERNEL, launches=sum(k1_by_path.values()),
+             launches_by_path=k1_by_path,
              max_abs_err=max(err1, err2, err1_r, err1_l), ms=ms,
-             plain_ms=plain_ms),
-        dict(KERNEL2, launches=long_launches["banded_extend_windows"],
+             plain_ms=plain_ms, bound_ms=bound1, bound_by=by1,
+             library_ms=None, long_seeded_ms=ms1_l,
+             long_seeded_bound_ms=bound1_l),
+        dict(KERNEL2, launches=sum(k2_by_path.values()),
+             launches_by_path=k2_by_path,
              max_abs_err=max(err_k2, err_k2r), ms=ms2, plain_ms=plain_ms2,
+             bound_ms=bound2, bound_by=by2, library_ms=None,
              k1_same_candidates_ms=k1_ms),
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""Synthetic workloads for the port: the reference's community databases and
-its short- and long-read simulators (pantax_tpu/benchmarks.py imports the
+"""Synthetic workloads for the port: the reference's community databases
+(tiny, scale, and the dup-graph community of tools/dup_bench.py) and its
+short- and long-read simulators (pantax_tpu/benchmarks.py imports the
 JAX Aligner at its top, so these are counterparts; tests hold them equal)."""
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ from . import _host
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 _CODE2BASE = np.frombuffer(b"ACGTN", dtype=np.uint8)
+_DUP_BLOCK = 64  # dup_db's node length (bp)
+_DUP_SNP_RATE = 0.01  # dup_db's strain SNP rate
 
 
 def tiny_db(root: str | os.PathLike | None = None):
@@ -67,6 +70,81 @@ def scale_db(path, n_species: int = 10, strains_per: int = 3,
     info_file = root / "genomes_info.txt"
     _host.write_genomes_info(info_file, infos)
     return _host.build_database(info_file, root / "db", base_dir=root)
+
+
+def _dup_species(root: Path, gfa_dir: Path, sp: int, rng, strains: int,
+                 n_blocks: int, repeat_every: int) -> list:
+    """One species of dup_db: its GFA (under ``gfa_dir``) and one FASTA per
+    strain; returns the GenomeInfo rows.  Nodes are _DUP_BLOCK-bp blocks; a
+    strain block with at least one SNP is a private node, an SNP-free one
+    shares the species' reference node, and one repeat node shared by every
+    haplotype recurs every ``repeat_every`` path steps."""
+    block = _DUP_BLOCK
+    repeat_seq = _BASES[rng.integers(0, 4, size=block)].tobytes()
+    pos_is_rep = (np.arange(n_blocks) % repeat_every) == (repeat_every - 1)
+    ref_blocks = {int(i): _BASES[rng.integers(0, 4, size=block)]
+                  for i in np.flatnonzero(~pos_is_rep)}
+    node_seqs: list[bytes] = [repeat_seq]
+    rep_node = 0
+    ref_node_of: dict[int, int] = {}
+    paths, infos = {}, []
+    for st in range(strains):
+        var_node_of = {}
+        for i in sorted(ref_blocks):
+            m = rng.random(block) < _DUP_SNP_RATE
+            if not m.any():
+                if i not in ref_node_of:
+                    ref_node_of[i] = len(node_seqs)
+                    node_seqs.append(ref_blocks[i].tobytes())
+                continue
+            blk = ref_blocks[i].copy()
+            blk[m] = _BASES[rng.integers(0, 4, size=int(m.sum()))]
+            var_node_of[i] = len(node_seqs)
+            node_seqs.append(blk.tobytes())
+        path = [rep_node if pos_is_rep[i]
+                else var_node_of.get(i, ref_node_of.get(i, rep_node))
+                for i in range(n_blocks)]
+        hap = f"GCF_{900 + sp}{chr(97 + st)}.1_x"
+        paths[hap] = path
+        fa = f"{hap}_genomic.fna"
+        _host.write_fasta(root / fa, [(f"c{sp}{st}", b"".join(
+            node_seqs[n] for n in path))])
+        infos.append(_host.GenomeInfo(hap, f"{900 + sp}.{st + 1}",
+                                      str(900 + sp), "synthetic-dup", fa))
+    with open(gfa_dir / f"{900 + sp}.gfa", "wb") as f:
+        f.write(b"H\tVN:Z:1.1\n")
+        for ni, seq in enumerate(node_seqs):
+            f.write(b"S\t%d\t%s\n" % (ni + 1, seq))
+        for hap, path in paths.items():
+            walk = b"".join(b">%d" % (n + 1) for n in path)
+            f.write(b"W\t%s\t0\tmerged\t0\t%d\t%s\n"
+                    % (hap.encode(), len(path) * block, walk))
+    return infos
+
+
+def dup_db(path, n_species: int = 10, strains: int = 3,
+           n_blocks: int = 15625, repeat_every: int = 8, seed: int = 11):
+    """Synthetic community whose haplotypes revisit a node (cached at
+    ``path``): the graph shape of pggb-built pangenomes, which the fused
+    path covers with the windowed scatter.  n_species x strains haplotypes
+    of n_blocks 64 bp nodes (~1 Mb at the defaults), 1% strain SNPs, a
+    shared repeat node every ``repeat_every`` steps; the GFAs are imported
+    through build_database's ``gfa_dir``.  The counterpart of the
+    reference's tools/dup_bench.py community (tests hold the files equal)."""
+    root = Path(path)
+    if (root / "db" / "species_range.txt").exists():
+        return _host.load_database(root / "db")
+    gfa_dir = root / "gfa"
+    gfa_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    infos = []
+    for sp in range(n_species):
+        infos.extend(_dup_species(root, gfa_dir, sp, rng, strains, n_blocks,
+                                  repeat_every))
+    info_file = root / "genomes_info.txt"
+    _host.write_genomes_info(info_file, infos)
+    return _host.build_database(info_file, root / "db", base_dir=root,
+                                gfa_dir=gfa_dir)
 
 
 def simulate_read_batch(index, n_reads: int, read_len: int, error_rate: float,

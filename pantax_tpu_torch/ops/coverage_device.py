@@ -1,6 +1,7 @@
-"""Padded global coverage tables and the coverage finalize, PyTorch port of
-pantax_tpu/ops/coverage_device.py (the parts the range-decomposition path
-uses: build_padded_tables :443 and _coverage_finalize :303)."""
+"""Padded global coverage tables, the windowed coverage scatter and the
+coverage finalize, PyTorch port of pantax_tpu/ops/coverage_device.py (the
+parts the fused path uses: build_padded_tables :443, _coverage_scatter :110
+and _coverage_finalize :303)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -53,6 +54,97 @@ def build_padded_tables(nodes_len, trio_len) -> PaddedCoverageTables:
         N=N, U=U, N_pad=N_pad, TB_pad=_pow2(int(base_offset[-1])),
         U_pad=U_pad,
     )
+
+
+def _add(acc, idx, val) -> None:
+    acc.index_add_(0, idx.reshape(-1).to(torch.int64),
+                   val.reshape(-1).to(acc.dtype))
+
+
+def coverage_scatter(nodes, lengths, read_start, read_end, nodes_len,
+                     base_offset, acc, *, has_dups: bool,
+                     trio_match=None) -> None:
+    """Add the coverage of padded node-path rows to ``acc`` = (bases int64
+    [N + 1], diff int32 [TB + 1], trio int64 [U + 1]) in place: the
+    reference's first / middle / last base allocation, bases credited at a
+    node's first occurrence within a row only, the per-base interval
+    difference array, and each matched 3-window's allocation sum.
+
+    ``nodes`` int [R, L] holds global 0-based node ids (-1 pad), ``lengths``
+    the path length of each row (0 drops the row), ``read_start`` /
+    ``read_end`` the offsets into the first node.  ``has_dups=False``
+    promises that no node repeats within a row (every occurrence is then a
+    first occurrence).  ``trio_match`` int [R, L - 2] is each window's
+    unique-trio index or -1; without it no trio window is counted (the
+    hash lookup of arbitrary node paths belongs to the GAF flow, ROADMAP
+    M11).  The last slot of bases and trio is the sink of dropped entries;
+    diff's last entry is the sentinel the finalize excludes."""
+    acc_b, acc_d, acc_t = acc
+    if has_dups and nodes.shape[1] > 64:
+        raise NotImplementedError(
+            "first-occurrence dedup over rows wider than 64 nodes (the sort "
+            "and carry-scan formulation) is the GAF flow's: ROADMAP M11")
+    i64 = torch.int64
+    R, L = nodes.shape
+    lengths, read_start, read_end = (a.to(i64) for a in
+                                     (lengths, read_start, read_end))
+    pos = torch.arange(L, device=nodes.device)[None, :]
+    valid = pos < lengths[:, None]
+    node_ids = torch.where(valid, nodes.to(i64), 0)
+    nlen = nodes_len[node_ids].to(i64)
+
+    is_first = pos == 0
+    is_last = pos == (lengths - 1)[:, None]
+    target = (read_end - read_start)[:, None]
+    single = lengths[:, None] == 1
+    alloc_nolast = torch.where(is_first, nlen - read_start[:, None], nlen)
+    alloc_tmp = torch.where(valid, alloc_nolast, 0)
+    seen_before = torch.cumsum(alloc_tmp, dim=1) - alloc_tmp
+    alloc = torch.where(is_last, (target - seen_before).clamp(min=0),
+                        alloc_nolast)
+    alloc = torch.where(single, target, alloc)
+    start_idx = torch.where(is_first | single, read_start[:, None], 0)
+    dropped = single[:, 0] & (target[:, 0] < 0)
+    valid = valid & ~dropped[:, None]
+    alloc = torch.where(valid, alloc, 0)
+
+    if has_dups:
+        # k_first[r, j]: the first position of row r holding node[r, j].  The
+        # first occurrence's allocation is gathered, in integers, where the
+        # reference multiplies a float32 one-hot by it
+        nid = torch.where(valid, node_ids, -1)
+        eq = ((nid[:, None, :] == nid[:, :, None])
+              & valid[:, None, :] & valid[:, :, None])  # [R, k, j]
+        k_first = torch.where(eq, pos[:, :, None], L).amin(dim=1)
+        first_occ = valid & (k_first == pos)
+        per_pos_val = torch.where(
+            valid, alloc.gather(1, k_first.clamp(max=L - 1)), 0)
+    else:
+        first_occ = valid
+        per_pos_val = alloc
+
+    _add(acc_b, torch.where(first_occ, node_ids, acc_b.shape[0] - 1),
+         torch.where(first_occ, alloc, 0))
+
+    lo_in = torch.minimum(start_idx.clamp(min=0), nlen)
+    hi_in = torch.minimum(torch.maximum(start_idx + alloc, lo_in), nlen)
+    bo = base_offset[node_ids].to(i64)
+    in_bounds = ((read_start < read_end)[:, None]
+                 & (read_end[:, None] <= nlen))
+    keep = valid & (~single | in_bounds)
+    TB = acc_d.shape[0] - 1
+    d_lo = torch.where(keep, bo + lo_in, TB)
+    d_hi = torch.where(keep, bo + hi_in, TB)
+    _add(acc_d, d_lo, torch.ones_like(d_lo))
+    _add(acc_d, d_hi, -torch.ones_like(d_hi))
+
+    if trio_match is not None and L >= 3:
+        w_valid = ((pos[:, :L - 2] + 2) < lengths[:, None]) & (
+            lengths >= 3)[:, None]
+        win_sum = per_pos_val[:, :-2] + per_pos_val[:, 1:-1] + per_pos_val[:, 2:]
+        hit = w_valid & (trio_match >= 0)
+        _add(acc_t, torch.where(hit, trio_match.to(i64), acc_t.shape[0] - 1),
+             win_sum)
 
 
 def coverage_finalize(bases_per_node, diff, trio_bases, nodes_len,

@@ -1,24 +1,29 @@
 """Fused align -> classify -> coverage pipeline and the short-read profiling
-entry point, PyTorch port of pantax_tpu/ops/fused.py (range-decomposition
-path).
+entry point, PyTorch port of pantax_tpu/ops/fused.py.
 
 Per read batch, one pass on the device: the aligner query, the haplotype
-classification, and ~12 scatter-adds per read into five accumulators
-(``classify_scatter_ranges``).  Segment-space depth diffs fold into the
-node / base / trio accumulators once at finish (``expand_ranges``), then the
-coverage finalize runs and the profile tail (species stage, strain
-filters, two-stage PAO, report) writes the tables: the host tail over
-downloaded arrays, or the device tail (ops/profile_tail.py) over the
-arrays where they lie.
+classification, and the coverage scatter into the accumulators.  Two
+formulations, chosen per DB as the reference chooses them:
 
-Only the range decomposition is ported: it is what the reference picks on
-every DB whose haplotypes never revisit a node within one read's span.
+- the range decomposition (``classify_scatter_ranges``): ~12 scatter-adds
+  per read, segment-space depth diffs folded into the node / base / trio
+  accumulators once at finish (``expand_ranges``); exact on DBs whose
+  haplotypes never revisit a node within one read's span;
+- the windowed scatter (``classify_scatter``): each read's first ``L_cap``
+  segments as a padded node-path row (``coverage_scatter``, with the
+  first-occurrence dedup where a haplotype revisits a node).  Reads that
+  span more segments are counted and left out of the device scatter; their
+  contributions come from the host oracle (``host_residual_updates``) at
+  finish.
+
 Paired feeds run the joint mate query and scatter both mates
 (``feed_paired``); interval feeds (the long-read flow's merged per-read
-alignments) take the same range scatter without the query
-(``feed_intervals``).  The windowed / dup-graph path (and the interval rows
-on haplotypes that revisit a node) raises NotImplementedError naming its
-ROADMAP item.
+alignments) take the range scatter on dup-free haplotypes, the windowed
+scatter for short spans on haplotypes that revisit a node, and the host
+residual beyond (``feed_intervals``).  Then the coverage finalize runs and
+the profile tail (species stage, strain filters, two-stage PAO, report)
+writes the tables: the host tail over downloaded arrays, or the device tail
+(ops/profile_tail.py) over the arrays where they lie.
 
 Accumulator layout: every scatter target carries one extra sink slot that
 takes the reference's out-of-range "drop" indices (torch's index_add_
@@ -39,7 +44,9 @@ import torch
 from torch import nn
 
 from .. import _host
-from .coverage_device import build_padded_tables, coverage_finalize
+from .coverage_device import (
+    _add, build_padded_tables, coverage_finalize, coverage_scatter,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -82,6 +89,36 @@ def node_span_bound(index, read_pad: int, band: int = 16) -> int:
     i = np.arange(len(tstart) - 1)
     te = tstart[i + 1] - 1 + W
     return int((np.searchsorted(tstart, te, side="left") - i).max()) + 1
+
+
+def overflow_fraction(index, read_pad: int, K: int, band: int = 16) -> float:
+    """Fraction of text start positions whose alignment would span more
+    than K segments (classify_scatter's overflow predicate at L_cap=K):
+    position p in segment i overflows iff p + W - 1 >= tstart[i + K]."""
+    tstart = np.asarray(index.tstart, dtype=np.int64)
+    M = len(tstart)
+    if M <= K:
+        return 0.0
+    W = read_pad + band + 2
+    i = np.arange(M - K)
+    lo = np.maximum(tstart[i], tstart[i + K] - W + 1)
+    hi = np.concatenate([tstart[1:], [index.text_len]])[i]
+    return float(np.maximum(hi - lo, 0).sum()) / max(index.text_len, 1)
+
+
+def auto_node_window(index, read_pad: int, band: int = 16) -> int:
+    """The windowed scatter's node window: the smallest power-of-two K whose
+    overflow rate (at the read length, band 0) stays under 1/256 of the
+    text, else the worst-case span bound rounded up to a power of two and
+    clamped to [4, 64].  Overflowing reads take the exact host residual."""
+    exact = max(4, min(1 << int(np.ceil(np.log2(
+        node_span_bound(index, read_pad, band)))), 64))
+    for K in (4, 8, 16, 32):
+        if K >= exact:
+            break
+        if overflow_fraction(index, read_pad, K, band=0) <= 1.0 / 256:
+            return K
+    return exact
 
 
 def _build_trio_seg(index, species, hap_range) -> np.ndarray:
@@ -221,10 +258,6 @@ def locate_segment(tstart, pos_lo, win_shift: int, steps: int, ts):
     return (lo_s - 1).clamp(0, M - 1)
 
 
-def _add(acc, idx, val) -> None:
-    acc.index_add_(0, idx.to(torch.int64), val.to(acc.dtype))
-
-
 def classify_scatter_ranges(ts, te, aligned, tables: FusedTables, tstart,
                             tnode, acc) -> torch.Tensor:
     """Classify aligned intervals by haplotype and add their coverage to
@@ -287,6 +320,45 @@ def classify_scatter_ranges(ts, te, aligned, tables: FusedTables, tstart,
     return ridx
 
 
+def classify_scatter(ts, te, aligned, tables: FusedTables, tstart, tnode,
+                     acc, L_cap: int):
+    """Windowed classify+scatter: classify aligned intervals by haplotype,
+    cut each read's first ``L_cap`` segments into a node-path row and add
+    its coverage to acc[:3] in place (coverage_scatter, with the per-segment
+    trio matches of ``tables.trio_seg``).  A read that spans more than
+    ``L_cap`` segments is left out; returns (ridx, overflow), overflow the
+    aligned reads left out."""
+    t = tables
+    M = tstart.shape[0]
+    h = (torch.searchsorted(t.hap_offsets, ts, right=True) - 1).clamp(
+        0, t.hap_range.shape[0] - 1)
+    ridx = torch.where(aligned, t.hap_range[h], -1)
+
+    i0 = locate_segment(tstart, t.pos_lo, t.win_shift, t.pos_steps, ts)
+    nxt = i0[:, None] + torch.arange(1, L_cap + 1, device=ts.device)[None, :]
+    starts_win = torch.where(nxt < M, tstart[nxt.clamp(max=M - 1)],
+                             torch.iinfo(torch.int32).max)
+    te1 = torch.maximum(te - 1, ts)
+    n_more = (starts_win <= te1[:, None]).sum(dim=1)
+    overflow = aligned & (n_more >= L_cap)
+    span = (n_more + 1).clamp(1, L_cap)
+
+    keep = aligned & (ridx >= 0) & ~overflow
+    cols = torch.arange(L_cap, device=ts.device)[None, :]
+    take = (i0[:, None] + cols).clamp(max=M - 1)
+    nodes = torch.where((cols < span[:, None]) & keep[:, None],
+                        tnode[take] - 1, -1)
+    read_start = torch.where(keep, ts - tstart[i0], 0)
+    # windows are consecutive segments of one haplotype: one gather of the
+    # per-segment trio table replaces the trio lookup
+    trio_match = t.trio_seg[take[:, :L_cap - 2]] if L_cap >= 3 else None
+    coverage_scatter(nodes, torch.where(keep, span, 0), read_start,
+                     torch.where(keep, read_start + (te - ts), 0),
+                     t.nodes_len, t.base_offset, acc[:3],
+                     has_dups=t.has_dups, trio_match=trio_match)
+    return ridx, overflow
+
+
 def expand_ranges(acc, tables: FusedTables, tnode) -> None:
     """Fold the segment-space depth diffs into the node / base-diff / trio
     accumulators in place: depth[i] full copies of segment i's node and
@@ -319,26 +391,101 @@ def narrow_per_read_nov(ts, te, mapq, aligned, ridx):
             mapq.to(torch.int8), aligned, ridx.to(torch.int16))
 
 
-def fused_step_ranges(aligner, tables: FusedTables, codes, read_len, acc):
-    """One batch: aligner query + range scatter into ``acc`` (in place);
-    returns narrow_per_read_nov's five per-read columns."""
+def _scatter_step(ts, te, mapq, aligned, aligner, tables: FusedTables, acc,
+                  L_cap: int | None):
+    """The scatter half of a fused step: the range scatter (``L_cap`` None)
+    or the windowed scatter at ``L_cap``; returns (narrow_per_read_nov's
+    five per-read columns, the overflow mask or None)."""
+    if L_cap is None:
+        ridx, overflow = classify_scatter_ranges(
+            ts, te, aligned, tables, aligner.tstart, aligner.tnode,
+            acc), None
+    else:
+        ridx, overflow = classify_scatter(ts, te, aligned, tables,
+                                          aligner.tstart, aligner.tnode, acc,
+                                          L_cap)
+    return narrow_per_read_nov(ts, te, mapq, aligned, ridx), overflow
+
+
+def fused_step(aligner, tables: FusedTables, codes, read_len, acc,
+               L_cap: int | None = None):
+    """One batch: aligner query + scatter into ``acc`` (in place), by the
+    range decomposition or (``L_cap`` given) the windowed scatter; returns
+    (the five per-read columns, the overflow mask or None)."""
     ts, te, _score, _matches, mapq, _strand, aligned = aligner.query(
         codes, read_len)
-    ridx = classify_scatter_ranges(ts, te, aligned, tables, aligner.tstart,
-                                   aligner.tnode, acc)
-    return narrow_per_read_nov(ts, te, mapq, aligned, ridx)
+    return _scatter_step(ts, te, mapq, aligned, aligner, tables, acc, L_cap)
 
 
-def fused_step_paired_ranges(aligner, tables: FusedTables, codes1, len1,
-                             codes2, len2, acc):
-    """One paired batch: the joint mate query + the range scatter of the
-    [2B] mate intervals (mate 1 then mate 2) into ``acc`` (in place);
-    returns narrow_per_read_nov's five [2B] per-read columns."""
+def fused_step_paired(aligner, tables: FusedTables, codes1, len1, codes2,
+                      len2, acc, L_cap: int | None = None):
+    """One paired batch: the joint mate query + the scatter of the [2B]
+    mate intervals (mate 1 then mate 2) into ``acc`` (in place), as
+    fused_step; returns the five [2B] per-read columns and the [2B]
+    overflow mask or None."""
     r1, r2 = aligner.query_paired(codes1, len1, codes2, len2)
     ts, te, mapq, aligned = (torch.cat([r1[i], r2[i]]) for i in (0, 1, 4, 6))
-    ridx = classify_scatter_ranges(ts, te, aligned, tables, aligner.tstart,
-                                   aligner.tnode, acc)
-    return narrow_per_read_nov(ts, te, mapq, aligned, ridx)
+    return _scatter_step(ts, te, mapq, aligned, aligner, tables, acc, L_cap)
+
+
+# ---------------------------------------------------------------------------
+# host residual: the coverage of reads the windowed scatter left out (more
+# segments than its window, or long spans on haplotypes that revisit a
+# node), from the host oracle the device scatter is held to
+# ---------------------------------------------------------------------------
+def host_residual_updates(index, tables: FusedTables, ts, te, ridx):
+    """Global-space coverage addends of classified intervals: per species,
+    the intervals projected onto their node paths and the host oracle's
+    raw addends (profile/coverage.py raw_contributions), shifted by the
+    species' node / base / trio offsets.  Returns int64 (node idx, bases,
+    diff lo, diff hi, trio idx, trio value)."""
+    tstart = np.asarray(index.tstart, dtype=np.int64)
+    tnode = np.asarray(index.tnode, dtype=np.int64)
+    ts = np.asarray(ts, dtype=np.int64)
+    ridx = np.asarray(ridx, dtype=np.int64)
+    # clamp each interval to the haplotype that classified it (by ts): a
+    # mismatching tail past the separator would otherwise project onto
+    # another species' segments
+    hap = np.clip(np.searchsorted(index.hap_offsets, ts, side="right") - 1,
+                  0, len(index.hap_offsets) - 2)
+    te = np.minimum(np.asarray(te, dtype=np.int64),
+                    index.hap_offsets[hap + 1] - 1)
+    te = np.maximum(te, ts + 1)
+    parts = []
+    for rj in np.unique(ridx):
+        sp = tables.species[int(rj)]
+        sel = ridx == rj
+        s_ts, s_te = ts[sel], te[sel]
+        i0 = np.searchsorted(tstart, s_ts, side="right") - 1
+        i1 = np.searchsorted(tstart, np.maximum(s_te - 1, s_ts),
+                             side="right") - 1
+        span = i1 - i0 + 1
+        cols = np.arange(int(span.max()))
+        take = np.clip(i0[:, None] + cols[None, :], 0, len(tnode) - 1)
+        valid = cols[None, :] < span[:, None]
+        nodes = np.where(valid, tnode[take] - sp.range_.start, -1)
+        rs = s_ts - tstart[i0]
+        n_idx, n_val, lo, hi, t_idx, t_val = _host.raw_contributions(
+            _host.PackedReads(nodes=nodes, lengths=span, read_start=rs,
+                              read_end=rs + (s_te - s_ts)),
+            np.asarray(sp.nodes_len, dtype=np.int64), sp.trio_index)
+        b0 = int(tables.base_offset[sp.off])
+        parts.append((n_idx + sp.off, n_val, lo + b0, hi + b0,
+                      t_idx + sp.trio_lo, t_val))
+    if not parts:
+        return (np.zeros(0, np.int64),) * 6
+    return tuple(np.concatenate(p).astype(np.int64) for p in zip(*parts))
+
+
+def apply_residual(acc, updates) -> None:
+    """Add host_residual_updates' addends into acc[:3] in place."""
+    acc_b, acc_d, acc_t = acc[:3]
+    bidx, bval, dlo, dhi, tidx, tval = (
+        torch.from_numpy(a).to(acc_b.device) for a in updates)
+    _add(acc_b, bidx, bval)
+    _add(acc_d, dlo, torch.ones_like(dlo))
+    _add(acc_d, dhi, -torch.ones_like(dhi))
+    _add(acc_t, tidx, tval)
 
 
 # ---------------------------------------------------------------------------
@@ -348,12 +495,15 @@ def fused_step_paired_ranges(aligner, tables: FusedTables, codes1, len1,
 class FusedResult:
     """FusedPipeline.finish() output: the three dense coverage arrays on the
     device (node_abundance f32 [N_pad], trio_abundance f32 [U_pad],
-    node_base_cov int32 [N_pad]) and the per-read host columns."""
+    node_base_cov int32 [N_pad]), the per-read host columns, and the number
+    of codes-fed reads that overflowed the windowed scatter's node window
+    (their coverage is in the arrays, from the host residual)."""
 
     na_d: torch.Tensor
     ta_d: torch.Tensor
     bc_d: torch.Tensor
     reads: dict
+    n_overflow: int = 0
 
     def host(self):
         """(na float64, ta float64, bc int32) numpy, as the host tail reads
@@ -367,15 +517,26 @@ class FusedPipeline:
     """Incremental fused align+coverage: feed() read chunks or
     feed_paired() mate pairs (cut into fixed ``batch`` dispatches) and
     feed_intervals() pre-aligned intervals, then finish() once.  The
-    accumulators stay on the device between feeds."""
+    accumulators stay on the device between feeds.
 
-    def __init__(self, aligner, tables: FusedTables, batch: int):
+    The first codes feed picks the coverage formulation as the reference
+    does: the range scatter where it is exact, else the windowed scatter
+    at ``L_cap`` (auto_node_window unless given).  An explicit ``L_cap``
+    forces the windowed scatter."""
+
+    _L_INT = 8  # the windowed scatter's window for interval feeds
+
+    def __init__(self, aligner, tables: FusedTables, batch: int,
+                 L_cap: int | None = None):
         self.aligner = aligner
         self.tables = tables
         self.batch = batch
-        self.use_ranges: bool | None = None
+        self.L_cap = L_cap
+        self.use_ranges: bool | None = False if L_cap is not None else None
         self.n_batches = 0
         self.n_interval_batches = 0
+        # interval rows by sub-path: range scatter, windowed scatter, host
+        self.interval_rows = {"range": 0, "window": 0, "residual": 0}
         dev = aligner.device
         M = aligner.tnode.shape[0]
         z = torch.zeros
@@ -387,6 +548,10 @@ class FusedPipeline:
             z(M + 1, dtype=torch.int32, device=dev),
         )
         self._per_read = []  # (n_valid, ids | None, lens, (mapq, aligned, ridx))
+        # per windowed dispatch: [count, done event, (overflow, ts, span,
+        # ridx) or None]; _ov_seen counts the dispatches whose count is in
+        self._ov = []
+        self._ov_seen = 0
         self._int_reads = None  # interval feeds' host columns, per feed
         self._int_ids = None
 
@@ -401,14 +566,14 @@ class FusedPipeline:
                                 self.aligner.cfg.extension_band)
         return bound <= 64 or not _window_has_dup_nodes(index, W=bound)
 
-    def _require_ranges(self, read_pad: int) -> None:
+    def _choose_path(self, read_pad: int) -> None:
+        """Fix the formulation (and the window) at the first codes feed;
+        ``read_pad`` is the width of the host codes."""
         if self.use_ranges is None:
             self.use_ranges = self._decide_ranges(read_pad)
-        if not self.use_ranges:
-            raise NotImplementedError(
-                "windowed / dup-graph coverage (haplotypes that revisit a "
-                "node) is not ported yet: ROADMAP M9"
-            )
+        if not self.use_ranges and self.L_cap is None:
+            self.L_cap = auto_node_window(self.aligner.index, read_pad,
+                                          self.aligner.cfg.extension_band)
 
     def _upload_slice(self, codes, lens, lo: int, hi: int):
         """Rows [lo, hi) as one ``batch``-row dispatch on the device (the
@@ -422,52 +587,101 @@ class FusedPipeline:
                 [b_lens, np.zeros(B - (hi - lo), b_lens.dtype)])
         return self.aligner.upload(b_codes, b_lens)
 
+    def _dispatch(self, step, *batch):
+        """One codes dispatch through ``step`` (fused_step or
+        fused_step_paired) in the chosen formulation; returns the per-read
+        (mapq, aligned, ridx) columns.  ts / span are dropped (the host
+        tail never reads them) except in a windowed dispatch, which hands
+        them to _hold_overflow."""
+        (ts, span, *core), overflow = step(
+            self.aligner, self.tables, *batch, self.acc,
+            None if self.use_ranges else self.L_cap)
+        if overflow is not None:
+            self._hold_overflow(overflow, ts, span, core[2])
+        self.n_batches += 1
+        return core
+
+    def _hold_overflow(self, overflow, ts, span, ridx) -> None:
+        """Keep a windowed dispatch's overflow mask and ts / span (~7 bytes
+        a read on the device) for the host residual at finish.  The
+        dispatch's overflow count comes back without stalling the stream;
+        once it is in and is 0, the dispatch's rows are dropped, so only
+        dispatches that overflow hold their rows until finish."""
+        n = overflow.sum()
+        done = None
+        if n.is_cuda:
+            n = n.to("cpu", non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        self._ov.append([n, done, (overflow, ts, span, ridx)])
+        while self._ov_seen < len(self._ov):
+            rec = self._ov[self._ov_seen]
+            if rec[1] is not None and not rec[1].query():
+                break
+            if not int(rec[0]):
+                rec[2] = None
+            self._ov_seen += 1
+
     def feed(self, codes, lens, ids=None) -> None:
-        self._require_ranges(codes.shape[1])
+        self._choose_path(codes.shape[1])
         B = self.batch
         for lo in range(0, len(lens), B):
             hi = min(lo + B, len(lens))
-            # ts / span are dropped: the host tail never reads them
-            _ts, _span, *core = fused_step_ranges(
-                self.aligner, self.tables,
-                *self._upload_slice(codes, lens, lo, hi), self.acc)
+            core = self._dispatch(fused_step,
+                                  *self._upload_slice(codes, lens, lo, hi))
             self._per_read.append((hi - lo, ids[lo:hi] if ids is not None
                                    else None, np.asarray(lens[lo:hi]), core))
-            self.n_batches += 1
 
     def feed_paired(self, codes1, lens1, codes2, lens2, ids1=None,
                     ids2=None) -> None:
         """Joint fragment-model feed: each ``batch`` of mate pairs goes
         through one paired query (pair scoring, rescue, pair mapq) and one
-        range scatter of both mates.  Per-read rows come out as a mate-1
-        block and then a mate-2 block per batch."""
+        scatter of both mates.  Per-read rows come out as a mate-1 block
+        and then a mate-2 block per batch."""
         n = len(lens1)
         if len(lens2) != n:
             raise ValueError("paired feed requires equal mate counts")
-        self._require_ranges(max(codes1.shape[1], codes2.shape[1]))
+        self._choose_path(max(codes1.shape[1], codes2.shape[1]))
         B = self.batch
         for lo in range(0, n, B):
             hi = min(lo + B, n)
-            _ts, _span, *core = fused_step_paired_ranges(
-                self.aligner, self.tables,
+            core = self._dispatch(
+                fused_step_paired,
                 *self._upload_slice(codes1, lens1, lo, hi),
-                *self._upload_slice(codes2, lens2, lo, hi), self.acc)
+                *self._upload_slice(codes2, lens2, lo, hi))
             for half, ids, lens in ((slice(0, B), ids1, lens1),
                                     (slice(B, 2 * B), ids2, lens2)):
                 self._per_read.append((
                     hi - lo, ids[lo:hi] if ids is not None else None,
                     np.asarray(lens[lo:hi]), [c[half] for c in core]))
-            self.n_batches += 1
+
+    def _interval_batches(self, ts, te, sel):
+        """The rows ``sel`` of host intervals as ``batch``-row device
+        dispatches (ts, te, live)."""
+        aligner, B = self.aligner, self.batch
+        rows = np.flatnonzero(sel)
+        for lo in range(0, len(rows), B):
+            r = rows[lo:lo + B]
+            c_ts = np.zeros(B, np.int32)
+            c_te = np.zeros(B, np.int32)
+            c_live = np.zeros(B, bool)
+            c_ts[:len(r)] = ts[r]
+            c_te[:len(r)] = te[r]
+            c_live[:len(r)] = True
+            self.n_interval_batches += 1
+            yield (aligner.put(c_ts, np.int32), aligner.put(c_te, np.int32),
+                   aligner.put(c_live, bool))
 
     def feed_intervals(self, ts, te, mapq, read_len, ids=None,
                        aligned=None) -> None:
         """Feed pre-aligned text intervals (the long-read flow's merged
         per-read alignments) instead of read codes.  Per-read columns
-        (mapq / ridx / read_len) are computed on the host; the rows on
-        dup-free haplotypes go through the range scatter in ``batch``-row
-        dispatches.  Rows on haplotypes that revisit a node (the
-        reference's windowed and host-residual sub-paths) raise."""
-        aligner, tables, B = self.aligner, self.tables, self.batch
+        (mapq / ridx / read_len) are computed on the host.  The rows are
+        split on the host: on dup-free haplotypes, the range scatter for
+        any span; on haplotypes that revisit a node, the windowed scatter
+        for spans of at most ``_L_INT`` segments and the exact host
+        residual beyond."""
+        aligner, tables = self.aligner, self.tables
         index = aligner.index
         ts = np.asarray(ts, dtype=np.int64)
         te = np.asarray(te, dtype=np.int64)
@@ -480,13 +694,14 @@ class FusedPipeline:
         hap = np.clip(np.searchsorted(index.hap_offsets, ts, side="right") - 1,
                       0, len(hap_range) - 1)
         ridx = np.where(al, hap_range[hap], -1).astype(np.int64)
+        tstart = np.asarray(index.tstart, dtype=np.int64)
+        span = (np.searchsorted(tstart, np.maximum(te - 1, ts), side="right")
+                - np.searchsorted(tstart, ts, side="right") + 1)
         ok = al & (ridx >= 0) & (te > ts)
         dup = tables.hap_dup[hap]
-        if (ok & dup).any():
-            raise NotImplementedError(
-                "interval rows on haplotypes that revisit a node (windowed "
-                "and host-residual coverage) are not ported yet: ROADMAP M9"
-            )
+        long_ok = ok & ~dup
+        short = ok & dup & (span <= self._L_INT)
+        resid = ok & dup & (span > self._L_INT)
 
         if self._int_reads is None:
             self._int_reads = {"mapq": [], "aligned": [], "ridx": [],
@@ -498,26 +713,46 @@ class FusedPipeline:
         if ids is not None and self._int_ids is not None:
             self._int_ids.extend(ids)
 
-        rows = np.flatnonzero(ok)
-        for lo in range(0, len(rows), B):
-            r = rows[lo:lo + B]
-            c_ts = np.zeros(B, np.int32)
-            c_te = np.zeros(B, np.int32)
-            c_live = np.zeros(B, bool)
-            c_ts[:len(r)] = ts[r]
-            c_te[:len(r)] = te[r]
-            c_live[:len(r)] = True
-            # the reference's _interval_range_step: the range scatter
-            # without the query (the per-read columns are host-computed)
-            classify_scatter_ranges(
-                aligner.put(c_ts, np.int32), aligner.put(c_te, np.int32),
-                aligner.put(c_live, bool), tables, aligner.tstart,
-                aligner.tnode, self.acc,
-            )
-            self.n_interval_batches += 1
+        if resid.any():
+            apply_residual(self.acc, host_residual_updates(
+                index, tables, ts[resid], te[resid], ridx[resid]))
+        for c_ts, c_te, c_live in self._interval_batches(ts, te, short):
+            classify_scatter(c_ts, c_te, c_live, tables, aligner.tstart,
+                             aligner.tnode, self.acc, self._L_INT)
+        # the reference's _interval_range_step: the range scatter without
+        # the query (the per-read columns are host-computed)
+        for c_ts, c_te, c_live in self._interval_batches(ts, te, long_ok):
+            classify_scatter_ranges(c_ts, c_te, c_live, tables,
+                                    aligner.tstart, aligner.tnode, self.acc)
+        for k, sel in (("range", long_ok), ("window", short),
+                       ("residual", resid)):
+            self.interval_rows[k] += int(sel.sum())
+
+    def _apply_overflow_residual(self) -> int:
+        """Add the host residual of the reads the windowed dispatches left
+        out (more segments than the window) and return how many there
+        were, classified or not (the reference's overflow count)."""
+        for _, done, _ in self._ov:
+            if done is not None:
+                done.synchronize()
+        n_overflow = sum(int(n) for n, _, _ in self._ov)
+        held = [rows for n, _, rows in self._ov if int(n)]
+        self._ov, self._ov_seen = [], 0
+        if not held:
+            return 0
+        ov, ts, span, ridx = (torch.cat(c) for c in zip(*held))
+        rows = ov.nonzero().squeeze(1)
+        ts = ts[rows].cpu().numpy().astype(np.int64)
+        te = ts + span[rows].cpu().numpy()
+        ridx = ridx[rows].cpu().numpy().astype(np.int64)
+        keep = ridx >= 0
+        apply_residual(self.acc, host_residual_updates(
+            self.aligner.index, self.tables, ts[keep], te[keep], ridx[keep]))
+        return n_overflow
 
     def finish(self) -> FusedResult:
         t = self.tables
+        n_overflow = self._apply_overflow_residual()
         expand_ranges(self.acc, t, self.aligner.tnode)
         acc_b, acc_d, acc_t = self.acc[:3]
         na, ta, bc = coverage_finalize(
@@ -548,7 +783,7 @@ class FusedPipeline:
                 ids_all = (ids_all or []) + self._int_ids
             self._int_reads = self._int_ids = None
         reads["ids"] = ids_all
-        return FusedResult(na, ta, bc, reads)
+        return FusedResult(na, ta, bc, reads, n_overflow)
 
 
 def profile_fused(aligner, codes, lens, index, db, cfg, out_dir, batch: int,
@@ -565,6 +800,8 @@ def profile_fused(aligner, codes, lens, index, db, cfg, out_dir, batch: int,
         stage_out["align_cover_s"] = time.time() - t0
         stage_out["n_aligned"] = int(result.reads["aligned"].sum())
         stage_out["n_batches"] = pipe.n_batches
+        stage_out["n_overflow"] = result.n_overflow
+        stage_out["L_cap"] = None if pipe.use_ranges else pipe.L_cap
     return profile_from_fused_result(result, tables, index, db, cfg, out_dir)
 
 

@@ -1,7 +1,7 @@
 """Helpers of the port's tests (imported by tests/test_torch_*.py; the
 tests directory is on sys.path under pytest): the reference pinned to one
-device, simulated FR mate pairs, and the comparison of two runs' output
-tables."""
+device, simulated FR mate pairs, random text intervals, and the comparison
+of two runs' output tables."""
 import filecmp
 
 import numpy as np
@@ -55,6 +55,25 @@ def simulate_pairs(index, n: int, seed: int, sub: float = 0.01,
         codes[:, :Lr] = m
         mates += [codes, np.full(n, Lr, np.int64)]
     return tuple(mates)
+
+
+def random_intervals(index, n: int, seed: int, max_len: int = 3000):
+    """Pre-aligned text intervals for feed_intervals: (ts, te, mapq,
+    read_len) of ``n`` reads of 100..max_len bases on uniform haplotypes,
+    the first five running 100 kb past their haplotype's end and the next
+    five unaligned-looking (mapq 0, te == ts)."""
+    rng = np.random.default_rng(seed)
+    hap = rng.integers(0, len(index.hap_names), size=n)
+    span = np.diff(index.hap_offsets)[hap]
+    read_len = rng.integers(100, max_len, size=n)
+    ts = index.hap_offsets[hap] + rng.integers(0, np.maximum(
+        span - read_len - 8, 1))
+    te = ts + read_len
+    te[:5] += 100_000
+    te[5:10] = ts[5:10]
+    mapq = rng.integers(0, 61, size=n)
+    mapq[5:10] = 0
+    return ts, te, mapq, read_len
 
 
 def strain_rows(path):

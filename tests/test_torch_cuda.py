@@ -10,7 +10,7 @@ import torch
 from pantax_tpu_torch import _host
 from pantax_tpu_torch.align.long_read import align_long_reads
 from pantax_tpu_torch.benchmarks import (
-    simulate_long_reads, simulate_read_batch, tiny_db,
+    dup_db, simulate_long_reads, simulate_read_batch, tiny_db,
 )
 from pantax_tpu_torch.convert import aligner_from_reference
 from pantax_tpu_torch.ops import extend
@@ -18,7 +18,9 @@ from pantax_tpu_torch.ops.fused import (
     FusedPipeline, build_fused_tables, profile_from_fused_result,
 )
 
-from _torch_helpers import assert_tables_agree, simulate_pairs
+from _torch_helpers import (
+    assert_tables_agree, random_intervals, simulate_pairs,
+)
 
 pytestmark = pytest.mark.cuda
 MATCH, MIS, GAP = 1, -1, -2
@@ -224,3 +226,38 @@ def test_device_tail_cpu_agrees_with_cuda(cuda, tmp_path):
     assert ((outs[0] / "reads_classification.tsv").read_text()
             == (outs[1] / "reads_classification.tsv").read_text())
     assert_tables_agree(outs[0], outs[1], abundance_tol=2e-4)
+
+
+@pytest.mark.parametrize("L_cap", [None, 3])
+def test_windowed_feed_cpu_equal_cuda(cuda, tmp_path, L_cap):
+    """The windowed scatter on the dup-graph community (codes, paired and
+    interval feeds; at L_cap 3 a third of the reads take the host
+    residual): na/ta/bc, the per-read columns and the overflow count on the
+    card equal the CPU's, with K1 once per codes dispatch."""
+    db = dup_db(tmp_path / "dup", n_species=2, strains=2, n_blocks=400)
+    index = _host.build_align_index(db)
+    codes, lens, _ = simulate_read_batch(index, 3000, 150, 0.01, seed=3,
+                                         indel_rate=0.01)
+    pairs = simulate_pairs(index, 1500, seed=4)
+    intervals = random_intervals(index, 700, seed=5)
+    res = []
+    for dev in ("cpu", cuda):
+        al = aligner_from_reference(index, _host.AlignConfig(), dev)
+        pipe = FusedPipeline(al, build_fused_tables(db, index, dev), 1024,
+                             L_cap)
+        extend.reset_launch_counts()
+        pipe.feed(codes, lens)
+        pipe.feed_paired(*pairs)
+        pipe.feed_intervals(*intervals)
+        res.append(pipe.finish())
+        assert not pipe.use_ranges
+        assert extend.LAUNCHES["banded_extend"] == (
+            pipe.n_batches if dev == cuda else 0)
+    (cpu, gpu) = res
+    for a, b in ((cpu.na_d, gpu.na_d), (cpu.ta_d, gpu.ta_d),
+                 (cpu.bc_d, gpu.bc_d)):
+        assert torch.equal(a, b.cpu())
+    for k in ("mapq", "aligned", "ridx", "read_len"):
+        np.testing.assert_array_equal(cpu.reads[k], gpu.reads[k], err_msg=k)
+    assert gpu.n_overflow == cpu.n_overflow
+    assert (gpu.n_overflow > 0) == (L_cap is not None)

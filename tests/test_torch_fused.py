@@ -155,8 +155,9 @@ def test_pipeline_bit_identical(fixture, n, batch, request):
 
 def test_fused_step_bit_identical(scale):
     """One batch through the reference's jitted _fused_step_ranges and the
-    port's fused_step_ranges from zero accumulators: all five accumulators
-    and all five narrow per-read columns agree."""
+    port's fused_step (the range scatter, no window) from zero
+    accumulators: all five accumulators and all five narrow per-read
+    columns agree."""
     import jax.numpy as jnp
 
     s = scale
@@ -175,8 +176,9 @@ def test_fused_step_bit_identical(scale):
         win_shift=t.win_shift, pos_steps=t.pos_steps, total_bases=t.TB_pad,
     )
     pipe = port_fused.FusedPipeline(s.aligner, s.tables, batch=1024)
-    cols = port_fused.fused_step_ranges(
+    cols, overflow = port_fused.fused_step(
         s.aligner, s.tables, *s.aligner.upload(codes, lens), pipe.acc)
+    assert overflow is None
     sizes = (t.N_pad, t.TB_pad + 1, t.U_pad, M, M)  # minus the sink slots
     for i, (w, acc, n) in enumerate(zip(want[:5], pipe.acc, sizes)):
         w = np.asarray(w)[:n]
@@ -319,23 +321,51 @@ def test_species_writer_byte_identical_to_pandas(filtered, tmp_path):
         np.testing.assert_equal(ours.coverage_of(sp), theirs.coverage_of(sp))
 
 
+def _dup_pipelines(s, **flags):
+    """(reference, port) pipelines over copies of the tables with ``flags``
+    set on both, batch 64."""
+    ref_t, port_t = copy.copy(s.ref_tables), copy.copy(s.tables)
+    for k, v in flags.items():
+        setattr(ref_t, k, v)
+        setattr(port_t, k, v)
+    return (ref_fused.FusedPipeline(s.ref_aligner, ref_t, batch=64),
+            port_fused.FusedPipeline(s.aligner, port_t, batch=64))
+
+
+def _assert_finish_equal(jp, pp):
+    want, got = jp.finish(), pp.finish()
+    for a, b in ((want.na_d, got.na_d), (want.ta_d, got.ta_d),
+                 (want.bc_d, got.bc_d)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    for k in ("mapq", "aligned", "ridx", "read_len"):
+        np.testing.assert_array_equal(want.reads[k], got.reads[k], err_msg=k)
+    assert got.n_overflow == want.n_overflow
+    return got
+
+
 def test_unported_paths_raise(tiny, reads, tmp_path):
-    """The windowed / dup-graph coverage (M9) raises; the paired feed and
-    the device tail (M5), which raised before they were ported, run."""
+    """The paths that raised before they were ported run and match the
+    reference: the windowed / dup-graph coverage (M9) of codes, paired and
+    interval feeds on tables marked as revisiting nodes, the paired feed,
+    and the device tail (M5)."""
     codes, lens, _ = reads
-    dup_hap = port_fused.FusedPipeline(tiny.aligner, tiny.tables, batch=64)
-    dup_hap.tables = copy.copy(tiny.tables)
-    dup_hap.tables.hap_dup = np.ones_like(tiny.tables.hap_dup)
     hap0 = tiny.index.hap_offsets[0]
-    with pytest.raises(NotImplementedError, match="M9"):
-        dup_hap.feed_intervals([hap0 + 10], [hap0 + 5000], [60], [4990])
-    dup = port_fused.FusedPipeline(tiny.aligner, tiny.tables, batch=64)
-    dup.tables = copy.copy(tiny.tables)
-    dup.tables.has_dups = True
-    with pytest.raises(NotImplementedError, match="M9"):
-        dup.feed(codes[:64], lens[:64])
-    with pytest.raises(NotImplementedError, match="M9"):
-        dup.feed_paired(codes[:64], lens[:64], codes[64:128], lens[64:128])
+    jp, pp = _dup_pipelines(tiny, hap_dup=np.ones_like(tiny.tables.hap_dup))
+    for p in (jp, pp):
+        p.feed_intervals([hap0 + 10, hap0 + 900], [hap0 + 5000, hap0 + 1100],
+                         [60, 30], [4990, 200])
+    _assert_finish_equal(jp, pp)
+    assert pp.interval_rows["range"] == 0
+    assert pp.interval_rows["window"] + pp.interval_rows["residual"] == 2
+    for feed in ("feed", "feed_paired"):
+        jp, pp = _dup_pipelines(tiny, has_dups=True)
+        args = ((codes[:64], lens[:64]) if feed == "feed" else
+                (codes[:64], lens[:64], codes[64:128], lens[64:128]))
+        for p in (jp, pp):
+            getattr(p, feed)(*args)
+        got = _assert_finish_equal(jp, pp)
+        assert not pp.use_ranges and pp.L_cap == jp.L_cap
+        assert got.reads["aligned"].mean() > 0.9
     cfg = _host.ProfilingConfig.for_read_type("short")
     cfg.tail = "device"
     assert port_fused.profile_fused(tiny.aligner, codes[:256], lens[:256],

@@ -1,7 +1,9 @@
-"""The port on a machine without jax, pandas and pyarrow: in a subprocess
-that blocks those imports, pantax_tpu_torch builds a complete database (no
-species silently dropped) and runs the short-read slice, the paired slice
-with the device tail and the long-read slice on the CPU to the four output
+"""The port on a machine without jax, pandas, pyarrow and the JAX package:
+in a subprocess that blocks those imports (pantax_tpu by its top-level
+name, so pantax_tpu_torch stays importable), pantax_tpu_torch builds a
+complete database (no species silently dropped) and runs the short-read
+slice, the paired slice with the device tail, the long-read slice and the
+dup-graph community's windowed slice on the CPU to the four output
 tables."""
 import os
 import subprocess
@@ -15,7 +17,7 @@ SCRIPT = textwrap.dedent("""
     import os
     import sys
 
-    BLOCKED = ("jax", "jaxlib", "pandas", "pyarrow")
+    BLOCKED = ("jax", "jaxlib", "pandas", "pyarrow", "pantax_tpu")
 
     class Blocker(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -33,7 +35,7 @@ SCRIPT = textwrap.dedent("""
         LONG_READ_PRESETS, LONG_READ_SEED_STRIDE, align_long_reads,
     )
     from pantax_tpu_torch.benchmarks import (
-        simulate_long_reads, simulate_read_batch, tiny_db,
+        dup_db, simulate_long_reads, simulate_read_batch, tiny_db,
     )
     from pantax_tpu_torch.convert import aligner_from_reference
     from pantax_tpu_torch.ops.fused import (
@@ -90,6 +92,31 @@ SCRIPT = textwrap.dedent("""
     for name in ("species_abundance.txt", "strain_abundance.txt",
                  "ori_strain_abundance.txt", "reads_classification.tsv"):
         assert os.path.getsize(os.path.join(long_out, name)) > 0, name
+
+    # the dup-graph community (imported through gfa_dir): the windowed
+    # scatter at the window the first feed picks, paired and interval feeds
+    # on haplotypes that revisit a node, host tail
+    dup = dup_db(os.path.join(os.environ["TMPDIR"], "dup"), n_species=2,
+                 strains=2, n_blocks=400)
+    dup_index = _host.build_align_index(dup)
+    assert len(dup_index.hap_names) == 4, dup_index.hap_names
+    dup_al = aligner_from_reference(dup_index, _host.AlignConfig(), "cpu")
+    dup_tables = build_fused_tables(dup, dup_index, "cpu")
+    assert dup_tables.has_dups and dup_tables.hap_dup.all()
+    pipe = FusedPipeline(dup_al, dup_tables, 512)
+    pipe.feed(*simulate_read_batch(dup_index, 1024, 150, 0.01, seed=3)[:2])
+    pipe.feed_paired(*simulate_pairs(dup_index, 512, seed=4))
+    pipe.feed_intervals([dup_index.hap_offsets[0] + 10],
+                        [dup_index.hap_offsets[0] + 3000], [60], [2990])
+    assert not pipe.use_ranges and pipe.L_cap == 4
+    assert pipe.interval_rows["residual"] == 1
+    cfg = _host.ProfilingConfig.for_read_type("short")
+    cfg.tail = "host"
+    dup_out = sys.argv[1] + "_dup"
+    assert profile_from_fused_result(pipe.finish(), dup_tables, dup_index,
+                                     dup, cfg, dup_out)
+    rows = open(os.path.join(dup_out, "strain_abundance.txt")).read()
+    assert len(rows.splitlines()) == 5, rows
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("NOJAX_OK")

@@ -202,8 +202,9 @@ def test_paired_highs_host_tail_files_byte_identical(tiny, tmp_path):
 
 def test_feed_paired_raises_on_revisiting_hap(tiny):
     """A haplotype that revisits a node (its second segment's node set to
-    its first's) needs the windowed coverage, ROADMAP M9; unequal mate
-    counts are refused."""
+    its first's) takes the windowed coverage (ROADMAP M9): the same
+    na/ta/bc, per-read columns and overflow count as the reference's
+    feed_paired on that index.  Unequal mate counts are refused."""
     s = tiny
     lo, hi = s.index.hap_offsets[1], s.index.hap_offsets[2]
     segs = np.flatnonzero((s.index.tstart >= lo) & (s.index.tstart < hi))
@@ -213,9 +214,22 @@ def test_feed_paired_raises_on_revisiting_hap(tiny):
     tables = port_fused.build_fused_tables(s.db, index, "cpu")
     assert tables.has_dups
     aligner = aligner_from_reference(index, _host.AlignConfig(), "cpu")
-    c1, l1, c2, l2 = simulate_pairs(index, 64, seed=1)
-    with pytest.raises(NotImplementedError, match="M9"):
-        port_fused.FusedPipeline(aligner, tables, 64).feed_paired(c1, l1, c2, l2)
+    c1, l1, c2, l2 = simulate_pairs(index, 192, seed=1)
+    jp = ref_fused.FusedPipeline(RefAligner(index),
+                                 ref_fused.build_fused_tables(s.db, index), 64)
+    jp.feed_paired(c1, l1, c2, l2)
+    want = jp.finish()
+    pp = port_fused.FusedPipeline(aligner, tables, 64)
+    pp.feed_paired(c1, l1, c2, l2)
+    got = pp.finish()
+    assert not jp.use_ranges and not pp.use_ranges and pp.L_cap == jp.L_cap
+    for a, b in ((want.na_d, got.na_d), (want.ta_d, got.ta_d),
+                 (want.bc_d, got.bc_d)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    for k in ("mapq", "aligned", "ridx", "read_len"):
+        np.testing.assert_array_equal(want.reads[k], got.reads[k], err_msg=k)
+    assert got.n_overflow == want.n_overflow
+    assert got.reads["aligned"].mean() > 0.9
     pp = port_fused.FusedPipeline(s.aligner, port_fused.build_fused_tables(
         s.db, s.index, "cpu"), 64)
     with pytest.raises(ValueError, match="equal mate counts"):
