@@ -57,8 +57,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bars; (e) 5,000 HiFi-like 8 kb reads through align_long_reads and
    feed_intervals (every row on a revisiting haplotype: the windowed
    scatter or the host residual), >= 95% emitted, >= 99% species accuracy,
-   10 species and 30 strains.  Phase 4 also holds the windowed feeds of a small dup community CPU ==
-   CUDA.
+   10 species and 30 strains.  Phase 4 also holds the windowed feeds of a
+   small dup community CPU == CUDA;
+10. drive the per-species GAF flow from read files: (a) phase 5's 1M reads
+   written to a FASTQ file, Aligner.align_file at batch 65536 (the native
+   parser, K1 once per batch, the plain DP never), write_gaf and read_gaf
+   (the records equal those align_file returned, identity at its 6-decimal
+   text), profile_from_gaf with device and with host coverage (ADMM):
+   classification and species tables byte-identical, the same strains
+   with every numeric column within STRAIN_RTOL relative (rows matched by
+   genome ID: strains of tied abundance may come in another order), the
+   device-coverage species and strain tables
+   byte-identical to phase 5's (the same float32 coverage), and phase 5's
+   bars; (b) phase 8's 500,000 pairs written to two FASTQ files,
+   align_paired_files (K1 once per paired batch), profile_from_gaf with
+   device coverage, phase 8's bars; (c) collect_alignment_arrays on (a)'s
+   codes (K1 once per batch) and profile_from_alignments with device
+   coverage: the four tables byte-identical to phase 5's profile_fused
+   tables of the same reads; (d) phase 9e's 5,000 long reads written to a
+   FASTA file, iter_read_groups, align_long_reads (GafRecords; K1 once per
+   seeded batch, K2 once per rescue batch, the plain DPs never),
+   filter_best_long_read_alignments, write_gaf / read_gaf, profile_from_gaf
+   with device and with host coverage (held as in (a)), the widest node row
+   over 64 nodes (where the reference's dedup switches form), phase 9e's
+   bars; (e) for one species of (d) and one of (a), node_abundances_device
+   on the card and on the CPU bit-identical in na, ta and bc. The stage times of (a), (b) and (d) are
+   printed with the card's name and power limit.
 
 The line before last is a JSON record of the kernels, each with its time,
 its plain version's, and the bound the card's peaks put on the same work
@@ -70,6 +94,7 @@ build/ (git-ignored).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -83,18 +108,29 @@ import torch
 from pantax_tpu_torch import _host
 from pantax_tpu_torch.align.long_read import (
     LONG_READ_PRESETS, LONG_READ_SEED_STRIDE, align_long_reads,
+    iter_read_groups,
 )
 from pantax_tpu_torch.benchmarks import (
     dup_db, scale_db, simulate_long_reads, simulate_read_batch, tiny_db,
 )
 from pantax_tpu_torch.convert import aligner_from_reference
 from pantax_tpu_torch.device import require_cuda
+from pantax_tpu_torch.fastpath import (
+    collect_alignment_arrays, profile_from_alignments,
+)
+from pantax_tpu_torch.io.gaf import (
+    filter_best_long_read_alignments, read_gaf, write_gaf,
+)
 from pantax_tpu_torch.ops import extend
+from pantax_tpu_torch.ops.coverage_device import node_abundances_device
 from pantax_tpu_torch.ops.fused import (
     FusedPipeline, _ensure_tail_tables, _tail_mode, build_fused_tables,
     classify_scatter, classify_scatter_ranges, profile_from_fused_result,
     profile_fused,
 )
+from pantax_tpu_torch.pipeline import classify_gaf, profile_from_gaf
+from pantax_tpu_torch.profile.coverage import pack_reads
+from pantax_tpu_torch.profile.records import ReadRecord
 
 KERNEL = {
     "name": "banded_extend",
@@ -125,8 +161,17 @@ N_DUP_LONG = 5000
 HBM_BYTES_PER_S = 3.35e12
 DP_OPS_PER_CELL = 5
 # opcodes whose counts in the kernels' SASS say how the DP was compiled
+CLASS_SPECIES = ("reads_classification.tsv", "species_abundance.txt")
+STRAINS = ("strain_abundance.txt", "ori_strain_abundance.txt")
+BASES = np.frombuffer(b"ACGTN", np.uint8)
 SASS_OPS = ("VIADDMNMX", "VIMNMX", "IMNMX", "IADD3", "IMAD", "ISETP", "SEL",
             "LOP3")
+# device (float32) against host (float64) coverage in the per-species flow:
+# every numeric column of the strain tables within this relative
+# difference.  On an H100 the largest was 1.84e-6, in total_cov_diff, a
+# difference of two near-equal coverage sums (its relative error is the
+# sums' times their ratio to it); the other columns stayed below 7.3e-7
+STRAIN_RTOL = 1e-5
 
 
 def card_line() -> str:
@@ -470,7 +515,8 @@ def main_path(build: str, dev):
     # reads_classification.tsv rows are R<read index>
     check_tables(out, np.asarray(index.hap_species, dtype=object)[hap],
                  N_READS, stage["n_aligned"], "aligned")
-    return (launches["banded_extend"], err1, ms, plain_ms), (db, index, tables)
+    return ((launches["banded_extend"], err1, ms, plain_ms),
+            (db, index, tables), (codes, lens, hap, out))
 
 
 def long_path(build: str, dev, db, index, tables):
@@ -667,7 +713,7 @@ def paired_path(build: str, dev, db, index, tables):
           f"strains; abundances differ by at most {diff:.3g}")
     if diff > 2e-4:
         raise AssertionError("device and host tail abundances differ by > 2e-4")
-    return launches["banded_extend"]
+    return launches["banded_extend"], ((c1, l1, c2, l2), hap)
 
 
 def dup_path(build: str, dev):
@@ -832,7 +878,302 @@ def dup_path(build: str, dev):
     check_tables(out, truth[lhap], N_DUP_LONG, len(merged.read_ids),
                  "emitted")
     by_path["dup_long"] = launches["banded_extend"]
-    return by_path, launches["banded_extend_windows"]
+    return by_path, launches["banded_extend_windows"], (db, index, reads,
+                                                        lhap)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the per-species GAF flow from read files
+# ---------------------------------------------------------------------------
+def write_fastq(path: str, ids, codes: np.ndarray, lens: np.ndarray) -> None:
+    """FASTQ of code rows (quality 'I'), written 65536 records at a time."""
+    with open(path, "wb") as f:
+        for lo in range(0, len(lens), 65536):
+            block = BASES[codes[lo:lo + 65536]]
+            f.write(b"".join(
+                b"@%s\n%s\n+\n%s\n" % (ids[i].encode(),
+                                      block[i - lo, :lens[i]].tobytes(),
+                                      b"I" * int(lens[i]))
+                for i in range(lo, min(lo + 65536, len(lens)))))
+
+
+def gaf_round_trip(records, path: str) -> tuple[list, float]:
+    """write_gaf then read_gaf: (records read back, seconds).  Raises unless
+    every field equals the written record's, identity at its 6-decimal
+    text."""
+    t0 = time.time()
+    write_gaf(path, records)
+    back = read_gaf(path)
+    seconds = time.time() - t0
+    if len(back) != len(records) or any(
+            dataclasses.replace(r, identity=float(f"{r.identity:.6f}")) != b
+            for r, b in zip(records, back)):
+        raise AssertionError(f"{path}: read_gaf(write_gaf(x)) != x")
+    return back, seconds
+
+
+def files_identical(out_a: str, out_b: str, names, what: str) -> None:
+    for name in names:
+        with open(os.path.join(out_a, name), "rb") as fa, \
+                open(os.path.join(out_b, name), "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"{what}: {name} differs")
+
+
+def strains_agree(out_a: str, out_b: str, what: str) -> dict:
+    """The same strains in both strain tables (rows matched by genome_ID:
+    strains of equal abundance may tie in another order), every numeric
+    column within STRAIN_RTOL relative, empty fields on both sides alike.
+    Returns the largest relative difference of each numeric column."""
+    rows_a, rows_b = ({r["genome_ID"]: r for r in read_table(
+        os.path.join(out, "strain_abundance.txt"))} for out in (out_a, out_b))
+    if set(rows_a) != set(rows_b):
+        raise AssertionError(f"{what}: the strain tables name other strains")
+    worst = {}
+    for gid, ra in rows_a.items():
+        rb = rows_b[gid]
+        for k in list(ra)[3:]:
+            if (ra[k] == "") != (rb[k] == ""):
+                raise AssertionError(f"{what}: {gid} {k} empty on one side")
+            a, b = (float(x) if x else 0.0 for x in (ra[k], rb[k]))
+            d = 0.0 if a == b else abs(a - b) / max(abs(a), abs(b))
+            worst[k] = max(worst.get(k, 0.0), d)
+    over = {k: v for k, v in worst.items() if v > STRAIN_RTOL}
+    if over:
+        raise AssertionError(f"{what}: strain columns differ by more than "
+                             f"{STRAIN_RTOL} relative: {worst_text(over)}")
+    return worst
+
+
+def worst_text(worst: dict) -> str:
+    return ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+
+
+def profile_gaf_runs(records, db, dev, read_type: str, out_base: str,
+                     coverages=("device", "host")):
+    """profile_from_gaf with each coverage (ADMM): {coverage: (seconds,
+    stage, out dir)}."""
+    runs = {}
+    for cov in coverages:
+        cfg = _host.ProfilingConfig.for_read_type(read_type)
+        cfg.solver, cfg.coverage = "admm", cov
+        out = f"{out_base}_{cov}"
+        shutil.rmtree(out, ignore_errors=True)
+        stage = {}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        profile_from_gaf(records, db, cfg, out, device=dev, stage_out=stage)
+        torch.cuda.synchronize()
+        runs[cov] = (time.time() - t0, stage, out)
+    return runs
+
+
+def stage_line(what: str, card: str, t_align: float, t_gaf: float,
+               runs: dict) -> str:
+    t_dev, st, _ = runs["device"]
+    host = (f"{runs['host'][1]['coverage_s']:.3f} s (PAO "
+            f"{runs['host'][1]['pao_s']:.3f} s)" if "host" in runs
+            else "not run")
+    return (f"{what} [{card}]: parse+align {t_align:.3f} s, GAF write+read "
+            f"{t_gaf:.3f} s, classification {st['classify_s']:.3f} s, "
+            f"species {st['species_s']:.3f} s, grouping {st['group_s']:.3f} s, "
+            f"coverage device "
+            f"{st['coverage_s']:.3f} s / host {host}, PAO {st['pao_s']:.3f} s, "
+            f"report {st['report_s']:.3f} s; profile {t_dev:.3f} s; e2e "
+            f"{t_align + t_gaf + t_dev:.3f} s (device coverage)")
+
+
+def coverage_card_vs_cpu(records, db, dev, what: str) -> int:
+    """Phase 10 (e): node_abundances_device on the card and on the CPU for
+    the first species with reads, packed as the strain stage packs them.
+    Returns the widest node row of all the records."""
+    species, node_paths = classify_gaf(records, db)
+    r = next(r for r in _host.load_species_range(db.range_file)
+             if r.species in set(species))
+    sp = r.species
+    packed = pack_reads([
+        ReadRecord(g.read_id, p, g.path_len, g.path_start, g.path_end, s)
+        for g, p, s in zip(records, node_paths, species) if s == sp], r.start)
+    graph = db.load_graph(sp)
+    nodes_len = graph.nodes_len
+    trio = _host.build_trio_index(nodes_len, graph.paths_dict())
+    outs = []
+    for d in (dev, "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        outs.append((node_abundances_device(packed, nodes_len, trio,
+                                            device=d), time.time() - t0))
+    (gpu, t_gpu), (cpu, t_cpu) = outs
+    for name, a, b in zip(("na", "ta", "bc"), gpu, cpu):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{what}: node_abundances_device {name} "
+                                 f"differs between the card and the CPU")
+    print(f"{what}: node_abundances_device card == CPU (na, ta, bc) for "
+          f"species {sp}: {packed.nodes.shape[0]} reads x "
+          f"{packed.nodes.shape[1]} nodes, {len(nodes_len)} graph nodes, "
+          f"{trio.num_unique} unique trios; card {t_gpu:.3f} s, CPU "
+          f"{t_cpu:.3f} s")
+    return max(len(p) for p in node_paths)
+
+
+def check_k1(launches: dict, n: int, what: str) -> None:
+    if launches["banded_extend"] != n or launches["banded_extend_plain"]:
+        raise AssertionError(f"{what}: K1 launches {launches['banded_extend']}"
+                             f" for {n} batches, plain DP "
+                             f"{launches['banded_extend_plain']}")
+
+
+def gaf_flow(build: str, dev, card: str, scale, short, pairs, dup_long):
+    """Phase 10.  Returns K1's and K2's launches by path."""
+    db, index = scale
+    codes, lens, hap, fused_out = short
+    truth = np.asarray(index.hap_species, dtype=object)
+    aligner = aligner_from_reference(index, _host.AlignConfig(), dev)
+    k1, k2 = {}, {}
+
+    # (a) single-end reads from a FASTQ file
+    fq = os.path.join(build, "smoke_reads.fq")
+    t0 = time.time()
+    write_fastq(fq, [f"S{i}" for i in range(N_READS)], codes, lens)
+    print(f"gaf short: wrote {N_READS} reads to FASTQ "
+          f"({os.path.getsize(fq) / 1e6:.1f} MB) in {time.time() - t0:.2f} s")
+    stage = {}
+    extend.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    records = aligner.align_file(fq, batch_size=BATCH, stage_out=stage)
+    t_align = time.time() - t0
+    launches = dict(extend.LAUNCHES)
+    check_k1(launches, stage["n_batches"], "gaf short")
+    if stage["parser"] != "native":
+        raise AssertionError("gaf short: the native parser did not run")
+    k1["gaf_short"] = launches["banded_extend"]
+    back, t_gaf = gaf_round_trip(records, os.path.join(build, "smoke.gaf"))
+    runs = profile_gaf_runs(back, db, dev, "short",
+                            os.path.join(build, "smoke_gaf"))
+    out_dev, out_host = runs["device"][2], runs["host"][2]
+    files_identical(out_dev, out_host, CLASS_SPECIES, "gaf short")
+    worst = strains_agree(out_dev, out_host, "gaf short")
+    # the same reads' float32 coverage as phase 5's fused path
+    files_identical(out_dev, fused_out, ("species_abundance.txt", *STRAINS),
+                    "gaf short (device coverage) vs profile_fused")
+    print(stage_line("gaf short", card, t_align, t_gaf, runs)
+          + f"; {len(records)} GAF records, {stage['n_batches']} batches, "
+          f"K1 {launches['banded_extend']}")
+    print(f"gaf short: device coverage: species and strain tables "
+          f"byte-identical to phase 5's profile_fused; against host "
+          f"coverage: classification and species byte-identical, the same "
+          f"strains, largest relative differences {worst_text(worst)}")
+    check_tables(runs["device"][2], truth[hap], N_READS, len(records),
+                 "aligned")
+    coverage_card_vs_cpu(back, db, dev, "gaf short")
+    del records, back
+
+    # (b) paired reads from two FASTQ files
+    (c1, l1, c2, l2), phap = pairs
+    p1, p2 = (os.path.join(build, f"smoke_pairs_{m}.fq") for m in (1, 2))
+    write_fastq(p1, [f"A{i}" for i in range(N_PAIRS)], c1, l1)
+    write_fastq(p2, [f"B{i}" for i in range(N_PAIRS)], c2, l2)
+    stage = {}
+    extend.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    records = aligner.align_paired_files(p1, p2, batch_size=PAIR_BATCH,
+                                         stage_out=stage)
+    t_align = time.time() - t0
+    launches = dict(extend.LAUNCHES)
+    check_k1(launches, stage["n_batches"], "gaf paired")
+    k1["gaf_paired"] = launches["banded_extend"]
+    back, t_gaf = gaf_round_trip(records,
+                                 os.path.join(build, "smoke_pairs.gaf"))
+    runs = profile_gaf_runs(back, db, dev, "short",
+                            os.path.join(build, "smoke_gaf_paired"),
+                            coverages=("device",))
+    print(stage_line("gaf paired", card, t_align, t_gaf, runs)
+          + f"; {len(records)} GAF records, {stage['n_batches']} paired "
+          f"batches, K1 {launches['banded_extend']}")
+    check_tables(runs["device"][2], truth[phap], 2 * N_PAIRS, len(records),
+                 "aligned", min_frac=0.99)
+    del records, back
+
+    # (c) the array flow against phase 5's profile_fused tables
+    stage = {}
+    extend.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    arrays = collect_alignment_arrays(aligner, codes, lens, BATCH,
+                                      stage_out=stage)
+    t_align = time.time() - t0
+    launches = dict(extend.LAUNCHES)
+    check_k1(launches, stage["n_batches"], "arrays short")
+    k1["arrays_short"] = launches["banded_extend"]
+    cfg = _host.ProfilingConfig.for_read_type("short")
+    cfg.solver, cfg.coverage = "admm", "device"
+    out = os.path.join(build, "smoke_arrays_out")
+    shutil.rmtree(out, ignore_errors=True)
+    st = {}
+    t0 = time.time()
+    profile_from_alignments(arrays, index, db, cfg, out, device=dev,
+                            stage_out=st)
+    torch.cuda.synchronize()
+    t_prof = time.time() - t0
+    files_identical(out, fused_out, CLASS_SPECIES + STRAINS,
+                    "arrays short vs profile_fused")
+    print(f"arrays short [{card}]: align {t_align:.3f} s "
+          f"({stage['n_batches']} batches, K1 {launches['banded_extend']}), "
+          f"profile {t_prof:.3f} s ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+          + "); the four tables byte-identical to phase 5's profile_fused")
+
+    # (d) long reads on the dup DB from a FASTA file
+    ddb, dindex, reads, lhap = dup_long
+    fa = os.path.join(build, "smoke_dup_long.fa")
+    _host.write_fasta(fa, reads)
+    long_al = aligner_from_reference(
+        dindex, _host.AlignConfig.for_read_type("long"), dev)
+    chunk, stride = LONG_READ_PRESETS[READ_TYPE], LONG_READ_SEED_STRIDE[READ_TYPE]
+    extend.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    records, n_seeded, n_rescue = [], 0, 0
+    for group in iter_read_groups([fa]):
+        stage = {}
+        records += align_long_reads(long_al, group, chunk=chunk,
+                                    batch_size=LONG_BATCH, seed_stride=stride,
+                                    stage_out=stage)
+        n_seeded += stage["seeded_batches"]
+        n_rescue += stage["rescue_batches"]
+    records = filter_best_long_read_alignments(records)
+    t_align = time.time() - t0
+    launches = dict(extend.LAUNCHES)
+    check_k1(launches, n_seeded, "gaf dup long")
+    if (launches["banded_extend_windows"] != n_rescue or not n_rescue
+            or launches["banded_extend_windows_plain"]):
+        raise AssertionError("gaf dup long: K2 not once per rescue batch")
+    k1["gaf_dup_long"] = launches["banded_extend"]
+    k2["gaf_dup_long"] = launches["banded_extend_windows"]
+    back, t_gaf = gaf_round_trip(records,
+                                 os.path.join(build, "smoke_dup_long.gaf"))
+    widest = coverage_card_vs_cpu(back, ddb, dev, "gaf dup long")
+    print(f"gaf dup long: widest node row {widest} nodes")
+    if widest <= 64:
+        raise AssertionError("gaf dup long: no node row wider than 64")
+    runs = profile_gaf_runs(back, ddb, dev, "long",
+                            os.path.join(build, "smoke_gaf_dup_long"))
+    files_identical(runs["device"][2], runs["host"][2], CLASS_SPECIES,
+                    "gaf dup long")
+    worst = strains_agree(runs["device"][2], runs["host"][2], "gaf dup long")
+    print(stage_line("gaf dup long", card, t_align, t_gaf, runs)
+          + f"; {len(records)} GAF records after the filter, K1 "
+          f"{launches['banded_extend']} ({n_seeded} seeded batches), K2 "
+          f"{launches['banded_extend_windows']} ({n_rescue} rescue batches)")
+    print(f"gaf dup long: device and host coverage: classification and "
+          f"species byte-identical, the same strains, largest relative "
+          f"differences {worst_text(worst)}")
+    check_tables(runs["device"][2], np.asarray(dindex.hap_species,
+                                               dtype=object)[lhap],
+                 N_DUP_LONG, len(records), "emitted")
+    return k1, k2
 
 
 def main() -> None:
@@ -860,7 +1201,8 @@ def main() -> None:
                             np.full(1024, 4, np.int8)])
     err2, _, _ = check_kernel(text8, dev, 4096, 96, 8, seed=2, timed=False)
     cross_device_check(build, dev)
-    (launches, err1, ms, plain_ms), (db, index, tables) = main_path(build, dev)
+    (launches, err1, ms, plain_ms), (db, index, tables), short = main_path(
+        build, dev)
     bound1, by1 = dp_bound(dp_case(index.text, 2 * BATCH, 160, 4, seed=1)[2],
                            160, 4, issue_peak)
 
@@ -882,13 +1224,16 @@ def main() -> None:
           f"{bound1_l:.4f} ms at N={2 * LONG_BATCH} Lr={chunk} pad=8; K2 "
           f"{bound2:.4f} ms ({by2}) at N={LONG_BATCH} Lr={chunk} pad=8")
     long_launches = long_path(build, dev, db, index, tables)
-    paired_launches = paired_path(build, dev, db, index, tables)
-    dup_launches, dup_k2 = dup_path(build, dev)
+    paired_launches, pairs = paired_path(build, dev, db, index, tables)
+    dup_launches, dup_k2, dup_long = dup_path(build, dev)
+    card = card_line()
+    gaf_k1, gaf_k2 = gaf_flow(build, dev, card, (db, index), short, pairs,
+                              dup_long)
 
     k1_by_path = {"short": launches, "long": long_launches["banded_extend"],
-                  "paired": paired_launches, **dup_launches}
+                  "paired": paired_launches, **dup_launches, **gaf_k1}
     k2_by_path = {"long": long_launches["banded_extend_windows"],
-                  "dup_long": dup_k2}
+                  "dup_long": dup_k2, **gaf_k2}
     print(json.dumps({"kernels": [
         dict(KERNEL, launches=sum(k1_by_path.values()),
              launches_by_path=k1_by_path,

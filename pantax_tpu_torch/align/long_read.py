@@ -27,7 +27,7 @@ import numpy as np
 
 from .. import _host
 from ..fastpath import AlignmentArrays
-from .aligner import unpack_result_rows
+from .aligner import run_batches
 
 # chunk sizes per read technology (the reference's presets: higher error
 # rates need shorter chunks so indel drift stays inside the DP band)
@@ -86,19 +86,6 @@ def concat_arrays(parts) -> AlignmentArrays:
         mapq=np.concatenate([p.mapq for p in parts]),
         read_len=np.concatenate([p.read_len for p in parts]),
     )
-
-
-def _run_batches(dispatch, n_pad: int, batch_size: int, drain) -> None:
-    """dispatch(lo) for every batch, with the next batch enqueued on the
-    device before the previous one's rows are downloaded and drained."""
-    pending = None
-    for lo in range(0, n_pad, batch_size):
-        rows = dispatch(lo)
-        if pending is not None:
-            drain(pending[0], unpack_result_rows(pending[1]))
-        pending = (lo, rows)
-    if pending is not None:
-        drain(pending[0], unpack_result_rows(pending[1]))
 
 
 def _pad_rows(a: np.ndarray, idx: np.ndarray, n_pad: int, fill) -> np.ndarray:
@@ -195,7 +182,7 @@ def align_long_reads(aligner, reads: list[tuple[str, bytes]], chunk: int = 512,
         aligned[rows] = res.aligned[:m]
 
     t1 = time.perf_counter()
-    _run_batches(query, len(s_lens), batch_size, drain)
+    run_batches(range(0, len(s_lens), batch_size), query, drain)
     stage.update(n_chunks=n, n_seeded=ns, chunk_s=t1 - t0,
                  seeded_batches=len(s_lens) // batch_size,
                  seeded_s=time.perf_counter() - t1)
@@ -328,7 +315,7 @@ def align_long_reads(aligner, reads: list[tuple[str, bytes]], chunk: int = 512,
                 member[acc] = True
 
             t2 = time.perf_counter()
-            _run_batches(extend, nr_pad, batch_size, drain_rescue)
+            run_batches(range(0, nr_pad, batch_size), extend, drain_rescue)
             stage.update(n_rescue=nr, rescue_batches=nr_pad // batch_size,
                          rescue_s=time.perf_counter() - t2)
             aligned_per_read = np.bincount(

@@ -936,7 +936,9 @@ def _profile_fused_tail(tables: FusedTables, db, cfg, out, profile_input,
                         stage_out: dict | None = None) -> bool:
     """Species stage, strain filters, two-stage PAO and report, over the
     host tail or the device tail (``_tail_mode``)."""
-    from ..profile.engine import finish_two_stage, prepare_two_stage
+    from ..profile.engine import (
+        finish_two_stage, first_filter_job, select_species,
+    )
     from ..profile.report import abundance_constraint, abundance_est
     from ..profile.species import read_species_mean_len, species_profiling_codes
 
@@ -961,20 +963,9 @@ def _profile_fused_tail(tables: FusedTables, db, cfg, out, profile_input,
     if not cfg.strain:
         return True
 
-    abundant = dict(zip(profile.species_taxid,
-                        profile.predicted_abundance.tolist()))
-    selected = []
-    for sp in tables.species:
-        r = sp.range_
-        if cfg.mode == 0 and r.is_pan != 0:
-            continue
-        if cfg.mode == 1 and r.is_pan != 1:
-            continue
-        if cfg.designated_species and r.species not in cfg.designated_species:
-            continue
-        if abundant.get(r.species, 0.0) <= cfg.min_species_abundance:
-            continue
-        selected.append(sp)
+    kept = {id(r) for r in select_species(
+        cfg, [sp.range_ for sp in tables.species], profile)}
+    selected = [sp for sp in tables.species if id(sp.range_) in kept]
     # species with zero classified reads are skipped entirely
     counts = np.bincount(ridx[keep].astype(np.int64),
                          minlength=len(tables.ranges))
@@ -989,17 +980,10 @@ def _profile_fused_tail(tables: FusedTables, db, cfg, out, profile_input,
             na = node_abund[sp.off:sp.off + sp.num_nodes]
             ta = trio_abund[sp.trio_lo:sp.trio_hi]
             bc = node_base_cov[sp.off:sp.off + sp.num_nodes]
-            state = _host.OtuState(
-                otu=sp.range_.species,
-                hap_metrics=[_host.HapMetrics() for _ in sp.paths])
-            na_opt = np.where(na > cfg.min_depth, na, 0.0)
-            _host.first_filter_paths(state, sp.paths, sp.trio_index.hap_matrix,
-                                     ta, na_opt, cfg)
-            job = None
-            if state.possible_paths_idx:
-                job = prepare_two_stage(state, sp.num_nodes, sp.paths, na, bc,
-                                        sp.nodes_len, cfg)
-            prepared.append((state, job))
+            # FusedSpecies carries the graph's num_nodes and nodes_len
+            prepared.append(first_filter_job(cfg, sp.range_.species, sp,
+                                             sp.paths, sp.trio_index,
+                                             (na, ta, bc)))
         finish_two_stage([j for _, j in prepared if j is not None], cfg,
                          device=tables.device)
         states = [state for state, _ in prepared]

@@ -1,7 +1,9 @@
-"""Per-read node / trio / per-base coverage addends on the host, the port's
-copy of pantax_tpu/profile/coverage.py's oracle (``PackedReads``,
-``raw_contributions``): the fused pipeline's host residual for reads that
-overflow the node window.
+"""Node / trio-node / per-base coverage from aligned reads on the host, the
+port's copy of pantax_tpu/profile/coverage.py: the per-species flow's host
+coverage (``node_abundances_packed`` over ``pack_reads``' rows; the
+reference's ``node_abundances`` is the two in one call), and
+``raw_contributions``, the fused
+pipeline's host residual for reads that overflow the node window.
 
 Parity: PanTax's src/profile.rs:742-1026 (get_node_abundances):
 
@@ -17,6 +19,9 @@ Parity: PanTax's src/profile.rs:742-1026 (get_node_abundances):
   Each 3-window of the read's node path that matches a unique trio (forward or
   reversed) adds the sum of the window nodes' per-read base contributions to
   that trio's count.
+
+  Outputs: node_abundance[i] = bases_i / len_i, trio_abundance, and
+  node_base_cov[i] = number of distinct covered bases of node i.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..graph.trio import TrioIndex
+from .records import ReadRecord
 
 
 @dataclass
@@ -35,6 +41,27 @@ class PackedReads:
     lengths: np.ndarray     # int64 [R] actual path lengths
     read_start: np.ndarray  # int64 [R]
     read_end: np.ndarray    # int64 [R]
+
+
+def pack_reads(reads: list[ReadRecord], range_start: int) -> PackedReads:
+    """Convert records (global 1-based node ids) to padded local-id arrays.
+
+    Local id = global - range_start (optimize_otu: start = range.start - 1 then
+    node - 1 - start, profile.rs:2886,790-793).
+    """
+    R = len(reads)
+    L = max((len(r.nodes) for r in reads), default=1)
+    nodes = np.full((R, max(L, 1)), -1, dtype=np.int64)
+    lengths = np.zeros(R, dtype=np.int64)
+    starts = np.zeros(R, dtype=np.int64)
+    ends = np.zeros(R, dtype=np.int64)
+    for i, r in enumerate(reads):
+        n = len(r.nodes)
+        nodes[i, :n] = r.nodes - range_start
+        lengths[i] = n
+        starts[i] = r.read_start
+        ends[i] = r.read_end
+    return PackedReads(nodes=nodes, lengths=lengths, read_start=starts, read_end=ends)
 
 
 def _first_occurrence_and_broadcast(
@@ -168,3 +195,47 @@ def raw_contributions(
         trio_idx,
         trio_val,
     )
+
+
+def node_abundances_packed(
+    packed: PackedReads,
+    nodes_len: np.ndarray,
+    trio_index: TrioIndex,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(node_abundance, trio_node_abundance, node_base_cov) of padded read
+    rows, float64 / float64 / int64."""
+    N = len(nodes_len)
+    node_idx, bases_val, lo, hi, trio_idx, trio_val = raw_contributions(
+        packed, nodes_len, trio_index
+    )
+
+    # --- bases per node: only first occurrences contribute -----------------
+    bases_per_node = np.bincount(
+        node_idx, weights=bases_val.astype(np.float64), minlength=N
+    )
+
+    # --- exact per-base coverage via diff-array over the flat base space ---
+    base_offset = np.zeros(N + 1, dtype=np.int64)
+    np.cumsum(nodes_len, out=base_offset[1:])
+    total_bases = int(base_offset[-1])
+    node_base_cov = np.zeros(N, dtype=np.int64)
+    if total_bases:
+        diff = np.zeros(total_bases + 1, dtype=np.int64)
+        np.add.at(diff, lo, 1)
+        np.add.at(diff, hi, -1)
+        covered = np.cumsum(diff[:-1]) > 0
+        # per-node covered count via prefix sums (np.add.reduceat is an order
+        # of magnitude slower here)
+        cum = np.zeros(total_bases + 1, dtype=np.int64)
+        np.cumsum(covered, out=cum[1:])
+        node_base_cov = cum[base_offset[1:]] - cum[base_offset[:-1]]
+        node_base_cov[nodes_len == 0] = 0
+
+    # --- trio windows ------------------------------------------------------
+    trio_bases = np.zeros(len(trio_index.trio_len), dtype=np.int64)
+    if len(trio_idx):
+        np.add.at(trio_bases, trio_idx, trio_val)
+
+    node_abundance = bases_per_node / np.maximum(nodes_len, 1)
+    trio_abundance = trio_bases / np.maximum(trio_index.trio_len, 1)
+    return node_abundance, trio_abundance, node_base_cov

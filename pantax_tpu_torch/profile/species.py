@@ -1,6 +1,6 @@
 """Species-level profiling without pandas: counterpart of
-pantax_tpu/profile/species.py (species_profiling_codes, read_species_mean_len)
-whose species_abundance.txt is byte-identical to the reference's pandas
+pantax_tpu/profile/species.py (species_profiling, species_profiling_codes,
+read_species_mean_len, SpeciesProfile.load) whose species_abundance.txt is byte-identical to the reference's pandas
 writer (floats as numpy/pandas print them, NaN as an empty field, stable
 descending sort)."""
 from __future__ import annotations
@@ -62,6 +62,30 @@ class SpeciesProfile:
             float_text(self.predicted_abundance),
             float_text(self.predicted_coverage),
         ))
+
+    @classmethod
+    def load(cls, path) -> "SpeciesProfile":
+        """Read back a saved species_abundance.txt (the resume branch of
+        profile_from_gaf); empty fields are NaN."""
+        with open(path, newline="") as f:
+            rows = list(csv.reader(f, delimiter="\t"))[1:]
+
+        def num(col):
+            return np.array([float(r[col]) if r[col] else np.nan
+                             for r in rows], dtype=np.float64)
+
+        return cls([r[0] for r in rows], num(1), num(2))
+
+
+def species_profiling(species, read_len, mapq, species_mean_len: dict,
+                      filtered: bool = True) -> SpeciesProfile:
+    """species_profiling_codes over species labels, one per classified
+    read; groups are in sorted label order (np.unique), as pandas' groupby
+    gives the reference."""
+    names, codes = np.unique(np.asarray(species, dtype=object),
+                             return_inverse=True)
+    return species_profiling_codes(codes.reshape(-1), names, read_len, mapq,
+                                   species_mean_len, filtered)
 
 
 def species_profiling_codes(codes, code_names, read_len, mapq,

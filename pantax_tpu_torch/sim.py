@@ -1,6 +1,7 @@
 """Reverse complement of ASCII reads, the port's copy of
-pantax_tpu/sim.py's ``revcomp`` (the rest of that module simulates reads
-against the GAF flow, ROADMAP M11)."""
+pantax_tpu/sim.py's ``revcomp`` (the port simulates reads with
+benchmarks.simulate_read_batch and simulate_long_reads instead of the rest
+of that module)."""
 from __future__ import annotations
 
 _COMP = bytes.maketrans(b"ACGTN", b"TGCAN")

@@ -60,6 +60,12 @@ def load_native() -> ctypes.CDLL | None:
         except (OSError, subprocess.CalledProcessError) as e:
             log.warning("native library unavailable, using NumPy paths: %s", e)
             return None
+        lib.fastx_parse.restype = ctypes.c_longlong
+        lib.fastx_parse.argtypes = [
+            ctypes.c_char_p, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong,
+        ]
         lib.unique_kmer_positions.restype = ctypes.c_longlong
         lib.unique_kmer_positions.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -77,6 +83,35 @@ def load_native() -> ctypes.CDLL | None:
         ]
         _lib = lib
         return _lib
+
+
+def fastx_parse_native(data: bytes):
+    """Parse a decompressed FASTA/FASTQ buffer.
+
+    Returns (codes int8 [total_bases], offsets int64 [n+1], ids list[str])
+    or None when the native library is unavailable / the format is unexpected.
+    """
+    lib = load_native()
+    if lib is None:
+        return None
+    n_max = max(data.count(b"\n") // 2 + 2, 4)
+    codes = np.empty(len(data), dtype=np.int8)
+    offsets = np.empty(n_max + 1, dtype=np.int64)
+    id_spans = np.empty(2 * n_max, dtype=np.int64)
+    n = lib.fastx_parse(
+        data, len(data),
+        codes.ctypes.data_as(ctypes.c_void_p),
+        offsets.ctypes.data_as(ctypes.c_void_p),
+        id_spans.ctypes.data_as(ctypes.c_void_p),
+        n_max,
+    )
+    if n < 0:
+        return None
+    ids = [
+        data[id_spans[2 * i] : id_spans[2 * i + 1]].decode()
+        for i in range(n)
+    ]
+    return codes[: offsets[n]], offsets[: n + 1], ids
 
 
 def kmer_hash_sample_native(codes: np.ndarray, k: int, density_bits: int):

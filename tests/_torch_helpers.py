@@ -1,8 +1,9 @@
 """Helpers of the port's tests (imported by tests/test_torch_*.py; the
 tests directory is on sys.path under pytest): the reference pinned to one
-device, simulated FR mate pairs, random text intervals, and the comparison
-of two runs' output tables."""
+device, simulated FR mate pairs, random text intervals, read files, random
+node-path coverage cases, and the comparison of two runs' output tables."""
 import filecmp
+import gzip
 
 import numpy as np
 import pytest
@@ -74,6 +75,67 @@ def random_intervals(index, n: int, seed: int, max_len: int = 3000):
     mapq = rng.integers(0, 61, size=n)
     mapq[5:10] = 0
     return ts, te, mapq, read_len
+
+
+BASES = np.frombuffer(b"ACGTN", np.uint8)
+
+
+def code_seqs(codes, lens):
+    """Code rows [n, L] and lengths -> ASCII sequences (bytes)."""
+    return [BASES[c[:n]].tobytes() for c, n in zip(codes, lens)]
+
+
+def write_reads(path, ids, seqs, fmt):
+    """FASTQ ("fq"), or FASTA ("fa") with 60-column lines; gzip when the
+    path ends in .gz."""
+    opener = gzip.open if str(path).endswith(".gz") else open
+    with opener(path, "wb") as f:
+        for rid, s in zip(ids, seqs):
+            if fmt == "fq":
+                f.write(b"@%s desc\n%s\n+\n%s\n" % (rid.encode(), s,
+                                                     b"I" * len(s)))
+            else:
+                f.write(b">%s\n" % rid.encode())
+                for i in range(0, len(s), 60):
+                    f.write(s[i:i + 60] + b"\n")
+
+
+# two canonical trios with equal mix3 hashes (found by search over node ids
+# below 5000)
+COLLIDING_TRIOS = ((1088, 1103, 1500), (1729, 1455, 3667))
+
+
+def coverage_case(rng, width: int, n_nodes: int = 700, n_reads: int = 300,
+                  range_start: int = 41, extra_paths=()):
+    """Three haplotype paths that revisit recent nodes (so reads repeat
+    nodes) plus ``extra_paths``; reads are sub-paths of the three, one
+    exactly ``width`` nodes long, some single-node, some reversed, with
+    random offsets (negative and out-of-bounds spans included)."""
+    nodes_len = rng.integers(1, 40, size=n_nodes).astype(np.int64)
+    paths = {}
+    for h in range(3):
+        p = [int(rng.integers(n_nodes))]
+        while len(p) < max(width, 8) + 200:
+            if len(p) > 4 and rng.random() < 0.25:
+                p.append(p[-int(rng.integers(2, 5))])
+            else:
+                p.append(int(rng.integers(n_nodes)))
+        paths[f"h{h}"] = np.array(p, dtype=np.int64)
+    for i, p in enumerate(extra_paths):
+        paths[f"x{i}"] = np.asarray(p, dtype=np.int64)
+    reads = []
+    for i in range(n_reads):
+        p = paths[f"h{int(rng.integers(3))}"]
+        ln = width if i == 0 else int(rng.integers(1, min(width, len(p)) + 1))
+        s = int(rng.integers(0, len(p) - ln + 1))
+        nodes = p[s:s + ln]
+        if rng.random() < 0.3:
+            nodes = nodes[::-1]
+        rs = int(rng.integers(0, 30))
+        re = rs + int(rng.integers(-5, int(nodes_len[nodes].sum()) + 20))
+        reads.append((f"r{i}", nodes + range_start, rs, re))
+    return nodes_len, paths, reads, range_start
+
 
 
 def strain_rows(path):

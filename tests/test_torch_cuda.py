@@ -18,8 +18,13 @@ from pantax_tpu_torch.ops.fused import (
     FusedPipeline, build_fused_tables, profile_from_fused_result,
 )
 
+from pantax_tpu_torch.ops.coverage_device import node_abundances_device
+from pantax_tpu_torch.profile.coverage import pack_reads
+from pantax_tpu_torch.profile.records import ReadRecord
+
 from _torch_helpers import (
-    assert_tables_agree, random_intervals, simulate_pairs,
+    COLLIDING_TRIOS, assert_tables_agree, code_seqs, coverage_case,
+    random_intervals, simulate_pairs, write_reads,
 )
 
 pytestmark = pytest.mark.cuda
@@ -261,3 +266,48 @@ def test_windowed_feed_cpu_equal_cuda(cuda, tmp_path, L_cap):
         np.testing.assert_array_equal(cpu.reads[k], gpu.reads[k], err_msg=k)
     assert gpu.n_overflow == cpu.n_overflow
     assert (gpu.n_overflow > 0) == (L_cap is not None)
+
+
+@pytest.mark.parametrize("width", [65, 1024, "hash"])
+def test_node_abundances_device_cpu_equal_cuda(cuda, width):
+    """The per-species device coverage on rows wider than 64 nodes (where
+    the reference switches to its sort dedup) and on two unique trios whose hashes collide (the linear
+    probe): na, ta and bc on the card equal the CPU's bit for bit."""
+    rng = np.random.default_rng(3)
+    if width == "hash":
+        extra = [[5, 6, *COLLIDING_TRIOS[0], 9], [11, *COLLIDING_TRIOS[1], 13]]
+        nodes_len, paths, reads, rs0 = coverage_case(
+            rng, 16, n_nodes=5000, n_reads=200, extra_paths=extra)
+        reads += [(f"c{i}", np.array(p) + rs0, 0, 40)
+                  for i, p in enumerate(extra)]
+    else:
+        nodes_len, paths, reads, rs0 = coverage_case(rng, width)
+    ti = _host.build_trio_index(nodes_len, paths)
+    packed = pack_reads([ReadRecord(r, n, 0, a, b, "s")
+                         for r, n, a, b in reads], rs0)
+    cpu, gpu = (node_abundances_device(packed, nodes_len, ti, device=d)
+                for d in ("cpu", cuda))
+    for name, a, b in zip(("na", "ta", "bc"), cpu, gpu):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert (gpu[1] > 0).sum() > 0
+
+
+def test_align_file_cpu_equal_cuda(cuda, tmp_path):
+    """FASTQ -> align_file on the CPU and on the card: the same GafRecords,
+    K1 once per batch on the card."""
+    db = tiny_db(tmp_path / "tiny")
+    index = _host.build_align_index(db)
+    codes, lens, _ = simulate_read_batch(index, 2500, 150, 0.01, seed=3)
+    path = tmp_path / "r.fq"
+    write_reads(path, [f"S{i}" for i in range(len(lens))],
+                code_seqs(codes, lens), "fq")
+    got = []
+    for dev in ("cpu", cuda):
+        al = aligner_from_reference(index, _host.AlignConfig(), dev)
+        extend.reset_launch_counts()
+        stage = {}
+        got.append(al.align_file(path, batch_size=1024, chunk_bytes=200_000,
+                                 stage_out=stage))
+    assert extend.LAUNCHES["banded_extend"] == stage["n_batches"] >= 3
+    assert extend.LAUNCHES["banded_extend_plain"] == 0
+    assert got[0] == got[1] and len(got[1]) > 2400

@@ -2,7 +2,8 @@
 in a subprocess that blocks those imports (pantax_tpu by its top-level
 name, so pantax_tpu_torch stays importable), pantax_tpu_torch builds a
 complete database (no species silently dropped) and runs the short-read
-slice, the paired slice with the device tail, the long-read slice and the
+slice, the per-species GAF flow from a FASTQ file with device coverage,
+the paired slice with the device tail, the long-read slice and the
 dup-graph community's windowed slice on the CPU to the four output
 tables."""
 import os
@@ -61,7 +62,26 @@ SCRIPT = textwrap.dedent("""
     rows = open(os.path.join(out, "strain_abundance.txt")).read().splitlines()
     assert len(rows) == 5, rows
 
-    from _torch_helpers import simulate_pairs
+    # the per-species GAF flow: FASTQ -> align_file -> GAF -> profile_from_gaf
+    from _torch_helpers import code_seqs, simulate_pairs, write_reads
+    from pantax_tpu_torch.io.gaf import read_gaf, write_gaf
+    from pantax_tpu_torch.pipeline import profile_from_gaf
+
+    fq = os.path.join(os.environ["TMPDIR"], "reads.fq")
+    write_reads(fq, [f"S{i}" for i in range(len(lens))],
+                code_seqs(codes, lens), "fq")
+    stage = {}
+    records = aligner.align_file(fq, batch_size=512, stage_out=stage)
+    assert stage["parser"] == "native" and len(records) > 1000, stage
+    write_gaf(os.path.join(os.environ["TMPDIR"], "a.gaf"), records)
+    records = read_gaf(os.path.join(os.environ["TMPDIR"], "a.gaf"))
+    cfg = _host.ProfilingConfig.for_read_type("short")
+    cfg.coverage = "device"
+    gaf_out = sys.argv[1] + "_gaf"
+    profile_from_gaf(records, db, cfg, gaf_out, device="cpu")
+    rows = open(os.path.join(gaf_out, "strain_abundance.txt")).read()
+    assert len(rows.splitlines()) == 5, rows
+
 
     pipe = FusedPipeline(aligner, build_fused_tables(db, index, "cpu"), 512)
     pipe.feed_paired(*simulate_pairs(index, 1024, seed=4))

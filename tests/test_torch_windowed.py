@@ -81,7 +81,8 @@ def _assert_accs_equal(want, got, sizes):
 @pytest.mark.parametrize("trio", [True, False])
 def test_coverage_scatter_bit_identical(L, has_dups, trio):
     """Random node rows drawn from a small pool (so rows repeat nodes),
-    empty rows, single-node rows with negative and out-of-bounds spans."""
+    empty rows, single-node rows with negative and out-of-bounds spans.
+    (Also called at widths over 64 by the next test.)"""
     rng = np.random.default_rng(L * 4 + 2 * has_dups + trio)
     N, R, U = 300, 512, 97
     t = port_cov.build_padded_tables(rng.integers(1, 120, size=N),
@@ -113,17 +114,13 @@ def test_coverage_scatter_bit_identical(L, has_dups, trio):
 
 
 def test_coverage_scatter_refuses_wide_dedup():
-    """The sort + carry-scan dedup of rows wider than 64 nodes is the GAF
-    flow's (ROADMAP M11)."""
-    z = torch.zeros
-    acc = (z(9, dtype=torch.int64), z(9, dtype=torch.int32),
-           z(9, dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="M11"):
-        port_cov.coverage_scatter(
-            z((2, 65), dtype=torch.int32), z(2, dtype=torch.int32),
-            z(2, dtype=torch.int32), z(2, dtype=torch.int32),
-            torch.ones(8, dtype=torch.int32), torch.arange(9), acc,
-            has_dups=True)
+    """Rows wider than 64 nodes with repeats are no longer refused: they
+    take the sort form of the first-occurrence dedup, whose accumulators
+    equal the reference's (its sort + carry-scan branch) at widths 65 and
+    128, as at 17 and 32, just past the port's switch (where the
+    reference still takes its mask form)."""
+    for L in (17, 32, 65, 128):
+        test_coverage_scatter_bit_identical(L, True, True)
 
 
 @pytest.mark.parametrize("fixture", ["tiny", "dup"])
