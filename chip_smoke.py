@@ -7,11 +7,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. require a CUDA device; print the card's name and power limit;
 2. build the banded-DP kernels (K1 and K2, csrc/banded_extend.cu) with
-   nvcc and print ptxas's register report;
+   nvcc and print ptxas's register report, and the SASS instructions of
+   one step of K1's main loop at pad 4 and pad 8 (cuobjdump);
 3. hold K1 against its plain torch version on the card, bit for bit on all
    four outputs, at the main path's shape (131072 candidates, 160-base
-   reads, pad 4) over the smoke DB's text and at a pad-8 random case, and
-   time both;
+   reads, pad 4) over the smoke DB's text, at a pad-8 random case and
+   (after phase 5) on windows at the text's two ends, where K1 takes its
+   clamped path, and time K1 and the plain version at the main shape;
 4. run the port on the tiny 2-species DB on the CPU (plain versions) and on
    the GPU (kernels): packed query rows, na/ta/bc and the align_long_reads
    arrays of 16 long reads must be identical;
@@ -213,6 +215,75 @@ def sass_counts(lib_path: str) -> str:
     return ", ".join(f"{op} {ops.count(op)}" for op in SASS_OPS)
 
 
+def ptxas_lines(log: str) -> list[str]:
+    """ptxas's register report of each kernel instantiation in an nvcc
+    log, as "kernel<WB>: report"."""
+    lines, entry = [], ""
+    for ln in log.splitlines():
+        m = re.search(r"(banded_extend\w*_kernel)ILi(\d+)E", ln)
+        if m:
+            entry = f"{m[1]}<{m[2]}>"
+        elif "registers" in ln:
+            lines.append(f"{entry}: {ln.split(':', 1)[1].strip()}")
+    return lines
+
+
+def k1_step_sass(lib_path: str, wb: int) -> dict | str:
+    """K1's main step loop in a built library (cuobjdump beside nvcc): the
+    body of the widest innermost loop of banded_extend_kernel<wb>, its
+    SASS instructions, the DP steps it holds (the maxes its max
+    instructions take, fused with an add or not, over the 2 * (wb - 1) of
+    one step) and instructions per step; or why there is none."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    try:
+        out = subprocess.run([tool, "-sass", lib_path], check=True,
+                             capture_output=True, text=True, timeout=120)
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"not available ({type(e).__name__})"
+    funcs = re.split(r"\n\s*Function : ", out.stdout)
+    body = next((f for f in funcs[1:]
+                 if re.match(rf"\S*banded_extend_kernelILi{wb}E", f)), None)
+    if body is None:
+        return "kernel not found"
+    addrs, ops, labels, pending = [], [], {}, []
+    for ln in body.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", ln)
+        if m:
+            pending.append(m[1])
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+        if m:
+            labels.update((lb, int(m[1], 16)) for lb in pending)
+            pending = []
+            addrs.append(int(m[1], 16))
+            ops.append(m[2])
+    loops = []
+    for a, op in zip(addrs, ops):
+        m = re.match(r"(?:@!?U?P\w+\s+)?BRA\S*\s+(?:`\()?(0x[0-9a-f]+|\.L_x_\d+)",
+                     op)
+        if m:
+            t = labels.get(m[1]) if m[1].startswith(".") else int(m[1], 16)
+            if t is not None and t <= a:
+                loops.append((a - t, t, a))
+    # the widest of the innermost loops (the step loop, not one around it)
+    inner = [lp for lp in loops
+             if not any(lp[1] <= o[1] and o[2] < lp[2] for o in loops)]
+    if not inner:
+        return "no loop found"
+    _, lo, hi = max(inner)
+    names = [re.sub(r"^@!?U?P\w+\s+", "", op).split()[0]
+             for a, op in zip(addrs, ops) if lo <= a <= hi]
+    dpx = sum(n.startswith("VIADDMNMX") for n in names)
+    # a three-input max (VIMNMX3) takes two of the DP's maxes
+    maxes = dpx + sum((2 if n.split(".")[0].endswith("3") else 1)
+                      for n in names if n.startswith(("VIMNMX", "IMNMX")))
+    steps = max(1, round(maxes / (2 * (wb - 1))))
+    return {"instructions": len(names), "steps": steps,
+            "per_step": round(len(names) / steps, 2), "viaddmnmx": dpx,
+            "max_ops": maxes}
+
+
 def dp_bound(lens: np.ndarray, Lr: int, pad: int,
              issue_peak: float) -> tuple[float, str]:
     """(bound ms, what bounds it) of the banded DP over candidates with
@@ -259,19 +330,26 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_kernel(text_np: np.ndarray, dev, N: int, Lr: int, pad: int,
-                 seed: int, timed: bool):
-    text = torch.tensor(text_np).to(dev)
-    args = [torch.from_numpy(a).to(dev)
-            for a in dp_case(text_np, N, Lr, pad, seed)]
+def hold_k1(text, args, pad: int, what: str) -> int:
+    """K1 against its plain version on the same tensors, bit for bit on
+    all four outputs; returns the largest absolute difference (0)."""
     ker = extend.banded_extend_cuda(text, *args, pad, MATCH, MISMATCH, GAP)
     plain = extend.banded_extend_plain(text, *args, pad, MATCH, MISMATCH, GAP)
     torch.cuda.synchronize()
     err = max(int((k - p).abs().max()) for k, p in zip(ker, plain))
     for k, p, name in zip(ker, plain, ("score", "start", "end", "matches")):
         if not torch.equal(k, p):
-            raise AssertionError(f"K1 != plain on {name} at N={N} Lr={Lr} pad={pad}")
-    print(f"K1 == plain at N={N} Lr={Lr} pad={pad} (4 outputs bit-identical)")
+            raise AssertionError(f"K1 != plain on {name} {what}")
+    print(f"K1 == plain {what} (4 outputs bit-identical)")
+    return err
+
+
+def check_kernel(text_np: np.ndarray, dev, N: int, Lr: int, pad: int,
+                 seed: int, timed: bool):
+    text = torch.tensor(text_np).to(dev)
+    args = [torch.from_numpy(a).to(dev)
+            for a in dp_case(text_np, N, Lr, pad, seed)]
+    err = hold_k1(text, args, pad, f"at N={N} Lr={Lr} pad={pad}")
     if not timed:
         return err, None, None
     ms = cuda_ms(lambda: extend.banded_extend_cuda(
@@ -280,6 +358,21 @@ def check_kernel(text_np: np.ndarray, dev, N: int, Lr: int, pad: int,
         text, *args, pad, MATCH, MISMATCH, GAP), 3)
     print(f"K1 {ms:.4f} ms, plain torch {plain_ms:.3f} ms at N={N} Lr={Lr} pad={pad}")
     return err, ms, plain_ms
+
+
+def check_kernel_clamped(text_np: np.ndarray, dev, N: int = 8192,
+                         Lr: int = 160, pad: int = 4, seed: int = 7) -> int:
+    """K1 against its plain version where windows reach past either end of
+    the text (w0 within 40 bases of position 0 or of the text's end, so
+    that K1 takes its clamped per-byte path for them)."""
+    rng = np.random.default_rng(seed)
+    _, reads, lens = dp_case(text_np, N, Lr, pad, seed)
+    T, W = len(text_np), Lr + 2 * pad
+    w0 = np.where(rng.random(N) < 0.5, rng.integers(-40, 40, size=N),
+                  rng.integers(T - W - 40, T + 40, size=N)).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (w0, reads, lens)]
+    return hold_k1(torch.from_numpy(text_np).to(dev), args, pad,
+                   f"on windows at the text's ends at N={N} Lr={Lr} pad={pad}")
 
 
 def windows_case(text_np: np.ndarray, dev, N: int, Lr: int, pad: int,
@@ -1188,13 +1281,10 @@ def main() -> None:
     lib = extend.build_kernels()
     print(f"kernel build (K1, K2) {time.time() - t0:.2f} s")
     print(f"SASS of K1 and K2: {sass_counts(lib._name)}")
-    entry = ""
-    for ln in extend.BUILD_LOG.splitlines():
-        m = re.search(r"(banded_extend\w*_kernel)ILi(\d+)E", ln)
-        if m:
-            entry = f"{m[1]}<{m[2]}>"
-        elif "registers" in ln:
-            print(f"  ptxas: {entry}: {ln.split(':', 1)[1].strip()}")
+    k1_sass = {f"pad{pad}": k1_step_sass(lib._name, 2 * pad) for pad in (4, 8)}
+    print(f"K1 main step loop SASS: {json.dumps(k1_sass)}")
+    for ln in ptxas_lines(lib.build_log):
+        print(f"  ptxas: {ln}")
 
     rng = np.random.default_rng(0)
     text8 = np.concatenate([rng.integers(0, 4, size=8192).astype(np.int8),
@@ -1203,6 +1293,7 @@ def main() -> None:
     cross_device_check(build, dev)
     (launches, err1, ms, plain_ms), (db, index, tables), short = main_path(
         build, dev)
+    err_c = check_kernel_clamped(index.text, dev)
     bound1, by1 = dp_bound(dp_case(index.text, 2 * BATCH, 160, 4, seed=1)[2],
                            160, 4, issue_peak)
 
@@ -1237,10 +1328,10 @@ def main() -> None:
     print(json.dumps({"kernels": [
         dict(KERNEL, launches=sum(k1_by_path.values()),
              launches_by_path=k1_by_path,
-             max_abs_err=max(err1, err2, err1_r, err1_l), ms=ms,
+             max_abs_err=max(err1, err2, err1_r, err1_l, err_c), ms=ms,
              plain_ms=plain_ms, bound_ms=bound1, bound_by=by1,
              library_ms=None, long_seeded_ms=ms1_l,
-             long_seeded_bound_ms=bound1_l),
+             long_seeded_bound_ms=bound1_l, sass_per_step=k1_sass),
         dict(KERNEL2, launches=sum(k2_by_path.values()),
              launches_by_path=k2_by_path,
              max_abs_err=max(err_k2, err_k2r), ms=ms2, plain_ms=plain_ms2,

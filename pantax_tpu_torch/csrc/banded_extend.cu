@@ -7,8 +7,9 @@
 // - K2, :316 banded_extend_pallas_dponly (body _dp_only_kernel, :238): the
 //   same DP over windows already extracted into [N, W], which is exactly
 //   aligner._banded_extend (the long-read rescue pass, _extend_batch).
-// Both kernels run one __device__ DP (banded_dp), templated on where the
-// window bases come from.
+// K2 runs the __device__ DP banded_dp over its rows.  K1 runs its own DP
+// (k1_fast_dp, below) wherever the window lies inside the text, and
+// banded_dp over the clamped text where it does not.
 //
 // For each candidate n it aligns the whole read reads[n, :read_len[n]]
 // against its window (K1: text[w0[n] : w0[n] + Lr + 2*pad]; K2: the row
@@ -20,20 +21,46 @@
 // first band row that reaches the maximum.
 //
 // What bounds K1: per candidate it reads Lr + WB - 1 text bytes and Lr read
-// bytes (about 330 bytes at Lr = 160, pad = 4) and does about Lr * WB * 8
-// integer operations (about 10k), so at N = 131072 candidates it moves
-// ~43 MB and executes ~1.3 G integer ops: a few tens of microseconds of
-// DRAM traffic against a comparable amount of ALU work.  The design keeps
-// all DP state out of memory: one thread owns one candidate, holds its WB
-// band cells and a WB-base sliding window in registers, and streams the
-// read and window bytes through L1 (each thread walks its own rows
-// sequentially, so every 128-byte line it touches serves ~128 steps).  The
-// TPU kernel's 1024-aligned DMA slices, binary-decomposed lane rolls and
-// static band shifts exist because Mosaic cannot slice rows dynamically;
-// none of them is needed here.  The left-gap prefix max of the TPU kernel
-// (log2(WB) shift steps) is the sequential recurrence
+// bytes (about 330 bytes at Lr = 160, pad = 4, ~43 MB at N = 131072) and
+// runs Lr * WB band cells of about 5 instructions each (~0.8 G), so
+// instruction issue bounds it, ahead of its DRAM traffic.  On Hopper the
+// integer ALU takes a warp instruction every other clock, as does the FMA
+// pipe (IMAD), so the design keeps the ALU's share of each cell small.  One
+// thread owns one candidate and keeps all DP state in registers.  The
+// left-gap prefix max of the TPU kernel (log2(WB) shift steps) is the
+// sequential recurrence
 //     m[b] = max(v[b], m[b-1] + gap_p),
-// which is equal to it in integers (no NEG fill value ever wins).
+// which is equal to it in integers (no NEG fill value ever wins).  The TPU
+// kernel's 1024-aligned DMA slices, lane rolls and static band shifts exist
+// because Mosaic cannot slice rows dynamically; none of them is needed.
+//
+// K1's design spends its instructions on the band cells and nothing else:
+// - Vector loads.  The read row comes 16 bytes at a time (uint4; the
+//   wrapper requires rows 16-byte aligned and Lr % 16 == 0), the window as
+//   16-byte-aligned chunks of the text from (text + w0) & ~15, shifted into
+//   window order in registers (a word select and a funnel shift per word).
+//   Each chunk's loads are issued one chunk (16 steps) before they are
+//   used, so the per-step byte loads of the first design, and their
+//   stalls, are gone.
+// - N codes remapped once per base, as the bytes are loaded (four a
+//   word), into forms that make the match test one byte-table lookup:
+//   one PRMT a cell gives 1 where the bases match and 0 elsewhere, N codes
+//   on either side included, and an IMAD (on the FMA pipe, beside the ALU
+//   that takes the maxes and PRMTs) scales it into the diagonal move.
+//   The first design spent three compares a cell and the logic between
+//   them on the ALU.
+// - The step loop unrolled by 16, the load width: each step takes its
+//   read shift and its entering window selector out of registers at an index
+//   known at compile time, and the sliding window and the band rotate by
+//   renaming registers.  The unrolled body also lets the scheduler start a
+//   step's low band rows while the previous step's left-gap chain runs.
+//   Step 0 is the first chunk's first step with a gap no up or left move
+//   survives (kFar), which reduces it to the first row's initialisation.
+//   The ragged last chunk runs the same body and stops after read_len
+//   steps, leaving the state as the first design's frozen rows did.
+// - Where the 16-byte chunks would reach outside the text (w0 near either
+//   end; the aligner clips w0 so that real windows never do), the
+//   candidate runs banded_dp over the clamped text, as before.
 //
 // What bounds K2 at the rescue pass's shape (N = 16384 chunks, Lr = 512,
 // pad 8, W = 528): per row it reads 528 window bytes and 512 read bytes
@@ -150,6 +177,229 @@ __device__ __forceinline__ void banded_dp(
     end_off[n] = (len - 1) + b_best + 1;
 }
 
+// K1's fast path.  kChunk bytes per vector load, and DP steps per unrolled
+// chunk.
+constexpr int kChunk = 16;
+// step 0's gap: the packed cells are positive (the bias) and below 2^31,
+// so with it no up or left move wins
+constexpr int kFar = -(1 << 30);
+
+// The match test is a byte-table lookup.  A window byte w becomes the
+// PRMT selector 0x40 | w (0x44 | (w & 3) for an N code), a read byte x the
+// shift 8x (32 + 8 (x & 3) for an N code), and per step t = 1 << 8x is the
+// table: prmt(t, 0, window byte) is 1 where the window base equals
+// x and 0 elsewhere (an N shift leaves t = 0; an N selector reads the zero
+// word).  N codes are the non-negative codes >= 4; a negative code (a base
+// to the plain version's signed x < 4) fits neither form, so a candidate
+// with one anywhere in its bytes runs banded_dp instead.
+
+// The bytes of w that are N codes: the top bit of each byte set where its
+// bits 2..6 are not all zero and the byte is not negative.
+__device__ __forceinline__ unsigned n_bytes(unsigned w) {
+    return ((w & 0x7C7C7C7Cu) + 0x7F7F7F7Fu) & ~w & 0x80808080u;
+}
+
+__device__ __forceinline__ uint4 window_selectors(uint4 v) {
+    auto f = [](unsigned w) {
+        return (w & 0x03030303u) | (n_bytes(w) >> 5) | 0x40404040u;
+    };
+    return make_uint4(f(v.x), f(v.y), f(v.z), f(v.w));
+}
+
+__device__ __forceinline__ uint4 read_shifts(uint4 v) {
+    auto f = [](unsigned w) {
+        return ((w & 0x03030303u) | (n_bytes(w) >> 5)) << 3;
+    };
+    return make_uint4(f(v.x), f(v.y), f(v.z), f(v.w));
+}
+
+__device__ __forceinline__ unsigned or_words(uint4 v) {
+    return v.x | v.y | v.z | v.w;
+}
+
+// PRMT as the hardware does it.  __byte_perm masks every nibble of a
+// selector held in a register to its low 3 bits first (an ALU instruction
+// per window byte); the selectors here never set bit 3 (sign replication).
+__device__ __forceinline__ unsigned prmt(unsigned a, unsigned b, unsigned s) {
+    unsigned r;
+    asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(s));
+    return r;
+}
+
+__device__ __forceinline__ unsigned word_of(const uint4& v, int k) {
+    return k < 4 ? v.x : (k < 8 ? v.y : (k < 12 ? v.z : v.w));
+}
+
+// Byte k (0..15, known at compile time) of v, zero-extended.
+__device__ __forceinline__ unsigned byte_of(const uint4& v, int k) {
+    return __byte_perm(word_of(v, k), 0u, 0x4440u | (k & 3));
+}
+
+// Window byte k (0..15, known at compile time) of v as a selector whose
+// other three nibbles pick byte 4 (the table's zero word).
+__device__ __forceinline__ unsigned selector_of(const uint4& v, int k) {
+    return __byte_perm(word_of(v, k), 0x44u, 0x0040u | (k & 3));
+}
+
+// Bytes [a, a + 16) of the 32 bytes lo:hi, where a = 4 * q + r8 / 8.
+__device__ __forceinline__ uint4 realign(const uint4& lo, const uint4& hi,
+                                         int q, int r8) {
+    const unsigned w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    unsigned s[5];  // words q .. q + 4
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+        const unsigned t0 = (q & 1) ? w[j + 1] : w[j];
+        const unsigned t1 = (q & 1) ? w[j + 3] : w[j + 2];
+        s[j] = (q & 2) ? t1 : t0;
+    }
+    return make_uint4(__funnelshift_r(s[0], s[1], r8),
+                      __funnelshift_r(s[1], s[2], r8),
+                      __funnelshift_r(s[2], s[3], r8),
+                      __funnelshift_r(s[3], s[4], r8));
+}
+
+// DP steps 16c .. 16c + n - 1 (n = 16 unless PARTIAL) of one candidate:
+// lo:hi hold its window selectors 16c .. 16c + 31 and rd its read shifts
+// 16c .. 16c + 15; win[1 .. WB-1] enter holding window selectors
+// 16c .. 16c + WB - 2.  g0 is the gap of step 16c (kFar at step 0).
+template <int WB, bool PARTIAL>
+__device__ __forceinline__ void k1_chunk(
+        const uint4& lo, const uint4& hi, const uint4& rd,
+        unsigned (&win)[WB], int (&cell)[WB], int g0, int gap_p,
+        int ok_gain, int mis_d, int n) {
+#pragma unroll
+    for (int s = 0; s < kChunk; ++s) {
+        if (PARTIAL && s >= n) break;  // rows past read_len: state frozen
+#pragma unroll
+        for (int b = 0; b < WB - 1; ++b) win[b] = win[b + 1];
+        const int p = s + WB - 1;  // the window byte entering the band
+        win[WB - 1] =
+            p < kChunk ? selector_of(lo, p) : selector_of(hi, p - kChunk);
+        const unsigned t = __funnelshift_lc(0u, 1u, byte_of(rd, s));
+        const int g = s == 0 ? g0 : gap_p;
+        int v[WB];
+#pragma unroll
+        for (int b = 0; b < WB; ++b) {
+            const int e = static_cast<int>(prmt(t, 0u, win[b]));
+            v[b] = e * ok_gain + cell[b] + mis_d;                      // diagonal
+            if (b + 1 < WB) v[b] = max(v[b], cell[b + 1] + g);         // up
+        }
+#pragma unroll
+        for (int b = 1; b < WB; ++b) v[b] = max(v[b], v[b - 1] + g);  // left
+#pragma unroll
+        for (int b = 0; b < WB; ++b) cell[b] = v[b];
+    }
+}
+
+// The DP of one candidate whose 16-byte text chunks tw[0 .. nc + 1] lie in
+// the text (nc = ceil(steps / 16), steps >= 1; the window starts at byte a
+// of tw[0]) and whose read row is rr; the outputs of banded_dp.  Returns
+// false, having written nothing, where a byte it read is a negative code.
+template <int WB>
+__device__ __forceinline__ bool k1_fast_dp(
+        const uint4* __restrict__ tw, int a, const uint4* __restrict__ rr,
+        int len, int steps, int match, int mismatch, int gap, int sh_score,
+        int bias, int n, int32_t* __restrict__ score,
+        int32_t* __restrict__ start_off, int32_t* __restrict__ end_off,
+        int32_t* __restrict__ matches) {
+    const int d_score = 1 << sh_score;
+    const int gap_p = gap * d_score;
+    const int mis_d = mismatch * d_score;
+    const int ok_gain = (match - mismatch) * d_score + (1 << kShMatch);
+    const int q = a >> 2, r8 = (a & 3) * 8;
+    const int nc = (steps + kChunk - 1) / kChunk;
+    const int nfull = steps / kChunk;
+
+    // lo:hi are the window's chunks c and c + 1, t2 the text chunk c + 2;
+    // seen gathers every byte loaded, for the negative-code test
+    const uint4 t0 = __ldg(tw), t1_raw = __ldg(tw + 1), t2_raw = __ldg(tw + 2);
+    const uint4 rd_raw = __ldg(rr);
+    unsigned seen = or_words(t0) | or_words(t1_raw) | or_words(t2_raw) |
+                    or_words(rd_raw);
+    const uint4 t1 = window_selectors(t1_raw);
+    uint4 t2 = window_selectors(t2_raw);
+    uint4 lo = realign(window_selectors(t0), t1, q, r8);
+    uint4 hi = realign(t1, t2, q, r8);
+    uint4 rd = read_shifts(rd_raw);
+
+    unsigned win[WB];
+    int cell[WB];
+    win[0] = 0;
+#pragma unroll
+    for (int b = 0; b < WB - 1; ++b) win[b + 1] = selector_of(lo, b);
+#pragma unroll
+    for (int b = 0; b < WB; ++b) cell[b] = (bias << sh_score) + b;
+
+    int g0 = kFar;
+    for (int c = 0; c < nfull; ++c) {
+        // chunk c + 1's loads, one chunk ahead of their use
+        uint4 t_next = make_uint4(0u, 0u, 0u, 0u), rd_next = t_next;
+        if (c + 2 <= nc) t_next = __ldg(tw + c + 3);
+        if (c + 1 < nc) rd_next = __ldg(rr + c + 1);
+        k1_chunk<WB, false>(lo, hi, rd, win, cell, g0, gap_p, ok_gain,
+                            mis_d, kChunk);
+        g0 = gap_p;
+        seen |= or_words(t_next) | or_words(rd_next);
+        t_next = window_selectors(t_next);
+        lo = hi;
+        hi = realign(t2, t_next, q, r8);
+        t2 = t_next;
+        rd = read_shifts(rd_next);
+    }
+    if (steps > nfull * kChunk)
+        k1_chunk<WB, true>(lo, hi, rd, win, cell, g0, gap_p, ok_gain, mis_d,
+                           steps - nfull * kChunk);
+    if (seen & 0x80808080u) return false;
+
+    int best = cell[0];
+    int b_best = 0;
+#pragma unroll
+    for (int b = 1; b < WB; ++b) {
+        if (cell[b] > best) {  // strict: the first band row wins ties
+            best = cell[b];
+            b_best = b;
+        }
+    }
+    score[n] = (best >> sh_score) - bias;
+    matches[n] = (best >> kShMatch) & ((1 << (sh_score - kShMatch)) - 1);
+    start_off[n] = best & ((1 << kShMatch) - 1);
+    end_off[n] = (len - 1) + b_best + 1;
+    return true;
+}
+
+// K1's DP of candidate n (read rows 16-byte aligned, Lr % 16 == 0).
+template <int WB>
+__device__ __forceinline__ void k1_candidate(
+        const int8_t* __restrict__ text, long long T,
+        const int32_t* __restrict__ w0, const int8_t* __restrict__ reads,
+        const int32_t* __restrict__ read_len, int n, int Lr, int match,
+        int mismatch, int gap, int sh_score, int bias,
+        int32_t* __restrict__ score, int32_t* __restrict__ start_off,
+        int32_t* __restrict__ end_off, int32_t* __restrict__ matches) {
+    const long long w = w0[n];
+    const int len = read_len[n];
+    const int steps = len < Lr ? len : Lr;
+    const int8_t* read = reads + static_cast<long long>(n) * Lr;
+    // the window's first byte sits at byte a of a 16-byte-aligned chunk
+    // that starts at text position `first`; the fast path reads chunks
+    // first .. first + 16 * (nc + 2) - 1
+    const int a = static_cast<int>(
+        (reinterpret_cast<uintptr_t>(text) + static_cast<uintptr_t>(w)) & 15);
+    const long long first = w - a;
+    const int nc = (steps + kChunk - 1) / kChunk;
+    if (!(steps >= 1 && first >= 0 &&
+          first + static_cast<long long>(kChunk) * (nc + 2) <= T &&
+          k1_fast_dp<WB>(reinterpret_cast<const uint4*>(text + first), a,
+                         reinterpret_cast<const uint4*>(read), len, steps,
+                         match, mismatch, gap, sh_score, bias, n, score,
+                         start_off, end_off, matches))) {
+        const TextWindow window{text, T, w};
+        banded_dp<WB>(window, read, len, Lr, match, mismatch, gap, sh_score,
+                      bias, n, score, start_off, end_off, matches);
+    }
+}
+
+// K1: one candidate a thread.
 template <int WB>
 __global__ void __launch_bounds__(kThreads)
 banded_extend_kernel(const int8_t* __restrict__ text, long long T,
@@ -163,11 +413,10 @@ banded_extend_kernel(const int8_t* __restrict__ text, long long T,
                      int32_t* __restrict__ end_off,
                      int32_t* __restrict__ matches) {
     const int n = blockIdx.x * blockDim.x + threadIdx.x;
-    if (n >= N) return;  // ragged last block
-    const TextWindow window{text, T, static_cast<long long>(w0[n])};
-    banded_dp<WB>(window, reads + static_cast<long long>(n) * Lr, read_len[n],
-                  Lr, match, mismatch, gap, sh_score, bias, n, score,
-                  start_off, end_off, matches);
+    if (n < N)  // ragged last block
+        k1_candidate<WB>(text, T, w0, reads, read_len, n, Lr, match,
+                         mismatch, gap, sh_score, bias, score, start_off,
+                         end_off, matches);
 }
 
 template <int WB>
@@ -208,7 +457,8 @@ int blocks_for(int N) { return (N + kThreads - 1) / kThreads; }
         default: return static_cast<int>(cudaErrorInvalidValue);            \
     }
 
-// K1.  Launches on ``stream`` and returns cudaGetLastError() (0 on success).
+// K1.  Launches on ``stream`` and returns cudaGetLastError() (0 on success);
+// reads must start on a 16-byte boundary and Lr be a multiple of 16.
 extern "C" int banded_extend_launch(
     const void* text, long long T, const void* w0, const void* reads,
     const void* read_len, int N, int Lr, int pad, int match, int mismatch,
@@ -216,6 +466,9 @@ extern "C" int banded_extend_launch(
     void* end_off, void* matches, void* stream) {
     if (N <= 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    // the fast path loads the read rows 16 bytes at a time
+    if (Lr % kChunk != 0 || reinterpret_cast<uintptr_t>(reads) % kChunk != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
 #define PANTAX_LAUNCH_K1(WB)                                                 \
     banded_extend_kernel<WB><<<blocks_for(N), kThreads, 0, s>>>(             \
         static_cast<const int8_t*>(text), T,                                 \

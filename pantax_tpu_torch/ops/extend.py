@@ -7,8 +7,9 @@ path runs with XLA as aligner._extract_windows + aligner._banded_extend,
 and ``banded_extend_pallas_dponly`` (:316), which is aligner._banded_extend
 over windows already extracted.  Each has two versions here:
 
-- the CUDA kernels, ``csrc/banded_extend.cu`` (one shared device DP), built
-  with nvcc for sm_90a at first use into a git-ignored build directory and
+- the CUDA kernels, ``csrc/banded_extend.cu`` (K1 with vector loads and
+  an unrolled step loop, K2 on the first design's device DP), built with
+  nvcc for sm_90a at first use into a git-ignored build directory and
   bound with ctypes;
 - ``banded_extend_windows_plain``, the plain torch DP (a Python loop over
   the read columns on [Wb, N] int32 tensors), and ``banded_extend_plain``,
@@ -43,8 +44,7 @@ _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-_lib: ctypes.CDLL | None = None
-BUILD_LOG = ""  # nvcc's output (ptxas register/spill report) of the last build
+_libs: dict[Path, ctypes.CDLL] = {}  # by source path
 
 
 def reset_launch_counts() -> None:
@@ -157,28 +157,34 @@ def build_dir() -> Path:
     return Path(env) if env else _SRC.parent.parent.parent / "build"
 
 
-def build_kernels() -> ctypes.CDLL:
-    """Compile csrc/banded_extend.cu (K1 and K2; once per source content)
-    and load it."""
-    global _lib, BUILD_LOG
-    if _lib is not None:
-        return _lib
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+def build_kernels(src: Path | str | None = None) -> ctypes.CDLL:
+    """Compile a kernel source (csrc/banded_extend.cu unless ``src`` names
+    another with the same C entry points, such as an earlier commit's; once
+    per source content) and load it.  The library's ``build_log`` holds
+    nvcc's output (ptxas's register and spill report), kept beside the
+    ``.so``."""
+    src = Path(src).resolve() if src is not None else _SRC
+    if src in _libs:
+        return _libs[src]
+    code = src.read_bytes()
+    tag = hashlib.sha256(code + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
     out_dir = build_dir() / "kernels"
     out_dir.mkdir(parents=True, exist_ok=True)
     so = out_dir / f"banded_extend_{tag}.so"
+    log = so.with_suffix(".log")
     if not so.exists():
         tmp = out_dir / f".banded_extend_{tag}.{os.getpid()}.so"
         proc = subprocess.run(
-            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
+            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
             capture_output=True, text=True,
         )
-        BUILD_LOG = proc.stdout + proc.stderr
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{BUILD_LOG}")
+            raise RuntimeError(
+                f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+        log.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
+    lib.build_log = log.read_text() if log.exists() else ""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.banded_extend_launch.restype = i32
     lib.banded_extend_launch.argtypes = [
@@ -190,7 +196,7 @@ def build_kernels() -> ctypes.CDLL:
         vp, i32, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
         vp, vp, vp, vp, vp,
     ]
-    _lib = lib
+    _libs[src] = lib
     return lib
 
 
@@ -212,12 +218,11 @@ def _check_cuda_args(pad: int, tensors) -> torch.device:
     return dev
 
 
-def _launch(fn_name: str, dev, N: int, *args):
-    """Call ``fn_name`` of the kernel library with ``args``, four fresh
-    int32 [N] outputs and the current stream (no synchronise); raise on the
-    CUDA error it returns."""
+def _launch(lib, fn_name: str, dev, N: int, *args):
+    """Call ``fn_name`` of the kernel library ``lib`` with ``args``, four
+    fresh int32 [N] outputs and the current stream (no synchronise); raise
+    on the CUDA error it returns."""
     outs = [torch.empty(N, dtype=torch.int32, device=dev) for _ in range(4)]
-    lib = build_kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, fn_name)(*args, *(o.data_ptr() for o in outs),
@@ -227,9 +232,12 @@ def _launch(fn_name: str, dev, N: int, *args):
     return tuple(outs)
 
 
-def banded_extend_cuda(text, w0, reads, read_len, pad: int, match: int,
-                       mismatch: int, gap: int):
-    """Launch K1 on the current stream (no synchronise)."""
+def launch_k1(lib, text, w0, reads, read_len, pad: int, match: int,
+              mismatch: int, gap: int):
+    """Check K1's arguments and launch ``lib``'s banded_extend_launch on
+    the current stream (no synchronise, no count).  The read rows are
+    loaded 16 bytes at a time: ``reads`` must start on a 16-byte boundary
+    and its width be a multiple of 16."""
     dev = _check_cuda_args(pad, (("text", text, torch.int8, 1),
                                  ("w0", w0, torch.int32, 1),
                                  ("reads", reads, torch.int8, 2),
@@ -237,10 +245,22 @@ def banded_extend_cuda(text, w0, reads, read_len, pad: int, match: int,
     N, Lr = reads.shape
     if w0.shape[0] != N or read_len.shape[0] != N:
         raise ValueError("w0, reads and read_len disagree on N")
-    outs = _launch("banded_extend_launch", dev, N, text.data_ptr(),
+    if Lr < 1 or Lr % 16:
+        raise ValueError(f"K1 takes reads of a width that is a positive "
+                         f"multiple of 16 (got {Lr})")
+    if reads.data_ptr() % 16:
+        raise ValueError("reads must start on a 16-byte boundary")
+    return _launch(lib, "banded_extend_launch", dev, N, text.data_ptr(),
                    text.numel(), w0.data_ptr(), reads.data_ptr(),
                    read_len.data_ptr(), N, Lr, pad, match, mismatch, gap,
                    *packed_layout(Lr))
+
+
+def banded_extend_cuda(text, w0, reads, read_len, pad: int, match: int,
+                       mismatch: int, gap: int):
+    """Launch K1 on the current stream (no synchronise)."""
+    outs = launch_k1(build_kernels(), text, w0, reads, read_len, pad, match,
+                     mismatch, gap)
     LAUNCHES["banded_extend"] += 1
     return outs
 
@@ -258,7 +278,7 @@ def banded_extend_windows_cuda(windows, reads, read_len, pad: int,
     if Lr < 1 or W < Lr + 2 * pad - 1:
         raise ValueError(f"windows of width {W} do not cover reads of "
                          f"{Lr} bases at pad {pad} (need >= {Lr + 2 * pad - 1})")
-    outs = _launch("banded_extend_windows_launch", dev, N,
+    outs = _launch(build_kernels(), "banded_extend_windows_launch", dev, N,
                    windows.data_ptr(), W, reads.data_ptr(),
                    read_len.data_ptr(), N, Lr, pad, match, mismatch, gap,
                    *packed_layout(Lr))

@@ -135,6 +135,19 @@ def test_query_rows_bit_identical_scale(scale):
     assert (rows[3] & 1).mean() > 0.9  # the reads really aligned
 
 
+@pytest.mark.parametrize("width", [150, 100])
+def test_query_rows_bit_identical_odd_width(tiny, width):
+    """Code matrices of a width that is no multiple of 16, which the port
+    pads for K1 (its rows are loaded 16 bytes at a time)."""
+    _db, index = tiny
+    codes, lens, _ = simulate_read_batch(index, 512, width, 0.01, seed=7)
+    codes = np.ascontiguousarray(codes[:, :width])
+    lens[:3] = (0, 40, width - 1)
+    rows = _port_rows(index, codes, lens)
+    np.testing.assert_array_equal(rows, _ref_rows(index, codes, lens))
+    assert (rows[3] & 1).mean() > 0.9
+
+
 def test_bisection_lookup_bit_identical(tiny, monkeypatch):
     """Force the bucketed-bisection seed lookup in both packages."""
     _db, index = tiny

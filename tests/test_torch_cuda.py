@@ -88,6 +88,75 @@ def test_kernel_rejects_bad_inputs(cuda):
         extend.banded_extend_cuda(text, w0, reads, lens, 9, 1, -1, -2)
 
 
+def _edge_case(rng, pad, N, Lr, T=4096):
+    """Candidates at the edges of K1's design: N codes (and other codes >= 4,
+    and the negative code -1, which the kernel sends to its clamped path)
+    in the text and the reads, read_len 0, 1, 15, 16, 17, Lr - 1, Lr and
+    past Lr (the edges of the 16-byte chunks), and windows that touch
+    position 0 or the text's last byte or reach past them (the clamped
+    path)."""
+    n, N = N, max(N, 16)  # the edge rows come first; keep n of the rows
+    text = rng.integers(0, 4, size=T).astype(np.int8)
+    text[rng.random(T) < 0.02] = 4
+    text[rng.random(T) < 0.005] = 9
+    text[rng.random(T) < 0.002] = -1  # a base to the plain version's x < 4
+    W = Lr + 2 * pad
+    w0 = rng.integers(0, T - W, size=N).astype(np.int32)
+    w0[:6] = (0, T - W, -7, T - W + 9, 1, T - W - 1)
+    start = np.clip(w0 + pad + rng.integers(-4, 5, size=N), 0, T - Lr)
+    reads = text[start[:, None] + np.arange(Lr)]
+    noise = rng.random((N, Lr)) < 0.05
+    reads = np.where(noise, rng.integers(0, 4, size=(N, Lr)), reads).astype(np.int8)
+    reads[rng.random((N, Lr)) < 0.02] = 4
+    reads[rng.random((N, Lr)) < 0.002] = -1
+    lens = rng.integers(1, Lr + 1, size=N).astype(np.int32)
+    edges = (0, 1, 15, 16, 17, Lr - 1, Lr, Lr + 5)
+    lens[:len(edges)] = edges
+    lens[6:6 + len(edges)] = edges
+    reads[np.arange(Lr)[None, :] >= lens[:, None]] = 4
+    return text, w0[:n], reads[:n], lens[:n]
+
+
+def _hold_k1(cuda, case, pad):
+    args = [torch.from_numpy(a).to(cuda) for a in case]
+    ker = extend.banded_extend_cuda(*args, pad, MATCH, MIS, GAP)
+    plain = extend.banded_extend_plain(*args, pad, MATCH, MIS, GAP)
+    torch.cuda.synchronize()
+    for k, p, name in zip(ker, plain, ("score", "start", "end", "matches")):
+        assert torch.equal(k, p), name
+
+
+@pytest.mark.parametrize("pad", range(1, 9))
+@pytest.mark.parametrize("Lr", [32, 160])
+def test_kernel_edges_match_plain(cuda, pad, Lr):
+    """Every band width of the launch switch over read_len at the chunk
+    edges, N codes in reads and text, and windows at the text's ends."""
+    _hold_k1(cuda, _edge_case(np.random.default_rng(70 + pad + Lr), pad,
+                              1000, Lr), pad)
+
+
+@pytest.mark.parametrize("N", [1, 37, 4099, 70001])
+def test_kernel_ragged_n_matches_plain(cuda, N):
+    """N not a multiple of the block size (128)."""
+    _hold_k1(cuda, _edge_case(np.random.default_rng(N), 4, N, 160), 4)
+
+
+def test_kernel_rejects_unaligned_reads(cuda):
+    """K1 loads read rows 16 bytes at a time: a reads view that starts off
+    a 16-byte boundary, or rows of a width not a multiple of 16, raise."""
+    text, w0, reads, lens = [torch.from_numpy(a).to(cuda) for a in
+                             _edge_case(np.random.default_rng(2), 4, 64, 160)]
+    buf = torch.empty(reads.numel() + 16, dtype=torch.int8, device=cuda)
+    shifted = buf[1:1 + reads.numel()].view(reads.shape)
+    shifted.copy_(reads)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        extend.banded_extend_cuda(text, w0, shifted, lens, 4, 1, -1, -2)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        extend.banded_extend_cuda(text, w0, reads[:, :150].contiguous(),
+                                  lens, 4, 1, -1, -2)
+
+
 def _windows_case(rng, pad, N, Lr):
     text, w0, reads, lens = _case(rng, pad, N, Lr, T=max(8192, 4 * Lr))
     W = Lr + 2 * pad
@@ -189,6 +258,51 @@ def test_query_rows_cpu_equal_cuda(cuda, tmp_path):
         al = aligner_from_reference(index, _host.AlignConfig(), dev)
         rows.append(al.query_packed(*al.upload(codes, lens)).cpu())
     assert torch.equal(rows[0], rows[1])
+
+
+@pytest.mark.parametrize("width", [150, 100])
+def test_align_codes_odd_width_cpu_equal_cuda(cuda, tmp_path, width):
+    """Code matrices of a width that is no multiple of 16 (K1 loads read
+    rows 16 bytes at a time; the aligner pads them): align_codes and the
+    paired query on the card equal the CPU's."""
+    db = tiny_db(tmp_path / "tiny")
+    index = _host.build_align_index(db)
+    codes, lens, _ = simulate_read_batch(index, 1024, width, 0.01, seed=3)
+    codes = np.ascontiguousarray(codes[:, :width])
+    lens[:3] = (0, 40, width - 1)
+    c1, l1, c2, l2 = simulate_pairs(index, 512, seed=3, Lr=width - 2,
+                                    L=width)
+    got = []
+    for dev in ("cpu", cuda):
+        al = aligner_from_reference(index, _host.AlignConfig(), dev)
+        extend.reset_launch_counts()
+        got.append((al.align_codes(codes, lens),
+                    al.align_paired_codes(c1, l1, c2, l2)))
+        assert extend.LAUNCHES["banded_extend"] == (2 if dev == cuda else 0)
+    (single, (m1, m2)), (single_d, (m1_d, m2_d)) = got
+    for a, b in ((single, single_d), (m1, m1_d), (m2, m2_d)):
+        for name in ("text_start", "text_end", "score", "matches", "mapq",
+                     "strand", "aligned"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name),
+                                          err_msg=name)
+    assert single_d.aligned.mean() > 0.9
+
+
+def test_align_long_reads_odd_chunk_cpu_equal_cuda(cuda, tmp_path):
+    """Long reads cut into chunks of 500 bases (no multiple of 16)."""
+    db = tiny_db(tmp_path / "tiny")
+    index = _host.build_align_index(db)
+    reads, _ = simulate_long_reads(index, 16, 4096, seed=9)
+    got = []
+    for dev in ("cpu", cuda):
+        al = aligner_from_reference(
+            index, _host.AlignConfig.for_read_type("long"), dev)
+        got.append(align_long_reads(al, reads, chunk=500, batch_size=256,
+                                    seed_stride=2, as_arrays=True))
+    assert got[0].read_ids == got[1].read_ids and len(got[1].read_ids) > 12
+    for name in ("ts", "te", "mapq", "read_len"):
+        np.testing.assert_array_equal(getattr(got[0], name),
+                                      getattr(got[1], name), err_msg=name)
 
 
 def test_paired_rows_cpu_equal_cuda(cuda, tmp_path):
