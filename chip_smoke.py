@@ -8,7 +8,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. require a CUDA device; print the card's name and power limit;
 2. build the banded-DP kernels (K1 and K2, csrc/banded_extend.cu) with
    nvcc and print ptxas's register report, and the SASS instructions of
-   one step of K1's main loop at pad 4 and pad 8 (cuobjdump);
+   one step of K1's and of K2's main loop at pad 4 and pad 8 (cuobjdump);
 3. hold K1 against its plain torch version on the card, bit for bit on all
    four outputs, at the main path's shape (131072 candidates, 160-base
    reads, pad 4) over the smoke DB's text, at a pad-8 random case and
@@ -24,11 +24,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
 6. hold the DP over given windows (K2) against its plain version, bit for
    bit on all four outputs, at the long-read rescue pass's shape (16384
    chunks of 512 bases, pad 8, windows of 528 cut from the smoke DB's text)
-   and at a pad-4 random case with N bases; hold K1 to the same outputs on
-   the same candidates (K1 fetches the windows itself) and at the seeded
-   pass's shape (32768 candidates of 512 bases, pad 8); time K2, its plain
-   version and K1, K2 at 2048 to 131072 rows, and K1 and its plain version
-   at the seeded pass's shape;
+   at a pad-4 random case with N bases, on a windows view that starts off
+   a 16-byte boundary at the narrowest width the wrapper takes (Lr + 2*pad
+   - 1), and on the buffer's last rows (a view that ends where its
+   allocation ends); hold K1 to the same outputs on the same candidates
+   (K1 fetches the windows itself) and at the seeded pass's shape (32768
+   candidates of 512 bases, pad 8); time K2, its plain version and K1, K2
+   at 2048 to 131072 rows, and K1 and its plain version at the seeded
+   pass's shape;
 7. drive the long-read path over the same DB: 50,000 simulated HiFi-like
    reads of 8192 bp, align_long_reads with the hifi preset (chunk 512,
    seed stride 2) at batch 16384, FusedPipeline.feed_intervals, finish,
@@ -228,12 +231,14 @@ def ptxas_lines(log: str) -> list[str]:
     return lines
 
 
-def k1_step_sass(lib_path: str, wb: int) -> dict | str:
-    """K1's main step loop in a built library (cuobjdump beside nvcc): the
-    body of the widest innermost loop of banded_extend_kernel<wb>, its
-    SASS instructions, the DP steps it holds (the maxes its max
-    instructions take, fused with an add or not, over the 2 * (wb - 1) of
-    one step) and instructions per step; or why there is none."""
+def step_sass(lib_path: str, wb: int,
+              kernel: str = "banded_extend_kernel") -> dict | str:
+    """A DP kernel's main step loop in a built library (cuobjdump beside
+    nvcc): the body of the widest innermost loop of ``kernel``<wb> (K1's
+    banded_extend_kernel or K2's banded_extend_windows_kernel), its SASS
+    instructions, the DP steps it holds (the maxes its max instructions
+    take, fused with an add or not, over the 2 * (wb - 1) of one step) and
+    instructions per step; or why there is none."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     try:
@@ -243,7 +248,7 @@ def k1_step_sass(lib_path: str, wb: int) -> dict | str:
         return f"not available ({type(e).__name__})"
     funcs = re.split(r"\n\s*Function : ", out.stdout)
     body = next((f for f in funcs[1:]
-                 if re.match(rf"\S*banded_extend_kernelILi{wb}E", f)), None)
+                 if re.match(rf"\S*\d{kernel}ILi{wb}E", f)), None)
     if body is None:
         return "kernel not found"
     addrs, ops, labels, pending = [], [], {}, []
@@ -317,9 +322,20 @@ def dp_case(text: np.ndarray, N: int, Lr: int, pad: int, seed: int):
     return w0, reads, lens
 
 
-def cuda_ms(fn, iters: int) -> float:
+def cuda_ms(fn, iters: int, hold: bool = False) -> float:
+    """ms per call of ``fn`` over ``iters`` calls (CUDA events, after one
+    warm-up).  With ``hold``, a sleep kernel first holds the stream while
+    the host enqueues the calls, so that a kernel that takes less time than
+    its launch's host work (Python, the checks, four output allocations)
+    is timed by the device and not by the host's launch rate."""
     fn()  # warm-up
     torch.cuda.synchronize()
+    if hold:
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        # cycles at up to 2 GHz for 4x the host's time to enqueue the calls
+        torch.cuda._sleep(int(min(1.0, 4 * iters * host_s + 1e-3) * 2e9))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -353,7 +369,7 @@ def check_kernel(text_np: np.ndarray, dev, N: int, Lr: int, pad: int,
     if not timed:
         return err, None, None
     ms = cuda_ms(lambda: extend.banded_extend_cuda(
-        text, *args, pad, MATCH, MISMATCH, GAP), 50)
+        text, *args, pad, MATCH, MISMATCH, GAP), 50, hold=True)
     plain_ms = cuda_ms(lambda: extend.banded_extend_plain(
         text, *args, pad, MATCH, MISMATCH, GAP), 3)
     print(f"K1 {ms:.4f} ms, plain torch {plain_ms:.3f} ms at N={N} Lr={Lr} pad={pad}")
@@ -391,6 +407,22 @@ def windows_case(text_np: np.ndarray, dev, N: int, Lr: int, pad: int,
                          (reads, np.int8), (lens, np.int32))]
 
 
+def hold_k2(args, pad: int, what: str):
+    """K2 against its plain version on the same (windows, reads, read_len),
+    bit for bit on all four outputs; returns the largest absolute
+    difference (0) and the plain version's outputs."""
+    ker = extend.banded_extend_windows_cuda(*args, pad, MATCH, MISMATCH, GAP)
+    plain = extend.banded_extend_windows_plain(*args, pad, MATCH, MISMATCH,
+                                               GAP)
+    torch.cuda.synchronize()
+    err = max(int((k - p).abs().max()) for k, p in zip(ker, plain))
+    for k, p, name in zip(ker, plain, ("score", "start", "end", "matches")):
+        if not torch.equal(k, p):
+            raise AssertionError(f"K2 != plain on {name} {what}")
+    print(f"K2 == plain {what} (4 outputs bit-identical)")
+    return err, plain
+
+
 def check_windows_kernel(text_np: np.ndarray, dev, N: int, Lr: int, pad: int,
                          seed: int, n_bases: float, timed: bool):
     """K2 against its plain version on windows cut from ``text_np`` at
@@ -400,17 +432,8 @@ def check_windows_kernel(text_np: np.ndarray, dev, N: int, Lr: int, pad: int,
     With ``timed``, K2, the plain version and K1 are timed.  Returns (K2's
     err, K1's err or None, K2 ms, plain ms, K1 ms)."""
     w0, *args = windows_case(text_np, dev, N, Lr, pad, seed, n_bases)
-    ker = extend.banded_extend_windows_cuda(*args, pad, MATCH, MISMATCH, GAP)
-    plain = extend.banded_extend_windows_plain(*args, pad, MATCH, MISMATCH,
-                                               GAP)
-    torch.cuda.synchronize()
-    err = max(int((k - p).abs().max()) for k, p in zip(ker, plain))
-    for k, p, name in zip(ker, plain, ("score", "start", "end", "matches")):
-        if not torch.equal(k, p):
-            raise AssertionError(f"K2 != plain on {name} at N={N} Lr={Lr} pad={pad}")
-    W = args[0].shape[1]
-    print(f"K2 == plain at N={N} Lr={Lr} pad={pad} W={W} "
-          f"(4 outputs bit-identical)")
+    err, plain = hold_k2(args, pad, f"at N={N} Lr={Lr} pad={pad} "
+                                    f"W={args[0].shape[1]}")
     text = torch.from_numpy(text_np).to(dev)
     err1 = None
     if not n_bases:
@@ -426,27 +449,57 @@ def check_windows_kernel(text_np: np.ndarray, dev, N: int, Lr: int, pad: int,
     if not timed:
         return err, err1, None, None, None
     ms = cuda_ms(lambda: extend.banded_extend_windows_cuda(
-        *args, pad, MATCH, MISMATCH, GAP), 50)
+        *args, pad, MATCH, MISMATCH, GAP), 50, hold=True)
     plain_ms = cuda_ms(lambda: extend.banded_extend_windows_plain(
         *args, pad, MATCH, MISMATCH, GAP), 3)
     k1_ms = cuda_ms(lambda: extend.banded_extend_cuda(
-        text, w0, *args[1:], pad, MATCH, MISMATCH, GAP), 50)
+        text, w0, *args[1:], pad, MATCH, MISMATCH, GAP), 50, hold=True)
     print(f"K2 {ms:.4f} ms, plain torch {plain_ms:.3f} ms, K1 on the same "
           f"candidates {k1_ms:.4f} ms at N={N} Lr={Lr} pad={pad}")
     return err, err1, ms, plain_ms, k1_ms
 
 
-def k2_scaling(text_np: np.ndarray, dev, Lr: int, pad: int) -> None:
-    """K2's time against the number of rows at the rescue shape: a time
-    that stays flat while N grows says the card had idle issue slots
-    (latency-bound); a time that grows with N says it had none."""
-    parts = []
+def k2_scaling(text_np: np.ndarray, dev, Lr: int, pad: int, lib=None,
+               what: str = "") -> None:
+    """K2's time (``lib``'s build, the current source's by default)
+    against the number of rows at the rescue shape: a time that stays flat
+    while N grows says the card had idle issue slots (latency-bound); a
+    time that grows with N says it had none."""
+    lib = lib or extend.build_kernels()
+    got = {}
     for N in (2048, 4096, 8192, 16384, 32768, 65536, 131072):
         _w0, *args = windows_case(text_np, dev, N, Lr, pad, seed=N)
-        ms = cuda_ms(lambda: extend.banded_extend_windows_cuda(
-            *args, pad, MATCH, MISMATCH, GAP), 20)
-        parts.append(f"{N}: {ms:.4f}")
-    print(f"K2 ms by rows at Lr={Lr} pad={pad}: {', '.join(parts)}")
+        got[N] = cuda_ms(lambda: extend.launch_k2(
+            lib, *args, pad, MATCH, MISMATCH, GAP), 20, hold=True)
+    print(f"K2{what} ms by rows at Lr={Lr} pad={pad}: "
+          + ", ".join(f"{n}: {ms:.4f}" for n, ms in got.items()))
+
+
+def check_windows_edges(text_np: np.ndarray, dev, N: int, Lr: int,
+                        pad: int, seed: int) -> int:
+    """K2 against its plain version at the fast DP's edges, on windows of
+    the narrowest width (Lr + 2*pad - 1) cut from ``text_np``: the buffer
+    as a view that starts 1 byte past a 16-byte boundary (its first row
+    takes the per-byte path), and its last 3 rows at full read length as a
+    view that ends where its allocation ends (where the fast DP's loads
+    would pass the buffer's end).  Returns the largest absolute difference
+    (0)."""
+    _w0, windows, reads, lens = windows_case(text_np, dev, N, Lr, pad, seed)
+    W = Lr + 2 * pad - 1
+    buf = torch.empty(N * W + 16, dtype=torch.int8, device=dev)
+    off = (1 - buf.data_ptr()) % 16
+    view = buf[off:off + N * W].view(N, W)
+    view.copy_(windows[:, :W])
+    err, _ = hold_k2((view, reads, lens), pad,
+                     f"on a view off a 16-byte boundary at N={N} Lr={Lr} "
+                     f"pad={pad} W={W}")
+    last = windows[:, :W].contiguous()
+    lens = lens.clone()
+    lens[-3:] = Lr
+    err_last, _ = hold_k2((last[-3:], reads[-3:], lens[-3:]), pad,
+                          f"on the buffer's last 3 rows at Lr={Lr} pad={pad} "
+                          f"W={W}")
+    return max(err, err_last)
 
 
 def cross_device_check(build: str, dev) -> None:
@@ -1281,8 +1334,12 @@ def main() -> None:
     lib = extend.build_kernels()
     print(f"kernel build (K1, K2) {time.time() - t0:.2f} s")
     print(f"SASS of K1 and K2: {sass_counts(lib._name)}")
-    k1_sass = {f"pad{pad}": k1_step_sass(lib._name, 2 * pad) for pad in (4, 8)}
+    k1_sass = {f"pad{pad}": step_sass(lib._name, 2 * pad) for pad in (4, 8)}
+    k2_sass = {f"pad{pad}": step_sass(lib._name, 2 * pad,
+                                      "banded_extend_windows_kernel")
+               for pad in (4, 8)}
     print(f"K1 main step loop SASS: {json.dumps(k1_sass)}")
+    print(f"K2 main step loop SASS: {json.dumps(k2_sass)}")
     for ln in ptxas_lines(lib.build_log):
         print(f"  ptxas: {ln}")
 
@@ -1305,6 +1362,7 @@ def main() -> None:
                            chunk, 8, issue_peak)
     err_k2r, _, _, _, _ = check_windows_kernel(
         text8, dev, 4096, 96, 4, seed=5, n_bases=0.01, timed=False)
+    err_k2e = check_windows_edges(index.text, dev, 4099, chunk, 8, seed=8)
     k2_scaling(index.text, dev, chunk, 8)
     # K1 at the seeded pass's shape (two strands per chunk), over this text
     err1_l, ms1_l, _ = check_kernel(index.text, dev, 2 * LONG_BATCH, chunk, 8,
@@ -1334,9 +1392,10 @@ def main() -> None:
              long_seeded_bound_ms=bound1_l, sass_per_step=k1_sass),
         dict(KERNEL2, launches=sum(k2_by_path.values()),
              launches_by_path=k2_by_path,
-             max_abs_err=max(err_k2, err_k2r), ms=ms2, plain_ms=plain_ms2,
-             bound_ms=bound2, bound_by=by2, library_ms=None,
-             k1_same_candidates_ms=k1_ms),
+             max_abs_err=max(err_k2, err_k2r, err_k2e), ms=ms2,
+             plain_ms=plain_ms2, bound_ms=bound2, bound_by=by2,
+             library_ms=None, k1_same_candidates_ms=k1_ms,
+             sass_per_step=k2_sass),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

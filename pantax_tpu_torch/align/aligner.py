@@ -354,16 +354,14 @@ def all_candidates(text, run_table, seed_pos, bucket_lo, tstart, tnode,
     read_rep = torch.where((strand == 1)[:, :, None], codes_rev[:, None, :],
                            codes_fwd[:, None, :]).reshape(B * K, Lr)
     if Lr % 16:
-        # K1 loads read rows 16 bytes at a time: pad them with N.  The DP
-        # stops at read_len, so the outputs stay those of width Lr, but
-        # for a read of length 0 (its NEG cell unpacks in the wider
-        # packed layout, whose fields may be a bit wider)
+        # K1 loads read rows 16 bytes at a time: pad them with N; the DP
+        # runs over the first Lr columns, in width Lr's packed layout
         read_rep = torch.nn.functional.pad(read_rep, (0, -Lr % 16), value=4)
     len_rep = read_len.repeat_interleave(K)
     flat_w0 = (cand_diag - pad).clamp(0, T - W).reshape(-1).contiguous()
     score, start_off, end_off, matches = banded_extend(
         text, flat_w0, read_rep.contiguous(), len_rep, pad, match, mismatch,
-        gap,
+        gap, lr=Lr,
     )
     scores = torch.where(cand_votes > 0, score.reshape(B, K), NEG)
     ts = (flat_w0 + start_off).reshape(B, K)

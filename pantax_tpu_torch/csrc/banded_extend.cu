@@ -7,9 +7,10 @@
 // - K2, :316 banded_extend_pallas_dponly (body _dp_only_kernel, :238): the
 //   same DP over windows already extracted into [N, W], which is exactly
 //   aligner._banded_extend (the long-read rescue pass, _extend_batch).
-// K2 runs the __device__ DP banded_dp over its rows.  K1 runs its own DP
-// (k1_fast_dp, below) wherever the window lies inside the text, and
-// banded_dp over the clamped text where it does not.
+// Both kernels run one DP, dp_candidate: the fast DP (fast_dp, below) where
+// its 16-byte loads are possible, and the per-byte DP banded_dp elsewhere.
+// K1 hands it the index text and w0[n]; K2 hands it the windows buffer
+// [N, W] as a text of N * W bytes in which row n starts at n * W.
 //
 // For each candidate n it aligns the whole read reads[n, :read_len[n]]
 // against its window (K1: text[w0[n] : w0[n] + Lr + 2*pad]; K2: the row
@@ -18,15 +19,16 @@
 //     ((score + bias) << sh_score) | (matches << 5) | start_band,
 // so a plain integer max compares score, then matches, then start band.
 // Outputs (score, start_off, end_off, matches), end_off taken from the
-// first band row that reaches the maximum.
+// first band row that reaches the maximum.  (sh_score, bias) come from the
+// caller, from the DP's own width, which may be less than the row width Lr.
 //
-// What bounds K1: per candidate it reads Lr + WB - 1 text bytes and Lr read
-// bytes (about 330 bytes at Lr = 160, pad = 4, ~43 MB at N = 131072) and
-// runs Lr * WB band cells of about 5 instructions each (~0.8 G), so
-// instruction issue bounds it, ahead of its DRAM traffic.  On Hopper the
-// integer ALU takes a warp instruction every other clock, as does the FMA
-// pipe (IMAD), so the design keeps the ALU's share of each cell small.  One
-// thread owns one candidate and keeps all DP state in registers.  The
+// What bounds the DP: per candidate it reads Lr + WB - 1 window bytes and
+// Lr read bytes (about 330 bytes at Lr = 160, pad = 4, ~43 MB at N =
+// 131072) and runs Lr * WB band cells of about 5 instructions each (~0.8
+// G), so instruction issue bounds it, ahead of its DRAM traffic.  On Hopper
+// the integer ALU takes a warp instruction every other clock, as does the
+// FMA pipe (IMAD), so the design keeps the ALU's share of each cell small.
+// One thread owns one candidate and keeps all DP state in registers.  The
 // left-gap prefix max of the TPU kernel (log2(WB) shift steps) is the
 // sequential recurrence
 //     m[b] = max(v[b], m[b-1] + gap_p),
@@ -34,14 +36,15 @@
 // kernel's 1024-aligned DMA slices, lane rolls and static band shifts exist
 // because Mosaic cannot slice rows dynamically; none of them is needed.
 //
-// K1's design spends its instructions on the band cells and nothing else:
-// - Vector loads.  The read row comes 16 bytes at a time (uint4; the
-//   wrapper requires rows 16-byte aligned and Lr % 16 == 0), the window as
-//   16-byte-aligned chunks of the text from (text + w0) & ~15, shifted into
-//   window order in registers (a word select and a funnel shift per word).
-//   Each chunk's loads are issued one chunk (16 steps) before they are
-//   used, so the per-step byte loads of the first design, and their
-//   stalls, are gone.
+// The fast DP spends its instructions on the band cells and nothing else:
+// - Vector loads.  The read row comes 16 bytes at a time (uint4; rows
+//   16-byte aligned and Lr % 16 == 0), the window as 16-byte-aligned
+//   chunks of the buffer from (buffer + w) & ~15, shifted into window order
+//   in registers (a word select and a funnel shift per word), so any row
+//   offset works: K2's rows of W bytes start anywhere in a chunk.  Each
+//   chunk's loads are issued one chunk (16 steps) before they are used, so
+//   the per-step byte loads of the first design, and their stalls, are
+//   gone.
 // - N codes remapped once per base, as the bytes are loaded (four a
 //   word), into forms that make the match test one byte-table lookup:
 //   one PRMT a cell gives 1 where the bases match and 0 elsewhere, N codes
@@ -58,30 +61,40 @@
 //   survives (kFar), which reduces it to the first row's initialisation.
 //   The ragged last chunk runs the same body and stops after read_len
 //   steps, leaving the state as the first design's frozen rows did.
-// - Where the 16-byte chunks would reach outside the text (w0 near either
-//   end; the aligner clips w0 so that real windows never do), the
-//   candidate runs banded_dp over the clamped text, as before.
+// - The per-byte path, banded_dp, is the first design (a byte load a step
+//   from the window and the read, three compares a cell).  It is exact for
+//   every input and runs where the fast DP cannot: K1's windows that reach
+//   outside the text (w0 near either end, where the plain version clamps
+//   positions; the aligner clips w0 so that real windows never do), every
+//   K2 row where the read rows cannot be loaded 16 bytes at a time (a
+//   width that is no multiple of 16: the rescue pass of a chunk size of
+//   that kind), and any candidate with a negative code among the bytes
+//   loaded.  A chunk past the end of the buffer is not loaded (the fast
+//   DP uses none: it loads the buffer's last whole chunk again), so a K2
+//   buffer's last rows stay on the fast DP where the buffer ends on a
+//   16-byte boundary, as the rescue pass's windows do; a row whose used
+//   bytes share a chunk with bytes outside the buffer (the first row of a
+//   view that starts off a 16-byte boundary, the last of one that ends
+//   off it) takes the per-byte path.  One thread on the per-byte path
+//   holds its warp for a whole per-byte DP: at the rescue shape, the
+//   first design's whole kernel time.
 //
 // What bounds K2 at the rescue pass's shape (N = 16384 chunks, Lr = 512,
 // pad 8, W = 528): per row it reads 528 window bytes and 512 read bytes
-// (17 MB in all, ~5 us of HBM time), so not bytes.  Each of its 511 steps
-// is 157 SASS instructions at pad 8 (cuobjdump of the loop), nearly all
-// on the integer pipe.  16384 threads are 128 blocks of 128, one block on
-// each of 128 SMs: one warp per warp scheduler.  Timed against the number
-// of rows on an H100 (PERF.md), K2 is flat up to 16384 rows and then grows
-// almost in proportion (1.64x at 32768, 5.59x at 131072), so a lone warp
-// per scheduler already gets ~70% of the throughput that eight warps get:
-// K2 is mostly bound by integer issue, and the rest is latency each step
-// cannot hide (the byte loads are consumed a few instructions after they
-// are issued, and the left-gap recurrence is a serial chain).  Rows 528
-// bytes apart make the per-step byte loads uncoalesced; L1 absorbs them
-// (each thread reuses a 128-byte line for 128 steps).  The design does the
-// simple thing: the band and the sliding window live in registers, as in
-// K1.  More warps per SM would buy at most ~1.4x; fewer integer
-// instructions per cell is where later work should look (e.g. map N codes
-// to two distinct sentinels once, as a base enters the window and as the
-// read base is loaded, so that one compare per cell replaces three; issue
-// each step's loads a step ahead).
+// (17 MB in all, ~5 us of HBM time), so not bytes: integer issue, as K1,
+// whose loop it runs (98.7 SASS instructions a step at pad 8, 80
+// registers).  16384 threads are 128 blocks of 128, one block on each of
+// 128 SMs: one warp per warp scheduler, half the warps K1 has at the
+// seeded pass's 32768 candidates.  On an H100 80GB HBM3 at 700 W
+// (PERF.md section 6) it takes 0.0475 ms there, 2.09x the first design
+// and 32% of the issue bound; its time is flat from 2048 to 16384 rows
+// and 1.63x at 32768, so a lone warp a scheduler leaves latency (the
+// left-gap chain) exposed.  Two lanes a
+// candidate, each half the band with two shuffles a step, put two warps
+// on each scheduler but lost 1.34x: the shuffle sits on the chain and
+// each lane repeats the loads, selectors and loop.  What would move it:
+// more rows a launch (the caller's batch), or fewer ALU instructions a
+// cell, as for K1.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -177,7 +190,7 @@ __device__ __forceinline__ void banded_dp(
     end_off[n] = (len - 1) + b_best + 1;
 }
 
-// K1's fast path.  kChunk bytes per vector load, and DP steps per unrolled
+// The fast DP.  kChunk bytes per vector load, and DP steps per unrolled
 // chunk.
 constexpr int kChunk = 16;
 // step 0's gap: the packed cells are positive (the bias) and below 2^31,
@@ -263,7 +276,7 @@ __device__ __forceinline__ uint4 realign(const uint4& lo, const uint4& hi,
 // 16c .. 16c + 15; win[1 .. WB-1] enter holding window selectors
 // 16c .. 16c + WB - 2.  g0 is the gap of step 16c (kFar at step 0).
 template <int WB, bool PARTIAL>
-__device__ __forceinline__ void k1_chunk(
+__device__ __forceinline__ void dp_chunk(
         const uint4& lo, const uint4& hi, const uint4& rd,
         unsigned (&win)[WB], int (&cell)[WB], int g0, int gap_p,
         int ok_gain, int mis_d, int n) {
@@ -291,17 +304,19 @@ __device__ __forceinline__ void k1_chunk(
     }
 }
 
-// The DP of one candidate whose 16-byte text chunks tw[0 .. nc + 1] lie in
-// the text (nc = ceil(steps / 16), steps >= 1; the window starts at byte a
-// of tw[0]) and whose read row is rr; the outputs of banded_dp.  Returns
-// false, having written nothing, where a byte it read is a negative code.
+// The DP of one candidate whose window starts at byte a of the 16-byte
+// chunk tw[0] and whose read row is rr (steps >= 1); the outputs of
+// banded_dp.  It loads the chunks tw[min(k, kin)] for k = 0 .. nc + 1 (nc =
+// ceil(steps / 16)): kin is the last chunk that lies in the buffer, at or
+// past the last the DP uses.  Returns false, having written nothing, where
+// a byte it loaded is a negative code.
 template <int WB>
-__device__ __forceinline__ bool k1_fast_dp(
-        const uint4* __restrict__ tw, int a, const uint4* __restrict__ rr,
-        int len, int steps, int match, int mismatch, int gap, int sh_score,
-        int bias, int n, int32_t* __restrict__ score,
-        int32_t* __restrict__ start_off, int32_t* __restrict__ end_off,
-        int32_t* __restrict__ matches) {
+__device__ __forceinline__ bool fast_dp(
+        const uint4* __restrict__ tw, int kin, int a,
+        const uint4* __restrict__ rr, int len, int steps, int match,
+        int mismatch, int gap, int sh_score, int bias, int n,
+        int32_t* __restrict__ score, int32_t* __restrict__ start_off,
+        int32_t* __restrict__ end_off, int32_t* __restrict__ matches) {
     const int d_score = 1 << sh_score;
     const int gap_p = gap * d_score;
     const int mis_d = mismatch * d_score;
@@ -310,9 +325,10 @@ __device__ __forceinline__ bool k1_fast_dp(
     const int nc = (steps + kChunk - 1) / kChunk;
     const int nfull = steps / kChunk;
 
-    // lo:hi are the window's chunks c and c + 1, t2 the text chunk c + 2;
+    // lo:hi are the window's chunks c and c + 1, t2 the buffer chunk c + 2;
     // seen gathers every byte loaded, for the negative-code test
-    const uint4 t0 = __ldg(tw), t1_raw = __ldg(tw + 1), t2_raw = __ldg(tw + 2);
+    const uint4 t0 = __ldg(tw), t1_raw = __ldg(tw + min(1, kin)),
+                t2_raw = __ldg(tw + min(2, kin));
     const uint4 rd_raw = __ldg(rr);
     unsigned seen = or_words(t0) | or_words(t1_raw) | or_words(t2_raw) |
                     or_words(rd_raw);
@@ -334,9 +350,9 @@ __device__ __forceinline__ bool k1_fast_dp(
     for (int c = 0; c < nfull; ++c) {
         // chunk c + 1's loads, one chunk ahead of their use
         uint4 t_next = make_uint4(0u, 0u, 0u, 0u), rd_next = t_next;
-        if (c + 2 <= nc) t_next = __ldg(tw + c + 3);
+        if (c + 2 <= nc) t_next = __ldg(tw + min(c + 3, kin));
         if (c + 1 < nc) rd_next = __ldg(rr + c + 1);
-        k1_chunk<WB, false>(lo, hi, rd, win, cell, g0, gap_p, ok_gain,
+        dp_chunk<WB, false>(lo, hi, rd, win, cell, g0, gap_p, ok_gain,
                             mis_d, kChunk);
         g0 = gap_p;
         seen |= or_words(t_next) | or_words(rd_next);
@@ -347,7 +363,7 @@ __device__ __forceinline__ bool k1_fast_dp(
         rd = read_shifts(rd_next);
     }
     if (steps > nfull * kChunk)
-        k1_chunk<WB, true>(lo, hi, rd, win, cell, g0, gap_p, ok_gain, mis_d,
+        dp_chunk<WB, true>(lo, hi, rd, win, cell, g0, gap_p, ok_gain, mis_d,
                            steps - nfull * kChunk);
     if (seen & 0x80808080u) return false;
 
@@ -367,36 +383,45 @@ __device__ __forceinline__ bool k1_fast_dp(
     return true;
 }
 
-// K1's DP of candidate n (read rows 16-byte aligned, Lr % 16 == 0).
-template <int WB>
-__device__ __forceinline__ void k1_candidate(
-        const int8_t* __restrict__ text, long long T,
-        const int32_t* __restrict__ w0, const int8_t* __restrict__ reads,
-        const int32_t* __restrict__ read_len, int n, int Lr, int match,
-        int mismatch, int gap, int sh_score, int bias,
-        int32_t* __restrict__ score, int32_t* __restrict__ start_off,
-        int32_t* __restrict__ end_off, int32_t* __restrict__ matches) {
-    const long long w = w0[n];
-    const int len = read_len[n];
+// The DP of one candidate: its window starts at byte w of the buffer
+// text[0, T) (K1: the index text at w0[n]; K2: the windows [N, W] read as
+// one text of N * W bytes, row n at n * W) and its read row is read.  The
+// fast DP runs where the read row can be loaded 16 bytes at a time
+// (vec_reads: rows 16-byte aligned, Lr % 16 == 0), the 16-byte chunks that
+// hold the bytes the DP uses lie in the buffer and no byte loaded is a
+// negative code; anywhere else banded_dp runs over ``window`` (K1: the
+// clamped text; K2: the row), the per-byte path.
+template <int WB, class Window>
+__device__ __forceinline__ void dp_candidate(
+        const int8_t* __restrict__ text, long long T, long long w,
+        const Window& window, const int8_t* __restrict__ read, bool vec_reads,
+        int len, int Lr, int match, int mismatch, int gap, int sh_score,
+        int bias, int n, int32_t* __restrict__ score,
+        int32_t* __restrict__ start_off, int32_t* __restrict__ end_off,
+        int32_t* __restrict__ matches) {
     const int steps = len < Lr ? len : Lr;
-    const int8_t* read = reads + static_cast<long long>(n) * Lr;
-    // the window's first byte sits at byte a of a 16-byte-aligned chunk
-    // that starts at text position `first`; the fast path reads chunks
-    // first .. first + 16 * (nc + 2) - 1
+    // the window's first byte sits at byte a of the 16-byte-aligned chunk
+    // at buffer position `first`; chunk k of the fast DP (k = 0 .. nc + 1)
+    // starts at first + 16 k.  It uses chunks 0 .. (a + steps + WB - 2) / 16
+    // and loads the rest, up to 29 bytes past the window's last used byte
+    // (in K2 the next row's, whose negative codes send this candidate to
+    // the per-byte path too); where such a chunk would pass the buffer's
+    // end (a K2 buffer's last rows) it loads chunk kin, the buffer's last
+    // whole one, again.
     const int a = static_cast<int>(
         (reinterpret_cast<uintptr_t>(text) + static_cast<uintptr_t>(w)) & 15);
     const long long first = w - a;
     const int nc = (steps + kChunk - 1) / kChunk;
-    if (!(steps >= 1 && first >= 0 &&
-          first + static_cast<long long>(kChunk) * (nc + 2) <= T &&
-          k1_fast_dp<WB>(reinterpret_cast<const uint4*>(text + first), a,
-                         reinterpret_cast<const uint4*>(read), len, steps,
-                         match, mismatch, gap, sh_score, bias, n, score,
-                         start_off, end_off, matches))) {
-        const TextWindow window{text, T, w};
+    const long long kin = first >= 0 ? (T - first) / kChunk - 1 : -1;
+    if (!(vec_reads && steps >= 1 &&
+          (a + steps + WB - 2) / kChunk <= kin &&
+          fast_dp<WB>(reinterpret_cast<const uint4*>(text + first),
+                      static_cast<int>(kin < nc + 1 ? kin : nc + 1), a,
+                      reinterpret_cast<const uint4*>(read), len, steps,
+                      match, mismatch, gap, sh_score, bias, n, score,
+                      start_off, end_off, matches)))
         banded_dp<WB>(window, read, len, Lr, match, mismatch, gap, sh_score,
                       bias, n, score, start_off, end_off, matches);
-    }
 }
 
 // K1: one candidate a thread.
@@ -413,29 +438,34 @@ banded_extend_kernel(const int8_t* __restrict__ text, long long T,
                      int32_t* __restrict__ end_off,
                      int32_t* __restrict__ matches) {
     const int n = blockIdx.x * blockDim.x + threadIdx.x;
-    if (n < N)  // ragged last block
-        k1_candidate<WB>(text, T, w0, reads, read_len, n, Lr, match,
-                         mismatch, gap, sh_score, bias, score, start_off,
-                         end_off, matches);
+    if (n >= N) return;  // ragged last block
+    const long long w = w0[n];
+    dp_candidate<WB>(text, T, w, TextWindow{text, T, w},
+                     reads + static_cast<long long>(n) * Lr, true,
+                     read_len[n], Lr, match, mismatch, gap, sh_score, bias,
+                     n, score, start_off, end_off, matches);
 }
 
+// K2: one candidate a thread, over the windows buffer as K1 over the text.
 template <int WB>
 __global__ void __launch_bounds__(kThreads)
 banded_extend_windows_kernel(const int8_t* __restrict__ windows, int W,
                              const int8_t* __restrict__ reads,
                              const int32_t* __restrict__ read_len,
-                             int N, int Lr, int match, int mismatch, int gap,
-                             int sh_score, int bias,
+                             int N, int Lr, bool vec_reads, int match,
+                             int mismatch, int gap, int sh_score, int bias,
                              int32_t* __restrict__ score,
                              int32_t* __restrict__ start_off,
                              int32_t* __restrict__ end_off,
                              int32_t* __restrict__ matches) {
     const int n = blockIdx.x * blockDim.x + threadIdx.x;
     if (n >= N) return;  // ragged last block
-    const RowWindow window{windows + static_cast<long long>(n) * W};
-    banded_dp<WB>(window, reads + static_cast<long long>(n) * Lr, read_len[n],
-                  Lr, match, mismatch, gap, sh_score, bias, n, score,
-                  start_off, end_off, matches);
+    const long long w = static_cast<long long>(n) * W;
+    dp_candidate<WB>(windows, static_cast<long long>(N) * W, w,
+                     RowWindow{windows + w},
+                     reads + static_cast<long long>(n) * Lr, vec_reads,
+                     read_len[n], Lr, match, mismatch, gap, sh_score, bias,
+                     n, score, start_off, end_off, matches);
 }
 
 int blocks_for(int N) { return (N + kThreads - 1) / kThreads; }
@@ -491,12 +521,16 @@ extern "C" int banded_extend_windows_launch(
     void* stream) {
     if (N <= 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    // the fast DP loads the read rows 16 bytes at a time; other rows take
+    // the per-byte path (exact, and the first design's speed)
+    const bool vec_reads =
+        Lr % kChunk == 0 && reinterpret_cast<uintptr_t>(reads) % kChunk == 0;
 #define PANTAX_LAUNCH_K2(WB)                                                 \
     banded_extend_windows_kernel<WB><<<blocks_for(N), kThreads, 0, s>>>(     \
         static_cast<const int8_t*>(windows), W,                              \
         static_cast<const int8_t*>(reads),                                   \
-        static_cast<const int32_t*>(read_len), N, Lr, match, mismatch, gap,  \
-        sh_score, bias, static_cast<int32_t*>(score),                        \
+        static_cast<const int32_t*>(read_len), N, Lr, vec_reads, match,      \
+        mismatch, gap, sh_score, bias, static_cast<int32_t*>(score),         \
         static_cast<int32_t*>(start_off), static_cast<int32_t*>(end_off),    \
         static_cast<int32_t*>(matches))
     PANTAX_PAD_SWITCH(PANTAX_LAUNCH_K2)

@@ -7,10 +7,20 @@ path runs with XLA as aligner._extract_windows + aligner._banded_extend,
 and ``banded_extend_pallas_dponly`` (:316), which is aligner._banded_extend
 over windows already extracted.  Each has two versions here:
 
-- the CUDA kernels, ``csrc/banded_extend.cu`` (K1 with vector loads and
-  an unrolled step loop, K2 on the first design's device DP), built with
-  nvcc for sm_90a at first use into a git-ignored build directory and
-  bound with ctypes;
+- the CUDA kernels, ``csrc/banded_extend.cu``, built with nvcc for sm_90a
+  at first use into a git-ignored build directory and bound with ctypes.
+  Both run one device DP: the fast DP (vector loads, N codes remapped once
+  into a byte-table match, the step loop unrolled by 16) where its 16-byte
+  loads are possible, the per-byte DP elsewhere.  K1 runs it over the
+  index text at w0; K2 over the windows buffer [N, W] read as one text, row
+  n at n * W.  K2's per-byte path takes every row where the read rows
+  cannot be loaded 16 bytes at a time (a width that is no multiple of 16,
+  a view off a 16-byte boundary), a row whose bytes share a 16-byte chunk
+  with bytes outside the buffer (the first or last row of a buffer that
+  starts or ends off a 16-byte boundary) and rows with a negative code; it
+  is exact, at the first design's speed.  At the rescue pass's shape
+  (16384 x 512, pad 8) K2 is bound by integer issue with one warp a
+  scheduler, whose latency stays partly exposed (PERF.md section 6);
 - ``banded_extend_windows_plain``, the plain torch DP (a Python loop over
   the read columns on [Wb, N] int32 tensors), and ``banded_extend_plain``,
   which gathers the windows from the text (``extract_windows``) and calls
@@ -19,6 +29,12 @@ over windows already extracted.  Each has two versions here:
 ``banded_extend`` and ``banded_extend_windows`` take the plain version only
 for CPU tensors.  On a CUDA tensor they launch the kernel or raise; nothing
 falls back.
+
+K1's entries and the plain DPs take the DP's width ``lr`` apart from the
+row width (``reads.shape[1]``, the default): a caller that pads its read
+rows (K1 loads them 16 bytes at a time) passes its own width, and the
+packed cell layout, ``packed_layout(lr)``, is that of the unpadded rows on
+both devices.  The DP stops at read_len, which must not exceed ``lr``.
 """
 from __future__ import annotations
 
@@ -53,7 +69,7 @@ def reset_launch_counts() -> None:
 
 
 def packed_layout(Lr: int) -> tuple[int, int]:
-    """(sh_score, bias) for reads of padded length Lr (Lr <= 8192); same
+    """(sh_score, bias) for a DP over Lr read columns (Lr <= 8192); same
     layout as pantax_tpu.align.aligner.packed_layout."""
     if Lr > 8192:
         raise ValueError(f"read length {Lr} exceeds the packed-cell DP limit")
@@ -91,28 +107,40 @@ def extract_windows(text, w0, W: int):
     return text[idx]
 
 
+def _dp_width(reads, lr: int | None) -> int:
+    """The DP's width: ``lr``, else the row width; at most the row width."""
+    if lr is None:
+        return reads.shape[1]
+    if not 1 <= lr <= reads.shape[1]:
+        raise ValueError(f"lr={lr} outside 1..{reads.shape[1]} (the row width)")
+    return lr
+
+
 def banded_extend_plain(text, w0, reads, read_len, pad: int, match: int,
-                        mismatch: int, gap: int):
+                        mismatch: int, gap: int, lr: int | None = None):
     """Plain torch version of K1: (score, start_off, end_off, matches),
-    int32 [N] each, window = text[w0 : w0 + Lr + 2*pad] (positions clamped
+    int32 [N] each, window = text[w0 : w0 + lr + 2*pad] (positions clamped
     into the text)."""
     _check_band(pad)
+    lr = _dp_width(reads, lr)
     return banded_extend_windows_plain(
-        extract_windows(text, w0, reads.shape[1] + 2 * pad), reads, read_len,
-        pad, match, mismatch, gap)
+        extract_windows(text, w0, lr + 2 * pad), reads, read_len, pad, match,
+        mismatch, gap, lr)
 
 
 def banded_extend_windows_plain(windows, reads, read_len, pad: int,
-                                match: int, mismatch: int, gap: int):
+                                match: int, mismatch: int, gap: int,
+                                lr: int | None = None):
     """Plain torch version of K2, aligner._banded_extend: the DP of read i
-    against windows[i] (int8 [N, W], W >= Lr + 2*pad - 1)."""
+    (its first ``lr`` columns) against windows[i] (int8 [N, W],
+    W >= lr + 2*pad - 1)."""
     _check_band(pad)
-    N, Lr = reads.shape
+    Lr = _dp_width(reads, lr)
     sh_score, bias = packed_layout(Lr)
     Wb = 2 * pad
     dev = windows.device
     winT = windows.to(torch.int32).T.contiguous()      # [W, N]
-    readT = reads.to(torch.int32).T.contiguous()       # [Lr, N]
+    readT = reads[:, :Lr].to(torch.int32).T.contiguous()  # [Lr, N]
     rl = read_len.to(torch.int32)
     d_score = 1 << sh_score
     gap_p = gap * d_score
@@ -233,11 +261,12 @@ def _launch(lib, fn_name: str, dev, N: int, *args):
 
 
 def launch_k1(lib, text, w0, reads, read_len, pad: int, match: int,
-              mismatch: int, gap: int):
+              mismatch: int, gap: int, lr: int | None = None):
     """Check K1's arguments and launch ``lib``'s banded_extend_launch on
     the current stream (no synchronise, no count).  The read rows are
     loaded 16 bytes at a time: ``reads`` must start on a 16-byte boundary
-    and its width be a multiple of 16."""
+    and its width be a multiple of 16; ``lr`` is the DP's width (the
+    packed layout's)."""
     dev = _check_cuda_args(pad, (("text", text, torch.int8, 1),
                                  ("w0", w0, torch.int32, 1),
                                  ("reads", reads, torch.int8, 2),
@@ -253,21 +282,14 @@ def launch_k1(lib, text, w0, reads, read_len, pad: int, match: int,
     return _launch(lib, "banded_extend_launch", dev, N, text.data_ptr(),
                    text.numel(), w0.data_ptr(), reads.data_ptr(),
                    read_len.data_ptr(), N, Lr, pad, match, mismatch, gap,
-                   *packed_layout(Lr))
+                   *packed_layout(_dp_width(reads, lr)))
 
 
-def banded_extend_cuda(text, w0, reads, read_len, pad: int, match: int,
-                       mismatch: int, gap: int):
-    """Launch K1 on the current stream (no synchronise)."""
-    outs = launch_k1(build_kernels(), text, w0, reads, read_len, pad, match,
-                     mismatch, gap)
-    LAUNCHES["banded_extend"] += 1
-    return outs
-
-
-def banded_extend_windows_cuda(windows, reads, read_len, pad: int,
-                               match: int, mismatch: int, gap: int):
-    """Launch K2 on the current stream (no synchronise)."""
+def launch_k2(lib, windows, reads, read_len, pad: int, match: int,
+              mismatch: int, gap: int):
+    """Check K2's arguments and launch ``lib``'s
+    banded_extend_windows_launch on the current stream (no synchronise, no
+    count).  Any read width and any 16-byte offset of the rows is taken."""
     dev = _check_cuda_args(pad, (("windows", windows, torch.int8, 2),
                                  ("reads", reads, torch.int8, 2),
                                  ("read_len", read_len, torch.int32, 1)))
@@ -278,25 +300,41 @@ def banded_extend_windows_cuda(windows, reads, read_len, pad: int,
     if Lr < 1 or W < Lr + 2 * pad - 1:
         raise ValueError(f"windows of width {W} do not cover reads of "
                          f"{Lr} bases at pad {pad} (need >= {Lr + 2 * pad - 1})")
-    outs = _launch(build_kernels(), "banded_extend_windows_launch", dev, N,
+    return _launch(lib, "banded_extend_windows_launch", dev, N,
                    windows.data_ptr(), W, reads.data_ptr(),
                    read_len.data_ptr(), N, Lr, pad, match, mismatch, gap,
                    *packed_layout(Lr))
+
+
+def banded_extend_cuda(text, w0, reads, read_len, pad: int, match: int,
+                       mismatch: int, gap: int, lr: int | None = None):
+    """Launch K1 on the current stream (no synchronise)."""
+    outs = launch_k1(build_kernels(), text, w0, reads, read_len, pad, match,
+                     mismatch, gap, lr)
+    LAUNCHES["banded_extend"] += 1
+    return outs
+
+
+def banded_extend_windows_cuda(windows, reads, read_len, pad: int,
+                               match: int, mismatch: int, gap: int):
+    """Launch K2 on the current stream (no synchronise)."""
+    outs = launch_k2(build_kernels(), windows, reads, read_len, pad, match,
+                     mismatch, gap)
     LAUNCHES["banded_extend_windows"] += 1
     return outs
 
 
 def banded_extend(text, w0, reads, read_len, pad: int, match: int,
-                  mismatch: int, gap: int):
+                  mismatch: int, gap: int, lr: int | None = None):
     """(score, start_off, end_off, matches), int32 [N] each, for every
-    candidate window text[w0[i] : w0[i] + Lr + 2*pad] against reads[i]
+    candidate window text[w0[i] : w0[i] + lr + 2*pad] against reads[i]
     (read_len[i] bases); window coordinates, like aligner._banded_extend."""
     if text.device.type == "cpu":
         LAUNCHES["banded_extend_plain"] += 1
         return banded_extend_plain(text, w0, reads, read_len, pad, match,
-                                   mismatch, gap)
+                                   mismatch, gap, lr)
     return banded_extend_cuda(text, w0, reads, read_len, pad, match,
-                              mismatch, gap)
+                              mismatch, gap, lr)
 
 
 def banded_extend_windows(windows, reads, read_len, pad: int, match: int,

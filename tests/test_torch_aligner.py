@@ -135,10 +135,12 @@ def test_query_rows_bit_identical_scale(scale):
     assert (rows[3] & 1).mean() > 0.9  # the reads really aligned
 
 
-@pytest.mark.parametrize("width", [150, 100])
+@pytest.mark.parametrize("width", [150, 100, 120, 250])
 def test_query_rows_bit_identical_odd_width(tiny, width):
     """Code matrices of a width that is no multiple of 16, which the port
-    pads for K1 (its rows are loaded 16 bytes at a time)."""
+    pads for K1 (its rows are loaded 16 bytes at a time).  At 120 and 250
+    the padding (to 128 and 256) would change the packed cell layout, which
+    shows in the read of length 0: the DP keeps the unpadded width's."""
     _db, index = tiny
     codes, lens, _ = simulate_read_batch(index, 512, width, 0.01, seed=7)
     codes = np.ascontiguousarray(codes[:, :width])

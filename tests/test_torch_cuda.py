@@ -177,6 +177,119 @@ def test_windows_kernel_matches_plain(cuda, pad, Lr):
         assert torch.equal(k, p), name
 
 
+def _k2_edge_case(rng, pad, N, Lr, W=None, T=4096):
+    """K2 candidates at the edges of the fast DP, at window width W
+    (default Lr + 2*pad - 1, the narrowest the wrapper takes): N codes
+    (4 and 9) in windows and reads, a negative code (-1, which sends a row
+    to the per-byte path) in every eighth row's window or read, read_len 0,
+    1, 15, 16, 17, Lr - 1 and Lr in the first rows and in the buffer's last
+    rows (whose 16-byte loads would leave the buffer)."""
+    W = W or Lr + 2 * pad - 1
+    T = max(T, 4 * W)
+    text = rng.integers(0, 4, size=T).astype(np.int8)
+    text[rng.random(T) < 0.02] = 4
+    text[rng.random(T) < 0.005] = 9
+    w0 = rng.integers(0, T - W, size=N)
+    windows = text[w0[:, None] + np.arange(W)]
+    start = np.clip(w0 + pad + rng.integers(-4, 5, size=N), 0, T - Lr)
+    reads = text[start[:, None] + np.arange(Lr)]
+    noise = rng.random((N, Lr)) < 0.05
+    reads = np.where(noise, rng.integers(0, 4, size=(N, Lr)), reads).astype(np.int8)
+    reads[rng.random((N, Lr)) < 0.02] = 4
+    lens = rng.integers(1, Lr + 1, size=N).astype(np.int32)
+    edges = (0, 1, 15, 16, 17, Lr - 1, Lr)
+    lens[:len(edges)] = edges[:N]
+    lens[-len(edges):] = edges[-N:]
+    reads[np.arange(Lr)[None, :] >= lens[:, None]] = 4
+    neg = np.flatnonzero(np.arange(N) % 8 == 3)
+    half = rng.random(len(neg)) < 0.5
+    windows[neg[half], rng.integers(0, W, size=int(half.sum()))] = -1
+    reads[neg[~half], rng.integers(0, Lr, size=int((~half).sum()))] = -1
+    return windows, reads, lens
+
+
+def _hold_k2(cuda, windows, reads, lens, pad):
+    """K2 against its plain version, bit for bit on all four outputs;
+    tensors are moved to the card unless they are there."""
+    args = [a if isinstance(a, torch.Tensor) else torch.from_numpy(a).to(cuda)
+            for a in (windows, reads, lens)]
+    ker = extend.banded_extend_windows_cuda(*args, pad, MATCH, MIS, GAP)
+    plain = extend.banded_extend_windows_plain(*args, pad, MATCH, MIS, GAP)
+    torch.cuda.synchronize()
+    for k, p, name in zip(ker, plain, ("score", "start", "end", "matches")):
+        assert torch.equal(k, p), name
+
+
+def _off_boundary(a, cuda, offset: int):
+    """A contiguous copy of ``a`` on the card whose data starts ``offset``
+    bytes past a 16-byte boundary."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=cuda)
+    view = buf[offset:offset + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset
+    return view
+
+
+@pytest.mark.parametrize("pad", range(1, 9))
+@pytest.mark.parametrize("Lr", [32, 160, 512])
+def test_windows_kernel_edges_match_plain(cuda, pad, Lr):
+    """Every band width over read_len at the chunk edges, N and negative
+    codes, the narrowest windows and the buffer's last rows."""
+    _hold_k2(cuda, *_k2_edge_case(np.random.default_rng(90 + pad + Lr), pad,
+                                  1000, Lr), pad)
+
+
+@pytest.mark.parametrize("extra", [-1, 0, 5])
+def test_windows_kernel_widths_match_plain(cuda, extra):
+    """Windows of Lr + 2*pad + extra bytes: the narrowest, the rescue
+    pass's and a wider one (rows at every offset in a 16-byte chunk)."""
+    pad, Lr = 8, 512
+    _hold_k2(cuda, *_k2_edge_case(np.random.default_rng(31 + extra), pad,
+                                  2000, Lr, W=Lr + 2 * pad + extra), pad)
+
+
+@pytest.mark.parametrize("offset", [1, 7])
+def test_windows_kernel_unaligned_windows_match_plain(cuda, offset):
+    """A windows view that starts off a 16-byte boundary (its first row
+    takes the per-byte path, the others the fast DP)."""
+    windows, reads, lens = _k2_edge_case(np.random.default_rng(offset), 4,
+                                         600, 160)
+    _hold_k2(cuda, _off_boundary(windows, cuda, offset), reads, lens, 4)
+
+
+@pytest.mark.parametrize("n_last", [1, 2, 3, 40])
+def test_windows_kernel_last_rows_match_plain(cuda, n_last):
+    """The buffer's last rows, as a view that ends where the allocation
+    ends: loads past the view's N * W bytes would leave it, so these rows
+    take the per-byte path where their chunks would."""
+    windows, reads, lens = _k2_edge_case(np.random.default_rng(n_last), 8,
+                                         64, 512)
+    lens[-n_last:] = 512
+    w, r, rl = (torch.from_numpy(a).to(cuda) for a in (windows, reads, lens))
+    _hold_k2(cuda, w[-n_last:], r[-n_last:], rl[-n_last:], 8)
+
+
+@pytest.mark.parametrize("case", ["width 150", "width 500", "reads off 16"])
+def test_windows_kernel_per_byte_launch_matches_plain(cuda, case):
+    """Read rows the fast DP cannot load 16 bytes at a time (a width that
+    is no multiple of 16, or a view off a 16-byte boundary): the launch
+    runs the per-byte DP for every row, exact."""
+    Lr = {"width 150": 150, "width 500": 500, "reads off 16": 160}[case]
+    windows, reads, lens = _k2_edge_case(np.random.default_rng(Lr), 4, 700,
+                                         Lr)
+    if case == "reads off 16":
+        reads = _off_boundary(reads, cuda, 3)
+    _hold_k2(cuda, windows, reads, lens, 4)
+
+
+@pytest.mark.parametrize("N", [1, 37, 4099, 70001])
+def test_windows_kernel_ragged_n_matches_plain(cuda, N):
+    """N not a multiple of the block size (128)."""
+    _hold_k2(cuda, *_k2_edge_case(np.random.default_rng(N + 5), 4, N, 160),
+             4)
+
+
 def test_windows_wrapper_launches_kernel_on_cuda(cuda):
     rng = np.random.default_rng(1)
     args = [torch.from_numpy(a).to(cuda)
@@ -260,11 +373,12 @@ def test_query_rows_cpu_equal_cuda(cuda, tmp_path):
     assert torch.equal(rows[0], rows[1])
 
 
-@pytest.mark.parametrize("width", [150, 100])
+@pytest.mark.parametrize("width", [150, 100, 120, 250])
 def test_align_codes_odd_width_cpu_equal_cuda(cuda, tmp_path, width):
     """Code matrices of a width that is no multiple of 16 (K1 loads read
-    rows 16 bytes at a time; the aligner pads them): align_codes and the
-    paired query on the card equal the CPU's."""
+    rows 16 bytes at a time; the aligner pads them, and the DP keeps the
+    unpadded width's packed layout, which padding 120 and 250 would move):
+    align_codes and the paired query on the card equal the CPU's."""
     db = tiny_db(tmp_path / "tiny")
     index = _host.build_align_index(db)
     codes, lens, _ = simulate_read_batch(index, 1024, width, 0.01, seed=3)

@@ -103,3 +103,23 @@ def test_band_limit_raises():
         banded_extend_plain(t, torch.zeros(1, dtype=torch.int32), r,
                             torch.ones(1, dtype=torch.int32), 16, 1, -1, -2)
 
+
+
+@pytest.mark.parametrize("Lr,pad", [(120, 4), (250, 8), (96, 4)])
+def test_plain_on_padded_rows_with_lr_equals_unpadded(Lr, pad):
+    """Read rows padded with N to a multiple of 16, given with ``lr`` = the
+    unpadded width: the same four outputs as the unpadded call, read_len 0
+    rows included (their NEG cell unpacks in width lr's layout)."""
+    rng = np.random.default_rng(Lr + pad)
+    text, w0, reads, lens = _case(rng, pad, N=48, Lr=Lr)
+    padded = np.pad(reads, ((0, 0), (0, -Lr % 16 or 16)), constant_values=4)
+    t, w, rl = (torch.from_numpy(a) for a in (text, w0, lens))
+    want = banded_extend_plain(t, w, torch.from_numpy(reads), rl, pad, MATCH,
+                               MIS, GAP)
+    got = banded_extend(t, w, torch.from_numpy(padded), rl, pad, MATCH, MIS,
+                        GAP, lr=Lr)
+    for x, o, name in zip(want, got, NAMES):
+        assert torch.equal(x, o), name
+    with pytest.raises(ValueError):
+        banded_extend_plain(t, w, torch.from_numpy(reads), rl, pad, MATCH,
+                            MIS, GAP, lr=Lr + 1)

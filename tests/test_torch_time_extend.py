@@ -1,6 +1,7 @@
-"""The K1 timing tools on the CPU: the ablated sources of
-``scripts/time_extend.py`` and the SASS loop reader of ``chip_smoke.py``
-(the card runs them; here only their text handling is held)."""
+"""The K1 / K2 timing tools on the CPU: the arguments, shapes and ablated
+sources of ``scripts/time_extend.py`` and the SASS loop reader of
+``chip_smoke.py`` (the card runs them; here only their text handling is
+held)."""
 import importlib.util
 import os
 import stat
@@ -16,9 +17,9 @@ _spec = importlib.util.spec_from_file_location("time_extend", _SCRIPT)
 time_extend = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(time_extend)
 
-# a cuobjdump listing of two kernels: K2's, then K1<8>'s with an outer loop
-# (0x0010-0x0080) around the step loop (0x0020-0x0060), two steps of 2 * 7
-# maxes each, two of them in one three-input max
+# a cuobjdump listing of two kernels: K2's (no loop), then K1<8>'s with an
+# outer loop (0x0010-0x0080) around the step loop (0x0020-0x0060), two
+# steps of 2 * 7 maxes each, two of them in one three-input max
 _SASS = "\n".join(
     ["\tcode for sm_90a",
      "\t\tFunction : _ZN12_GLOBAL__N_128banded_extend_windows_kernelILi8EEvPKai",
@@ -53,10 +54,59 @@ def test_k1_step_sass_reads_the_innermost_loop(tmp_path, monkeypatch):
     tool.write_text("#!/bin/sh\ncat <<'EOF'\n" + _SASS + "\nEOF\n")
     tool.chmod(tool.stat().st_mode | stat.S_IEXEC)
     monkeypatch.setenv("PATH", f"{tmp_path}{os.pathsep}{os.environ['PATH']}")
-    got = chip_smoke.k1_step_sass("lib.so", 8)
+    got = chip_smoke.step_sass("lib.so", 8)
     assert got == {"instructions": 29, "steps": 2, "per_step": 14.5,
                    "viaddmnmx": 26, "max_ops": 28}
-    assert chip_smoke.k1_step_sass("lib.so", 4) == "kernel not found"
+    assert chip_smoke.step_sass("lib.so", 4) == "kernel not found"
+
+
+def test_step_sass_reads_the_named_kernel(tmp_path, monkeypatch):
+    """K2's instantiation is found by its own name, not K1's (whose
+    mangled name does not contain it), and one without a loop says so."""
+    listing = _SASS.replace("windows_kernelILi8E", "windows_kernelILi4E")
+    tool = tmp_path / "cuobjdump"
+    tool.write_text("#!/bin/sh\ncat <<'EOF'\n" + listing + "\nEOF\n")
+    tool.chmod(tool.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("PATH", f"{tmp_path}{os.pathsep}{os.environ['PATH']}")
+    k2 = "banded_extend_windows_kernel"
+    assert chip_smoke.step_sass("lib.so", 4, k2) == "no loop found"
+    assert chip_smoke.step_sass("lib.so", 8, k2) == "kernel not found"
+    assert chip_smoke.step_sass("lib.so", 8)["steps"] == 2
+
+
+@pytest.mark.parametrize("argv,kernel", [
+    (["base.cu"], "k1"), (["--kernel", "k2", "base.cu"], "k2"),
+    (["--kernel", "k2", "--ablate", "unroll"], "k2"),
+])
+def test_parse_args_takes_the_kernel(argv, kernel):
+    args = time_extend.parse_args(argv)
+    assert args.kernel == kernel
+    assert (args.baseline is None) != (args.ablate is None)
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["--kernel", "k2"], ["--kernel", "k3", "base.cu"],
+    ["--ablate", "unroll", "base.cu"],
+])
+def test_parse_args_refuses(argv):
+    with pytest.raises(SystemExit):
+        time_extend.parse_args(argv)
+
+
+def test_k2_shapes_are_the_rescue_pass():
+    """K2's shapes: the rescue pass's (16384 chunks of the hifi preset's
+    512 bases, pad 8) with ragged and with full read lengths, and one whose
+    windows (Lr + 2*pad bytes) put rows off 16-byte boundaries."""
+    from pantax_tpu_torch.align.long_read import LONG_READ_PRESETS
+    k2 = time_extend.SHAPES["k2"]
+    rescue = (16384, LONG_READ_PRESETS["hifi"], 8)
+    assert [s[:3] for s in k2[:2]] == [rescue, rescue]
+    assert [s[4] for s in k2[:2]] == [None, 512]
+    assert any((Lr + 2 * pad) % 16 for _, Lr, pad, _, _ in k2)
+    for N, Lr, pad, _seed, fixed in k2 + time_extend.SHAPES["k1"]:
+        assert 1 <= pad <= 8 and Lr % 16 == 0 and N > 0
+        assert fixed is None or fixed <= Lr
+    assert set(time_extend.KERNELS) == set(time_extend.SHAPES)
 
 
 def test_ptxas_lines_name_each_instantiation():
