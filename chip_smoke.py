@@ -87,7 +87,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    over 64 nodes (where the reference's dedup switches form), phase 9e's
    bars; (e) for one species of (d) and one of (a), node_abundances_device
    on the card and on the CPU bit-identical in na, ta and bc. The stage times of (a), (b) and (d) are
-   printed with the card's name and power limit.
+   printed with the card's name and power limit.  The FASTQ's read ids
+   are R<index>, as phase 5's classification table names its reads;
+11. drive the pantax-gpu command line in this process
+   (pantax_tpu_torch.cli.main, so the launch counts see it), each run's
+   e2e wall time and stage_timer lines printed with the card's line:
+   (a) --create over the smoke DB (its skip path) and from scratch on the
+   tiny DB's FASTAs (the library build's files, byte for byte); (b)
+   --index --warm-kernels; (c) -s --fastpath --tail host --coverage
+   device over phase 10's FASTQ, K1 once per dispatch, its species,
+   strain and classification files byte-identical to phase 5's
+   profile_fused tables, then the -n / --strain resume (no K1 launch, the
+   alignment artifact untouched) byte-identical too; (d) -s -p --fastpath
+   over phase 10's two pair files at 32768 pairs a batch, K1 once per
+   paired dispatch, phase 8's bars; (e) -l --fastpath over phase 7's
+   reads written as FASTQ: phase 7's K1 and K2 launches and bars; (f) the
+   GAF flow -s --coverage device over phase 10's FASTQ: K1 as phase
+   10 (a), the three files byte-identical to phase 10 (a)'s
+   device-coverage tables; (g) in a subprocess where torch sees no GPU
+   (CUDA_VISIBLE_DEVICES=""), python -m pantax_tpu_torch.cli exits
+   non-zero and writes nothing.
 
 The line before last is a JSON record of the kernels, each with its time,
 its plain version's, and the bound the card's peaks put on the same work
@@ -101,16 +120,18 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
 import re
 import shutil
 import subprocess
+import sys
 import time
 
 import numpy as np
 import torch
 
-from pantax_tpu_torch import _host
+from pantax_tpu_torch import _host, cli
 from pantax_tpu_torch.align.long_read import (
     LONG_READ_PRESETS, LONG_READ_SEED_STRIDE, align_long_reads,
     iter_read_groups,
@@ -728,7 +749,7 @@ def long_path(build: str, dev, db, index, tables):
         raise AssertionError("unexpected number of interval batches")
     check_tables(out, np.asarray(index.hap_species, dtype=object)[hap],
                  N_LONG, len(merged.read_ids), "emitted")
-    return launches
+    return launches, (reads, hap)
 
 
 def simulate_pairs(index, n: int, seed: int, sub: float = 0.01,
@@ -1058,12 +1079,17 @@ def gaf_round_trip(records, path: str) -> tuple[list, float]:
     return back, seconds
 
 
-def files_identical(out_a: str, out_b: str, names, what: str) -> None:
-    for name in names:
-        with open(os.path.join(out_a, name), "rb") as fa, \
-                open(os.path.join(out_b, name), "rb") as fb:
+def same_tables(pairs, what: str) -> None:
+    """Every (file, file) pair byte-identical."""
+    for a, b in pairs:
+        with open(a, "rb") as fa, open(b, "rb") as fb:
             if fa.read() != fb.read():
-                raise AssertionError(f"{what}: {name} differs")
+                raise AssertionError(f"{what}: {a} differs from {b}")
+
+
+def files_identical(out_a: str, out_b: str, names, what: str) -> None:
+    same_tables(((os.path.join(out_a, n), os.path.join(out_b, n))
+                 for n in names), what)
 
 
 def strains_agree(out_a: str, out_b: str, what: str) -> dict:
@@ -1170,7 +1196,8 @@ def check_k1(launches: dict, n: int, what: str) -> None:
 
 
 def gaf_flow(build: str, dev, card: str, scale, short, pairs, dup_long):
-    """Phase 10.  Returns K1's and K2's launches by path."""
+    """Phase 10.  Returns K1's and K2's launches by path, and (a)'s
+    device-coverage output directory."""
     db, index = scale
     codes, lens, hap, fused_out = short
     truth = np.asarray(index.hap_species, dtype=object)
@@ -1180,7 +1207,7 @@ def gaf_flow(build: str, dev, card: str, scale, short, pairs, dup_long):
     # (a) single-end reads from a FASTQ file
     fq = os.path.join(build, "smoke_reads.fq")
     t0 = time.time()
-    write_fastq(fq, [f"S{i}" for i in range(N_READS)], codes, lens)
+    write_fastq(fq, [f"R{i}" for i in range(N_READS)], codes, lens)
     print(f"gaf short: wrote {N_READS} reads to FASTQ "
           f"({os.path.getsize(fq) / 1e6:.1f} MB) in {time.time() - t0:.2f} s")
     stage = {}
@@ -1319,6 +1346,217 @@ def gaf_flow(build: str, dev, card: str, scale, short, pairs, dup_long):
     check_tables(runs["device"][2], np.asarray(dindex.hap_species,
                                                dtype=object)[lhap],
                  N_DUP_LONG, len(records), "emitted")
+    return k1, k2, out_dev
+
+# ---------------------------------------------------------------------------
+# phase 11: the pantax-gpu command line
+# ---------------------------------------------------------------------------
+class LogLines(logging.Handler):
+    """Collects the messages the port's loggers emit during one CLI run."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def run_cli(argv: list, what: str, card: str) -> tuple[float, dict]:
+    """pantax_tpu_torch.cli.main(argv) in this process, with the launch
+    counts set to 0 just before; prints its e2e wall time and its
+    stage_timer lines, raises unless it exits 0 without a plain DP, and
+    returns (seconds, launches)."""
+    handler = LogLines()
+    logger = logging.getLogger("pantax_tpu_torch")
+    logger.addHandler(handler)
+    extend.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    try:
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        logger.removeHandler(handler)
+    wall = time.time() - t0
+    launches = dict(extend.LAUNCHES)
+    stages = [ln.lstrip("- ").strip() for ln in handler.lines
+              if " wall, " in ln]
+    print(f"{what} [{card}]: e2e {wall:.3f} s; " + "; ".join(stages))
+    if rc != 0:
+        raise AssertionError(f"{what}: pantax-gpu exited {rc}")
+    if launches["banded_extend_plain"] or launches["banded_extend_windows_plain"]:
+        raise AssertionError(f"{what}: a plain DP ran on the card")
+    return wall, launches
+
+
+def db_files(root: str) -> list:
+    """A DB directory's files (relative paths), the align index aside."""
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs
+                  if f != "align_index.npz")
+
+
+def fastpath_batches(paths, batch: int) -> int:
+    """The fused dispatches the CLI's fastpath makes of FASTQ ``paths`` (two
+    mate files are read side by side): each stream chunk's reads in
+    ``batch``-row dispatches."""
+    from pantax_tpu_torch.io.fastx import stream_fastx_buffers
+
+    return sum(-(-(bufs[0].count(b"\n") // 4) // batch) for bufs in zip(
+        *(stream_fastx_buffers(p, cli.CHUNK_BYTES) for p in paths)))
+
+
+def cli_flow(build: str, card: str, scale, fused_out: str, phap,
+             long_reads, long_launches: dict, gaf_out: str,
+             gaf_k1: int) -> tuple[dict, dict]:
+    """Phase 11.  Returns K1's and K2's launches by CLI path."""
+    db, index = scale
+    truth = np.asarray(index.hap_species, dtype=object)
+    db_dir = str(db.root)
+    fq = os.path.join(build, "smoke_reads.fq")
+    p1, p2 = (os.path.join(build, f"smoke_pairs_{m}.fq") for m in (1, 2))
+    k1, k2 = {}, {}
+
+    def out(name):
+        path = os.path.join(build, name)
+        shutil.rmtree(path, ignore_errors=True)
+        return path
+
+    # (a) --create over the existing DB (the skip path), then from scratch
+    # on the tiny community's FASTAs: the library build's files
+    scale_root = str(db.root.parent)
+    run_cli(["-f", os.path.join(scale_root, "genomes_info.txt"), "-d", db_dir,
+             "--create", "--base-dir", scale_root], "cli create (existing)",
+            card)
+    tiny_root = os.path.join(build, "tiny_db")
+    tiny_new = out("cli_tiny_db")
+    run_cli(["-f", os.path.join(tiny_root, "genomes_info.txt"), "-d",
+             tiny_new, "--create", "--base-dir", tiny_root],
+            "cli create (tiny, from scratch)", card)
+    names = db_files(os.path.join(tiny_root, "db"))
+    if names != db_files(tiny_new):
+        raise AssertionError("cli create: other DB files than the library's")
+    files_identical(os.path.join(tiny_root, "db"), tiny_new,
+                    [n for n in names if n != "finished_species.txt"],
+                    "cli create")
+
+    # (b) --index --warm-kernels (K1 and K2 were built in phase 2, so the
+    # build here finds them loaded)
+    _, launches = run_cli(["-d", db_dir, "--index", "--warm-kernels"],
+                          "cli warm-kernels", card)
+    k1["cli_warm"] = launches["banded_extend"]
+
+    # (c) the short fastpath, host tail: phase 5's three tables; then the
+    # -n / --strain resume through profile_from_alignments (device
+    # coverage): the same tables, with no alignment
+    tmp = out("cli_short_tmp")
+    _, launches = run_cli([
+        "-d", db_dir, "-s", "--fastpath", "-r", fq, "--tail", "host",
+        "--coverage", "device", "--batch-size", str(BATCH), "-T", tmp, "-n",
+        "-o", os.path.join(build, "cli_short"), "-R",
+        os.path.join(build, "cli_short_cls.tsv")], "cli short", card)
+    n_batches = fastpath_batches([fq], BATCH)
+    check_k1(launches, n_batches, "cli short")
+    k1["cli_short"] = launches["banded_extend"]
+    fused = [os.path.join(fused_out, n) for n in (
+        "species_abundance.txt", "strain_abundance.txt",
+        "reads_classification.tsv")]
+    same_tables(zip(fused, [os.path.join(build, n) for n in (
+        "cli_short_species_abundance.txt", "cli_short_strains_abundance.txt",
+        "cli_short_cls.tsv")]), "cli short vs profile_fused")
+    artifact = os.path.join(tmp, "alignment_arrays.npz")
+    mtime = os.stat(artifact).st_mtime_ns
+    _, launches = run_cli([
+        "-d", db_dir, "-s", "--fastpath", "-r", fq, "--strain",
+        "--coverage", "device", "-T", tmp, "-n", "-o",
+        os.path.join(build, "cli_resume"), "-R",
+        os.path.join(build, "cli_resume_cls.tsv")], "cli short resume", card)
+    if launches["banded_extend"] or os.stat(artifact).st_mtime_ns != mtime:
+        raise AssertionError("cli short resume: the reads were realigned")
+    same_tables(zip(fused, [os.path.join(build, n) for n in (
+        "cli_resume_species_abundance.txt", "cli_resume_strains_abundance.txt",
+        "cli_resume_cls.tsv")]), "cli short resume vs profile_fused")
+    print(f"cli short: {n_batches} batches, K1 {k1['cli_short']}; the three "
+          f"tables of it and of its resume byte-identical to phase 5's "
+          f"profile_fused")
+
+    # (d) paired fastpath from two files, tail "auto" (the device tail on
+    # this DB): phase 8's bars
+    tmp = out("cli_paired_tmp")
+    _, launches = run_cli([
+        "-d", db_dir, "-s", "-p", "--fastpath", "-r", p1, p2,
+        "--batch-size", str(PAIR_BATCH), "-T", tmp, "--debug", "-o",
+        os.path.join(build, "cli_paired")], "cli paired", card)
+    n_batches = fastpath_batches([p1, p2], PAIR_BATCH)
+    check_k1(launches, n_batches, "cli paired")
+    k1["cli_paired"] = launches["banded_extend"]
+    with open(os.path.join(tmp, "reads_classification.tsv")) as f:
+        n_out = sum(1 for _ in f)
+    print(f"cli paired: {n_batches} paired batches, K1 {k1['cli_paired']}")
+    check_tables(tmp, truth[phap], 2 * N_PAIRS, n_out, "aligned",
+                 min_frac=0.99)
+
+    # (e) the long fastpath over phase 7's reads, written once as FASTQ:
+    # phase 7's launches and bars
+    reads, lhap = long_reads
+    lfq = os.path.join(build, "smoke_long.fq")
+    t0 = time.time()
+    with open(lfq, "wb") as f:
+        for lo in range(0, len(reads), 1000):
+            f.write(b"".join(b"@%s\n%s\n+\n%s\n" % (rid.encode(), seq,
+                                                    b"I" * len(seq))
+                             for rid, seq in reads[lo:lo + 1000]))
+    print(f"cli long: wrote {len(reads)} reads to FASTQ "
+          f"({os.path.getsize(lfq) / 1e6:.1f} MB) in {time.time() - t0:.2f} s")
+    tmp = out("cli_long_tmp")
+    _, launches = run_cli([
+        "-d", db_dir, "-l", "--fastpath", "-r", lfq, "--long-read-type",
+        READ_TYPE, "--batch-size", str(LONG_BATCH), "-T", tmp, "--debug",
+        "-o", os.path.join(build, "cli_long")], "cli long", card)
+    for key in ("banded_extend", "banded_extend_windows"):
+        if launches[key] != long_launches[key] or not launches[key]:
+            raise AssertionError(f"cli long: {key} launched {launches[key]} "
+                                 f"times, phase 7 {long_launches[key]}")
+    k1["cli_long"] = launches["banded_extend"]
+    k2["cli_long"] = launches["banded_extend_windows"]
+    print(f"cli long: K1 {k1['cli_long']}, K2 {k2['cli_long']} (phase 7's)")
+    with open(os.path.join(tmp, "reads_classification.tsv")) as f:
+        n_out = sum(1 for _ in f)
+    check_tables(tmp, truth[lhap], N_LONG, n_out, "emitted")
+    os.remove(lfq)
+
+    # (f) the default GAF flow with device coverage: phase 10 (a)'s tables
+    tmp = out("cli_gaf_tmp")
+    _, launches = run_cli([
+        "-d", db_dir, "-s", "-r", fq, "--coverage", "device", "--batch-size",
+        str(BATCH), "-T", tmp, "-o", os.path.join(build, "cli_gaf"), "-R",
+        os.path.join(build, "cli_gaf_cls.tsv")], "cli gaf short", card)
+    check_k1(launches, gaf_k1, "cli gaf short")
+    k1["cli_gaf_short"] = launches["banded_extend"]
+    same_tables(zip([os.path.join(gaf_out, n) for n in (
+        "species_abundance.txt", "strain_abundance.txt",
+        "reads_classification.tsv")], [os.path.join(build, n) for n in (
+            "cli_gaf_species_abundance.txt", "cli_gaf_strains_abundance.txt",
+            "cli_gaf_cls.tsv")]), "cli gaf short vs phase 10 (a)")
+    print("cli gaf short: the three tables byte-identical to phase 10 (a)'s "
+          "device-coverage tables")
+
+    # (g) --device cuda where torch sees no GPU: a non-zero exit, no output
+    tmp = out("cli_nogpu_tmp")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)), env.get("PYTHONPATH", "")])
+    proc = subprocess.run(
+        [sys.executable, "-m", "pantax_tpu_torch.cli", "-d", db_dir, "-s",
+         "--fastpath", "-r", fq, "-T", tmp], env=env, capture_output=True,
+        text=True, timeout=300)
+    if proc.returncode == 0 or os.path.exists(tmp) or \
+            "CUDA is not available" not in proc.stderr:
+        raise AssertionError(f"cli without a GPU: exit {proc.returncode}, "
+                             f"{proc.stderr[-500:]}")
+    print(f"cli without a GPU (CUDA_VISIBLE_DEVICES=''): exit "
+          f"{proc.returncode}, no output")
     return k1, k2
 
 
@@ -1372,17 +1610,21 @@ def main() -> None:
     print(f"bounds: K1 {bound1:.4f} ms ({by1}) at N={2 * BATCH} Lr=160 pad=4, "
           f"{bound1_l:.4f} ms at N={2 * LONG_BATCH} Lr={chunk} pad=8; K2 "
           f"{bound2:.4f} ms ({by2}) at N={LONG_BATCH} Lr={chunk} pad=8")
-    long_launches = long_path(build, dev, db, index, tables)
+    long_launches, long_reads = long_path(build, dev, db, index, tables)
     paired_launches, pairs = paired_path(build, dev, db, index, tables)
     dup_launches, dup_k2, dup_long = dup_path(build, dev)
     card = card_line()
-    gaf_k1, gaf_k2 = gaf_flow(build, dev, card, (db, index), short, pairs,
-                              dup_long)
+    gaf_k1, gaf_k2, gaf_out = gaf_flow(build, dev, card, (db, index), short,
+                                       pairs, dup_long)
+    cli_k1, cli_k2 = cli_flow(build, card, (db, index), short[3], pairs[1],
+                              long_reads, long_launches, gaf_out,
+                              gaf_k1["gaf_short"])
 
     k1_by_path = {"short": launches, "long": long_launches["banded_extend"],
-                  "paired": paired_launches, **dup_launches, **gaf_k1}
+                  "paired": paired_launches, **dup_launches, **gaf_k1,
+                  **cli_k1}
     k2_by_path = {"long": long_launches["banded_extend_windows"],
-                  "dup_long": dup_k2, **gaf_k2}
+                  "dup_long": dup_k2, **gaf_k2, **cli_k2}
     print(json.dumps({"kernels": [
         dict(KERNEL, launches=sum(k1_by_path.values()),
              launches_by_path=k1_by_path,

@@ -21,6 +21,14 @@ counterpart's name so the two are easy to compare:
                        entry points
   profile/             PAO solver (torch ADMM + HiGHS), two-stage engine,
                        pandas-free species/strain report writers
+  fastpath.py, pipeline.py
+                       array-native and per-species (GAF) profiling
+  cli.py               the pantax-gpu command line (every flow of
+                       pantax-tpu, plus --device cuda|cpu; multi-GPU waits
+                       for ROADMAP M12): ``python -m pantax_tpu_torch.cli``
+  db/{sketch,preprocess,rg,merge,md,sketch_cli}.py
+                       genome sketches for --fast, and the DB-curation
+                       tools pantax-gpu-rg, pantax-gpu-md, pantax-gpu-sketch
   benchmarks.py        synthetic community DBs and read simulators
   convert.py           reference state -> port modules
 """

@@ -61,6 +61,10 @@ class AlignIndex:
     def text_len(self) -> int:
         return len(self.text)
 
+    @property
+    def num_seeds(self) -> int:
+        return len(self.seed_keys)
+
     # ---- projection (host, vectorized) ------------------------------------
     def project(self, ts: np.ndarray, te: np.ndarray):
         """Text intervals [ts, te) -> (first-node index into tstart/tnode,

@@ -65,6 +65,43 @@ class DatabasePaths:
     def is_complete(self) -> bool:
         return self.range_file.exists() and self.stats_file.exists()
 
+    def export_gfa(self, out_path) -> None:
+        """Write the combined pangenome GFA with global node ids — the
+        interop artifact matching the reference DB's reference_pangenome.gfa
+        (construct.rs:156-208, vg combine semantics: species concatenated in
+        range order with offset node ids)."""
+        from ..graph.core import load_species_range
+
+        with open(out_path, "wb") as f:
+            f.write(b"H\tVN:Z:1.1\n")
+            for r in load_species_range(self.range_file):
+                g = self.load_graph(r.species)
+                base = r.start  # global 1-based id of local node 0
+                for i in range(g.num_nodes):
+                    f.write(b"S\t%d\t%s\n" % (base + i, g.node_seq(i)))
+                edges = set()
+                for hi in range(g.num_paths):
+                    p = g.path(hi)
+                    s = g.path_strand(hi)
+                    for a, sa, b, sb in zip(p[:-1], s[:-1], p[1:], s[1:]):
+                        edges.add((int(a), int(sa), int(b), int(sb)))
+                ori = (b"+", b"-")
+                for a, sa, b, sb in sorted(edges):
+                    f.write(b"L\t%d\t%s\t%d\t%s\t0M\n"
+                            % (base + a, ori[sa], base + b, ori[sb]))
+                step = (b">", b"<")
+                for hi, name in enumerate(g.path_names):
+                    p = g.path(hi)
+                    s = g.path_strand(hi)
+                    walk = b"".join(
+                        step[int(si)] + b"%d" % (base + n) for n, si in zip(p, s)
+                    )
+                    span = int(g.nodes_len[p].sum())
+                    f.write(
+                        b"W\t%s\t0\tmerged\t0\t%d\t%s\n"
+                        % (name.encode(), span, walk)
+                    )
+
 
 def _genome_seq(gi: GenomeInfo, base_dir: str) -> bytes:
     """Concatenated contig sequence of a genome (chromosome merge parity,

@@ -113,6 +113,11 @@ class SpeciesGraph:
     def paths_dict(self) -> dict[str, np.ndarray]:
         return {name: self.path(i) for i, name in enumerate(self.path_names)}
 
+    def node_seq(self, i: int) -> bytes:
+        if self.seq is None:
+            raise ValueError("graph has no sequence data")
+        return self.seq[self.seq_indptr[i] : self.seq_indptr[i + 1]].tobytes()
+
     def path_strand(self, i: int) -> np.ndarray:
         """Per-step strand of path i (0 forward / 1 reverse)."""
         lo, hi = self.path_indptr[i], self.path_indptr[i + 1]

@@ -522,7 +522,9 @@ class FusedPipeline:
     The first codes feed picks the coverage formulation as the reference
     does: the range scatter where it is exact, else the windowed scatter
     at ``L_cap`` (auto_node_window unless given).  An explicit ``L_cap``
-    forces the windowed scatter."""
+    forces the windowed scatter.  Every read's text interval is kept, so
+    finish() also returns ts / te (the CLI's resume artifact writes
+    them)."""
 
     _L_INT = 8  # the windowed scatter's window for interval feeds
 
@@ -590,16 +592,15 @@ class FusedPipeline:
     def _dispatch(self, step, *batch):
         """One codes dispatch through ``step`` (fused_step or
         fused_step_paired) in the chosen formulation; returns the per-read
-        (mapq, aligned, ridx) columns.  ts / span are dropped (the host
-        tail never reads them) except in a windowed dispatch, which hands
-        them to _hold_overflow."""
+        (mapq, aligned, ridx, ts, span) columns; a windowed dispatch also
+        hands ts / span to _hold_overflow."""
         (ts, span, *core), overflow = step(
             self.aligner, self.tables, *batch, self.acc,
             None if self.use_ranges else self.L_cap)
         if overflow is not None:
             self._hold_overflow(overflow, ts, span, core[2])
         self.n_batches += 1
-        return core
+        return core + [ts, span]
 
     def _hold_overflow(self, overflow, ts, span, ridx) -> None:
         """Keep a windowed dispatch's overflow mask and ts / span (~7 bytes
@@ -703,12 +704,12 @@ class FusedPipeline:
         short = ok & dup & (span <= self._L_INT)
         resid = ok & dup & (span > self._L_INT)
 
+        cols = {"mapq": mapq, "aligned": al, "ridx": ridx,
+                "read_len": read_len, "ts": ts, "te": te}
         if self._int_reads is None:
-            self._int_reads = {"mapq": [], "aligned": [], "ridx": [],
-                               "read_len": []}
+            self._int_reads = {k: [] for k in cols}
             self._int_ids = [] if ids is not None else None
-        for k, v in (("mapq", mapq), ("aligned", al), ("ridx", ridx),
-                     ("read_len", read_len)):
+        for k, v in cols.items():
             self._int_reads[k].append(v)
         if ids is not None and self._int_ids is not None:
             self._int_ids.extend(ids)
@@ -759,23 +760,25 @@ class FusedPipeline:
             acc_b[:t.N_pad], acc_d, acc_t[:t.U_pad], t.nodes_len,
             t.base_offset, t.trio_len,
         )
-        reads = {k: np.zeros(0, np.int64)
-                 for k in ("mapq", "aligned", "ridx", "read_len")}
+        names = ("mapq", "aligned", "ridx", "read_len", "ts", "te")
+        reads = {k: np.zeros(0, np.int64) for k in names}
         ids_all = None
         if self._per_read:
             if self._per_read[0][1] is not None:
                 ids_all = [i for _, ids, _, _ in self._per_read for i in ids]
-            for name, j in (("mapq", 0), ("aligned", 1), ("ridx", 2)):
+            for name, j in (("mapq", 0), ("aligned", 1), ("ridx", 2),
+                            ("ts", 3), ("span", 4)):
                 reads[name] = np.concatenate([
-                    cols[j][:m].cpu().numpy()
-                    for m, _, _, cols in self._per_read
+                    c[j][:m].cpu().numpy()
+                    for m, _, _, c in self._per_read
                 ])
+            reads["te"] = reads["ts"] + reads.pop("span")
             reads["read_len"] = np.concatenate(
                 [lens for _, _, lens, _ in self._per_read])
             self._per_read = []
         if self._int_reads is not None:
             # interval-fed rows (host-computed columns) follow codes rows
-            for k in ("mapq", "aligned", "ridx", "read_len"):
+            for k in names:
                 parts = self._int_reads[k]
                 reads[k] = np.concatenate(
                     [reads[k]] + parts if len(reads[k]) else parts)

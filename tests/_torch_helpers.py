@@ -190,3 +190,109 @@ def assert_tables_agree(out_a, out_b, abundance_tol):
                        ("predicted_abundance", abundance_tol),
                        ("total_cov_diff", 2e-4)):
             assert abs(a[k] - b[k]) <= tol, (k, ra, rb)
+
+
+# --------------------------------------------------------------------------
+# the command-line tests (tests/test_torch_cli*.py)
+# --------------------------------------------------------------------------
+CLI_BATCH = "1024"  # one batch size, so the reference compiles each shape once
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Autouse where imported: one torch intra-op thread for the module.
+    The CLI runs there are small, and under a parallel test run every
+    worker's thread per core oversubscribes the CPU (the ADMM's thousands
+    of small ops then slow down by orders of magnitude)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def quiet_cli(monkeypatch):
+    """Autouse where imported: no persistent XLA cache from the reference
+    CLI, and the root logger's handlers back as they were after each test
+    (both CLIs' setup_logging replace them)."""
+    import logging
+
+    import pantax_tpu.utils
+
+    monkeypatch.setattr(pantax_tpu.utils, "enable_compilation_cache",
+                        lambda *a, **k: None)
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    yield
+    root.handlers[:] = handlers
+    root.setLevel(level)
+
+
+@pytest.fixture(scope="module")
+def cli_community(tmp_path_factory):
+    """tiny_db (its FASTAs and genomes_info.txt under ``root``) and read
+    files made from seeds: 4096 single-end reads of 144-150 bases (the
+    longest not a multiple of 16), 2048 FR pairs as two files and as one
+    interleaved file, 16 long reads of 4 kb, and the single-end reads of
+    species 101 alone (for the genome screen)."""
+    from types import SimpleNamespace
+
+    from pantax_tpu_torch import _host
+    from pantax_tpu_torch.benchmarks import (
+        simulate_long_reads, simulate_read_batch, tiny_db,
+    )
+
+    root = tmp_path_factory.mktemp("cli_tiny")
+    db = tiny_db(root)
+    index = _host.build_align_index(db)
+    reads = root / "reads"
+    reads.mkdir()
+    n = 4096
+    codes, lens, hap = simulate_read_batch(index, n, 150, 0.01, seed=3)
+    lens = lens - np.arange(n) % 7
+    assert lens.max() % 16
+    seqs = code_seqs(codes, lens)
+    write_reads(reads / "short.fq", [f"S{i}" for i in range(n)], seqs, "fq")
+    sp101 = np.flatnonzero(np.asarray(index.hap_species)[hap] == "101")
+    write_reads(reads / "screen.fq", [f"S{i}" for i in sp101],
+                [seqs[i] for i in sp101], "fq")
+    c1, l1, c2, l2 = simulate_pairs(index, 2048, seed=4)
+    m1, m2 = code_seqs(c1, l1), code_seqs(c2, l2)
+    write_reads(reads / "r1.fq", [f"P{i}/1" for i in range(2048)], m1, "fq")
+    write_reads(reads / "r2.fq", [f"P{i}/2" for i in range(2048)], m2, "fq")
+    write_reads(reads / "inter.fq",
+                [f"P{i}/{m}" for i in range(2048) for m in (1, 2)],
+                [s for pair in zip(m1, m2) for s in pair], "fq")
+    long_reads, _ = simulate_long_reads(index, 16, 4096, seed=9)
+    write_reads(reads / "long.fq", [r for r, _ in long_reads],
+                [s for _, s in long_reads], "fq")
+    return SimpleNamespace(
+        root=root, db=str(db.root), info=str(root / "genomes_info.txt"),
+        short=str(reads / "short.fq"), r1=str(reads / "r1.fq"),
+        r2=str(reads / "r2.fq"), inter=str(reads / "inter.fq"),
+        long=str(reads / "long.fq"), screen=str(reads / "screen.fq"))
+
+
+def run_both_clis(tmp_path, monkeypatch, argv):
+    """Run the reference CLI (--mesh off) in tmp_path/ref and the port's
+    (--device cpu) in tmp_path/port on the same argv; returns the two
+    working directories."""
+    from pantax_tpu.cli import main as ref_main
+    from pantax_tpu_torch.cli import main as port_main
+
+    dirs = []
+    for name, main, extra in (("ref", ref_main, ["--mesh", "off"]),
+                              ("port", port_main, ["--device", "cpu"])):
+        wd = tmp_path / name
+        wd.mkdir(exist_ok=True)
+        monkeypatch.chdir(wd)
+        assert main([*argv, *extra]) == 0, name
+        dirs.append(wd)
+    return dirs
+
+
+def assert_same_files(ref, port, names):
+    for name in names:
+        assert filecmp.cmp(ref / name, port / name, shallow=False), name

@@ -539,3 +539,48 @@ def test_align_file_cpu_equal_cuda(cuda, tmp_path):
     assert extend.LAUNCHES["banded_extend"] == stage["n_batches"] >= 3
     assert extend.LAUNCHES["banded_extend_plain"] == 0
     assert got[0] == got[1] and len(got[1]) > 2400
+
+
+@pytest.mark.parametrize("flow", [["-s", "--fastpath"], ["-s"],
+                                  ["-s", "-p", "--fastpath"],
+                                  ["-l", "--fastpath"]])
+def test_cli_cpu_equal_cuda(cuda, tmp_path, monkeypatch, flow):
+    """pantax-gpu with --device cpu and with --device cuda over tiny_db
+    (HiGHS): the species, strain and classification files byte-identical;
+    on the card K1 (and K2 on long reads) launched, the plain DPs never."""
+    from pantax_tpu_torch import cli
+
+    db = tiny_db(tmp_path / "tiny")
+    index = _host.build_align_index(db)
+    if "-l" in flow:
+        reads, _ = simulate_long_reads(index, 16, 4096, seed=9)
+        files = [(tmp_path / "r.fq", [r for r, _ in reads],
+                  [s for _, s in reads])]
+    elif "-p" in flow:
+        c1, l1, c2, l2 = simulate_pairs(index, 1024, seed=4)
+        files = [(tmp_path / f"r{m}.fq", [f"P{i}/{m}" for i in range(1024)],
+                  code_seqs(c, n)) for m, c, n in ((1, c1, l1), (2, c2, l2))]
+    else:
+        codes, lens, _ = simulate_read_batch(index, 2500, 150, 0.01, seed=3)
+        files = [(tmp_path / "r.fq", [f"S{i}" for i in range(len(lens))],
+                  code_seqs(codes, lens - np.arange(len(lens)) % 7))]
+    for path, ids, seqs in files:
+        write_reads(path, ids, seqs, "fq")
+    outs = []
+    for dev in ("cpu", "cuda"):
+        wd = tmp_path / dev
+        wd.mkdir()
+        monkeypatch.chdir(wd)
+        extend.reset_launch_counts()
+        assert cli.main(["-d", str(db.root), *flow, "-r",
+                         *(str(p) for p, _, _ in files), "--device", dev,
+                         "--solver", "highs", "--batch-size", "512", "-o",
+                         "out", "-R", "cls.tsv"]) == 0
+        outs.append(wd)
+    assert extend.LAUNCHES["banded_extend"] >= 1
+    assert ("-l" in flow) == (extend.LAUNCHES["banded_extend_windows"] >= 1)
+    assert extend.LAUNCHES["banded_extend_plain"] == 0
+    assert extend.LAUNCHES["banded_extend_windows_plain"] == 0
+    for name in ("out_species_abundance.txt", "out_strains_abundance.txt",
+                 "cls.tsv"):
+        assert (outs[0] / name).read_bytes() == (outs[1] / name).read_bytes()

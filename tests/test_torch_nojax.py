@@ -5,11 +5,14 @@ complete database (no species silently dropped) and runs the short-read
 slice, the per-species GAF flow from a FASTQ file with device coverage,
 the paired slice with the device tail, the long-read slice and the
 dup-graph community's windowed slice on the CPU to the four output
-tables."""
+tables; and python -m pantax_tpu_torch.cli runs (--help, the short-read
+fastpath and the long-read GAF flow) with the same imports blocked."""
 import os
 import subprocess
 import sys
 import textwrap
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -155,3 +158,73 @@ def test_port_runs_without_jax_pandas_pyarrow(tmp_path):
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NOJAX_OK" in proc.stdout
+
+
+CLI_SCRIPT = textwrap.dedent("""
+    import importlib.abc
+    import os
+    import runpy
+    import sys
+
+    BLOCKED = ("jax", "jaxlib", "pandas", "pyarrow", "pantax_tpu")
+
+    class Blocker(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ModuleNotFoundError(f"blocked: {name}", name=name)
+            return None
+
+    for mod in list(sys.modules):
+        if mod.split(".")[0] in BLOCKED:
+            del sys.modules[mod]
+    sys.meta_path.insert(0, Blocker())
+
+    argv = sys.argv[1:]
+    if argv != ["--help"]:
+        from _torch_helpers import code_seqs, write_reads
+        from pantax_tpu_torch import _host
+        from pantax_tpu_torch.benchmarks import (
+            simulate_long_reads, simulate_read_batch, tiny_db,
+        )
+
+        db = tiny_db(os.path.join(os.environ["TMPDIR"], "tiny"))
+        index = _host.build_align_index(db)
+        if "-l" in argv:
+            reads, _ = simulate_long_reads(index, 16, 4096, seed=9)
+            ids, seqs = [r for r, _ in reads], [s for _, s in reads]
+        else:
+            codes, lens, _ = simulate_read_batch(index, 1024, 150, 0.01,
+                                                 seed=3)
+            ids, seqs = [f"S{i}" for i in range(1024)], code_seqs(codes, lens)
+        write_reads("reads.fq", ids, seqs, "fq")
+        argv = ["-d", str(db.root), *argv, "-r", "reads.fq", "--device",
+                "cpu", "--batch-size", "256", "-o", "out", "-R", "cls.tsv"]
+    sys.argv = ["pantax-gpu", *argv]
+    try:
+        runpy.run_module("pantax_tpu_torch.cli", run_name="__main__",
+                         alter_sys=True)
+    except SystemExit as e:
+        assert e.code in (0, None), e.code
+    if argv != ["--help"]:
+        for name in ("out_species_abundance.txt", "out_strains_abundance.txt",
+                     "cls.tsv"):
+            assert os.path.getsize(name) > 0, name
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("NOJAX_CLI_OK")
+""")
+
+
+@pytest.mark.parametrize("argv", [["--help"], ["-s", "--fastpath"], ["-l"]])
+def test_cli_runs_without_jax_pandas_pyarrow(argv, tmp_path):
+    """python -m pantax_tpu_torch.cli on tiny_db with the same imports
+    blocked: --help, the short-read fastpath and the long-read GAF flow."""
+    env = dict(os.environ, TMPDIR=str(tmp_path), OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests"),
+                                           os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_SCRIPT, *argv], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=600,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NOJAX_CLI_OK" in proc.stdout
