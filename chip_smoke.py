@@ -43,7 +43,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    150 bp mates (fragments uniform in 250-500 bp, 1% substitutions and
    0.05% indels per mate), FusedPipeline.feed_paired at 32768 pairs a
    batch, finish, and the device profile tail (ADMM), timed after one warm
-   call; K1 must be launched once per paired batch (the joint mate query
+   call, the two calls' tables byte-identical; K1 must be launched once
+   per paired batch (the joint mate query
    over 131072 candidates, phase 3's shape) and the plain DP never; >= 99%
    of the reads aligned, >= 99% species accuracy, 10 species and 30
    strains; then the host tail on the same FusedResult must report the
@@ -106,7 +107,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    10 (a), the three files byte-identical to phase 10 (a)'s
    device-coverage tables; (g) in a subprocess where torch sees no GPU
    (CUDA_VISIBLE_DEVICES=""), python -m pantax_tpu_torch.cli exits
-   non-zero and writes nothing.
+   non-zero and writes nothing;
+12. drive the multi-device paths on the one card: (a) phase 5's 1M reads
+   through FusedPipeline with an Aligner on make_mesh([cuda:0, cuda:0])
+   and on one device, batch 65536: na/ta/bc and every per-read column
+   bit-identical, K1 launched once per row block of each dispatch (twice a
+   dispatch) on the mesh, then profile_from_fused_result (phase 5's host
+   tail): the three tables byte-identical to phase 5's; (b)-(d) pantax-gpu
+   --distributed 127.0.0.1:PORT,2,I as two processes sharing the card
+   (this script with --rank; each in its own working directory, each
+   waited for at most DIST_TIMEOUT_S, a hang failing the phase), each
+   printing its set-up, align and merge seconds and its K1 and K2
+   launches (the plain DPs must be 0): (b) phase 11 (c)'s flags over
+   phase 10's FASTQ (each rank its byte-range shard): process 0's
+   species, strain and classification files byte-identical to phase 11
+   (c)'s, process 1 writes none, K1 once per dispatch of the two shards;
+   (c) phase 11 (d)'s flags over phase 10's two pair files (the stream
+   chunks round-robin): species and strain files byte-identical to phase
+   11 (d)'s, the classification rows equal as sorted lists; (d) phase 11
+   (e)'s flags over phase 7's reads: its ~410 Mbases make one read group,
+   so process 1 owns none (the deadlock of the reference, F3, if its
+   collectives differed) and launches nothing while process 0 launches
+   phase 7's K1 and K2; files as in (c).
 
 The line before last is a JSON record of the kernels, each with its time,
 its plain version's, and the bound the card's peaks put on the same work
@@ -154,6 +176,7 @@ from pantax_tpu_torch.ops.fused import (
     classify_scatter, classify_scatter_ranges, profile_from_fused_result,
     profile_fused,
 )
+from pantax_tpu_torch.parallel import make_mesh
 from pantax_tpu_torch.pipeline import classify_gaf, profile_from_gaf
 from pantax_tpu_torch.profile.coverage import pack_reads
 from pantax_tpu_torch.profile.records import ReadRecord
@@ -198,6 +221,8 @@ SASS_OPS = ("VIADDMNMX", "VIMNMX", "IMNMX", "IADD3", "IMAD", "ISETP", "SEL",
 # difference of two near-equal coverage sums (its relative error is the
 # sums' times their ratio to it); the other columns stayed below 7.3e-7
 STRAIN_RTOL = 1e-5
+# phase 12: the longest one rank of a --distributed run may take
+DIST_TIMEOUT_S = 300
 
 
 def card_line() -> str:
@@ -820,6 +845,7 @@ def paired_path(build: str, dev, db, index, tables):
 
     out = os.path.join(build, "smoke_paired_out")
     shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(out + "_cold", ignore_errors=True)
     extend.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.time()
@@ -832,11 +858,15 @@ def paired_path(build: str, dev, db, index, tables):
         stage = {}
         torch.cuda.synchronize()
         t1 = time.time()
-        profile_from_fused_result(result, tables, index, db, cfg, out,
+        profile_from_fused_result(result, tables, index, db, cfg,
+                                  out + "_cold" if rep == "cold" else out,
                                   stage_out=stage)
         torch.cuda.synchronize()
         times[rep] = (time.time() - t1, stage)
     launches = dict(extend.LAUNCHES)
+    # the device tail adds its float32 sums in one order every run
+    files_identical(out + "_cold", out, (*CLASS_SPECIES, *STRAINS),
+                    "paired device tail, two calls")
 
     cfg.tail = "host"
     out_host = os.path.join(build, "smoke_paired_host_out")
@@ -877,7 +907,8 @@ def paired_path(build: str, dev, db, index, tables):
         raise AssertionError("device and host tails report different strains")
     diff = max(abs(dev_ab[k] - host_ab[k]) for k in dev_ab)
     print(f"paired: device and host tails report the same {len(dev_ab)} "
-          f"strains; abundances differ by at most {diff:.3g}")
+          f"strains; abundances differ by at most {diff:.3g}; the device "
+          f"tail's two calls wrote byte-identical tables")
     if diff > 2e-4:
         raise AssertionError("device and host tail abundances differ by > 2e-4")
     return launches["banded_extend"], ((c1, l1, c2, l2), hap)
@@ -1524,7 +1555,6 @@ def cli_flow(build: str, card: str, scale, fused_out: str, phap,
     with open(os.path.join(tmp, "reads_classification.tsv")) as f:
         n_out = sum(1 for _ in f)
     check_tables(tmp, truth[lhap], N_LONG, n_out, "emitted")
-    os.remove(lfq)
 
     # (f) the default GAF flow with device coverage: phase 10 (a)'s tables
     tmp = out("cli_gaf_tmp")
@@ -1557,6 +1587,261 @@ def cli_flow(build: str, card: str, scale, fused_out: str, phap,
                              f"{proc.stderr[-500:]}")
     print(f"cli without a GPU (CUDA_VISIBLE_DEVICES=''): exit "
           f"{proc.returncode}, no output")
+    return k1, k2
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the mesh and the multi-process runs on one card
+# ---------------------------------------------------------------------------
+def mesh_path(build: str, dev, card: str, scale, short) -> int:
+    """Phase 12 (a).  Returns K1's launches on the mesh."""
+    db, index, tables = scale
+    codes, lens, _, fused_out = short
+    runs = {}
+    for tag, mesh in (("one", None), ("mesh", make_mesh([dev, dev]))):
+        aligner = aligner_from_reference(index, _host.AlignConfig(), dev,
+                                         mesh=mesh)
+        pipe = FusedPipeline(aligner, tables, BATCH)
+        extend.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        pipe.feed(codes, lens)
+        result = pipe.finish()  # the per-read download synchronises
+        runs[tag] = (result, time.time() - t0, dict(extend.LAUNCHES),
+                     pipe.n_batches)
+    (one, t_one, _, n_batches), (res, t_mesh, launches, _) = (
+        runs["one"], runs["mesh"])
+    print(f"mesh short [{card}]: align+cover {t_mesh:.3f} s on "
+          f"make_mesh([{dev}, {dev}]), {t_one:.3f} s on one device, "
+          f"{n_batches} batches; K1 launches {launches['banded_extend']}, "
+          f"plain DP {launches['banded_extend_plain']}")
+    if (launches["banded_extend"] != 2 * n_batches
+            or launches["banded_extend_plain"]):
+        raise AssertionError("mesh short: K1 not launched once per row block")
+    for name in ("na_d", "ta_d", "bc_d"):
+        if not torch.equal(getattr(res, name), getattr(one, name)):
+            raise AssertionError(f"mesh short: {name} differs from one device")
+    for k in ("mapq", "aligned", "ridx", "read_len", "ts", "te"):
+        if not np.array_equal(res.reads[k], one.reads[k]):
+            raise AssertionError(f"mesh short: per-read {k} differs")
+    cfg = _host.ProfilingConfig.for_read_type("short")
+    cfg.tail = "host"
+    cfg.solver = "admm"
+    out = os.path.join(build, "smoke_mesh_out")
+    shutil.rmtree(out, ignore_errors=True)
+    profile_from_fused_result(res, tables, index, db, cfg, out)
+    files_identical(out, fused_out, ("species_abundance.txt",
+                                     "strain_abundance.txt",
+                                     "reads_classification.tsv"),
+                    "mesh short vs phase 5")
+    print("mesh short: na/ta/bc and the per-read columns bit-identical to "
+          "one device; the three tables byte-identical to phase 5's")
+    return launches["banded_extend"]
+
+
+def rank_main(argv: list) -> int:
+    """One rank of a phase 12 run (``chip_smoke.py --rank <json argv>``):
+    pantax_tpu_torch.cli.main(argv) in this process, then one line
+    ``RANK {json}`` with its exit code, e2e seconds, launches and
+    stage_timer lines."""
+    handler = LogLines()
+    logging.getLogger("pantax_tpu_torch").addHandler(handler)
+    extend.reset_launch_counts()
+    t0 = time.time()
+    rc = cli.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    print("RANK " + json.dumps({
+        "rc": rc, "wall": time.time() - t0, "launches": extend.LAUNCHES,
+        "stages": [ln for ln in handler.lines if " wall, " in ln]}))
+    return rc
+
+
+def stage_seconds(stages: list, *names) -> float:
+    """The wall seconds of the stage_timer lines whose stage starts with
+    one of ``names``."""
+    total = 0.0
+    for ln in stages:
+        name, _, rest = ln.lstrip("- ").partition(": ")
+        if name.startswith(names):
+            total += float(rest.split("s wall")[0])
+    return total
+
+
+def run_ranks(argv: list, what: str, card: str, base: str) -> list:
+    """pantax-gpu ``argv`` --distributed 127.0.0.1:PORT,2,I as two
+    processes sharing the card, rank I in base/rank<I> with its standard
+    output and errors in base/rank<I>.out and .err (files: a rank that
+    writes much never blocks on a pipe the other's wait leaves undrained);
+    both are waited for until one deadline DIST_TIMEOUT_S away (past it
+    both are killed and the phase fails).  Prints each rank's set-up, align and merge seconds and launches;
+    raises unless both exit 0 without a plain DP.  Returns the two
+    reports."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)),
+         os.environ.get("PYTHONPATH", "")]))
+    procs, logs = [], []
+    for i in range(2):
+        wd = os.path.join(base, f"rank{i}")
+        shutil.rmtree(wd, ignore_errors=True)
+        os.makedirs(wd)
+        logs.append(tuple(os.path.join(base, f"rank{i}.{s}")
+                          for s in ("out", "err")))
+        with open(logs[i][0], "w") as out, open(logs[i][1], "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank",
+                 json.dumps([*argv, "--distributed",
+                             f"127.0.0.1:{port},2,{i}"])],
+                cwd=wd, env=env, stdout=out, stderr=err))
+    t0 = time.time()
+    try:
+        for p in procs:
+            p.wait(timeout=max(DIST_TIMEOUT_S - (time.time() - t0), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.time() - t0
+    reports = []
+    for i, p in enumerate(procs):
+        out, err = (open(f, errors="replace").read() for f in logs[i])
+        lines = [ln for ln in out.splitlines() if ln.startswith("RANK ")]
+        if p.returncode or not lines:
+            raise AssertionError(f"{what} rank {i}: exit {p.returncode}\n"
+                                 f"{out[-2000:]}{err[-3000:]}")
+        rep = json.loads(lines[-1][5:])
+        la, st = rep["launches"], rep["stages"]
+        align = stage_seconds(st, "alignment+coverage", "long-read alignment")
+        # set-up: all before the align stage (DB and index load, aligner,
+        # fused tables); the merge runs inside the align stage of the
+        # short flows and inside the profiling stage of the long one
+        setup = rep["wall"] - align - stage_seconds(st, "profiling")
+        print(f"{what} rank {i} [{card}]: e2e {rep['wall']:.3f} s, set-up "
+              f"{setup:.3f} s, align+cover {align:.3f} s, merge "
+              f"{stage_seconds(st, 'cross-process merge'):.3f} s; "
+              f"K1 {la['banded_extend']}, K2 {la['banded_extend_windows']}, "
+              f"plain DPs {la['banded_extend_plain']} and "
+              f"{la['banded_extend_windows_plain']}")
+        print(f"  {what} rank {i} stages: " + "; ".join(
+            ln.lstrip("- ") for ln in rep["stages"]))
+        if la["banded_extend_plain"] or la["banded_extend_windows_plain"]:
+            raise AssertionError(f"{what} rank {i}: a plain DP ran on the card")
+        reports.append(rep)
+    print(f"{what}: two ranks in {wall:.3f} s of wall time")
+    return reports
+
+
+def shard_batches(path: str, n_proc: int, batch: int) -> list:
+    """Each process's fused dispatches over its byte-range shard of the
+    FASTQ ``path`` at the CLI's stream granularity."""
+    from pantax_tpu_torch.io.fastx import shard_fastx_buffers
+
+    return [sum(-(-(buf.count(b"\n") // 4) // batch) for buf in
+                shard_fastx_buffers(path, i, n_proc, cli.CHUNK_BYTES))
+            for i in range(n_proc)]
+
+
+def sorted_lines(path: str) -> list:
+    with open(path) as f:
+        return sorted(f.read().splitlines())
+
+
+def dist_flow(build: str, card: str, db_dir: str,
+              long_launches: dict) -> tuple[dict, dict]:
+    """Phase 12 (b)-(d).  Returns K1's and K2's launches by path (both
+    ranks')."""
+    fq = os.path.join(build, "smoke_reads.fq")
+    p1, p2 = (os.path.join(build, f"smoke_pairs_{m}.fq") for m in (1, 2))
+    lfq = os.path.join(build, "smoke_long.fq")
+    names = ("dist_species_abundance.txt", "dist_strains_abundance.txt",
+             "dist_cls.tsv")
+    out = ["-o", "dist", "-R", "dist_cls.tsv", "-T", "tmp"]
+    k1, k2 = {}, {}
+
+    def rank_dirs(tag):
+        base = os.path.join(build, tag)
+        return base, [os.path.join(base, f"rank{i}") for i in range(2)]
+
+    def none_written(rank1, what):
+        if any(os.path.exists(os.path.join(rank1, n)) for n in names):
+            raise AssertionError(f"{what}: process 1 wrote an output file")
+
+    # (b) the short fastpath, phase 11 (c)'s flags: each rank its shard
+    base, (r0, r1) = rank_dirs("dist_short")
+    reps = run_ranks(["-d", db_dir, "-s", "--fastpath", "-r", fq, "--tail",
+                      "host", "--coverage", "device", "--batch-size",
+                      str(BATCH), *out], "dist short", card, base)
+    want = shard_batches(fq, 2, BATCH)
+    got = [r["launches"]["banded_extend"] for r in reps]
+    if got != want:
+        raise AssertionError(f"dist short: K1 {got}, dispatches {want}")
+    k1["dist_short"] = sum(got)
+    same_tables(zip([os.path.join(build, n) for n in (
+        "cli_short_species_abundance.txt", "cli_short_strains_abundance.txt",
+        "cli_short_cls.tsv")], [os.path.join(r0, n) for n in names]),
+        "dist short vs phase 11 (c)")
+    none_written(r1, "dist short")
+    print(f"dist short: K1 {got} for the shards' {want} dispatches; process "
+          f"0's three files byte-identical to phase 11 (c)'s, process 1 "
+          f"wrote none")
+
+    # (c) the paired fastpath, phase 11 (d)'s flags: chunks round-robin
+    base, (r0, r1) = rank_dirs("dist_paired")
+    reps = run_ranks(["-d", db_dir, "-s", "-p", "--fastpath", "-r", p1, p2,
+                      "--batch-size", str(PAIR_BATCH), "--debug", *out],
+                     "dist paired", card, base)
+    got = [r["launches"]["banded_extend"] for r in reps]
+    if not all(got):
+        raise AssertionError(f"dist paired: K1 {got}, a rank owned no chunk")
+    k1["dist_paired"] = sum(got)
+    ref = os.path.join(build, "cli_paired")
+    same_tables([(f"{ref}_species_abundance.txt", os.path.join(r0, names[0])),
+                 (f"{ref}_strains_abundance.txt", os.path.join(r0, names[1]))],
+                "dist paired vs phase 11 (d)")
+    if sorted_lines(os.path.join(r0, names[2])) != sorted_lines(os.path.join(
+            build, "cli_paired_tmp", "reads_classification.tsv")):
+        raise AssertionError("dist paired: other classification rows than "
+                             "phase 11 (d)'s")
+    none_written(r1, "dist paired")
+    print(f"dist paired: K1 {got}; species and strain files byte-identical "
+          f"to phase 11 (d)'s, the classification rows equal as sorted "
+          f"lists, process 1 wrote none")
+
+    # (d) the long fastpath, phase 11 (e)'s flags: one read group, so
+    # process 1 owns none
+    base, (r0, r1) = rank_dirs("dist_long")
+    reps = run_ranks(["-d", db_dir, "-l", "--fastpath", "-r", lfq,
+                      "--long-read-type", READ_TYPE, "--batch-size",
+                      str(LONG_BATCH), "--debug", *out], "dist long", card,
+                     base)
+    for key in ("banded_extend", "banded_extend_windows"):
+        got = [r["launches"][key] for r in reps]
+        if got != [long_launches[key], 0]:
+            raise AssertionError(f"dist long: {key} {got}, phase 7 "
+                                 f"{long_launches[key]} (process 1 owns no "
+                                 f"read group)")
+    k1["dist_long"] = long_launches["banded_extend"]
+    k2["dist_long"] = long_launches["banded_extend_windows"]
+    ref = os.path.join(build, "cli_long")
+    same_tables([(f"{ref}_species_abundance.txt", os.path.join(r0, names[0])),
+                 (f"{ref}_strains_abundance.txt", os.path.join(r0, names[1]))],
+                "dist long vs phase 11 (e)")
+    if sorted_lines(os.path.join(r0, names[2])) != sorted_lines(os.path.join(
+            build, "cli_long_tmp", "reads_classification.tsv")):
+        raise AssertionError("dist long: other classification rows than "
+                             "phase 11 (e)'s")
+    none_written(r1, "dist long")
+    print(f"dist long: process 1 owned no read group and completed; K1 "
+          f"{k1['dist_long']} and K2 {k2['dist_long']} on process 0 "
+          f"(phase 7's); species and strain files byte-identical to phase "
+          f"11 (e)'s, the classification rows equal as sorted lists")
+    os.remove(lfq)
     return k1, k2
 
 
@@ -1619,12 +1904,15 @@ def main() -> None:
     cli_k1, cli_k2 = cli_flow(build, card, (db, index), short[3], pairs[1],
                               long_reads, long_launches, gaf_out,
                               gaf_k1["gaf_short"])
+    mesh_k1 = mesh_path(build, dev, card, (db, index, tables), short)
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    dist_k1, dist_k2 = dist_flow(build, card, str(db.root), long_launches)
 
     k1_by_path = {"short": launches, "long": long_launches["banded_extend"],
                   "paired": paired_launches, **dup_launches, **gaf_k1,
-                  **cli_k1}
+                  **cli_k1, "mesh_short": mesh_k1, **dist_k1}
     k2_by_path = {"long": long_launches["banded_extend_windows"],
-                  "dup_long": dup_k2, **gaf_k2, **cli_k2}
+                  "dup_long": dup_k2, **gaf_k2, **cli_k2, **dist_k2}
     print(json.dumps({"kernels": [
         dict(KERNEL, launches=sum(k1_by_path.values()),
              launches_by_path=k1_by_path,
@@ -1646,4 +1934,6 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(json.loads(sys.argv[2])))
     main()

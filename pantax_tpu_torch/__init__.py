@@ -14,7 +14,9 @@ counterpart's name so the two are easy to compare:
   ops/extend.py        banded DP extension: the CUDA kernel (csrc/) and its
                        plain torch version
   ops/coverage_device  padded coverage tables, the windowed coverage
-                       scatter and the coverage finalize
+                       scatter, the coverage finalize and the per-species
+                       coverage (its rows sharded over a device mesh)
+  ops/coverage.py      interval node coverage (no production caller)
   ops/fused.py         fused align -> classify -> coverage pipeline (range
                        scatter, or the windowed scatter and host residual
                        on graphs that revisit nodes) and the profiling
@@ -23,9 +25,12 @@ counterpart's name so the two are easy to compare:
                        pandas-free species/strain report writers
   fastpath.py, pipeline.py
                        array-native and per-species (GAF) profiling
+  parallel/            device meshes (mesh.py, auto_mesh), multi-process
+                       runs over torch.distributed (distributed.py) and
+                       the mesh dry run (dryrun.py)
   cli.py               the pantax-gpu command line (every flow of
-                       pantax-tpu, plus --device cuda|cpu; multi-GPU waits
-                       for ROADMAP M12): ``python -m pantax_tpu_torch.cli``
+                       pantax-tpu, plus --device cuda|cpu; --mesh and
+                       --distributed): ``python -m pantax_tpu_torch.cli``
   db/{sketch,preprocess,rg,merge,md,sketch_cli}.py
                        genome sketches for --fast, and the DB-curation
                        tools pantax-gpu-rg, pantax-gpu-md, pantax-gpu-sketch

@@ -17,6 +17,14 @@ The seed-free extension at host-predicted windows (``extend_batch``, the
 long-read rescue pass) gathers its windows from the text and runs the DP
 over them (K2); its rows are bit-identical to ``_extend_batch``.
 
+On a device mesh (``Aligner(mesh=)``) each entry point that launches K1
+or K2 splits its rows into contiguous blocks, one per mesh device, runs
+each block on its device against that device's copy of the index tables,
+and concatenates the results on the primary device in row order (the
+reference's ``_shard_reads``).  A batch
+whose rows do not divide by the mesh size runs unsharded on the primary,
+with one warning (the reference replicates it).
+
 Hashes are uint32 in the reference.  Torch's uint32 lacks most kernels, so
 they are carried in int64 and masked to 32 bits after each multiply
 (``_mul32``); the oracle is pantax_tpu.align.encode.kmer_hashes.
@@ -34,6 +42,7 @@ here.
 """
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 
 import numpy as np
@@ -46,6 +55,9 @@ from ..io.gaf import GafRecord
 from ..ops.extend import (
     NEG, banded_extend, banded_extend_windows, extract_windows, packed_layout,
 )
+from ..parallel.mesh import check_primary, row_blocks
+
+log = logging.getLogger("pantax_tpu_torch")
 
 __all__ = [
     "Aligner", "BatchResult", "build_bucket_table", "build_seed_lookup",
@@ -576,6 +588,16 @@ def _code_matrix(flat: np.ndarray, lens: np.ndarray, width: int) -> np.ndarray:
     return codes
 
 
+def _cat_rows(outs, device):
+    """The per-block outputs of a sharded call (tensors whose last dim is
+    the rows, or tuples of them) concatenated on ``device`` in block
+    order."""
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat([o.to(device) for o in outs], dim=-1)
+    return tuple(_cat_rows([o[i] for o in outs], device)
+                 for i in range(len(outs[0])))
+
+
 def _parse_chunk(path, buf: bytes):
     from ..utils.native import fastx_parse_native
 
@@ -592,9 +614,12 @@ class Aligner(nn.Module):
     """The index's device tables as buffers, plus the query entry points.
 
     ``lookup`` is build_seed_lookup's 5-tuple for this index (see
-    convert.aligner_from_reference, which builds it)."""
+    convert.aligner_from_reference, which builds it).  ``mesh`` (default
+    none) shards the query entry points' rows over its devices; its primary must be ``device``, where the buffers live and the
+    results come back.  The tables are copied once to every other device
+    of the mesh."""
 
-    def __init__(self, index, lookup, cfg=None, *, device):
+    def __init__(self, index, lookup, cfg=None, *, device, mesh=None):
         super().__init__()
         if index.text_len % 256:
             raise ValueError("index text must be 256-padded (rebuild the align index)")
@@ -613,6 +638,41 @@ class Aligner(nn.Module):
         put("bucket_lo", bucket_lo, np.int32)
         put("tstart", index.tstart, np.int32)
         put("tnode", index.tnode, np.int32)
+        self.mesh = mesh
+        check_primary(self.mesh, dev)
+        self._replicas = {}
+        for d in self.mesh or ():
+            if d != self.device and d not in self._replicas:
+                self._replicas[d] = tuple(t.to(d) for t in self._tables())
+        self._warned_indivisible = False
+
+    def _tables(self, device=None) -> tuple:
+        """(text, run_table, seed_pos, bucket_lo, tstart, tnode) on
+        ``device`` (default: the primary)."""
+        if device is None or device == self.device:
+            return (self.text, self.run_table, self.seed_pos, self.bucket_lo,
+                    self.tstart, self.tnode)
+        return self._replicas[device]
+
+    def _on_mesh(self, fn, *rows):
+        """fn(tables, *rows) for one batch of ``rows`` (tensors on the
+        primary, rows first): on the primary without a mesh, else once per
+        row block on its mesh device, the outputs concatenated on the
+        primary in row order."""
+        if self.mesh is None or len(self.mesh) == 1:
+            return fn(self._tables(), *rows)
+        blocks = row_blocks(rows[0].shape[0], self.mesh)
+        if not blocks:
+            if not self._warned_indivisible:
+                self._warned_indivisible = True
+                log.warning(
+                    "batch length %d is not divisible by the %d-device mesh;"
+                    " running it unsharded on %s (set --batch-size to a "
+                    "multiple of the mesh size)", rows[0].shape[0],
+                    len(self.mesh), self.device)
+            return fn(self._tables(), *rows)
+        return _cat_rows([fn(self._tables(d), *(r[s].to(d) for r in rows))
+                          for d, s in blocks], self.device)
 
     @property
     def device(self) -> torch.device:
@@ -642,9 +702,9 @@ class Aligner(nn.Module):
 
     def query(self, codes, read_len):
         """The per-read 7-tuple for a batch already on the device."""
-        return query_batch(self.text, self.run_table, self.seed_pos,
-                           self.bucket_lo, self.tstart, self.tnode,
-                           codes, read_len, self.static())
+        static = self.static()
+        return self._on_mesh(
+            lambda t, c, n: query_batch(*t, c, n, static), codes, read_len)
 
     def query_packed(self, codes, read_len):
         """Packed int32 [4, B] rows (the reference's _query_batch_packed)."""
@@ -653,11 +713,12 @@ class Aligner(nn.Module):
     def query_paired(self, codes1, len1, codes2, len2):
         """The joint mate-pair query on batches already on the device: two
         per-read 7-tuples (mate 1, mate 2)."""
-        c = self.cfg
-        return query_batch_paired(
-            self.text, self.run_table, self.seed_pos, self.bucket_lo,
-            self.tstart, self.tnode, codes1, len1, codes2, len2,
-            self.static(), c.frag_max, c.pair_bonus, c.rescue_frac)
+        c, static = self.cfg, self.static()
+        return self._on_mesh(
+            lambda t, c1, n1, c2, n2: query_batch_paired(
+                *t, c1, n1, c2, n2, static, c.frag_max, c.pair_bonus,
+                c.rescue_frac),
+            codes1, len1, codes2, len2)
 
     def query_paired_packed(self, codes1, len1, codes2, len2):
         """Packed int32 [8, B] rows, mate 1's four then mate 2's (the
@@ -679,10 +740,11 @@ class Aligner(nn.Module):
         starts ``w0`` (text coordinates); ``strand`` picks the forward or
         reverse-complement read per row.  Packed int32 [4, B] rows on the
         device (the reference's dispatch_extend)."""
-        codes_d, lens_d = self.upload(codes, lens)
-        return extend_batch(self.text, codes_d, lens_d,
-                            self.put(w0, np.int32),
-                            self.put(strand, np.int32), self.static())
+        static = self.static()
+        return self._on_mesh(
+            lambda t, c, n, w, s: extend_batch(t[0], c, n, w, s, static),
+            *self.upload(codes, lens), self.put(w0, np.int32),
+            self.put(strand, np.int32))
 
     def align_codes(self, codes: np.ndarray, lens: np.ndarray) -> BatchResult:
         """codes int8 [B, Lr] padded with 4; lens int [B]."""

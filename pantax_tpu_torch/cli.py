@@ -10,12 +10,26 @@ construction -f/--create, alignment indexing --index, read profiling -s/-l,
 flow runs on ``cuda`` (the default; no GPU is an error, never a CPU run)
 or, where asked, on ``cpu`` through the kernels' plain versions.  Stage
 skipping is file-existence driven (PanTax's main.rs:195-230): rerunning
-resumes where outputs are missing unless --force.  The multi-GPU flags
-(--mesh N > 1, --distributed) wait for ROADMAP M12 and return 2.
+resumes where outputs are missing unless --force.
+
+More than one device: ``--mesh N`` shards every read batch over N local
+cards (on --device cpu, N CPU replicas), and ``--distributed HOST:PORT,N,I``
+runs this process as process I of N of one run (a torch.distributed gloo
+group; each process drives card I % the local card count).  On the
+--fastpath flows each process takes its share of the reads (the byte-range
+shard of each single-end file, the round-robin chunks of paired input, the
+round-robin read groups of long reads), the coverage accumulators are
+summed across processes before the finalize and the per-read columns
+gathered in process order; process 0 writes the outputs.  Integer coverage
+sums make every such run's coverage, and so its species and strain
+tables, bit-identical to one device's.  reads_classification.tsv lists
+the reads in one process's order only for one uncompressed single-end
+file; otherwise its rows are a one-process run's, permuted.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import shutil
@@ -26,8 +40,14 @@ from pathlib import Path
 log = logging.getLogger("pantax_tpu_torch")
 
 # the read files' stream granularity (record-aligned buffers of about this
-# many bytes); a module constant, so tests can cut files into many chunks
+# many bytes), also the round-robin unit of paired input under
+# --distributed; a module constant, so tests can cut files into many chunks
 CHUNK_BYTES = 64 << 20
+# the long-read flow's read groups (total bases; align/long_read.py's
+# DEFAULT_GROUP_BASES); under --distributed they are the round-robin unit,
+# GROUP_BASES / N but no smaller than MIN_GROUP_BASES
+GROUP_BASES = 1 << 30
+MIN_GROUP_BASES = 64 << 20
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -94,12 +114,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reads per device dispatch (default: 65536 short, "
                         "16384 long)")
     a.add_argument("--mesh", default="auto", metavar="auto|off|N",
-                   help="'auto', 'off' and 1 run on the one device --device "
-                        "gives; N > 1 devices wait for multi-GPU support")
+                   help="shard read batches over N local cards (on --device "
+                        "cpu, N CPU replicas); 'auto' meshes every local "
+                        "card when more than one is visible (not under "
+                        "--distributed), 'off' and 1 run on one device")
     a.add_argument("--distributed", default=None, metavar="HOST:PORT,N,I",
-                   help="multi-host runtime (coordinator address, process "
-                        "count N, this process id I); waits for multi-GPU "
-                        "support")
+                   help="run as process I of N (coordinator address "
+                        "HOST:PORT, served by process 0; torch.distributed "
+                        "over gloo); --fastpath flows only, process 0 "
+                        "writes the outputs (the classification rows in "
+                        "one process's order only for one uncompressed "
+                        "single-end file)")
     a.add_argument("--coverage", default="auto",
                    choices=["auto", "host", "device"],
                    help="strain coverage engine (device = torch on --device)")
@@ -161,26 +186,13 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
 
-def _multi_gpu(args) -> bool:
-    """True (after logging why) when the flags ask for more than one
-    device: --distributed, or --mesh N with N > 1."""
-    if args.distributed:
-        log.error("--distributed: multi-GPU runs wait for ROADMAP M12")
-        return True
-    if args.mesh not in ("auto", "off") and int(args.mesh) > 1:
-        log.error("--mesh %s: multi-GPU runs wait for ROADMAP M12; use "
-                  "--mesh off", args.mesh)
-        return True
-    return False
-
-
 def _main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     if args.batch_size is None:
         # the reference's defaults: the long-read [B, chunk] DP at 16384
         # rows, short reads at the wide batch that amortizes the seed stage
         args.batch_size = 16384 if args.long_read else 65536
-    from .utils.logging import device_trace, setup_logging, stage_timer
+    from .utils.logging import setup_logging
 
     setup_logging(args.log_dir, args.log_m, args.verbose)
     t0 = time.time()
@@ -193,9 +205,22 @@ def _main(argv: list[str] | None = None) -> int:
                   "GAF flow is single-process; rerun with --fastpath "
                   "or drop --distributed)")
         return 2
-    if _multi_gpu(args):
-        return 2
+    try:
+        return _run(args, t0)
+    finally:
+        if args.distributed:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+
+def _run(args, t0: float) -> int:
+    """_main after the argument checks: the device, the process group and
+    the mesh, then the flows."""
     import torch
+
+    from .utils.logging import device_trace, stage_timer
 
     if args.device == "cuda":
         from .device import require_cuda
@@ -207,8 +232,23 @@ def _main(argv: list[str] | None = None) -> int:
             return 1
     else:
         dev = torch.device("cpu")
+    if args.distributed:
+        from .parallel.distributed import init_distributed, parse_spec
+
+        coord, n_proc, proc_id = parse_spec(args.distributed)
+        dev = init_distributed(coord, n_proc, proc_id, device=dev)
+        log.info("distributed runtime: process %d of %d", proc_id, n_proc)
     log.info("device: %s", torch.cuda.get_device_name(dev)
              if dev.type == "cuda" else "cpu")
+    from .parallel import auto_mesh
+
+    # under --distributed each process drives its own card, so "auto"
+    # builds no mesh there
+    mesh = auto_mesh("off" if args.distributed and args.mesh == "auto"
+                     else args.mesh, dev)
+    if mesh is not None:
+        log.info("device mesh: %s; read batches sharded over it",
+                 ", ".join(map(str, mesh)))
 
     from .db.construct import DatabasePaths, build_database, load_database
 
@@ -265,7 +305,7 @@ def _main(argv: list[str] | None = None) -> int:
     log.info("alignment index: %d seeds over %d bases", index.num_seeds, index.text_len)
     if args.index:
         if args.warm_kernels:
-            _warm_kernels(args, db, index, dev)
+            _warm_kernels(args, db, index, dev, mesh)
         return 0
 
     if not args.reads:
@@ -282,9 +322,9 @@ def _main(argv: list[str] | None = None) -> int:
     gaf_file = tmp / "gfa_mapped.gaf"
 
     if args.fastpath and args.short_read:
-        return _run_fastpath(args, db, index, tmp, t0, dev)
+        return _run_fastpath(args, db, index, tmp, t0, dev, mesh)
     if args.fastpath and args.long_read:
-        return _run_fastpath_long(args, db, index, tmp, t0, dev)
+        return _run_fastpath_long(args, db, index, tmp, t0, dev, mesh)
 
     from .io.gaf import filter_best_long_read_alignments, read_gaf, write_gaf
 
@@ -292,7 +332,8 @@ def _main(argv: list[str] | None = None) -> int:
         log.info("- Alignment exists (%s), skipping...", gaf_file)
         gaf = read_gaf(gaf_file)
     else:
-        aligner = _aligner(index, "long" if args.long_read else "short", dev)
+        aligner = _aligner(index, "long" if args.long_read else "short", dev,
+                           mesh)
         with stage_timer("alignment"), device_trace(args.trace_dir):
             if args.short_read:
                 gaf = []
@@ -334,22 +375,23 @@ def _main(argv: list[str] | None = None) -> int:
     cfg = _profiling_config(args, db, tmp, read_type,
                             species=args.species, strain=args.strain)
     with stage_timer("profiling"):
-        profile_from_gaf(gaf, db, cfg, tmp, force=args.force, device=dev)
+        profile_from_gaf(gaf, db, cfg, tmp, force=args.force, device=dev,
+                         mesh=mesh)
 
     return _emit_outputs(args, tmp, args.species, args.strain, t0)
 
 
-def _aligner(index, read_type: str, dev):
+def _aligner(index, read_type: str, dev, mesh):
     from .config import AlignConfig
     from .convert import aligner_from_reference
     from .utils.logging import stage_timer
 
     with stage_timer("aligner (seed lookup, index tables on the device)"):
         return aligner_from_reference(
-            index, AlignConfig.for_read_type(read_type), dev)
+            index, AlignConfig.for_read_type(read_type), dev, mesh)
 
 
-def _warm_kernels(args, db, index, dev) -> None:
+def _warm_kernels(args, db, index, dev, mesh) -> None:
     """--index --warm-kernels: build K1 and K2 (on a card), then run one
     batch of each device path the profiling flows take, so a later run
     pays no first use: the query over all-N reads of zero and of full
@@ -366,7 +408,7 @@ def _warm_kernels(args, db, index, dev) -> None:
 
         with stage_timer("kernel build (K1, K2)"):
             build_kernels()
-    aligner = _aligner(index, "long" if args.long_read else "short", dev)
+    aligner = _aligner(index, "long" if args.long_read else "short", dev, mesh)
     B = args.batch_size
     if args.long_read:
         from .align.long_read import LONG_READ_PRESETS
@@ -467,14 +509,18 @@ def _codes_matrix(codes_flat, offsets, pad):
     return _code_matrix(codes_flat[: int(lens.sum())], lens, pad), lens
 
 
-def _run_fastpath_long(args, db, index, tmp: Path, t0: float, dev) -> int:
+def _run_fastpath_long(args, db, index, tmp: Path, t0: float, dev,
+                       mesh) -> int:
     """Array-native long-read flow: chunked alignment -> merged per-read
     intervals -> fused interval profiling (the same accumulators and tails
     as short reads; FusedPipeline.feed_intervals).  The best-alignment
     filter's thresholds (gaf_filter.rs:44-97) are applied inside
     align_long_reads.  Each bounded read group is aligned and fed in
     turn, so host memory never holds the whole input (GraphAligner's
-    streaming role, alignment.rs:144-165)."""
+    streaming role, alignment.rs:144-165).  Under --distributed the read
+    groups go round-robin over the processes (a byte-range shard would
+    cut multi-line FASTA records), at GROUP_BASES / N bases a group but
+    no fewer than MIN_GROUP_BASES; a process may own no group."""
     from .align.long_read import (
         LONG_READ_PRESETS, LONG_READ_SEED_STRIDE, align_long_reads,
         iter_read_groups,
@@ -482,15 +528,21 @@ def _run_fastpath_long(args, db, index, tmp: Path, t0: float, dev) -> int:
     from .ops.fused import (
         FusedPipeline, build_fused_tables, profile_from_fused_result,
     )
+    from .parallel.distributed import process_count, process_index
     from .utils.logging import stage_timer
 
-    aligner = _aligner(index, "long", dev)
+    n_proc, rank = process_count(), process_index()
+    group_bases = (GROUP_BASES if n_proc == 1
+                   else max(GROUP_BASES // n_proc, MIN_GROUP_BASES))
+    aligner = _aligner(index, "long", dev, mesh)
     with stage_timer("fused tables"):
         tables = build_fused_tables(db, index, dev)
     pipe = FusedPipeline(aligner, tables, batch=args.batch_size)
-    n_aligned = 0
     with stage_timer("long-read alignment+coverage (fastpath)"):
-        for group in iter_read_groups(args.reads):
+        for gi, group in enumerate(iter_read_groups(args.reads,
+                                                    group_bases)):
+            if gi % n_proc != rank:
+                continue
             merged = align_long_reads(
                 aligner, group, chunk=LONG_READ_PRESETS[args.long_read_type],
                 batch_size=args.batch_size,
@@ -501,19 +553,21 @@ def _run_fastpath_long(args, db, index, tmp: Path, t0: float, dev) -> int:
                 merged.ts, merged.te, merged.mapq, merged.read_len,
                 ids=merged.read_ids,
             )
-            n_aligned += len(merged.read_ids)
 
     cfg = _profiling_config(args, db, tmp, "long",
                             species=True,
                             strain=args.strain or not args.species)
     with stage_timer("profiling (fused intervals)"):
-        log.info("- Aligned %d reads", n_aligned)
-        profile_from_fused_result(pipe.finish(), tables, index, db, cfg, tmp)
+        result = _finish(pipe)
+        if result is None:
+            return 0
+        log.info("- Aligned %d reads", len(result.reads["mapq"]))
+        profile_from_fused_result(result, tables, index, db, cfg, tmp)
 
     return _emit_outputs(args, tmp, True, cfg.strain, t0)
 
 
-def _run_fastpath(args, db, index, tmp: Path, t0: float, dev) -> int:
+def _run_fastpath(args, db, index, tmp: Path, t0: float, dev, mesh) -> int:
     """Array-native short-read flow: parse -> align -> profile, no GAF text.
     Input streams in record-aligned buffers (bounded memory); the alignment
     arrays are checkpointed to <tmp>/alignment_arrays.npz for resume."""
@@ -538,7 +592,8 @@ def _run_fastpath(args, db, index, tmp: Path, t0: float, dev) -> int:
         # fused flow: align+classify+coverage per batch (ops/fused.py;
         # paired mode uses the joint fragment-model step); the resume
         # artifact and all outputs are those of the per-species flow
-        return _run_fastpath_fused(args, db, index, _aligner(index, "short", dev),
+        return _run_fastpath_fused(args, db, index,
+                                   _aligner(index, "short", dev, mesh),
                                    tmp, t0, arrays_file)
     log.info("- Aligned %d reads", len(merged.read_ids))
 
@@ -546,7 +601,8 @@ def _run_fastpath(args, db, index, tmp: Path, t0: float, dev) -> int:
                             species=True,
                             strain=args.strain or not args.species)
     with stage_timer("profiling"):
-        profile_from_alignments(merged, index, db, cfg, tmp, device=dev)
+        profile_from_alignments(merged, index, db, cfg, tmp, device=dev,
+                                mesh=mesh)
 
     return _emit_outputs(args, tmp, True, cfg.strain, t0)
 
@@ -555,15 +611,31 @@ def _run_fastpath_fused(args, db, index, aligner, tmp: Path, t0: float,
                         arrays_file: Path) -> int:
     """Streaming fused flow: parse buffers -> fused align+coverage steps ->
     per-species-slice profiling.  Writes the same alignment_arrays.npz
-    resume artifact as the per-species flow."""
+    resume artifact as the per-species flow.
+
+    Under --distributed each process feeds its byte-range shard of each
+    single-end file (io/fastx.shard_fastx_buffers), or every N-th chunk of
+    paired input (a byte range of two mate files, or of one interleaved
+    file, would split pairs), and no resume artifact is written: the
+    processes' shards do not make one."""
     import numpy as np
 
     from .align.aligner import _parse_chunk, _round_up
-    from .io.fastx import stream_fastx_buffers, stream_paired_parsed
+    from .io.fastx import (
+        shard_fastx_buffers, stream_fastx_buffers, stream_paired_parsed,
+    )
     from .ops.fused import (
         FusedPipeline, build_fused_tables, profile_from_fused_result,
     )
+    from .parallel.distributed import process_count, process_index
     from .utils.logging import stage_timer
+
+    n_proc, rank = process_count(), process_index()
+
+    def buffers(rf):
+        if n_proc > 1:
+            return shard_fastx_buffers(rf, rank, n_proc, CHUNK_BYTES)
+        return stream_fastx_buffers(rf, CHUNK_BYTES)
 
     with stage_timer("fused tables"):
         tables = build_fused_tables(db, index, aligner.device)
@@ -577,8 +649,10 @@ def _run_fastpath_fused(args, db, index, aligner, tmp: Path, t0: float,
             # same joint fragment-model step as two-file mode; the pad is
             # the wider mate's, and --batch-size counts pairs
             r2 = args.reads[1] if len(args.reads) == 2 else None
-            for block in stream_paired_parsed(args.reads[0], r2,
-                                              _parse_chunk, CHUNK_BYTES):
+            for ci, block in enumerate(stream_paired_parsed(
+                    args.reads[0], r2, _parse_chunk, CHUNK_BYTES)):
+                if ci % n_proc != rank:
+                    continue
                 cf1, of1, ids1, cf2, of2, ids2 = block
                 if len(ids1) == 0:
                     continue
@@ -589,29 +663,32 @@ def _run_fastpath_fused(args, db, index, aligner, tmp: Path, t0: float,
                 pipe.feed_paired(c1, l1, c2, l2, ids1=ids1, ids2=ids2)
         else:
             for rf in args.reads:
-                for buf in stream_fastx_buffers(rf, CHUNK_BYTES):
+                for buf in buffers(rf):
                     codes_flat, offsets, ids = _parse_chunk(rf, buf)
                     if len(ids) == 0:
                         continue
                     pad = _round_up(int(np.diff(offsets).max()))
                     codes, lens = _codes_matrix(codes_flat, offsets, pad)
                     pipe.feed(codes, lens, ids=ids)
-        result = pipe.finish()
+        result = _finish(pipe)
+        if result is None:
+            return 0
 
     reads = result.reads
     keep_rows = np.flatnonzero(reads["aligned"])
     ids = reads["ids"]
-    read_ids = (np.asarray(ids, dtype=np.str_)[keep_rows]
-                if ids is not None
-                else np.char.add("R", keep_rows.astype(np.str_)))
-    np.savez(
-        arrays_file,
-        read_ids=np.asarray(read_ids, dtype=np.str_),
-        ts=reads["ts"][keep_rows].astype(np.int64),
-        te=reads["te"][keep_rows].astype(np.int64),
-        mapq=reads["mapq"][keep_rows].astype(np.int64),
-        read_len=reads["read_len"][keep_rows].astype(np.int64),
-    )
+    if n_proc == 1:
+        read_ids = (np.asarray(ids, dtype=np.str_)[keep_rows]
+                    if ids is not None
+                    else np.char.add("R", keep_rows.astype(np.str_)))
+        np.savez(
+            arrays_file,
+            read_ids=np.asarray(read_ids, dtype=np.str_),
+            ts=reads["ts"][keep_rows].astype(np.int64),
+            te=reads["te"][keep_rows].astype(np.int64),
+            mapq=reads["mapq"][keep_rows].astype(np.int64),
+            read_len=reads["read_len"][keep_rows].astype(np.int64),
+        )
     log.info("- Aligned %d reads", len(keep_rows))
 
     cfg = _profiling_config(args, db, tmp, "short",
@@ -621,6 +698,29 @@ def _run_fastpath_fused(args, db, index, aligner, tmp: Path, t0: float,
         profile_from_fused_result(result, tables, index, db, cfg, tmp)
 
     return _emit_outputs(args, tmp, True, cfg.strain, t0)
+
+
+def _finish(pipe):
+    """pipe.finish(); under --distributed with the coverage accumulators
+    summed across the processes and every process's per-read columns
+    gathered in process order: the merged result on process 0, None (after
+    a log line) on the others, which write nothing."""
+    from .parallel.distributed import (
+        cross_process_sum, gather_read_rows, process_count, process_index,
+    )
+    from .utils.logging import stage_timer
+
+    if process_count() == 1:
+        return pipe.finish()
+    with stage_timer("cross-process merge (accumulators, read columns)"):
+        result = pipe.finish(process_reduce=cross_process_sum)
+        reads = gather_read_rows(result.reads)
+    if process_index() != 0:
+        log.info("- process %d: %d reads in its share, merged; process 0 "
+                 "writes the outputs", process_index(),
+                 len(result.reads["mapq"]))
+        return None
+    return dataclasses.replace(result, reads=reads)
 
 
 def _emit_outputs(args, tmp, species: bool, strain: bool, t0: float) -> int:

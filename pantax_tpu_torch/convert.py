@@ -17,11 +17,12 @@ from .ops.fused import FusedSpecies, FusedTables
 from .ops.profile_tail import TailTables
 
 
-def aligner_from_reference(index, cfg, device) -> Aligner:
-    """The port's Aligner over the reference's AlignIndex."""
+def aligner_from_reference(index, cfg, device, mesh=None) -> Aligner:
+    """The port's Aligner over the reference's AlignIndex (its queries
+    sharded over ``mesh`` when one is given)."""
     lookup = build_seed_lookup(index.seed_keys, index.seed_pos,
                                cfg.hits_per_seed)
-    return Aligner(index, lookup, cfg, device=device)
+    return Aligner(index, lookup, cfg, device=device, mesh=mesh)
 
 
 def fused_tables_from_reference(jax_tables, device) -> FusedTables:

@@ -118,10 +118,11 @@ def collect_paired_alignment_arrays(aligner, codes1, lens1, codes2, lens2,
 
 
 def profile_from_alignments(arrays: AlignmentArrays, index, db, cfg,
-                            out_dir: str | os.PathLike, *, device,
+                            out_dir: str | os.PathLike, *, device, mesh=None,
                             stage_out: dict | None = None) -> None:
     """Full species + strain profiling from alignment arrays (no GAF text);
-    the strain stage's device coverage and PAO run on ``device``.
+    the strain stage's device coverage and PAO run on ``device`` (the
+    coverage rows sharded over ``mesh`` when one is given).
     ``stage_out`` receives classify_s, species_s, coverage_s, pao_s and
     report_s (host-clock seconds)."""
     stage = stage_out if stage_out is not None else {}
@@ -189,7 +190,7 @@ def profile_from_alignments(arrays: AlignmentArrays, index, db, cfg,
             read_end=read_start + (arrays.te[sel] - arrays.ts[sel]),
         )
         return prepare_packed(cfg, r.species, db.load_graph(r.species),
-                              packed, device=device)
+                              packed, device=device, mesh=mesh)
 
     metrics = solve_species(cfg, profile, work,
                             select_species(cfg, ranges, profile),

@@ -1,9 +1,9 @@
 """FASTA/FASTQ readers and writers (gzip-transparent), the port's copy of
 pantax_tpu/io/fastx.py: the record reader (``list(iter_fastx(path))`` is
 the reference's read_fasta / read_fastq), the FASTA writer, the streamed
-record-aligned chunk reader and the paired-mate block reader.  (The
-byte-range shard reader and its record-boundary search belong to multi-GPU
-input, ROADMAP M12.)
+record-aligned chunk reader, the byte-range shard reader of multi-process
+input (``shard_fastx_buffers``, ``iter_fastx_shard``) and the paired-mate
+block reader.
 
 Host-side I/O layer. Sequences are returned as Python ``bytes`` (uppercased);
 2-bit/int8 encoding for the device happens in :mod:`pantax_tpu_torch.align.encode`.
@@ -130,6 +130,152 @@ def stream_fastx_buffers(
                 continue  # record longer than the chunk: read more
             yield buf[:cut]
             buf = buf[cut:]
+
+
+def _next_record_start(f, off: int, size: int, fastq: bool) -> int:
+    """Smallest record-start byte offset >= ``off`` in an uncompressed
+    FASTA/FASTQ file (``size`` if none).  A FASTQ header line is identified
+    as a line starting with '@' whose line+2 starts with '+' — a quality
+    line starting with '@' never qualifies because the line two after it is
+    a sequence line (nucleotides, never '+')."""
+    if off <= 0:
+        return 0
+    if off >= size:
+        return size
+    # align to the next line start at or after off
+    f.seek(off - 1)
+    if f.read(1) != b"\n":
+        pos = off
+        while True:
+            blk = f.read(1 << 20)
+            if not blk:
+                return size
+            nl = blk.find(b"\n")
+            if nl >= 0:
+                off = pos + nl + 1
+                break
+            pos += len(blk)
+    if not fastq:
+        f.seek(off)
+        pos = off
+        prev_tail = b""
+        while True:
+            blk = f.read(1 << 20)
+            if not blk:
+                return size
+            if blk[0:1] == b">" and pos == off:
+                return pos
+            p = (prev_tail + blk).find(b"\n>")
+            if p >= 0:
+                return pos - len(prev_tail) + p + 1
+            prev_tail = blk[-1:]
+            pos += len(blk)
+    # FASTQ: need line structure — read a growing window of whole lines
+    window = b""
+    f.seek(off)
+    while True:
+        blk = f.read(1 << 20)
+        window += blk
+        lines = window.split(b"\n")
+        # drop the trailing partial line unless EOF ended the window
+        n_full = len(lines) - (0 if not blk else 1)
+        starts = []
+        pos = off
+        for ln in lines[: max(n_full, 0)]:
+            starts.append(pos)
+            pos += len(ln) + 1
+        for j in range(len(starts)):
+            if lines[j][:1] == b"@" and j + 2 < len(starts) and lines[j + 2][:1] == b"+":
+                return starts[j]
+        if not blk:
+            return size
+        if len(window) > (1 << 28):
+            raise ValueError("no FASTQ record boundary within 256MB window")
+
+
+def shard_fastx_buffers(
+    path: str | os.PathLike,
+    process_id: int,
+    num_processes: int,
+    chunk_bytes: int = 64 << 20,
+) -> Iterator[bytes]:
+    """Record-aligned byte-range shard of ONE FASTA/FASTQ file for
+    multi-process input.  All processes pass the same path; process i
+    yields exactly the records whose start offset falls in
+    [i·size/P, (i+1)·size/P), so P processes collectively stream every
+    record exactly once with no coordination and no pre-splitting.  Buffers
+    have the
+    same record-aligned contract as :func:`stream_fastx_buffers`.
+
+    Gzipped inputs are not seekable: every process then decompresses the
+    whole stream but keeps only its round-robin share of record-aligned
+    chunks (~4MB granularity), which still bounds memory and partitions the
+    records exactly.
+    """
+    if not (0 <= process_id < num_processes):
+        raise ValueError(f"process_id {process_id} not in [0, {num_processes})")
+    path = os.fspath(path)
+    with open(path, "rb") as probe:
+        magic = probe.read(2)
+    if magic == b"\x1f\x8b":
+        gran = min(chunk_bytes, 4 << 20)
+        for i, buf in enumerate(stream_fastx_buffers(path, gran)):
+            if i % num_processes == process_id:
+                yield buf
+        return
+
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        first = f.read(1)
+        if not first:
+            return
+        if first not in (b">", b"@"):
+            raise ValueError(f"{path}: not FASTA/FASTQ (starts with {first!r})")
+        fastq = first == b"@"
+        lo = size * process_id // num_processes
+        hi = size * (process_id + 1) // num_processes
+        start = _next_record_start(f, lo, size, fastq)
+        end = _next_record_start(f, hi, size, fastq) if hi < size else size
+        if start >= end:
+            return
+        f.seek(start)
+        remaining = end - start
+        buf = b""
+        while remaining > 0:
+            data = f.read(min(chunk_bytes, remaining))
+            if not data:
+                break
+            remaining -= len(data)
+            buf += data
+            if remaining <= 0:
+                break
+            if fastq:
+                nl = np.flatnonzero(np.frombuffer(buf, dtype=np.uint8) == 10)
+                k = (len(nl) // 4) * 4
+                cut = int(nl[k - 1]) + 1 if k else 0
+            else:
+                p = buf.rfind(b"\n>")
+                cut = p + 1 if p >= 0 else 0
+            if cut <= 0:
+                continue
+            yield buf[:cut]
+            buf = buf[cut:]
+        if buf.strip():
+            yield buf
+
+
+def iter_fastx_shard(
+    path: str | os.PathLike, process_id: int, num_processes: int
+) -> Iterator[Record]:
+    """Record iterator over this process's shard of one shared file
+    (see :func:`shard_fastx_buffers`)."""
+    for buf in shard_fastx_buffers(path, process_id, num_processes):
+        f = io.BytesIO(buf)
+        first = f.read(1)
+        if first == b">":
+            yield from _iter_fasta(f)
+        elif first == b"@":
+            yield from _iter_fastq(f)
 
 
 def stream_paired_parsed(

@@ -5,7 +5,8 @@ scatter of padded node-path rows (_coverage_scatter :110) with both
 first-occurrence dedups (switched at MASK_DEDUP_MAX_L, not the reference's
 64) and both trio lookups, the coverage finalize
 (_coverage_finalize :303), and the per-species coverage program of the GAF
-flow (node_abundances_device :480, without a mesh).
+flow (node_abundances_device :480), its rows sharded over a device mesh as
+the reference's sharded_node_abundances (:369) shards them.
 
 Hashes are uint32 in the reference.  Torch's uint32 lacks most kernels, so
 they are carried in int64 and masked to 32 bits after each multiply
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from ..align.aligner import _M32, _mul32
+from ..parallel.mesh import check_primary, row_blocks
 
 # float32 holds every integer below 2^24 exactly; the accumulators sum
 # integers, so their float32 image equals the reference's only below it
@@ -329,38 +331,80 @@ def coverage_finalize(bases_per_node, diff, trio_bases, nodes_len,
     return node_abundance, trio_abundance, node_base_cov
 
 
-def node_abundances_device(packed, nodes_len, trio_index, *, device):
-    """One species' (node_abundance, trio_abundance, node_base_cov) from
-    PackedReads on ``device``: the rows padded to power-of-two shapes, one
+def species_accumulators(packed, t: PaddedCoverageTables, device,
+                         mesh=None) -> tuple:
+    """The raw coverage accumulators of PackedReads on ``device`` (acc_b
+    int64 [N_pad + 1], acc_d int32 [TB_pad + 1], acc_t int64 [U_pad + 1],
+    each with a sink slot): the rows padded to power-of-two shapes, one
     coverage_scatter with the first-occurrence dedup and the trio hash
-    lookup, one coverage_finalize.  Returns host numpy (float64 from the
-    float32 finalize, float64, int32), bit-identical to the reference's."""
-    t = build_padded_tables(nodes_len, trio_index.trio_len,
-                            trio_index.trio_nodes)
+    lookup.  On a ``mesh`` (primary ``device``) the rows are cut into
+    contiguous blocks, one per mesh device (the row count rounded up to a
+    multiple of the mesh size), each block scattered on its device, and
+    the blocks' accumulators summed on the primary: integer sums, so the
+    result is bit-identical to one device's."""
     dev = torch.device(device)
     R, L = packed.nodes.shape
     R_pad, L_pad = _pow2(R), _pow2(max(L, 4), lo=4)
-
-    def put(a):
-        return torch.from_numpy(a).to(dev)
+    if mesh is not None:
+        R_pad = -(-R_pad // len(mesh)) * len(mesh)
 
     def padded(col, shape, fill):
         a = np.full(shape, fill, dtype=np.int32)
         a[tuple(slice(0, n) for n in col.shape)] = col
-        return put(a)
+        return a
 
     rows = [padded(packed.nodes, (R_pad, L_pad), -1)] + [
         padded(col, (R_pad,), 0)
         for col in (packed.lengths, packed.read_start, packed.read_end)]
-    nodes_len_d, base_offset_d = put(t.nodes_len), put(t.base_offset)
-    acc = (torch.zeros(t.N_pad + 1, dtype=torch.int64, device=dev),
-           torch.zeros(t.TB_pad + 1, dtype=torch.int32, device=dev),
-           torch.zeros(t.U_pad + 1, dtype=torch.int64, device=dev))
-    coverage_scatter(*rows, nodes_len_d, base_offset_d, acc,
-                     has_dups=True, trio_lookup=t.trio_lookup(dev))
-    na, ta, bc = coverage_finalize(acc[0][:t.N_pad], acc[1], acc[2][:t.U_pad],
-                                   nodes_len_d, base_offset_d,
-                                   put(t.trio_len))
+
+    def zeros(d):
+        return (torch.zeros(t.N_pad + 1, dtype=torch.int64, device=d),
+                torch.zeros(t.TB_pad + 1, dtype=torch.int32, device=d),
+                torch.zeros(t.U_pad + 1, dtype=torch.int64, device=d))
+
+    def scatter(d, block, acc):
+        put = [torch.from_numpy(a[block]).to(d) for a in rows]
+        coverage_scatter(*put, torch.from_numpy(t.nodes_len).to(d),
+                         torch.from_numpy(t.base_offset).to(d), acc,
+                         has_dups=True, trio_lookup=t.trio_lookup(d))
+
+    acc = zeros(dev)
+    if mesh is None or len(mesh) == 1:
+        scatter(dev, slice(None), acc)
+        return acc
+    for d, block in row_blocks(R_pad, mesh):
+        part = zeros(d)
+        scatter(d, block, part)
+        for a, b in zip(acc, part):
+            a += b.to(dev)
+    return acc
+
+
+def finalize_species(acc, t: PaddedCoverageTables, device):
+    """coverage_finalize of species_accumulators' sums -> host numpy
+    (node_abundance float64 [N] from the float32 finalize, trio_abundance
+    float64 [U], node_base_cov int32 [N])."""
+    dev = torch.device(device)
+    na, ta, bc = coverage_finalize(
+        acc[0][:t.N_pad], acc[1], acc[2][:t.U_pad],
+        torch.from_numpy(t.nodes_len).to(dev),
+        torch.from_numpy(t.base_offset).to(dev),
+        torch.from_numpy(t.trio_len).to(dev))
     return (na[:t.N].cpu().numpy().astype(np.float64),
             ta[:t.U].cpu().numpy().astype(np.float64),
             bc[:t.N].cpu().numpy())
+
+
+def node_abundances_device(packed, nodes_len, trio_index, *, device,
+                           mesh=None):
+    """One species' (node_abundance, trio_abundance, node_base_cov) from
+    PackedReads on ``device``: species_accumulators, then one
+    coverage_finalize.  ``mesh`` (default none; its primary must be
+    ``device``) shards the rows over its devices.  Returns
+    host numpy (float64 from the float32 finalize, float64, int32),
+    bit-identical to the reference's."""
+    check_primary(mesh, device)
+    t = build_padded_tables(nodes_len, trio_index.trio_len,
+                            trio_index.trio_nodes)
+    return finalize_species(species_accumulators(packed, t, device, mesh),
+                            t, device)

@@ -25,6 +25,12 @@ the profile tail (species stage, strain filters, two-stage PAO, report)
 writes the tables: the host tail over downloaded arrays, or the device tail
 (ops/profile_tail.py) over the arrays where they lie.
 
+On a device mesh the aligner's query runs per row block on the mesh's
+devices and hands the rows back to the primary (align/aligner.py); the
+fused tables, the accumulators and the scatter stay on the primary.  A
+multi-process run sums the raw accumulators across processes before the
+finalize (``finish(process_reduce=)``).
+
 Accumulator layout: every scatter target carries one extra sink slot that
 takes the reference's out-of-range "drop" indices (torch's index_add_
 raises on them) and is sliced off.  Node-base and trio sums are integers:
@@ -751,11 +757,21 @@ class FusedPipeline:
             self.aligner.index, self.tables, ts[keep], te[keep], ridx[keep]))
         return n_overflow
 
-    def finish(self) -> FusedResult:
+    def finish(self, process_reduce=None) -> FusedResult:
+        """The merged coverage and every fed read's host columns.
+
+        ``process_reduce`` (multi-process runs): a callable summing the
+        three raw accumulators across processes
+        (parallel.distributed.cross_process_sum), applied after this
+        process's overflow residual and expand_ranges and before the
+        finalize, so every process finalizes the merged coverage (the
+        reference's order)."""
         t = self.tables
         n_overflow = self._apply_overflow_residual()
         expand_ranges(self.acc, t, self.aligner.tnode)
         acc_b, acc_d, acc_t = self.acc[:3]
+        if process_reduce is not None:
+            acc_b, acc_d, acc_t = process_reduce((acc_b, acc_d, acc_t))
         na, ta, bc = coverage_finalize(
             acc_b[:t.N_pad], acc_d, acc_t[:t.U_pad], t.nodes_len,
             t.base_offset, t.trio_len,

@@ -145,9 +145,13 @@ def build_tail_tables(tables) -> TailTables:
 # stats
 # ---------------------------------------------------------------------------
 def _seg_sum(vals, seg, n: int):
-    """segment_sum over segments [0, n); index n (the pad) is dropped."""
+    """segment_sum over segments [0, n); index n (the pad) is dropped.  The
+    sums take index_put_'s accumulation, which adds in one order every run
+    (sorted on a card, serial on the CPU): index_add_'s float atomics on a
+    card add in a run-dependent order, and two runs on one coverage then
+    printed other strain tables."""
     out = torch.zeros(n + 1, dtype=vals.dtype, device=vals.device)
-    out.index_add_(0, seg.to(torch.int64), vals)
+    out.index_put_((seg.to(torch.int64),), vals, accumulate=True)
     return out[:n]
 
 

@@ -48,9 +48,11 @@ def write_reads_classification(path, gaf_records: list[GafRecord],
 
 def profile_from_gaf(gaf_records: list[GafRecord], db, cfg,
                      out_dir: str | os.PathLike, force: bool = False, *,
-                     device, stage_out: dict | None = None) -> None:
+                     device, mesh=None, stage_out: dict | None = None
+                     ) -> None:
     """Classification, species and strain profiles from GAF records; the
-    strain stage's device coverage and PAO run on ``device``.
+    strain stage's device coverage and PAO run on ``device`` (the coverage
+    rows sharded over ``mesh`` when one is given).
     ``stage_out`` receives host-clock seconds: classify_s (classification
     and its table), species_s, group_s (per-read records grouped by
     species), coverage_s (coverage, filters and solve preparation of every
@@ -101,7 +103,8 @@ def profile_from_gaf(gaf_records: list[GafRecord], db, cfg,
         stage["group_s"] = time.perf_counter() - t2
         metrics = strain_profiling(cfg, _host.load_species_range(db.range_file),
                                    profile, by_species, db.load_graph,
-                                   device=device, stage_out=stage)
+                                   device=device, mesh=mesh,
+                                   stage_out=stage)
         t3 = time.perf_counter()
         abundance_est(cfg, metrics,
                       _host.read_genomes_info(db.genomes_info_file), out)

@@ -119,30 +119,30 @@ def first_filter_job(cfg, otu: str, graph, paths: dict, trio_index,
     return state, job
 
 
-def prepare_packed(cfg, otu: str, graph, packed, *, device):
+def prepare_packed(cfg, otu: str, graph, packed, *, device, mesh=None):
     """Coverage of one species' packed reads (on ``device`` when
-    use_device_coverage, else the host's float64 oracle), first filter and
-    solve preparation: (OtuState, OtuSolveJob | None); the PAO solves run
+    use_device_coverage, its rows sharded over ``mesh`` when one is given;
+    else the host's float64 oracle), first filter and solve preparation: (OtuState, OtuSolveJob | None); the PAO solves run
     in finish_two_stage."""
     paths = graph.paths_dict()
     trio_index = _host.build_trio_index(graph.nodes_len, paths)
     if use_device_coverage(cfg, len(packed.lengths)):
         coverage = node_abundances_device(packed, graph.nodes_len, trio_index,
-                                          device=device)
+                                          device=device, mesh=mesh)
     else:
         coverage = node_abundances_packed(packed, graph.nodes_len, trio_index)
     return first_filter_job(cfg, otu, graph, paths, trio_index, coverage)
 
 
 def prepare_otu(cfg, otu: str, graph, range_start: int, range_end: int,
-                reads: list, *, device):
+                reads: list, *, device, mesh=None):
     """prepare_packed over one species' ReadRecords."""
     nvert = range_end - (range_start - 1)
     if nvert != graph.num_nodes:
         log.warning("%s: species range size %d != graph nodes %d", otu,
                     nvert, graph.num_nodes)
     return prepare_packed(cfg, otu, graph, pack_reads(reads, range_start),
-                          device=device)
+                          device=device, mesh=mesh)
 
 
 def optimize_otu(cfg, otu: str, graph, range_start: int, range_end: int,
@@ -202,17 +202,17 @@ def solve_species(cfg, species_profile, work, items, *, device,
 
 
 def strain_profiling(cfg, species_ranges, species_profile, reads_by_species,
-                     load_graph, *, device, stage_out: dict | None = None
-                     ) -> list:
+                     load_graph, *, device, mesh=None,
+                     stage_out: dict | None = None) -> list:
     """optimize_otu per abundant species (select_species) with the
     species-coverage constraint.  ``load_graph(taxid) -> SpeciesGraph``;
-    ``stage_out`` as solve_species'."""
+    ``mesh`` as prepare_packed's; ``stage_out`` as solve_species'."""
     def work(r):
         reads = reads_by_species.get(r.species)
         if not reads:
             return None
         return prepare_otu(cfg, r.species, load_graph(r.species), r.start,
-                           r.end, reads, device=device)
+                           r.end, reads, device=device, mesh=mesh)
 
     return solve_species(cfg, species_profile, work,
                          select_species(cfg, species_ranges, species_profile),

@@ -1,8 +1,10 @@
 """The port's command line (pantax-gpu) and DB-curation tools against the
 JAX package's on the CPU: --create, --export-gfa and the --fast / --qt
 genome screen write the reference's bytes, --index --warm-kernels runs,
-the error exits match the reference's, the multi-GPU flags return 2,
---device cuda without a GPU fails without running anything, and the
+the error exits match the reference's, --mesh 2 on the CPU writes the
+--mesh off tables while --mesh 2 with too few cards and a malformed
+--distributed exit 1, --device cuda without a GPU fails without running
+anything, and the
 tools (pantax-gpu-rg, -md, -sketch) write the reference tools' bytes.
 (tests/test_torch_cli.py holds the profiling flows.)"""
 import filecmp
@@ -97,9 +99,14 @@ def test_fast_genome_screen(cli_community, tmp_path, monkeypatch):
 
 def test_error_exits(cli_community, tmp_path, monkeypatch):
     """The reference's error exits (no reads, no read type: 2; a missing
-    read file: 1, in both flows) with the same codes; the multi-GPU flags
-    return 2 until M12; --device cuda without a GPU returns 1 before it
-    touches the DB or the reads."""
+    read file: 1, in both flows) with the same codes; --device cpu --mesh 2
+    (two CPU replicas) writes the --mesh off tables; --mesh 2 on cuda with
+    one card and a malformed --distributed return 1 before they touch the
+    DB or start a process group; --device cuda without a GPU returns 1
+    before it touches the DB or the reads."""
+    import torch
+    import torch.distributed as dist
+
     monkeypatch.chdir(tmp_path)
     db = ["-d", cli_community.db]
     cases = [
@@ -112,8 +119,27 @@ def test_error_exits(cli_community, tmp_path, monkeypatch):
         assert ref_main([*argv, "--mesh", "off"]) == rc, argv
         assert cli.main([*argv, "--device", "cpu"]) == rc, argv
     run = [*db, "-s", "--fastpath", "-r", cli_community.short, "--device", "cpu"]
-    assert cli.main([*run, "--mesh", "2"]) == 2
-    assert cli.main([*run, "--distributed", "h:1,2,0"]) == 2
+    out = ["--solver", "highs", "--batch-size", "1024", "-R"]
+    for mesh in ("off", "2"):
+        assert cli.main([*run, "--mesh", mesh, *out, f"cls_{mesh}.tsv", "-o",
+                         f"mesh_{mesh}", "-T", f"t_{mesh}"]) == 0
+    for a, b in (("mesh_off_species_abundance.txt",
+                  "mesh_2_species_abundance.txt"),
+                 ("mesh_off_strains_abundance.txt",
+                  "mesh_2_strains_abundance.txt"),
+                 ("cls_off.tsv", "cls_2.tsv")):
+        assert (tmp_path / a).read_bytes() == (tmp_path / b).read_bytes(), b
+    for spec in ("127.0.0.1:1,2", "127.0.0.1:1,two,0", "127.0.0.1:1,2,2",
+                 "127.0.0.1,2,0"):
+        assert cli.main([*run, "--distributed", spec, "-T", "t_dist"]) == 1
+        assert not dist.is_initialized()
+    with monkeypatch.context() as m:  # one visible card
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        m.setattr(torch.cuda, "get_device_name", lambda *a: "one card")
+        assert cli.main([*run[:-1], "cuda", "--mesh", "2", "-T", "t4"]) == 1
+    assert not (tmp_path / "t_dist").exists()
+    assert not (tmp_path / "t4").exists()
     assert cli.main([*run[:-1], "cuda", "-T", "t3"]) == 1
     assert not (tmp_path / "t3").exists()
     assert not (tmp_path / "species_abundance.txt").exists()

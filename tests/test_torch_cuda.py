@@ -584,3 +584,160 @@ def test_cli_cpu_equal_cuda(cuda, tmp_path, monkeypatch, flow):
     for name in ("out_species_abundance.txt", "out_strains_abundance.txt",
                  "cls.tsv"):
         assert (outs[0] / name).read_bytes() == (outs[1] / name).read_bytes()
+
+
+def _mesh_query_case(index, entry: str) -> tuple:
+    """2048 rows of one aligner entry's arguments: single-end reads, FR
+    pairs, or text windows for extend_packed."""
+    if entry == "paired":
+        return simulate_pairs(index, 2048, seed=4)
+    codes, lens, _ = simulate_read_batch(index, 2048, 150, 0.01, seed=3)
+    if entry != "extend":
+        return codes, lens
+    rng = np.random.default_rng(1)
+    start = rng.integers(0, len(index.text) - 1024, size=2048)
+    return (index.text[start[:, None] + np.arange(512)].astype(np.int8),
+            np.full(2048, 512, np.int64),
+            start - 8 + rng.integers(-3, 4, size=2048),
+            (rng.random(2048) < 0.5).astype(np.int8))
+
+
+def _mesh_query(al, entry: str, args):
+    if entry == "single":
+        return al.query_packed(*al.upload(*args))
+    if entry == "paired":
+        return al.query_paired_packed(*al.upload(*args[:2]),
+                                      *al.upload(*args[2:]))
+    return al.extend_packed(*args)
+
+
+@pytest.mark.parametrize("entry", ["single", "paired", "extend"])
+def test_query_rows_on_card_mesh_equal_no_mesh(cuda, tmp_path, entry):
+    """The aligner on make_mesh([cuda:0, cuda:0]): each dispatch's two row
+    blocks launch K1 (K2 for extend_packed) once each, and the rows equal
+    those of the aligner without a mesh."""
+    from pantax_tpu_torch.parallel import make_mesh
+
+    index = _host.build_align_index(tiny_db(tmp_path / "tiny"))
+    args = _mesh_query_case(index, entry)
+    rows = []
+    for mesh in (None, make_mesh([cuda, cuda])):
+        al = aligner_from_reference(index, _host.AlignConfig(), cuda,
+                                    mesh=mesh)
+        extend.reset_launch_counts()
+        rows.append(_mesh_query(al, entry, args).cpu())
+    key = "banded_extend_windows" if entry == "extend" else "banded_extend"
+    assert extend.LAUNCHES[key] == 2
+    assert extend.LAUNCHES[key + "_plain"] == 0
+    assert torch.equal(rows[0], rows[1])
+
+
+@pytest.mark.parametrize("entry", ["single", "paired", "extend"])
+def test_query_rows_on_card_and_cpu_mesh_equal_no_mesh(cuda, tmp_path,
+                                                       entry):
+    """The aligner on make_mesh([cuda:0, cpu]), a mesh of two distinct
+    devices: it holds a copy of the index tables on the CPU, moves the
+    second row block there and its rows back to the card.  The card's
+    block launches K1 (K2 for extend_packed), the CPU's block the plain
+    DP, once each; the rows on the card equal those without a mesh."""
+    from pantax_tpu_torch.parallel import make_mesh
+
+    index = _host.build_align_index(tiny_db(tmp_path / "tiny"))
+    args = _mesh_query_case(index, entry)
+    cpu = torch.device("cpu")
+    want = _mesh_query(aligner_from_reference(index, _host.AlignConfig(),
+                                              cuda), entry, args)
+    al = aligner_from_reference(index, _host.AlignConfig(), cuda,
+                                mesh=make_mesh([cuda, cpu]))
+    assert list(al._replicas) == [cpu]
+    assert all(t.device == cpu for t in al._replicas[cpu])
+    extend.reset_launch_counts()
+    got = _mesh_query(al, entry, args)
+    key = "banded_extend_windows" if entry == "extend" else "banded_extend"
+    assert extend.LAUNCHES[key] == 1
+    assert extend.LAUNCHES[key + "_plain"] == 1
+    assert got.device == cuda
+    assert torch.equal(got, want)
+
+
+def test_node_abundances_device_on_card_mesh_equal_no_mesh(cuda):
+    from pantax_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(3)
+    nodes_len, paths, reads, rs0 = coverage_case(rng, 65)
+    ti = _host.build_trio_index(nodes_len, paths)
+    packed = pack_reads([ReadRecord(r, n, 0, a, b, "s")
+                         for r, n, a, b in reads], rs0)
+    one, two = (node_abundances_device(packed, nodes_len, ti, device=cuda,
+                                       mesh=mesh)
+                for mesh in (None, make_mesh([cuda, cuda])))
+    for name, a, b in zip(("na", "ta", "bc"), one, two):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def test_node_abundances_device_on_card_and_cpu_mesh_equal_no_mesh(cuda):
+    """make_mesh([cuda:0, cpu]): the second row block scattered on the CPU,
+    its raw accumulators summed onto the card's; the coverage equals the
+    card's without a mesh and the CPU's."""
+    from pantax_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(3)
+    nodes_len, paths, reads, rs0 = coverage_case(rng, 65)
+    ti = _host.build_trio_index(nodes_len, paths)
+    packed = pack_reads([ReadRecord(r, n, 0, a, b, "s")
+                         for r, n, a, b in reads], rs0)
+    cpu = torch.device("cpu")
+    got = node_abundances_device(packed, nodes_len, ti, device=cuda,
+                                 mesh=make_mesh([cuda, cpu]))
+    for want in (node_abundances_device(packed, nodes_len, ti, device=cuda),
+                 node_abundances_device(packed, nodes_len, ti, device=cpu)):
+        for name, a, b in zip(("na", "ta", "bc"), got, want):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def test_cross_process_sum_one_rank_on_card(cuda):
+    """A one-process gloo group: cross_process_sum returns its inputs on
+    the card, and gather_read_rows the process's own columns."""
+    import socket
+
+    import torch.distributed as dist
+
+    from pantax_tpu_torch.parallel import distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dev = distributed.init_distributed(f"127.0.0.1:{port}", 1, 0,
+                                       device=cuda)
+    try:
+        assert dev == cuda
+        acc = (torch.arange(10, device=cuda),
+               torch.arange(5, dtype=torch.int32, device=cuda))
+        got = distributed.cross_process_sum(acc)
+        for a, b in zip(acc, got):
+            assert b.device == cuda and torch.equal(a, b)
+        reads = {k: np.arange(4) for k in distributed.COLUMNS}
+        reads["ids"] = list("abcd")
+        rows = distributed.gather_read_rows(reads)
+        assert rows["ids"] == reads["ids"]
+        np.testing.assert_array_equal(rows["mapq"], reads["mapq"])
+    finally:
+        dist.destroy_process_group()
+
+
+def test_tail_segment_sums_repeat_on_card(cuda):
+    """The device tail's float32 segment sums give the same bits on every
+    call on the card (the sorted accumulation), and agree with the CPU's
+    sequential sums within float32 rounding."""
+    from pantax_tpu_torch.ops.profile_tail import _seg_sum
+
+    rng = np.random.default_rng(0)
+    vals = torch.from_numpy(rng.random(1 << 20, dtype=np.float32) * 40)
+    seg = torch.from_numpy(rng.integers(0, 31, size=1 << 20))  # 30: the pad
+    runs = [_seg_sum(vals.to(cuda), seg.to(cuda), 30).cpu() for _ in range(5)]
+    for r in runs[1:]:
+        assert torch.equal(r, runs[0])
+    # n u: the worst relative error of a float32 sum of n positive terms
+    n = len(vals) / 30
+    torch.testing.assert_close(runs[0], _seg_sum(vals, seg, 30),
+                               rtol=n * 2.0**-24, atol=0)

@@ -5,8 +5,11 @@ complete database (no species silently dropped) and runs the short-read
 slice, the per-species GAF flow from a FASTQ file with device coverage,
 the paired slice with the device tail, the long-read slice and the
 dup-graph community's windowed slice on the CPU to the four output
-tables; and python -m pantax_tpu_torch.cli runs (--help, the short-read
-fastpath and the long-read GAF flow) with the same imports blocked."""
+tables, and the multi-device modules run (the shard reader, the mesh dry
+run, a one-process gloo group's merge and gather, interval_node_coverage);
+and python -m pantax_tpu_torch.cli runs (--help, the short-read fastpath,
+on one device and on a mesh of two CPU replicas, and the long-read GAF
+flow) with the same imports blocked."""
 import os
 import subprocess
 import sys
@@ -140,6 +143,42 @@ SCRIPT = textwrap.dedent("""
                                      dup, cfg, dup_out)
     rows = open(os.path.join(dup_out, "strain_abundance.txt")).read()
     assert len(rows.splitlines()) == 5, rows
+
+    # the multi-device and multi-process modules
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from pantax_tpu_torch.io.fastx import iter_fastx_shard
+    from pantax_tpu_torch.ops.coverage import interval_node_coverage
+    from pantax_tpu_torch.parallel import distributed
+    from pantax_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    assert ([r for i in range(3) for r in iter_fastx_shard(fq, i, 3)]
+            == list(_host.iter_fastx(fq)))
+    dry = dryrun_multichip(2, "cpu", os.path.join(os.environ["TMPDIR"], "dry"))
+    assert dry["n_overflow"] > 0 and len(dry["strains"]) == 4, dry
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    distributed.TIMEOUT_S = 60
+    distributed.init_distributed(f"127.0.0.1:{port}", 1, 0, device="cpu")
+    try:
+        acc = torch.arange(7)
+        assert torch.equal(distributed.cross_process_sum([acc])[0], acc)
+        reads = {k: np.arange(3) for k in distributed.COLUMNS}
+        reads["ids"] = ["a", "b", "c"]
+        got = distributed.gather_read_rows(reads)
+        assert got["ids"] == reads["ids"] and (got["ts"] == reads["ts"]).all()
+    finally:
+        dist.destroy_process_group()
+    t = [torch.from_numpy(a.astype(np.int32))
+         for a in (index.tstart, index.tnode, index.tlen)]
+    ts = torch.tensor([0, 5000, 30000], dtype=torch.int32)
+    cov = interval_node_coverage(*t, ts, ts + 150, torch.ones(3, dtype=bool),
+                                 int(index.tnode.max()), 8)
+    assert int(cov.sum()) == 450, cov.sum()
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("NOJAX_OK")
@@ -215,10 +254,12 @@ CLI_SCRIPT = textwrap.dedent("""
 """)
 
 
-@pytest.mark.parametrize("argv", [["--help"], ["-s", "--fastpath"], ["-l"]])
+@pytest.mark.parametrize("argv", [["--help"], ["-s", "--fastpath"], ["-l"],
+                                  ["-s", "--fastpath", "--mesh", "2"]])
 def test_cli_runs_without_jax_pandas_pyarrow(argv, tmp_path):
     """python -m pantax_tpu_torch.cli on tiny_db with the same imports
-    blocked: --help, the short-read fastpath and the long-read GAF flow."""
+    blocked: --help, the short-read fastpath (on one device and on a mesh
+    of two CPU replicas) and the long-read GAF flow."""
     env = dict(os.environ, TMPDIR=str(tmp_path), OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests"),
                                            os.environ.get("PYTHONPATH", "")]))
