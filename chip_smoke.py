@@ -128,7 +128,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (e)'s flags over phase 7's reads: its ~410 Mbases make one read group,
    so process 1 owns none (the deadlock of the reference, F3, if its
    collectives differed) and launches nothing while process 0 launches
-   phase 7's K1 and K2; files as in (c).
+   phase 7's K1 and K2; files as in (c);
+13. drive the benchmark runners of pantax_tpu_torch.benchmarks over the
+   smoke DB as a user calls them (no device: the card), each printing its
+   dict with the card's line and its K1 and K2 launches (K1 launched,
+   K2 on the long runners only, the plain DPs never): (a)
+   run_alignment_benchmark, 1M reads at batch 65536, phase 5's aligned
+   and species bars; (b) run_e2e_benchmark, the same, 30 strains; (c)
+   run_long_e2e_benchmark cut to phase 7's 50,000 reads (the same reads),
+   phase 7's bars over its classification table; (d) run_mixed_benchmark
+   cut to 990,000 short + 10,000 long reads, both aligned fractions at
+   phases 5 and 7's bars, 30 strains; (e) accuracy_benchmark at its
+   defaults (262,144 reads, 1:3:9): every strain of weight 3 and 9 found
+   (the weight-1 strains, at ~0.30x, may fall below the unique-trio
+   filter) and none the truth lacks; then (e') at N_ACC_FULL reads (the
+   coverage at which tests/test_pipeline_e2e.py holds the reference to
+   L1_BAR): 30 of 30 strains, L1 <= L1_BAR; (f)
+   long_read_accuracy_benchmark at its defaults (16,384 x 8192 bp, 1:3:9):
+   30 of 30, L1 <= L1_BAR; (g) simulate_reads (100,000 x 150 bp, 1:3:9,
+   1% substitutions, seed 21), Aligner.align_reads on the card,
+   profile_from_gaf over the aligned and over the truth GAF records: the
+   species of >= 99% of the reads as simulated, 10 species and every
+   weight-9 strain (~1x) in both flows, no strain outside the DB.
 
 The line before last is a JSON record of the kernels, each with its time,
 its plain version's, and the bound the card's peaks put on the same work
@@ -153,7 +174,7 @@ import time
 import numpy as np
 import torch
 
-from pantax_tpu_torch import _host, cli
+from pantax_tpu_torch import _host, benchmarks, cli
 from pantax_tpu_torch.align.long_read import (
     LONG_READ_PRESETS, LONG_READ_SEED_STRIDE, align_long_reads,
     iter_read_groups,
@@ -180,6 +201,7 @@ from pantax_tpu_torch.parallel import make_mesh
 from pantax_tpu_torch.pipeline import classify_gaf, profile_from_gaf
 from pantax_tpu_torch.profile.coverage import pack_reads
 from pantax_tpu_torch.profile.records import ReadRecord
+from pantax_tpu_torch.sim import simulate_reads
 
 KERNEL = {
     "name": "banded_extend",
@@ -1845,7 +1867,192 @@ def dist_flow(build: str, card: str, db_dir: str,
     return k1, k2
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the benchmark runners and simulate_reads
+# ---------------------------------------------------------------------------
+# the accuracy runners' L1 bar, the one tests/test_pipeline_e2e.py holds
+# the reference's accuracy_benchmark to (its lowest strains at ~1.05x)
+L1_BAR = 0.12
+# (e'): accuracy_benchmark at that test's coverage of its lowest strains
+# (16384 150 bp reads over 3 x 3 genomes of 60 kb at 1:3:9): 56 of the
+# runner's batches of 16384, ~1.06x for the weight-1 strains
+N_ACC_FULL = 56 * 16384
+# (d): the mixed runner's 99:1 mix, cut to 1M reads (its 9.9M short reads
+# need several 12 GB host temporaries in simulate_read_batch)
+N_MIX_SHORT, N_MIX_LONG = 990_000, 10_000
+# (g): simulate_reads at 1:3:9 strain weights
+N_SIM, SIM_SEED = 100_000, 21
+
+
+def bench_run(what: str, card: str, fn, *args, k2: bool = False, **kw):
+    """One phase 13 runner call, as a user makes it (no device: the
+    card): prints its dict (without pred and truth), its wall seconds and
+    its K1 / K2 launches; raises unless K1 (and, with ``k2``, K2) launched
+    and the plain DPs never did.  Returns the dict and the launches."""
+    extend.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = fn(*args, **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(extend.LAUNCHES)
+    shown = {k: v for k, v in res.items() if k not in ("pred", "truth")}
+    print(f"{what} [{card}]: {json.dumps(shown)}; runner {wall:.3f} s; K1 "
+          f"{launches['banded_extend']}, K2 "
+          f"{launches['banded_extend_windows']}")
+    if (not launches["banded_extend"]
+            or k2 != bool(launches["banded_extend_windows"])):
+        raise AssertionError(f"{what}: K1 / K2 launches {launches}")
+    if launches["banded_extend_plain"] or launches["banded_extend_windows_plain"]:
+        raise AssertionError(f"{what}: a plain DP ran on the card")
+    return res, launches
+
+
+def check_strains(res: dict, what: str, all_strains: bool) -> None:
+    """An accuracy runner's strains: with ``all_strains`` every one of the
+    30 found and the L1 error at most L1_BAR; else every strain above the
+    lightest weight found (the lightest may fall below the unique-trio
+    filter's covered fraction at the runner's coverage).  No strain that
+    the truth lacks; abundances finite, summing to 1."""
+    pred, truth = res["pred"], res["truth"]
+    ab = np.array(list(pred.values()))
+    if not (np.isfinite(ab).all() and abs(ab.sum() - 1.0) < 1e-6):
+        raise AssertionError(f"{what}: abundances not finite or not summing to 1")
+    if not set(pred) <= set(truth) or res["total"] != 30:
+        raise AssertionError(f"{what}: strains the truth lacks: "
+                             f"{sorted(set(pred) - set(truth))}")
+    light = min(truth.values())
+    heavy = {g for g, t in truth.items() if t > light}
+    if all_strains:
+        if res["detected"] != 30 or res["l1_error"] > L1_BAR:
+            raise AssertionError(f"{what}: {res['detected']} of 30 strains, "
+                                 f"L1 {res['l1_error']} (bar {L1_BAR})")
+    elif not heavy <= set(pred):
+        raise AssertionError(f"{what}: strains of weight 3 and 9 missed: "
+                             f"{sorted(heavy - set(pred))}")
+    print(f"{what}: {res['detected']} of 30 strains ({len(heavy & set(pred))}"
+          f" of the {len(heavy)} of weight 3 and 9), L1 {res['l1_error']:.6f}"
+          + (f" (bar {L1_BAR})" if all_strains else ""))
+
+
+def sim_flow(build: str, dev, card: str, db, index) -> int:
+    """Phase 13 (g): simulate_reads at 1:3:9, Aligner.align_reads on the
+    card, then profile_from_gaf over the aligned and over the truth GAF
+    records.  Returns K1's launches."""
+    weights = {h: float(3 ** (i % 3)) for i, h in enumerate(index.hap_names)}
+    t0 = time.time()
+    reads = simulate_reads(db, weights, N_SIM, 150, seed=SIM_SEED,
+                           error_rate=0.01)
+    t_sim = time.time() - t0
+    aligner = aligner_from_reference(index, _host.AlignConfig(), dev)
+    stage = {}
+    extend.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    gaf = aligner.align_reads([(r.read_id, r.seq) for r in reads],
+                              batch_size=BATCH, stage_out=stage)
+    torch.cuda.synchronize()
+    t_align = time.time() - t0
+    launches = dict(extend.LAUNCHES)
+    check_k1(launches, stage["n_batches"], "sim reads")
+    cfg = _host.ProfilingConfig.for_read_type("short")
+    outs, t_prof = {}, {}
+    for tag, records in (("aligned", gaf), ("truth", [r.truth for r in reads])):
+        outs[tag] = os.path.join(build, f"p13_sim_{tag}")
+        t0 = time.time()
+        profile_from_gaf(records, db, cfg, outs[tag], force=True, device=dev)
+        t_prof[tag] = time.time() - t0
+    species_of = {r.read_id: r.species for r in reads}
+    with open(os.path.join(outs["aligned"], "reads_classification.tsv")) as f:
+        n_ok = sum(species_of[ln.split("\t")[0]] == ln.split("\t")[2]
+                   for ln in f)
+    acc = n_ok / N_SIM
+    genome_of = {g.hap_id: g.genome_id
+                 for g in _host.read_genomes_info(db.genomes_info_file)}
+    heavy = {genome_of[h] for h, w in weights.items() if w == 9.0}
+    found = {}
+    for tag, out in outs.items():
+        species = read_table(os.path.join(out, "species_abundance.txt"))
+        strains = {r["genome_ID"] for r in
+                   read_table(os.path.join(out, "strain_abundance.txt"))}
+        found[tag] = strains
+        if len(species) != 10 or not heavy <= strains <= set(genome_of.values()):
+            raise AssertionError(
+                f"sim reads ({tag} GAF): {len(species)} species; strains "
+                f"{sorted(strains)} against the weight-9 ones {sorted(heavy)}")
+    print(f"sim reads [{card}]: simulate_reads {N_SIM} x 150 bp at 1:3:9 in "
+          f"{t_sim:.3f} s, align_reads {t_align:.3f} s ({len(gaf)} records, "
+          f"K1 {launches['banded_extend']}), profile_from_gaf aligned "
+          f"{t_prof['aligned']:.3f} s / truth {t_prof['truth']:.3f} s; "
+          f"species of {acc:.4f} of the reads as simulated; strains found "
+          f"aligned {len(found['aligned'])} / truth {len(found['truth'])} "
+          f"(every weight-9 strain in both)")
+    if acc < 0.99:
+        raise AssertionError(f"sim reads: species accuracy {acc:.4f} < 0.99")
+    return launches["banded_extend"]
+
+
+def bench_flow(build: str, dev, card: str, db, index, long_hap) -> tuple:
+    """Phase 13 (a)-(g).  Returns K1's and K2's launches by sub-phase."""
+    k1, k2 = {}, {}
+
+    def keep(tag, launches):
+        k1[tag] = launches["banded_extend"]
+        if launches["banded_extend_windows"]:
+            k2[tag] = launches["banded_extend_windows"]
+
+    out = os.path.join(build, "p13_{}")
+    res, la = bench_run("bench alignment", card,
+                        benchmarks.run_alignment_benchmark, db, N_READS, BATCH)
+    keep("bench_alignment", la)
+    if res["aligned_frac"] < 0.95 or res["species_acc"] < 0.99:
+        raise AssertionError("bench alignment: below phase 5's bars")
+
+    res, la = bench_run("bench e2e", card, benchmarks.run_e2e_benchmark, db,
+                        N_READS, BATCH, out_dir=out.format("e2e"))
+    keep("bench_e2e", la)
+    if res["aligned_frac"] < 0.95 or res["strains_detected"] != 30:
+        raise AssertionError("bench e2e: below phase 5's bars")
+
+    res, la = bench_run("bench long e2e", card,
+                        benchmarks.run_long_e2e_benchmark, db, n_long=N_LONG,
+                        out_dir=out.format("long_e2e"), k2=True)
+    keep("bench_long_e2e", la)
+    # phase 7's reads (the same count and seed): phase 7's bars
+    check_tables(out.format("long_e2e"),
+                 np.asarray(index.hap_species, dtype=object)[long_hap],
+                 N_LONG, round(res["aligned_frac"] * N_LONG), "bench long e2e")
+
+    res, la = bench_run("bench mixed", card, benchmarks.run_mixed_benchmark,
+                        db, n_short=N_MIX_SHORT, n_long=N_MIX_LONG,
+                        out_dir=out.format("mixed"), k2=True)
+    keep("bench_mixed", la)
+    if (res["short_aligned_frac"] < 0.95 or res["long_aligned_frac"] < 0.95
+            or res["strains_detected"] != 30):
+        raise AssertionError("bench mixed: below phases 5 and 7's bars")
+
+    res, la = bench_run("bench accuracy", card, benchmarks.accuracy_benchmark,
+                        db, out_dir=out.format("acc"))
+    keep("bench_accuracy", la)
+    check_strains(res, "bench accuracy (262,144 reads)", all_strains=False)
+    res, la = bench_run("bench accuracy full", card,
+                        benchmarks.accuracy_benchmark, db, n_reads=N_ACC_FULL,
+                        out_dir=out.format("acc_full"))
+    keep("bench_accuracy_full", la)
+    check_strains(res, f"bench accuracy ({N_ACC_FULL} reads)", all_strains=True)
+
+    res, la = bench_run("bench long accuracy", card,
+                        benchmarks.long_read_accuracy_benchmark, db,
+                        out_dir=out.format("lr_acc"), k2=True)
+    keep("bench_long_accuracy", la)
+    check_strains(res, "bench long accuracy (16,384 reads)", all_strains=True)
+
+    k1["sim_reads"] = sim_flow(build, dev, card, db, index)
+    return k1, k2
+
+
 def main() -> None:
+    t_smoke = time.time()
     dev = require_cuda()
     print(card_line())
     issue_peak = issue_ops_per_s()
@@ -1907,12 +2114,16 @@ def main() -> None:
     mesh_k1 = mesh_path(build, dev, card, (db, index, tables), short)
     torch.cuda.empty_cache()  # the ranks share the card with this process
     dist_k1, dist_k2 = dist_flow(build, card, str(db.root), long_launches)
+    bench_k1, bench_k2 = bench_flow(build, dev, card, db, index,
+                                    long_reads[1])
 
     k1_by_path = {"short": launches, "long": long_launches["banded_extend"],
                   "paired": paired_launches, **dup_launches, **gaf_k1,
-                  **cli_k1, "mesh_short": mesh_k1, **dist_k1}
+                  **cli_k1, "mesh_short": mesh_k1, **dist_k1, **bench_k1}
     k2_by_path = {"long": long_launches["banded_extend_windows"],
-                  "dup_long": dup_k2, **gaf_k2, **cli_k2, **dist_k2}
+                  "dup_long": dup_k2, **gaf_k2, **cli_k2, **dist_k2,
+                  **bench_k2}
+    print(f"smoke: every phase in {time.time() - t_smoke:.1f} s")
     print(json.dumps({"kernels": [
         dict(KERNEL, launches=sum(k1_by_path.values()),
              launches_by_path=k1_by_path,

@@ -1,16 +1,42 @@
-"""Synthetic workloads for the port: the reference's community databases
-(tiny, scale, and the dup-graph community of tools/dup_bench.py) and its
-short- and long-read simulators (pantax_tpu/benchmarks.py imports the
-JAX Aligner at its top, so these are counterparts; tests hold them equal)."""
+"""Benchmark workloads of the port, the counterpart of
+pantax_tpu/benchmarks.py: the synthetic community databases (tiny, scale,
+and the dup-graph community of tools/dup_bench.py), the short- and
+long-read simulators, and the runners that time them end to end on a
+device and score their accuracy:
+
+  run_alignment_benchmark      alignment rate, aligned fraction, species
+                               accuracy
+  run_e2e_benchmark            short reads through the fused pipeline to
+                               the species and strain tables
+  run_long_e2e_benchmark       long reads: chunked alignment, the fused
+                               interval profile
+  run_mixed_benchmark          99% short + 1% long reads back to back
+  accuracy_benchmark           L1 strain-abundance error at 1:3:9 strain
+                               weights through the GAF flow (short reads)
+  long_read_accuracy_benchmark the same for long reads
+
+Each runner takes ``device=``: None (the default) means the card
+(device.require_cuda, which raises without one), so a runner never drifts
+onto the CPU; the tests pass ``device=torch.device("cpu")``, where the
+plain versions of the kernels run.  Stage clocks close after a
+``torch.cuda.synchronize``: launches return before the card finishes.  The
+returned dicts have the reference's keys.  Output directories default to
+``<tempdir>/pantax_tpu_torch_*``, apart from the reference's.
+"""
 from __future__ import annotations
 
+import csv
 import os
+import shutil
 import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from . import _host
+from .device import card_unless
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 _CODE2BASE = np.frombuffer(b"ACGTN", dtype=np.uint8)
@@ -227,3 +253,353 @@ def simulate_long_reads(index, n_reads: int, read_len: int,
             seq = _host.revcomp(seq)
         reads.append((f"L{i}", seq))
     return reads, hap
+
+
+# ---------------------------------------------------------------------------
+# runners
+# ---------------------------------------------------------------------------
+def _sync(dev: torch.device) -> None:
+    """Wait for the device's queued work before a stage clock closes."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _out_dir(out_dir, name: str) -> str:
+    return os.fspath(out_dir) if out_dir is not None else os.path.join(
+        tempfile.gettempdir(), f"pantax_tpu_torch_{name}")
+
+
+def _aligner(index, read_type: str, dev):
+    """The Aligner for ``read_type`` as the command line builds it."""
+    from .convert import aligner_from_reference
+
+    return aligner_from_reference(
+        index, _host.AlignConfig.for_read_type(read_type), dev)
+
+
+def _count_strains(out_dir: str) -> int:
+    with open(os.path.join(out_dir, "strain_abundance.txt")) as f:
+        return max(sum(1 for _ in f) - 1, 0)
+
+
+def run_alignment_benchmark(db, n_reads: int, batch: int,
+                            error_rate: float = 0.01, *, device=None):
+    """Alignment alone over simulated 150 bp reads: the steady rate (the
+    batch size over the median interval between batch completions), the
+    aligned fraction and the species accuracy of the aligned reads."""
+    from .align.aligner import run_batches
+
+    dev = card_unless(device)
+    index = _host.build_align_index(db)
+    aligner = _aligner(index, "short", dev)
+    codes, lens, hap = simulate_read_batch(index, n_reads, 150, error_rate)
+    # warm-up: the first launches and the pinned-memory pool, not timed
+    aligner.align_codes(codes[:batch], lens[:batch])
+
+    n_batches = n_reads // batch
+    species_names = sorted(set(index.hap_species))
+    sp_idx = {s: i for i, s in enumerate(species_names)}
+    hap_sp = np.array([sp_idx[s] for s in index.hap_species])
+    aligned = correct = 0
+    marks = []
+
+    def dispatch(b):
+        sl = slice(b * batch, (b + 1) * batch)
+        return aligner.query_packed(*aligner.upload(codes[sl], lens[sl]))
+
+    def drain(b, res):
+        # res was downloaded, which waited for the device: a completion
+        nonlocal aligned, correct
+        marks.append(time.time())
+        aligned += int(res.aligned.sum())
+        # the haplotype of the alignment against the truth's species
+        pred_hap = np.searchsorted(index.hap_offsets, res.text_start,
+                                   side="right") - 1
+        pred_hap = np.clip(pred_hap, 0, len(hap_sp) - 1)
+        sl = slice(b * batch, (b + 1) * batch)
+        correct += int((res.aligned & (hap_sp[pred_hap] == hap_sp[hap[sl]])).sum())
+
+    _sync(dev)
+    t0 = time.time()
+    run_batches(range(n_batches), dispatch, drain)
+    _sync(dev)
+    dt = time.time() - t0
+    total = n_batches * batch
+    gaps = np.diff(np.array(marks))
+    steady = batch / float(np.median(gaps)) if len(gaps) >= 3 else total / dt
+    return {
+        "reads_per_s": steady,
+        "aligned_frac": aligned / total,
+        "species_acc": correct / max(aligned, 1),
+        "wall_s": dt,
+        "wall_reads_per_s": total / dt,
+        "total_reads": total,
+    }
+
+
+def run_e2e_benchmark(db, n_reads: int, batch: int, error_rate: float = 0.01,
+                      out_dir=None, *, device=None):
+    """Short reads end to end: align -> classify -> species profile ->
+    strain profile -> abundance tables (the fused fastpath of
+    ``pantax-gpu --fastpath``), with the alignment stage's rate beside the
+    pipeline's.  One untimed pass over the same reads first (the kernel
+    build, the first launches, the pinned-memory pool)."""
+    from .ops.fused import build_fused_tables, profile_fused
+
+    dev = card_unless(device)
+    out_dir = _out_dir(out_dir, "e2e")
+    index = _host.build_align_index(db)
+    aligner = _aligner(index, "short", dev)
+    cfg = _host.ProfilingConfig.for_read_type("short")
+    codes, lens, _hap = simulate_read_batch(index, n_reads, 150, error_rate,
+                                            seed=3)
+    tables = build_fused_tables(db, index, dev)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    profile_fused(aligner, codes, lens, index, db, cfg, out_dir, batch,
+                  tables=tables)
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    _sync(dev)
+    t0 = time.time()
+    stage = {}
+    profile_fused(aligner, codes, lens, index, db, cfg, out_dir, batch,
+                  tables=tables, stage_out=stage)
+    _sync(dev)
+    wall = time.time() - t0
+    # align+coverage run as one fused pipeline (its clock closes on the
+    # per-read download); "profile" is the rest
+    t_align = stage.get("align_cover_s", wall)
+    return {
+        "e2e_reads_per_s": n_reads / wall,
+        "align_reads_per_s": n_reads / t_align,
+        "align_s": t_align,
+        "profile_s": wall - t_align,
+        "wall_s": wall,
+        "total_reads": n_reads,
+        "aligned_frac": stage.get("n_aligned", 0) / n_reads,
+        "strains_detected": _count_strains(out_dir),
+    }
+
+
+def run_long_e2e_benchmark(db, n_long: int = 100_000, long_len: int = 8192,
+                           read_type: str = "hifi", long_batch: int = 16384,
+                           out_dir=None, *, device=None):
+    """Long reads end to end: chunked alignment and the best-alignment
+    filter, then the fused interval profile (FusedPipeline.feed_intervals)
+    to the species and strain tables.  Warmed first on the first 64 reads
+    (untimed; its tables are removed)."""
+    from .align.long_read import (
+        LONG_READ_PRESETS, LONG_READ_SEED_STRIDE, align_long_reads,
+    )
+    from .ops.fused import (
+        FusedPipeline, build_fused_tables, profile_from_fused_result,
+    )
+
+    dev = card_unless(device)
+    out_dir = _out_dir(out_dir, "long_e2e")
+    index = _host.build_align_index(db)
+    aligner = _aligner(index, "long", dev)
+    cfg = _host.ProfilingConfig.for_read_type("long")
+    tables = build_fused_tables(db, index, dev)
+    chunk = LONG_READ_PRESETS[read_type]
+    stride = LONG_READ_SEED_STRIDE[read_type]
+    reads, _hap = simulate_long_reads(index, n_long, long_len, seed=9)
+
+    def align(rs):
+        return align_long_reads(aligner, rs, chunk=chunk,
+                                batch_size=long_batch, seed_stride=stride,
+                                as_arrays=True)
+
+    def profile(merged):
+        pipe = FusedPipeline(aligner, tables, long_batch)
+        pipe.feed_intervals(merged.ts, merged.te, merged.mapq,
+                            merged.read_len, ids=merged.read_ids)
+        profile_from_fused_result(pipe.finish(), tables, index, db, cfg,
+                                  out_dir)
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    profile(align(reads[:64]))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    _sync(dev)
+    t0 = time.time()
+    merged = align(reads)
+    _sync(dev)
+    t_align = time.time() - t0
+    profile(merged)
+    _sync(dev)
+    wall = time.time() - t0
+    return {
+        "total_reads": n_long,
+        "total_bases": n_long * long_len,
+        "wall_s": wall,
+        "align_s": t_align,
+        "profile_s": wall - t_align,
+        "reads_per_s": n_long / wall,
+        "bases_per_s": n_long * long_len / wall,
+        "aligned_frac": len(merged.read_ids) / n_long,
+        "strains_detected": _count_strains(out_dir),
+    }
+
+
+def run_mixed_benchmark(db, n_short: int = 9_900_000, n_long: int = 100_000,
+                        batch: int = 65536, long_len: int = 8192,
+                        read_type: str = "hifi", long_batch: int = 16384,
+                        out_dir=None, *, device=None):
+    """Mixed reads (by default 9.9M 150 bp + 100,000 8 kb HiFi-like): the
+    short reads through the fused pipeline to the species and strain
+    tables, the long reads through chunked alignment and the best-alignment
+    filter, timed back to back after a warm-up of both (first launches);
+    the headline rate is all reads over the two stages' seconds.  The
+    default short count needs several 12 GB host temporaries in
+    simulate_read_batch."""
+    from .align.long_read import (
+        LONG_READ_PRESETS, LONG_READ_SEED_STRIDE, align_long_reads,
+    )
+    from .io.gaf import filter_best_long_read_alignments
+    from .ops.fused import build_fused_tables, profile_fused
+
+    dev = card_unless(device)
+    out_dir = _out_dir(out_dir, "mixed")
+    index = _host.build_align_index(db)
+    aligner = _aligner(index, "short", dev)
+    aligner_long = _aligner(index, "long", dev)
+    cfg = _host.ProfilingConfig.for_read_type("short")
+    tables = build_fused_tables(db, index, dev)
+    codes, lens, _hap = simulate_read_batch(index, n_short, 150, 0.01, seed=5)
+    long_reads, _lhap = simulate_long_reads(index, n_long, long_len, seed=9)
+    chunk = LONG_READ_PRESETS[read_type]
+    stride = LONG_READ_SEED_STRIDE[read_type]
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    profile_fused(aligner, codes[:2 * batch], lens[:2 * batch], index, db,
+                  cfg, out_dir, batch, tables=tables)
+    align_long_reads(aligner_long, long_reads[:1024], chunk=chunk,
+                     batch_size=long_batch, seed_stride=stride)
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    stage = {}
+    _sync(dev)
+    t0 = time.time()
+    profile_fused(aligner, codes, lens, index, db, cfg, out_dir, batch,
+                  tables=tables, stage_out=stage)
+    _sync(dev)
+    short_s = time.time() - t0
+    t1 = time.time()
+    gaf = filter_best_long_read_alignments(align_long_reads(
+        aligner_long, long_reads, chunk=chunk, batch_size=long_batch,
+        seed_stride=stride))
+    _sync(dev)
+    long_s = time.time() - t1
+    total = n_short + n_long
+    return {
+        "total_reads": total,
+        "reads_per_s": total / (short_s + long_s),
+        "short_reads_per_s": n_short / short_s,
+        "long_reads_per_s": n_long / long_s,
+        "short_s": short_s,
+        "long_s": long_s,
+        "short_aligned_frac": stage.get("n_aligned", 0) / n_short,
+        "long_aligned_frac": len(gaf) / n_long,
+        "strains_detected": _count_strains(out_dir),
+    }
+
+
+def _staggered_weights(index) -> np.ndarray:
+    """1:3:9 weights over the haplotypes in index order."""
+    return np.array([1.0 * (3 ** (i % 3)) for i in range(len(index.hap_names))])
+
+
+def accuracy_benchmark(db, n_reads: int = 262144, batch: int = 16384,
+                       error_rate: float = 0.01, seed: int = 11,
+                       out_dir=None, *, device=None):
+    """Strain-abundance accuracy end to end: staggered 1:3:9 strain weights
+    per species, alignment to GAF records (ids R<index>), the per-species
+    GAF flow to the tables, and the L1 error against the weights
+    (_strain_l1's dict)."""
+    from .align.aligner import run_batches
+    from .pipeline import profile_from_gaf
+
+    dev = card_unless(device)
+    out_dir = _out_dir(out_dir, "acc")
+    index = _host.build_align_index(db)
+    aligner = _aligner(index, "short", dev)
+    weights = _staggered_weights(index)
+    codes, lens, _hap = simulate_read_batch(
+        index, n_reads, 150, error_rate, seed=seed, hap_weights=weights)
+    gaf = []
+
+    def dispatch(lo):
+        sl = slice(lo, lo + batch)
+        return aligner.query_packed(*aligner.upload(codes[sl], lens[sl]))
+
+    def drain(lo, res):
+        hi = min(lo + batch, n_reads)
+        gaf.extend(aligner.emit_gaf([f"R{i}" for i in range(lo, hi)],
+                                    lens[lo:hi], res))
+
+    run_batches(range(0, n_reads, batch), dispatch, drain)
+    profile_from_gaf(gaf, db, _host.ProfilingConfig.for_read_type("short"),
+                     out_dir, force=True, device=dev)
+    return _strain_l1(db, index, weights, out_dir)
+
+
+def _strain_l1(db, index, weights, out_dir):
+    """L1 strain-abundance error of a finished run's strain_abundance.txt
+    against the haplotype weights (every genome has about the same length,
+    so the true abundance is the normalised weight)."""
+    with open(os.path.join(out_dir, "strain_abundance.txt"), newline="") as f:
+        rows = list(csv.reader(f, delimiter="\t"))
+    head, rows = rows[0], rows[1:]
+    gid, ab = head.index("genome_ID"), head.index("predicted_abundance")
+    name_to_hidx = {n: i for i, n in enumerate(index.hap_names)}
+    truth = {gi.genome_id: weights[name_to_hidx[gi.hap_id]]
+             for gi in _host.read_genomes_info(db.genomes_info_file)}
+    tot = sum(truth.values())
+    truth = {k: v / tot for k, v in truth.items()}
+    pred = {r[gid]: float(r[ab]) if r[ab] else np.nan for r in rows}
+    l1 = sum(abs(pred.get(g, 0.0) - t) for g, t in truth.items())
+    l1 += sum(p for g, p in pred.items() if g not in truth)
+    return {
+        "l1_error": l1,
+        "detected": len(rows),
+        "total": len(truth),
+        "pred": pred,
+        "truth": truth,
+    }
+
+
+def long_read_accuracy_benchmark(db, n_reads: int = 16384,
+                                 read_len: int = 8192, batch: int = 2048,
+                                 seed: int = 13, read_type: str = "hifi",
+                                 out_dir=None, *, device=None):
+    """Long-read strain accuracy end to end: staggered 1:3:9 weights,
+    indel-bearing HiFi-like reads, chunked alignment and the best-alignment
+    filter, the per-species GAF flow, and the L1 error against the weights,
+    with the alignment's seconds and rate."""
+    from .align.long_read import (
+        LONG_READ_PRESETS, LONG_READ_SEED_STRIDE, align_long_reads,
+    )
+    from .io.gaf import filter_best_long_read_alignments
+    from .pipeline import profile_from_gaf
+
+    dev = card_unless(device)
+    out_dir = _out_dir(out_dir, "lr_acc")
+    index = _host.build_align_index(db)
+    aligner = _aligner(index, "long", dev)
+    weights = _staggered_weights(index)
+    reads, _hap = simulate_long_reads(index, n_reads, read_len, seed=seed,
+                                      hap_weights=weights)
+    _sync(dev)
+    t0 = time.time()
+    gaf = filter_best_long_read_alignments(align_long_reads(
+        aligner, reads, chunk=LONG_READ_PRESETS[read_type], batch_size=batch,
+        seed_stride=LONG_READ_SEED_STRIDE[read_type]))
+    _sync(dev)
+    align_s = time.time() - t0
+    profile_from_gaf(gaf, db, _host.ProfilingConfig.for_read_type("long"),
+                     out_dir, force=True, device=dev)
+    out = _strain_l1(db, index, weights, out_dir)
+    out["aligned_frac"] = len(gaf) / n_reads
+    out["align_s"] = align_s
+    out["reads_per_s"] = n_reads / align_s
+    return out

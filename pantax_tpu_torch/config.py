@@ -4,7 +4,7 @@ from PanTax's src/main.rs:102-171 and cli.rs.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 
@@ -107,3 +107,9 @@ class AlignConfig:
         if read_type == "long":
             kw.setdefault("extension_band", 8)
         return cls(**kw)
+
+
+@dataclass
+class PipelineConfig:
+    profiling: ProfilingConfig = field(default_factory=ProfilingConfig)
+    align: AlignConfig = field(default_factory=AlignConfig)

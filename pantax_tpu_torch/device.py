@@ -13,3 +13,10 @@ def require_cuda() -> torch.device:
             "CUDA is not available: this entry point runs only on a GPU"
         )
     return torch.device("cuda", 0)
+
+
+def card_unless(device) -> torch.device:
+    """``device`` as a torch.device, or the card (require_cuda) when it is
+    None: the default of the entry points that run on the card unless the
+    caller names another device."""
+    return require_cuda() if device is None else torch.device(device)

@@ -1,6 +1,6 @@
 """FASTA/FASTQ readers and writers (gzip-transparent), the port's copy of
-pantax_tpu/io/fastx.py: the record reader (``list(iter_fastx(path))`` is
-the reference's read_fasta / read_fastq), the FASTA writer, the streamed
+pantax_tpu/io/fastx.py: the record reader and read_fasta / read_fastq,
+the FASTA writer, PanSN record names, the streamed
 record-aligned chunk reader, the byte-range shard reader of multi-process
 input (``shard_fastx_buffers``, ``iter_fastx_shard``) and the paired-mate
 block reader.
@@ -87,6 +87,14 @@ def _iter_fastq(f) -> Iterator[Record]:
         line = header.rstrip()[1:]
 
 
+def read_fasta(path: str | os.PathLike) -> list[Record]:
+    return list(iter_fastx(path))
+
+
+def read_fastq(path: str | os.PathLike) -> list[Record]:
+    return list(iter_fastx(path))
+
+
 def write_fasta(path: str | os.PathLike, records: Iterable[Record], width: int = 80) -> None:
     opener = gzip.open if str(path).endswith(".gz") else open
     with opener(path, "wb") as f:
@@ -94,6 +102,12 @@ def write_fasta(path: str | os.PathLike, records: Iterable[Record], width: int =
             f.write(b">" + name.encode() + b"\n")
             for i in range(0, len(seq), width):
                 f.write(seq[i : i + width] + b"\n")
+
+
+def pansn_name(genome_name: str, contig: str, haplotype: int = 0) -> str:
+    """PanSN sample#haplotype#contig naming used when merging genomes
+    (PanTax prefixes records with '<genome>#0#', src/fastixe.rs:70-94)."""
+    return f"{genome_name}#{haplotype}#{contig}"
 
 
 def stream_fastx_buffers(

@@ -134,3 +134,50 @@ def read_gfa(path: str | os.PathLike, previous: int = 0, keep_seq: bool = True) 
         edges=edges,
         path_strands=strands,
     )
+
+
+def write_gfa(
+    path: str | os.PathLike,
+    node_seqs: list[bytes],
+    walks: list[tuple[str, str, str, int, np.ndarray]],
+    edges: list[tuple[int, int]] | None = None,
+    previous: int = 0,
+    walk_strands: list[np.ndarray] | None = None,
+) -> None:
+    """Write a GFA 1.1 file.
+
+    walks: (sample, hap_idx, contig, seq_len, local node indices) per W line.
+    walk_strands: optional per-walk int8 step strands (0 fwd / 1 rev).
+    Without ``edges`` the L lines are the sorted set of the walks'
+    consecutive (node, strand, node, strand) steps.  Node ids are written
+    1-based with offset ``previous``.
+    """
+    base = 1 + previous
+    sts = walk_strands or [None] * len(walks)
+    with open(path, "wb") as f:
+        f.write(b"H\tVN:Z:1.1\n")
+        for i, seq in enumerate(node_seqs):
+            f.write(b"S\t%d\t%s\n" % (i + base, seq))
+        if edges is None:
+            edge_set = set()
+            for (_, _, _, _, ids), st in zip(walks, sts):
+                so = st if st is not None else np.zeros(len(ids), np.int8)
+                for a, sa, b, sb in zip(ids[:-1], so[:-1], ids[1:], so[1:]):
+                    edge_set.add((int(a), int(sa), int(b), int(sb)))
+            edges4 = sorted(edge_set)
+        else:
+            edges4 = [(a, 0, b, 0) for a, b in edges]
+        ori = (b"+", b"-")
+        for a, sa, b, sb in edges4:
+            f.write(b"L\t%d\t%s\t%d\t%s\t0M\n"
+                    % (a + base, ori[sa], b + base, ori[sb]))
+        step = (b">", b"<")
+        for (sample, hap_idx, contig, seq_len, ids), st in zip(walks, sts):
+            if st is None or not np.any(st):
+                walk = b"".join(b">%d" % (i + base) for i in ids)
+            else:
+                walk = b"".join(step[int(s)] + b"%d" % (i + base)
+                                for i, s in zip(ids, st))
+            f.write(b"W\t%s\t%s\t%s\t0\t%d\t%s\n"
+                    % (sample.encode(), hap_idx.encode(), contig.encode(),
+                       seq_len, walk))

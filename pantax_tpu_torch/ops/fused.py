@@ -805,6 +805,15 @@ class FusedPipeline:
         return FusedResult(na, ta, bc, reads, n_overflow)
 
 
+def fused_alignment_coverage(aligner, codes, lens, tables: FusedTables,
+                             batch: int, L_cap: int | None = None
+                             ) -> FusedResult:
+    """One-shot convenience wrapper over FusedPipeline: feed, then finish."""
+    pipe = FusedPipeline(aligner, tables, batch, L_cap)
+    pipe.feed(codes, lens)
+    return pipe.finish()
+
+
 def profile_fused(aligner, codes, lens, index, db, cfg, out_dir, batch: int,
                   tables: FusedTables | None = None,
                   stage_out: dict | None = None) -> bool:

@@ -1,7 +1,7 @@
 """Per-read alignment records and grouping by species, the port's copy of
-pantax_tpu/profile/records.py (pipeline.profile_from_gaf builds the records
-from the node paths classification already parsed, so the reference's
-``from_gaf`` has no counterpart).
+pantax_tpu/profile/records.py (``from_gaf`` builds one record from a GAF
+record; pipeline.profile_from_gaf builds them from the node paths that
+classification has already parsed).
 
 Parity: PanTax's src/profile.rs:351-463 (Record,
 group_reads_by_species, duplicate read-id fallback).
@@ -12,6 +12,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..io.gaf import GafRecord
+
 
 @dataclass
 class ReadRecord:
@@ -21,6 +23,17 @@ class ReadRecord:
     read_start: int       # GAF col 8 (offset into first node)
     read_end: int         # GAF col 9
     species: str
+
+
+def from_gaf(rec: GafRecord, species: str) -> ReadRecord:
+    return ReadRecord(
+        read_id=rec.read_id,
+        nodes=np.array(rec.path_nodes(), dtype=np.int64),
+        read_path_len=rec.path_len,
+        read_start=rec.path_start,
+        read_end=rec.path_end,
+        species=species,
+    )
 
 
 def group_reads_by_species(records: list[ReadRecord]) -> dict[str, list[ReadRecord]]:

@@ -741,3 +741,34 @@ def test_tail_segment_sums_repeat_on_card(cuda):
     n = len(vals) / 30
     torch.testing.assert_close(runs[0], _seg_sum(vals, seg, 30),
                                rtol=n * 2.0**-24, atol=0)
+
+
+@pytest.mark.parametrize("runner,k1", [("run_e2e_benchmark", 8),
+                                       ("accuracy_benchmark", 4)])
+def test_runner_cpu_equal_cuda(cuda, tmp_path, monkeypatch, runner, k1):
+    """run_e2e_benchmark (an untimed and a timed pass) and
+    accuracy_benchmark over tiny_db on the CPU and on the card (HiGHS):
+    the four tables byte-identical, every key that is not a time equal; on
+    the card K1 launched once per batch, the plain DP never."""
+    from pantax_tpu_torch import benchmarks
+    from pantax_tpu_torch.config import ProfilingConfig
+
+    orig = ProfilingConfig.for_read_type.__func__
+    monkeypatch.setattr(ProfilingConfig, "for_read_type", classmethod(
+        lambda c, rt, **kw: orig(c, rt, **{"solver": "highs", **kw})))
+    db = tiny_db(tmp_path / "tiny")
+    got = []
+    for dev in ("cpu", cuda):
+        extend.reset_launch_counts()
+        got.append(getattr(benchmarks, runner)(
+            db, n_reads=4096, batch=1024, out_dir=str(tmp_path / str(dev)),
+            device=dev))
+    assert extend.LAUNCHES["banded_extend"] == k1
+    assert extend.LAUNCHES["banded_extend_plain"] == 0
+    for key in ("total_reads", "aligned_frac", "strains_detected",
+                "l1_error", "detected", "total", "pred", "truth"):
+        assert got[0].get(key) == got[1].get(key), key
+    for name in ("species_abundance.txt", "strain_abundance.txt",
+                 "ori_strain_abundance.txt", "reads_classification.tsv"):
+        assert ((tmp_path / "cpu" / name).read_bytes()
+                == (tmp_path / str(cuda) / name).read_bytes()), name

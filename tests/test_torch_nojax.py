@@ -5,11 +5,12 @@ complete database (no species silently dropped) and runs the short-read
 slice, the per-species GAF flow from a FASTQ file with device coverage,
 the paired slice with the device tail, the long-read slice and the
 dup-graph community's windowed slice on the CPU to the four output
-tables, and the multi-device modules run (the shard reader, the mesh dry
-run, a one-process gloo group's merge and gather, interval_node_coverage);
-and python -m pantax_tpu_torch.cli runs (--help, the short-read fastpath,
-on one device and on a mesh of two CPU replicas, and the long-read GAF
-flow) with the same imports blocked."""
+tables, the multi-device modules run (the shard reader, the mesh dry
+run, a one-process gloo group's merge and gather,
+interval_node_coverage), and so do accuracy_benchmark, simulate_reads
+and entry(); and python -m pantax_tpu_torch.cli runs (--help, the
+short-read fastpath, on one device and on a mesh of two CPU replicas,
+and the long-read GAF flow) with the same imports blocked."""
 import os
 import subprocess
 import sys
@@ -179,6 +180,22 @@ SCRIPT = textwrap.dedent("""
     cov = interval_node_coverage(*t, ts, ts + 150, torch.ones(3, dtype=bool),
                                  int(index.tnode.max()), 8)
     assert int(cov.sum()) == 450, cov.sum()
+
+    # the benchmark runners (_strain_l1 reads the strain table without
+    # pandas), simulate_reads and the single-device compile check
+    from pantax_tpu_torch.benchmarks import accuracy_benchmark
+    from pantax_tpu_torch.parallel.entry import entry
+    from pantax_tpu_torch.sim import simulate_reads
+
+    acc = accuracy_benchmark(db, n_reads=2048, batch=1024,
+                             out_dir=sys.argv[1] + "_acc", device="cpu")
+    assert acc["detected"] == acc["total"] == 4, acc
+    assert 0 <= acc["l1_error"] < 0.5, acc
+    hap_ids = [g.hap_id for g in _host.read_genomes_info(db.genomes_info_file)]
+    sim = simulate_reads(db, dict.fromkeys(hap_ids, 1.0), 64, 150, seed=1)
+    assert {r.hap_id for r in sim} <= set(hap_ids) and len(sim) == 64
+    fn, args = entry("cpu", os.path.join(os.environ["TMPDIR"], "entry"))
+    assert fn(*args)[6].float().mean() > 0.9
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("NOJAX_OK")
