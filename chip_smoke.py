@@ -149,7 +149,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    1% substitutions, seed 21), Aligner.align_reads on the card,
    profile_from_gaf over the aligned and over the truth GAF records: the
    species of >= 99% of the reads as simulated, 10 species and every
-   weight-9 strain (~1x) in both flows, no strain outside the DB.
+   weight-9 strain (~1x) in both flows, no strain outside the DB;
+14. run the benchmark driver as users run it, python -m
+   pantax_tpu_torch.bench as a subprocess over the smoke DB's cache (each
+   run waited for at most BENCH_TIMEOUT_S, a hang failing the phase):
+   --config scale (1M reads through both short runners) and --config long
+   (100,000 x 8192 bp reads, where phase 7 and 13 (c) take 50,000); each
+   exits 0, its last stdout line is one JSON object with bench.py's keys
+   and the _per_gpu metric, K1 launched, K2 on long only, the plain DPs
+   never (its stderr launch line); scale at aligned and species >= 0.999
+   and 30 strains, long at >= 95% emitted and 30 strains.
 
 The line before last is a JSON record of the kernels, each with its time,
 its plain version's, and the bound the card's peaks put on the same work
@@ -175,6 +184,7 @@ import numpy as np
 import torch
 
 from pantax_tpu_torch import _host, benchmarks, cli
+from pantax_tpu_torch.bench import card_line
 from pantax_tpu_torch.align.long_read import (
     LONG_READ_PRESETS, LONG_READ_SEED_STRIDE, align_long_reads,
     iter_read_groups,
@@ -245,15 +255,6 @@ SASS_OPS = ("VIADDMNMX", "VIMNMX", "IMNMX", "IADD3", "IMAD", "ISETP", "SEL",
 STRAIN_RTOL = 1e-5
 # phase 12: the longest one rank of a --distributed run may take
 DIST_TIMEOUT_S = 300
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def issue_ops_per_s() -> float:
@@ -1877,8 +1878,8 @@ L1_BAR = 0.12
 # (16384 150 bp reads over 3 x 3 genomes of 60 kb at 1:3:9): 56 of the
 # runner's batches of 16384, ~1.06x for the weight-1 strains
 N_ACC_FULL = 56 * 16384
-# (d): the mixed runner's 99:1 mix, cut to 1M reads (its 9.9M short reads
-# need several 12 GB host temporaries in simulate_read_batch)
+# (d): the mixed runner's 99:1 mix, cut to 1M reads for the run's time (the
+# bench's --config mixed runs it in full on the 102-strain community)
 N_MIX_SHORT, N_MIX_LONG = 990_000, 10_000
 # (g): simulate_reads at 1:3:9 strain weights
 N_SIM, SIM_SEED = 100_000, 21
@@ -2051,6 +2052,84 @@ def bench_flow(build: str, dev, card: str, db, index, long_hap) -> tuple:
     return k1, k2
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the benchmark driver as users run it
+# ---------------------------------------------------------------------------
+# the longest one driver run may take (the long config: ~35 s of Python
+# read simulation, ~30 s of set-up and ~10 s of alignment)
+BENCH_TIMEOUT_S = 600
+# each config's metric and its JSON keys: bench.py's, with _per_gpu for
+# _per_chip
+BENCH_RECORDS = {
+    "scale": ("scale_1M_reads_aligned_per_sec_per_gpu",
+              ["e2e_reads_per_sec", "e2e_wall_s", "e2e_profile_s",
+               "e2e_vs_baseline"]),
+    "long": ("hifi_100k_8kb_e2e_reads_per_sec_per_gpu",
+             ["e2e_wall_s", "e2e_profile_s", "bases_per_sec",
+              "strains_detected"]),
+}
+
+
+def bench_module(build: str, card: str, config: str) -> dict:
+    """One ``python -m pantax_tpu_torch.bench --config <config>`` run over
+    the smoke DB's cache, waited for at most BENCH_TIMEOUT_S (a hang fails
+    the phase): exit code 0, its last stdout line one JSON object with
+    bench.py's keys and the _per_gpu metric, K1 launched (K2 on ``long``
+    only) and the plain DPs never.  Prints the JSON line and the driver's
+    stderr lines; returns the runners' dicts and the launches."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)),
+         os.environ.get("PYTHONPATH", "")]))
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pantax_tpu_torch.bench", "--config", config,
+         "--db-dir", os.path.join(build, "scale_db")],
+        env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.time() - t0
+    if proc.returncode:
+        raise AssertionError(f"bench {config}: exit {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    last = proc.stdout.splitlines()[-1]
+    record = json.loads(last)
+    tagged = dict(ln[2:].split(": ", 1) for ln in proc.stderr.splitlines()
+                  if ln.startswith("# ") and ": " in ln)
+    print(f"bench {config} json: {last}")
+    for tag, text in tagged.items():
+        print(f"bench {config} {tag}: {text}")
+    print(f"bench {config} [{card}]: {wall:.1f} s as a subprocess")
+    metric, extra = BENCH_RECORDS[config]
+    if (record["metric"] != metric or list(record) != [
+            "metric", "value", "unit", "vs_baseline", *extra]
+            or not record["value"] > 0):
+        raise AssertionError(f"bench {config}: record {record}")
+    launches = json.loads(tagged["launches"])
+    if (not launches["banded_extend"]
+            or (config == "long") != bool(launches["banded_extend_windows"])
+            or launches["banded_extend_plain"]
+            or launches["banded_extend_windows_plain"]):
+        raise AssertionError(f"bench {config}: launches {launches}")
+    return {"results": json.loads(tagged["results"]), "launches": launches}
+
+
+def bench_driver(build: str, card: str) -> tuple:
+    """Phase 14: ``scale`` at phase 5's bars (aligned and species >= 0.999)
+    and 30 strains; ``long`` at its full 100,000 reads, phase 7's emitted
+    bar and 30 strains.  Returns K1's and K2's launches by config."""
+    scale = bench_module(build, card, "scale")
+    al, e2e = scale["results"]["alignment"], scale["results"]["e2e"]
+    if (al["aligned_frac"] < 0.999 or al["species_acc"] < 0.999
+            or e2e["aligned_frac"] < 0.999 or e2e["strains_detected"] != 30):
+        raise AssertionError(f"bench scale: below phase 5's bars: {al}, {e2e}")
+    long = bench_module(build, card, "long")
+    lr = long["results"]["long_e2e"]
+    if (lr["total_reads"] != 100_000 or lr["aligned_frac"] < 0.95
+            or lr["strains_detected"] != 30):
+        raise AssertionError(f"bench long: below phase 7's bars: {lr}")
+    k1 = {"bench_scale": scale["launches"]["banded_extend"],
+          "bench_long": long["launches"]["banded_extend"]}
+    return k1, {"bench_long": long["launches"]["banded_extend_windows"]}
+
+
 def main() -> None:
     t_smoke = time.time()
     dev = require_cuda()
@@ -2116,13 +2195,16 @@ def main() -> None:
     dist_k1, dist_k2 = dist_flow(build, card, str(db.root), long_launches)
     bench_k1, bench_k2 = bench_flow(build, dev, card, db, index,
                                     long_reads[1])
+    torch.cuda.empty_cache()  # the driver's processes share the card
+    driver_k1, driver_k2 = bench_driver(build, card)
 
     k1_by_path = {"short": launches, "long": long_launches["banded_extend"],
                   "paired": paired_launches, **dup_launches, **gaf_k1,
-                  **cli_k1, "mesh_short": mesh_k1, **dist_k1, **bench_k1}
+                  **cli_k1, "mesh_short": mesh_k1, **dist_k1, **bench_k1,
+                  **driver_k1}
     k2_by_path = {"long": long_launches["banded_extend_windows"],
                   "dup_long": dup_k2, **gaf_k2, **cli_k2, **dist_k2,
-                  **bench_k2}
+                  **bench_k2, **driver_k2}
     print(f"smoke: every phase in {time.time() - t_smoke:.1f} s")
     print(json.dumps({"kernels": [
         dict(KERNEL, launches=sum(k1_by_path.values()),

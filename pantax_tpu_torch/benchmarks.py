@@ -42,6 +42,7 @@ _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 _CODE2BASE = np.frombuffer(b"ACGTN", dtype=np.uint8)
 _DUP_BLOCK = 64  # dup_db's node length (bp)
 _DUP_SNP_RATE = 0.01  # dup_db's strain SNP rate
+_SIM_ROWS = 1 << 16  # simulate_read_batch's rows a block (~79 MB of float64)
 
 
 def tiny_db(root: str | os.PathLike | None = None):
@@ -173,11 +174,22 @@ def dup_db(path, n_species: int = 10, strains: int = 3,
                                 gfa_dir=gfa_dir)
 
 
+def _row_blocks(n: int):
+    """Slices of _SIM_ROWS rows covering ``n`` rows, in order."""
+    return (slice(lo, min(lo + _SIM_ROWS, n)) for lo in range(0, n, _SIM_ROWS))
+
+
 def simulate_read_batch(index, n_reads: int, read_len: int, error_rate: float,
                         seed: int = 0, hap_weights=None,
                         indel_rate: float = 0.0005):
     """Reads sampled from the index text with substitutions and 1 bp indels,
-    half reverse-complemented: (codes int8 [n, Lr+pad], lens, truth hap)."""
+    half reverse-complemented: (codes int8 [n, Lr+pad], lens, truth hap).
+
+    The reference's reads for a seed, bit for bit, built in row blocks: the
+    float64 draws (one 64-bit draw each, so consecutive block calls give
+    the one-shot stream) turn at once into codes, insert positions and a
+    bool mask, so the host holds no [n, read_len] float64 or int64 array
+    (at 9.9M reads each was ~12 GB)."""
     rng = np.random.default_rng(seed)
     H = len(index.hap_names)
     if hap_weights is None:
@@ -192,27 +204,39 @@ def simulate_read_batch(index, n_reads: int, read_len: int, error_rate: float,
     L = ((read_len + 31) // 32) * 32
     cols = np.arange(read_len)
     codes = np.full((n_reads, L), 4, dtype=np.int8)
+    body = codes[:, :read_len]
     if indel_rate > 0:
-        ev = rng.random((n_reads, read_len))
-        is_del = ev < indel_rate / 2
-        is_ins = (ev >= indel_rate / 2) & (ev < indel_rate)
-        shift = np.cumsum(is_del.astype(np.int64) - is_ins.astype(np.int64),
-                          axis=1)
-        take = np.clip(cols[None, :] + shift, 0, None)
-        codes[:, :read_len] = index.text[starts[:, None] + take]
-        codes[:, :read_len][is_ins] = rng.integers(
-            0, 4, size=int(is_ins.sum()), dtype=np.int8)
+        # flat positions in body, in the one-shot mask's order
+        ins_at = [np.zeros(0, dtype=np.int64)]
+        for sl in _row_blocks(n_reads):
+            ev = rng.random((sl.stop - sl.start, read_len))
+            is_del = ev < indel_rate / 2
+            is_ins = (ev >= indel_rate / 2) & (ev < indel_rate)
+            shift = np.cumsum(is_del.astype(np.int64) - is_ins.astype(np.int64),
+                              axis=1)
+            take = np.clip(cols[None, :] + shift, 0, None)
+            body[sl] = index.text[starts[sl, None] + take]
+            ins_at.append(np.flatnonzero(is_ins) + sl.start * read_len)
+        ins_at = np.concatenate(ins_at)
+        body[ins_at // read_len, ins_at % read_len] = rng.integers(
+            0, 4, size=len(ins_at), dtype=np.int8)
     else:
-        codes[:, :read_len] = index.text[starts[:, None] + cols[None, :]]
+        for sl in _row_blocks(n_reads):
+            body[sl] = index.text[starts[sl, None] + cols[None, :]]
     if error_rate > 0:
-        m = rng.random(codes[:, :read_len].shape) < error_rate
-        codes[:, :read_len] = np.where(
-            m, rng.integers(0, 4, size=m.shape, dtype=np.int8),
-            codes[:, :read_len])
+        m = np.empty((n_reads, read_len), dtype=bool)
+        for sl in _row_blocks(n_reads):
+            m[sl] = rng.random((sl.stop - sl.start, read_len)) < error_rate
+        # int8 draws are buffered: one call, as the reference makes it
+        np.copyto(body, rng.integers(0, 4, size=m.shape, dtype=np.int8),
+                  where=m)
+        del m
     flip = rng.random(n_reads) < 0.5
-    rc = 3 - codes[flip][:, ::-1]
-    rc = np.where(rc < 0, 4, rc)  # pad 4 -> -1 -> back to 4
-    codes[flip] = np.roll(rc, read_len - L, axis=1)  # left-align
+    for sl in _row_blocks(n_reads):
+        blk, f = codes[sl], flip[sl]
+        rc = 3 - blk[f][:, ::-1]
+        rc = np.where(rc < 0, 4, rc)  # pad 4 -> -1 -> back to 4
+        blk[f] = np.roll(rc, read_len - L, axis=1)  # left-align
     lens = np.full(n_reads, read_len, dtype=np.int64)
     return codes, lens, hap
 
@@ -338,12 +362,13 @@ def run_alignment_benchmark(db, n_reads: int, batch: int,
 
 
 def run_e2e_benchmark(db, n_reads: int, batch: int, error_rate: float = 0.01,
-                      out_dir=None, *, device=None):
+                      out_dir=None, *, device=None, stage_out=None):
     """Short reads end to end: align -> classify -> species profile ->
     strain profile -> abundance tables (the fused fastpath of
     ``pantax-gpu --fastpath``), with the alignment stage's rate beside the
     pipeline's.  One untimed pass over the same reads first (the kernel
-    build, the first launches, the pinned-memory pool)."""
+    build, the first launches, the pinned-memory pool).  ``stage_out``
+    receives the timed profile_fused call's stage dict."""
     from .ops.fused import build_fused_tables, profile_fused
 
     dev = card_unless(device)
@@ -361,7 +386,7 @@ def run_e2e_benchmark(db, n_reads: int, batch: int, error_rate: float = 0.01,
     shutil.rmtree(out_dir, ignore_errors=True)
     _sync(dev)
     t0 = time.time()
-    stage = {}
+    stage = {} if stage_out is None else stage_out
     profile_fused(aligner, codes, lens, index, db, cfg, out_dir, batch,
                   tables=tables, stage_out=stage)
     _sync(dev)
@@ -383,11 +408,12 @@ def run_e2e_benchmark(db, n_reads: int, batch: int, error_rate: float = 0.01,
 
 def run_long_e2e_benchmark(db, n_long: int = 100_000, long_len: int = 8192,
                            read_type: str = "hifi", long_batch: int = 16384,
-                           out_dir=None, *, device=None):
+                           out_dir=None, *, device=None, stage_out=None):
     """Long reads end to end: chunked alignment and the best-alignment
     filter, then the fused interval profile (FusedPipeline.feed_intervals)
     to the species and strain tables.  Warmed first on the first 64 reads
-    (untimed; its tables are removed)."""
+    (untimed; its tables are removed).  ``stage_out`` receives the timed
+    pass's align_long_reads and profile_from_fused_result stage dicts."""
     from .align.long_read import (
         LONG_READ_PRESETS, LONG_READ_SEED_STRIDE, align_long_reads,
     )
@@ -405,27 +431,27 @@ def run_long_e2e_benchmark(db, n_long: int = 100_000, long_len: int = 8192,
     stride = LONG_READ_SEED_STRIDE[read_type]
     reads, _hap = simulate_long_reads(index, n_long, long_len, seed=9)
 
-    def align(rs):
+    def align(rs, stage=None):
         return align_long_reads(aligner, rs, chunk=chunk,
                                 batch_size=long_batch, seed_stride=stride,
-                                as_arrays=True)
+                                as_arrays=True, stage_out=stage)
 
-    def profile(merged):
+    def profile(merged, stage=None):
         pipe = FusedPipeline(aligner, tables, long_batch)
         pipe.feed_intervals(merged.ts, merged.te, merged.mapq,
                             merged.read_len, ids=merged.read_ids)
         profile_from_fused_result(pipe.finish(), tables, index, db, cfg,
-                                  out_dir)
+                                  out_dir, stage_out=stage)
 
     shutil.rmtree(out_dir, ignore_errors=True)
     profile(align(reads[:64]))
     shutil.rmtree(out_dir, ignore_errors=True)
     _sync(dev)
     t0 = time.time()
-    merged = align(reads)
+    merged = align(reads, stage_out)
     _sync(dev)
     t_align = time.time() - t0
-    profile(merged)
+    profile(merged, stage_out)
     _sync(dev)
     wall = time.time() - t0
     return {
@@ -444,14 +470,13 @@ def run_long_e2e_benchmark(db, n_long: int = 100_000, long_len: int = 8192,
 def run_mixed_benchmark(db, n_short: int = 9_900_000, n_long: int = 100_000,
                         batch: int = 65536, long_len: int = 8192,
                         read_type: str = "hifi", long_batch: int = 16384,
-                        out_dir=None, *, device=None):
+                        out_dir=None, *, device=None, stage_out=None):
     """Mixed reads (by default 9.9M 150 bp + 100,000 8 kb HiFi-like): the
     short reads through the fused pipeline to the species and strain
     tables, the long reads through chunked alignment and the best-alignment
     filter, timed back to back after a warm-up of both (first launches);
-    the headline rate is all reads over the two stages' seconds.  The
-    default short count needs several 12 GB host temporaries in
-    simulate_read_batch."""
+    the headline rate is all reads over the two stages' seconds.
+    ``stage_out`` receives the timed profile_fused call's stage dict."""
     from .align.long_read import (
         LONG_READ_PRESETS, LONG_READ_SEED_STRIDE, align_long_reads,
     )
@@ -477,7 +502,7 @@ def run_mixed_benchmark(db, n_short: int = 9_900_000, n_long: int = 100_000,
                      batch_size=long_batch, seed_stride=stride)
 
     shutil.rmtree(out_dir, ignore_errors=True)
-    stage = {}
+    stage = {} if stage_out is None else stage_out
     _sync(dev)
     t0 = time.time()
     profile_fused(aligner, codes, lens, index, db, cfg, out_dir, batch,

@@ -817,7 +817,9 @@ def fused_alignment_coverage(aligner, codes, lens, tables: FusedTables,
 def profile_fused(aligner, codes, lens, index, db, cfg, out_dir, batch: int,
                   tables: FusedTables | None = None,
                   stage_out: dict | None = None) -> bool:
-    """One-shot fused species + strain profiling over a codes matrix."""
+    """One-shot fused species + strain profiling over a codes matrix.
+    ``stage_out`` receives align_cover_s, the read and batch counts and
+    profile_from_fused_result's stage seconds."""
     if tables is None:
         tables = build_fused_tables(db, index, device=aligner.device)
     t0 = time.time()
@@ -830,7 +832,8 @@ def profile_fused(aligner, codes, lens, index, db, cfg, out_dir, batch: int,
         stage_out["n_batches"] = pipe.n_batches
         stage_out["n_overflow"] = result.n_overflow
         stage_out["L_cap"] = None if pipe.use_ranges else pipe.L_cap
-    return profile_from_fused_result(result, tables, index, db, cfg, out_dir)
+    return profile_from_fused_result(result, tables, index, db, cfg, out_dir,
+                                     stage_out)
 
 
 def _write_classification_tsv(out_path, keep_rows, ids, ridx, mapq, read_len,

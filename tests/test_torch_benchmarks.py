@@ -152,6 +152,26 @@ def test_runner_needs_a_card_by_default(run, monkeypatch):
         getattr(port_bench, name)(None, **kw)
 
 
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("indel_rate", [0.0, 0.02])
+@pytest.mark.parametrize("error_rate", [0.0, 0.01])
+def test_simulate_read_batch_blocks_bit_identical(dbs, monkeypatch, weighted,
+                                                  indel_rate, error_rate):
+    """simulate_read_batch in row blocks of 1000 (fewer than the 4100
+    reads, and not dividing them) gives the reference's one-shot reads:
+    codes, lens and haplotypes equal, with and without hap weights,
+    indels and substitutions."""
+    index = _host.build_align_index(dbs["scale2"])
+    weights = (np.arange(1.0, len(index.hap_names) + 1) if weighted else None)
+    monkeypatch.setattr(port_bench, "_SIM_ROWS", 1000)
+    kw = dict(seed=4, hap_weights=weights, indel_rate=indel_rate)
+    want = ref_bench.simulate_read_batch(index, 4100, 150, error_rate, **kw)
+    got = port_bench.simulate_read_batch(index, 4100, 150, error_rate, **kw)
+    for name, g, w in zip(("codes", "lens", "hap"), got, want):
+        assert g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, name)
+
+
 @pytest.mark.parametrize("L_cap", [None, 3])
 def test_fused_alignment_coverage_bit_identical(dbs, L_cap):
     """The one-shot wrapper's na / ta / bc and per-read columns equal the

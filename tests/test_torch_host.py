@@ -346,6 +346,8 @@ NOT_CARRIED = {
     "benchmarks.py:EXAMPLE_INFO": F1,
     "benchmarks.py:EXAMPLE_BASE": F1,
     "benchmarks.py:EXAMPLE_READS": F1,
+    "bench.py:bench_example": F1,
+    "bench.py:bench_example_e2e": F1,
     "parallel/__init__.py:set_default_mesh": NO_DEFAULT_MESH,
     "parallel/__init__.py:default_mesh": NO_DEFAULT_MESH,
     "fastpath.py:log": (
@@ -378,12 +380,16 @@ def _public_names(path) -> set:
 
 
 def test_every_reference_name_has_a_counterpart():
-    """Each public top-level name of every pantax_tpu/**/*.py is in the
-    port's file of the same path, or renamed (its port names exist), or
-    not carried for a stated reason; the two tables name only real gaps."""
+    """Each public top-level name of every pantax_tpu/**/*.py, and of the
+    repository's bench.py, is in the port's file of the same path
+    (pantax_tpu_torch/bench.py for bench.py), or renamed (its port names
+    exist), or not carried for a stated reason; the two tables name only
+    real gaps."""
     ref_root = os.path.join(REPO, "pantax_tpu")
     port_root = os.path.join(REPO, "pantax_tpu_torch")
-    gaps = set()
+    gaps = {f"bench.py:{n}" for n in
+            _public_names(os.path.join(REPO, "bench.py"))
+            - _public_names(os.path.join(port_root, "bench.py"))}
     for d, _, files in os.walk(ref_root):
         for f in files:
             if f.endswith(".py"):

@@ -7,10 +7,11 @@ the paired slice with the device tail, the long-read slice and the
 dup-graph community's windowed slice on the CPU to the four output
 tables, the multi-device modules run (the shard reader, the mesh dry
 run, a one-process gloo group's merge and gather,
-interval_node_coverage), and so do accuracy_benchmark, simulate_reads
-and entry(); and python -m pantax_tpu_torch.cli runs (--help, the
-short-read fastpath, on one device and on a mesh of two CPU replicas,
-and the long-read GAF flow) with the same imports blocked."""
+interval_node_coverage), and so do accuracy_benchmark, simulate_reads,
+entry() and the benchmark driver (pantax_tpu_torch.bench); and python -m
+pantax_tpu_torch.cli runs (--help, the short-read fastpath, on one device
+and on a mesh of two CPU replicas, and the long-read GAF flow) with the
+same imports blocked."""
 import os
 import subprocess
 import sys
@@ -196,6 +197,17 @@ SCRIPT = textwrap.dedent("""
     assert {r.hap_id for r in sim} <= set(hap_ids) and len(sim) == 64
     fn, args = entry("cpu", os.path.join(os.environ["TMPDIR"], "entry"))
     assert fn(*args)[6].float().mean() > 0.9
+
+    # the benchmark driver (bench.py's counterpart), its read count cut,
+    # over the tiny DB's cache
+    import functools
+    from pantax_tpu_torch import bench
+
+    bench.CONFIGS["scale"] = functools.partial(bench.bench_scale,
+                                               n_reads=2048)
+    rec = bench.main(["--config", "scale", "--device", "cpu", "--batch",
+                      "1024", "--db-dir", str(db.root.parent)])
+    assert rec["metric"].endswith("_per_gpu") and rec["value"] > 0, rec
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("NOJAX_OK")
