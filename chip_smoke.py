@@ -6,14 +6,26 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. require a CUDA device; print the card's name and power limit;
-2. build the banded-DP kernels (K1 and K2, csrc/banded_extend.cu) with
-   nvcc and print ptxas's register report, and the SASS instructions of
-   one step of K1's and of K2's main loop at pad 4 and pad 8 (cuobjdump);
+2. build the banded-DP kernels (K1 and K2, csrc/banded_extend.cu) and the
+   seed stage (K3, csrc/seed_stage.cu) with nvcc, one process per source
+   started together, and print ptxas's register report, and the SASS
+   instructions of one step of K1's and of K2's main loop at pad 4 and pad
+   8 (cuobjdump);
 3. hold K1 against its plain torch version on the card, bit for bit on all
    four outputs, at the main path's shape (131072 candidates, 160-base
    reads, pad 4) over the smoke DB's text, at a pad-8 random case and
    (after phase 5) on windows at the text's two ends, where K1 takes its
    clamped path, and time K1 and the plain version at the main shape;
+3b. hold the seed stage (K3, csrc/seed_stage.cu) against its plain torch
+   version, bit for bit on its three outputs, over the smoke DB's seed
+   tables: phase 5's first 65536 reads at the main path's width (160) and
+   cut to 150 bases (width 152), with the CHD lookup at density 3; 131072
+   mates (the paired query's rows); 16384 long-read chunks of 512 bases
+   at pad 8; the first case on a forced bisection table and on a density-4
+   index of the same DB; time K3 and the plain version at both widths of
+   the first case.  Every later phase that counts K1 launches holds K3's
+   to them (one seed stage per query dispatch) and the plain seed stage
+   to 0, the subprocesses of phases 11, 12 and 14 included;
 4. run the port on the tiny 2-species DB on the CPU (plain versions) and on
    the GPU (kernels): packed query rows, na/ta/bc and the align_long_reads
    arrays of 16 long reads must be identical;
@@ -162,11 +174,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 The line before last is a JSON record of the kernels, each with its time,
 its plain version's, and the bound the card's peaks put on the same work
-(this run's inputs: read bytes and window bytes over the HBM rate, 5
-instructions per DP cell over the SMs' instruction issue rate); the last
-line is
-{"ok": true, "device": {...}}.  Databases and the kernel build go under
-build/ (git-ignored).
+(this run's inputs: K1 and K2, read bytes and window bytes over the HBM
+rate against 5 instructions per DP cell over the SMs' instruction issue
+rate; K3, code bytes and the seed rows its valid seeds gather against
+HASH_OPS_PER_POS instructions per k-mer position and VOTE_OPS_PER_PAIR per
+pair of valid hits on each strand); the last line is
+{"ok": true, "device": {...}}.  Databases and the kernel builds (one nvcc
+per source, started together) go under build/ (git-ignored).
 """
 from __future__ import annotations
 
@@ -179,6 +193,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -200,7 +215,9 @@ from pantax_tpu_torch.fastpath import (
 from pantax_tpu_torch.io.gaf import (
     filter_best_long_read_alignments, read_gaf, write_gaf,
 )
-from pantax_tpu_torch.ops import extend
+from pantax_tpu_torch.align.aligner import Aligner, build_seed_lookup
+from pantax_tpu_torch.align.aligner import unpack_reads
+from pantax_tpu_torch.ops import extend, seed
 from pantax_tpu_torch.ops.coverage_device import node_abundances_device
 from pantax_tpu_torch.ops.fused import (
     FusedPipeline, _ensure_tail_tables, _tail_mode, build_fused_tables,
@@ -225,6 +242,14 @@ KERNEL2 = {
     "source": "pantax_tpu_torch/csrc/banded_extend.cu",
     "replaces": "pantax_tpu/ops/extend_pallas.py:316",
 }
+# K3 replaces no pl.pallas_call: the seed stage XLA fuses into the JAX
+# package's jitted query (_kmer_hashes_j :226 to the union :537-549)
+KERNEL3 = {
+    "name": "seed_stage",
+    "route": "cuda",
+    "source": "pantax_tpu_torch/csrc/seed_stage.cu",
+    "replaces": "pantax_tpu/align/aligner.py:226",
+}
 MATCH, MISMATCH, GAP = 1, -1, -2
 N_READS, BATCH = 1_000_000, 65536
 # the long path: run_long_e2e_benchmark's read length, read type and batch;
@@ -241,6 +266,11 @@ N_DUP_LONG = 5000
 # diagonal add, and the up and the left add+max as one DPX instruction each)
 HBM_BYTES_PER_S = 3.35e12
 DP_OPS_PER_CELL = 5
+# K3's instructions at their fewest: per k-mer position, the two rolled
+# hashes (5), their min (1), mix32 (8) and the sample test (2); per pair
+# of valid hits on a strand, a difference, a range compare and an add
+HASH_OPS_PER_POS = 16
+VOTE_OPS_PER_PAIR = 3
 # opcodes whose counts in the kernels' SASS say how the DP was compiled
 CLASS_SPECIES = ("reads_classification.tsv", "species_abundance.txt")
 STRAINS = ("strain_abundance.txt", "ori_strain_abundance.txt")
@@ -292,7 +322,7 @@ def ptxas_lines(log: str) -> list[str]:
     log, as "kernel<WB>: report"."""
     lines, entry = [], ""
     for ln in log.splitlines():
-        m = re.search(r"(banded_extend\w*_kernel)ILi(\d+)E", ln)
+        m = re.search(r"((?:banded_extend\w*|seed_stage)_kernel)ILi(\d+)E", ln)
         if m:
             entry = f"{m[1]}<{m[2]}>"
         elif "registers" in ln:
@@ -571,6 +601,132 @@ def check_windows_edges(text_np: np.ndarray, dev, N: int, Lr: int,
     return max(err, err_last)
 
 
+def hold_k3(args, what: str) -> int:
+    """K3 against its plain version on the same tensors, bit for bit on
+    its three outputs; returns the largest absolute difference (0)."""
+    ker = seed.seed_candidates_cuda(*args)
+    plain = seed.seed_candidates_plain(*args)
+    torch.cuda.synchronize()
+    err = max(int((k.long() - p.long()).abs().max()) for k, p in zip(ker, plain))
+    for k, p, name in zip(ker, plain, ("cand_diag", "cand_votes", "strand")):
+        if k.dtype != p.dtype or not torch.equal(k, p):
+            raise AssertionError(f"K3 != plain on {name} {what}")
+    seeded = float((plain[1][:, 0] > 0).float().mean())
+    print(f"K3 == plain {what} (3 outputs bit-identical; {seeded:.4f} of "
+          f"the rows voted)")
+    return err
+
+
+def seed_args(aligner, codes: np.ndarray, lens: np.ndarray) -> tuple:
+    """K3's arguments for a host batch, as the query makes them: the codes
+    uploaded and unpacked, the aligner's seed tables and static config."""
+    c, n = aligner.upload(codes, lens)
+    return (unpack_reads(c, n), n, aligner.run_table, aligner.seed_pos,
+            aligner.bucket_lo, aligner.static())
+
+
+def seed_bound(args, issue_peak: float) -> tuple[float, str]:
+    """(bound ms, what bounds it) of the seed stage on ``args``: the
+    k-mer positions at HASH_OPS_PER_POS and, on each strand, the pairs of
+    each read's valid hits at VOTE_OPS_PER_PAIR, over ``issue_peak``;
+    against the code bytes, read_len, what each valid seed gathers (CHD:
+    its displacement and slot row; bisection: its bucket bounds, key probes,
+    run row and positions) and the outputs, over the HBM rate."""
+    codes, read_len, run_table, seed_pos, bucket_lo, static = args
+    k, density_bits, bucket_bits, steps, s_max, hits, top_k = static[:7]
+    B, L = codes.shape
+    hashes, valid = seed.kmer_hashes(codes, k)
+    _, sel_hash, sel_valid = seed.select_seeds(hashes, valid, density_bits,
+                                               s_max)
+    del hashes, valid
+    _, hv = seed.lookup_hits(run_table, seed_pos, bucket_lo, bucket_bits,
+                             steps, sel_hash, sel_valid, hits)
+    v = hv.reshape(B, -1).sum(dim=1).double()
+    ops = (B * (L - k + 1) * HASH_OPS_PER_POS
+           + 2 * float((v * v).sum()) * VOTE_OPS_PER_PAIR)
+    row = 4 * run_table.shape[1]
+    per_seed = 4 + row if steps < 0 else 8 + 4 * steps + row + 4 * hits
+    nbytes = (B * L + 4 * B + float(sel_valid.sum()) * per_seed
+              + B * top_k * 9)
+    t_ops, t_bytes = ops / issue_peak, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def seed_phase(db, index, aligner, codes, lens, dev, issue_peak: float):
+    """Phase 3b.  Returns (largest difference, K3 ms and plain ms at the
+    main path's shape, its bound and what bounds it, K3's times by case)."""
+    from pantax_tpu_torch.align import aligner as aligner_mod
+
+    card = card_line()
+    errs, times = [], {}
+    main = seed_args(aligner, codes[:BATCH], lens[:BATCH])
+    what = f"(CHD, density {index.density_bits})"
+    errs.append(hold_k3(main, f"at B={BATCH} L=160 {what}"))
+    w152 = seed_args(aligner, np.ascontiguousarray(codes[:BATCH, :150]),
+                     np.minimum(lens[:BATCH], 150))
+    errs.append(hold_k3(w152, f"at B={BATCH} L=152 {what}"))
+    (c1, l1, c2, l2), _ = simulate_pairs(index, BATCH, seed=17)
+    paired = seed_args(aligner, np.concatenate([c1, c2]),
+                       np.concatenate([l1, l2]))
+    errs.append(hold_k3(paired, f"at B={2 * BATCH} L=160 (the paired rows)"))
+    chunk = LONG_READ_PRESETS[READ_TYPE]
+    long_al = aligner_from_reference(
+        index, _host.AlignConfig.for_read_type("long"), dev)
+    lc, ll, _ = simulate_read_batch(index, LONG_BATCH, chunk, 0.01, seed=19)
+    long_args = seed_args(long_al, lc, ll)
+    errs.append(hold_k3(long_args, f"at B={LONG_BATCH} L={chunk} pad 8 "
+                                   f"(long-read chunks)"))
+    saved = aligner_mod._build_chd
+    aligner_mod._build_chd = lambda keys: None
+    try:
+        lookup = build_seed_lookup(index.seed_keys, index.seed_pos, 4)
+    finally:
+        aligner_mod._build_chd = saved
+    bis_al = Aligner(index, lookup, _host.AlignConfig(), device=dev)
+    errs.append(hold_k3(seed_args(bis_al, codes[:BATCH], lens[:BATCH]),
+                        f"at B={BATCH} L=160 on a forced bisection table "
+                        f"({bis_al.lookup_steps} steps)"))
+    del bis_al
+    t0 = time.time()
+    index4 = _host.build_align_index(db, density_bits=4, save=False)
+    al4 = aligner_from_reference(index4, _host.AlignConfig(), dev)
+    print(f"density-4 index of the smoke DB and its aligner: "
+          f"{time.time() - t0:.2f} s, {len(index4.seed_keys)} seeds against "
+          f"{len(index.seed_keys)} at density {index.density_bits}")
+    errs.append(hold_k3(seed_args(al4, codes[:BATCH], lens[:BATCH]),
+                        f"at B={BATCH} L=160 on a density-4 index (CHD)"))
+    del al4, index4
+
+    for name, args in (("main", main), ("w152", w152), ("paired", paired),
+                       ("long", long_args)):
+        times[name] = cuda_ms(lambda: seed.seed_candidates_cuda(*args), 50,
+                              hold=True)
+    ms, plain_ms = times["main"], cuda_ms(
+        lambda: seed.seed_candidates_plain(*main), 3)
+    plain152 = cuda_ms(lambda: seed.seed_candidates_plain(*w152), 3)
+    bound, by = seed_bound(main, issue_peak)
+    bound152, _ = seed_bound(w152, issue_peak)
+    print(f"K3 [{card}]: {ms:.4f} ms, plain torch {plain_ms:.3f} ms, bound "
+          f"{bound:.4f} ms ({by}) at B={BATCH} L=160; {times['w152']:.4f} ms,"
+          f" plain {plain152:.3f} ms, bound {bound152:.4f} ms at L=152; "
+          f"{times['paired']:.4f} ms at B={2 * BATCH} L=160; "
+          f"{times['long']:.4f} ms at B={LONG_BATCH} L={chunk} pad 8")
+    times.update(plain_w152=plain152, bound_w152=bound152)
+    return max(errs), ms, plain_ms, bound, by, times
+
+
+def check_k3(launches: dict, what: str) -> None:
+    """K3 launched once per query dispatch, where K1 is (every K1 launch
+    is one query's), and the plain seed stage never."""
+    if (launches["seed_stage"] != launches["banded_extend"]
+            or launches["seed_stage_plain"]):
+        raise AssertionError(
+            f"{what}: K3 launches {launches['seed_stage']} against K1's "
+            f"{launches['banded_extend']}, plain seed stage "
+            f"{launches['seed_stage_plain']}")
+
+
 def cross_device_check(build: str, dev) -> None:
     """The port on CPU (plain versions) and on the GPU (kernel) agree."""
     db = tiny_db(os.path.join(build, "tiny_db"))
@@ -687,7 +843,7 @@ def check_tables(out: str, truth_species, n_reads: int, n_out: int,
         raise AssertionError(f"{what} fraction or species accuracy too low")
 
 
-def main_path(build: str, dev):
+def main_path(build: str, dev, issue_peak: float):
     t0 = time.time()
     db = scale_db(os.path.join(build, "scale_db"))
     index = _host.build_align_index(db)
@@ -701,6 +857,7 @@ def main_path(build: str, dev):
     # K1 at the main path's shape, over this DB's text
     err1, ms, plain_ms = check_kernel(index.text, dev, 2 * BATCH, 160, 4,
                                       seed=1, timed=True)
+    k3 = seed_phase(db, index, aligner, codes, lens, dev, issue_peak)
 
     cfg = _host.ProfilingConfig.for_read_type("short")
     cfg.tail = "host"
@@ -722,15 +879,18 @@ def main_path(build: str, dev):
           f"e2e {wall:.3f} s for {N_READS} reads "
           f"({N_READS / wall:.0f} reads/s e2e)")
     print(f"K1 launches {launches['banded_extend']} for {stage['n_batches']} "
-          f"batches; plain DP runs {launches['banded_extend_plain']}")
+          f"batches; plain DP runs {launches['banded_extend_plain']}; K3 "
+          f"launches {launches['seed_stage']}, plain seed stage runs "
+          f"{launches['seed_stage_plain']}")
     if launches["banded_extend"] != stage["n_batches"]:
         raise AssertionError("K1 was not launched exactly once per batch")
     if launches["banded_extend_plain"] != 0:
         raise AssertionError("the plain DP ran on the CUDA main path")
+    check_k3(launches, "short")
     # reads_classification.tsv rows are R<read index>
     check_tables(out, np.asarray(index.hap_species, dtype=object)[hap],
                  N_READS, stage["n_aligned"], "aligned")
-    return ((launches["banded_extend"], err1, ms, plain_ms),
+    return ((launches["banded_extend"], err1, ms, plain_ms), k3,
             (db, index, tables), (codes, lens, hap, out))
 
 
@@ -793,6 +953,7 @@ def long_path(build: str, dev, db, index, tables):
         raise AssertionError("K2 was not launched exactly once per rescue batch")
     if launches["banded_extend_plain"] or launches["banded_extend_windows_plain"]:
         raise AssertionError("a plain DP ran on the CUDA long-read path")
+    check_k3(launches, "long")
     if pipe.n_interval_batches != -(-len(merged.read_ids) // LONG_BATCH):
         raise AssertionError("unexpected number of interval batches")
     check_tables(out, np.asarray(index.hap_species, dtype=object)[hap],
@@ -922,6 +1083,7 @@ def paired_path(build: str, dev, db, index, tables):
         raise AssertionError("K1 was not launched exactly once per paired batch")
     if launches["banded_extend_plain"] != 0:
         raise AssertionError("the plain DP ran on the CUDA paired path")
+    check_k3(launches, "paired")
     # reads_classification.tsv rows are A<pair index> / B<pair index>
     check_tables(out, np.asarray(index.hap_species, dtype=object)[hap],
                  2 * N_PAIRS, n_aligned, "aligned", min_frac=0.99)
@@ -984,6 +1146,7 @@ def dup_path(build: str, dev):
         raise AssertionError("K1 was not launched exactly once per batch")
     if launches["banded_extend_plain"] != 0:
         raise AssertionError("the plain DP ran on the CUDA dup path")
+    check_k3(launches, "dup short")
     check_tables(out, truth[hap], N_READS, stage["n_aligned"], "aligned",
                  min_frac=0.99)
     by_path = {"dup_short": launches["banded_extend"]}
@@ -1050,6 +1213,7 @@ def dup_path(build: str, dev):
         raise AssertionError("K1 was not launched once per windowed paired batch")
     if launches["banded_extend_plain"] != 0:
         raise AssertionError("the plain DP ran on the CUDA dup paired path")
+    check_k3(launches, "dup paired")
     check_tables(out, truth[phap], 2 * N_PAIRS,
                  int(result.reads["aligned"].sum()), "aligned", min_frac=0.99)
     by_path["dup_paired"] = launches["banded_extend"]
@@ -1094,6 +1258,7 @@ def dup_path(build: str, dev):
         raise AssertionError("dup long: K1 / K2 not once per seeded / rescue batch")
     if launches["banded_extend_plain"] or launches["banded_extend_windows_plain"]:
         raise AssertionError("a plain DP ran on the CUDA dup long-read path")
+    check_k3(launches, "dup long")
     if pipe.interval_rows["range"]:
         raise AssertionError("dup long: rows took the range scatter")
     check_tables(out, truth[lhap], N_DUP_LONG, len(merged.read_ids),
@@ -1243,10 +1408,13 @@ def coverage_card_vs_cpu(records, db, dev, what: str) -> int:
 
 
 def check_k1(launches: dict, n: int, what: str) -> None:
+    """K1 (and K3, check_k3) once per dispatch of ``n``, the plain DP
+    never."""
     if launches["banded_extend"] != n or launches["banded_extend_plain"]:
         raise AssertionError(f"{what}: K1 launches {launches['banded_extend']}"
                              f" for {n} batches, plain DP "
                              f"{launches['banded_extend_plain']}")
+    check_k3(launches, what)
 
 
 def gaf_flow(build: str, dev, card: str, scale, short, pairs, dup_long):
@@ -1441,6 +1609,7 @@ def run_cli(argv: list, what: str, card: str) -> tuple[float, dict]:
         raise AssertionError(f"{what}: pantax-gpu exited {rc}")
     if launches["banded_extend_plain"] or launches["banded_extend_windows_plain"]:
         raise AssertionError(f"{what}: a plain DP ran on the card")
+    check_k3(launches, what)
     return wall, launches
 
 
@@ -1641,6 +1810,7 @@ def mesh_path(build: str, dev, card: str, scale, short) -> int:
     if (launches["banded_extend"] != 2 * n_batches
             or launches["banded_extend_plain"]):
         raise AssertionError("mesh short: K1 not launched once per row block")
+    check_k3(launches, "mesh short")
     for name in ("na_d", "ta_d", "bc_d"):
         if not torch.equal(getattr(res, name), getattr(one, name)):
             raise AssertionError(f"mesh short: {name} differs from one device")
@@ -1749,12 +1919,14 @@ def run_ranks(argv: list, what: str, card: str, base: str) -> list:
               f"{setup:.3f} s, align+cover {align:.3f} s, merge "
               f"{stage_seconds(st, 'cross-process merge'):.3f} s; "
               f"K1 {la['banded_extend']}, K2 {la['banded_extend_windows']}, "
-              f"plain DPs {la['banded_extend_plain']} and "
-              f"{la['banded_extend_windows_plain']}")
+              f"K3 {la['seed_stage']}, plain DPs {la['banded_extend_plain']} "
+              f"and {la['banded_extend_windows_plain']}, plain seed stage "
+              f"{la['seed_stage_plain']}")
         print(f"  {what} rank {i} stages: " + "; ".join(
             ln.lstrip("- ") for ln in rep["stages"]))
         if la["banded_extend_plain"] or la["banded_extend_windows_plain"]:
             raise AssertionError(f"{what} rank {i}: a plain DP ran on the card")
+        check_k3(la, f"{what} rank {i}")
         reports.append(rep)
     print(f"{what}: two ranks in {wall:.3f} s of wall time")
     return reports
@@ -1906,6 +2078,7 @@ def bench_run(what: str, card: str, fn, *args, k2: bool = False, **kw):
         raise AssertionError(f"{what}: K1 / K2 launches {launches}")
     if launches["banded_extend_plain"] or launches["banded_extend_windows_plain"]:
         raise AssertionError(f"{what}: a plain DP ran on the card")
+    check_k3(launches, what)
     return res, launches
 
 
@@ -2108,6 +2281,7 @@ def bench_module(build: str, card: str, config: str) -> dict:
             or launches["banded_extend_plain"]
             or launches["banded_extend_windows_plain"]):
         raise AssertionError(f"bench {config}: launches {launches}")
+    check_k3(launches, f"bench {config}")
     return {"results": json.loads(tagged["results"]), "launches": launches}
 
 
@@ -2140,8 +2314,12 @@ def main() -> None:
           f"TB/s")
     build = str(extend.build_dir())
     t0 = time.time()
-    lib = extend.build_kernels()
-    print(f"kernel build (K1, K2) {time.time() - t0:.2f} s")
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+        built = [pool.submit(extend.build_kernels),
+                 pool.submit(seed.build_seed_kernel)]
+        lib, lib3 = (f.result() for f in built)
+    print(f"kernel build (K1 and K2, K3; two nvcc processes) "
+          f"{time.time() - t0:.2f} s")
     print(f"SASS of K1 and K2: {sass_counts(lib._name)}")
     k1_sass = {f"pad{pad}": step_sass(lib._name, 2 * pad) for pad in (4, 8)}
     k2_sass = {f"pad{pad}": step_sass(lib._name, 2 * pad,
@@ -2149,7 +2327,7 @@ def main() -> None:
                for pad in (4, 8)}
     print(f"K1 main step loop SASS: {json.dumps(k1_sass)}")
     print(f"K2 main step loop SASS: {json.dumps(k2_sass)}")
-    for ln in ptxas_lines(lib.build_log):
+    for ln in ptxas_lines(lib.build_log) + ptxas_lines(lib3.build_log):
         print(f"  ptxas: {ln}")
 
     rng = np.random.default_rng(0)
@@ -2157,8 +2335,9 @@ def main() -> None:
                             np.full(1024, 4, np.int8)])
     err2, _, _ = check_kernel(text8, dev, 4096, 96, 8, seed=2, timed=False)
     cross_device_check(build, dev)
-    (launches, err1, ms, plain_ms), (db, index, tables), short = main_path(
-        build, dev)
+    (launches, err1, ms, plain_ms), k3, (db, index, tables), short = \
+        main_path(build, dev, issue_peak)
+    err3, ms3, plain_ms3, bound3, by3, k3_times = k3
     err_c = check_kernel_clamped(index.text, dev)
     bound1, by1 = dp_bound(dp_case(index.text, 2 * BATCH, 160, 4, seed=1)[2],
                            160, 4, issue_peak)
@@ -2205,6 +2384,9 @@ def main() -> None:
     k2_by_path = {"long": long_launches["banded_extend_windows"],
                   "dup_long": dup_k2, **gaf_k2, **cli_k2, **dist_k2,
                   **bench_k2, **driver_k2}
+    # every path's K3 launches were held equal to its K1 launches
+    # (check_k3): one seed stage per query dispatch
+    k3_by_path = dict(k1_by_path)
     print(f"smoke: every phase in {time.time() - t_smoke:.1f} s")
     print(json.dumps({"kernels": [
         dict(KERNEL, launches=sum(k1_by_path.values()),
@@ -2219,6 +2401,11 @@ def main() -> None:
              plain_ms=plain_ms2, bound_ms=bound2, bound_by=by2,
              library_ms=None, k1_same_candidates_ms=k1_ms,
              sass_per_step=k2_sass),
+        dict(KERNEL3, launches=sum(k3_by_path.values()),
+             launches_by_path=k3_by_path, max_abs_err=err3, ms=ms3,
+             plain_ms=plain_ms3, bound_ms=bound3, bound_by=by3,
+             library_ms=None, shape=f"B {BATCH}, L 160, CHD, density {index.density_bits}",
+             ms_by_case=k3_times),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
 """Aligner, PyTorch port of pantax_tpu/align/aligner.py.
 
 The query path per read batch (``query_batch``): unpack and reverse
-complement, canonical k-mer hashing and seed selection, seed lookup (CHD
-perfect hash, or bucketed bisection), diagonal vote on both strands and the
-strand union, banded DP extension (K1, ops/extend.py), node projection, and
-the best / location-deduped second-best scores that give mapq.  Every step
+complement, the seed stage (K3, ops/seed.py: canonical k-mer hashing and
+seed selection, seed lookup by CHD perfect hash or bucketed bisection,
+diagonal vote on both strands and the strand union), banded DP extension
+(K1, ops/extend.py), node projection, and the best / location-deduped
+second-best scores that give mapq.  Every step
 keeps the JAX function's dtypes and tie order (first index on argmax), so the
 packed [4, B] result rows are bit-identical to ``_query_batch_packed``.
 
@@ -24,10 +25,6 @@ and concatenates the results on the primary device in row order (the
 reference's ``_shard_reads``).  A batch
 whose rows do not divide by the mesh size runs unsharded on the primary,
 with one warning (the reference replicates it).
-
-Hashes are uint32 in the reference.  Torch's uint32 lacks most kernels, so
-they are carried in int64 and masked to 32 bits after each multiply
-(``_mul32``); the oracle is pantax_tpu.align.encode.kmer_hashes.
 
 File input (``Aligner.align_file``, ``align_paired_files``) parses record-
 aligned chunks with the native C++ parser, cuts them into fixed batches,
@@ -55,20 +52,17 @@ from ..io.gaf import GafRecord
 from ..ops.extend import (
     NEG, banded_extend, banded_extend_windows, extract_windows, packed_layout,
 )
+from ..ops.seed import _CHD_GOLD, _M32, kmer_hashes, seed_candidates
 from ..parallel.mesh import check_primary, row_blocks
 
 log = logging.getLogger("pantax_tpu_torch")
 
 __all__ = [
     "Aligner", "BatchResult", "build_bucket_table", "build_seed_lookup",
-    "extend_batch", "extract_windows", "pack_result_rows", "pack_text2d",
-    "packed_layout", "query_batch", "query_batch_paired",
-    "unpack_result_rows",
+    "extend_batch", "extract_windows", "kmer_hashes", "pack_result_rows",
+    "pack_text2d", "packed_layout", "query_batch", "query_batch_paired",
+    "seed_candidates", "unpack_result_rows",
 ]
-
-_M32 = 0xFFFFFFFF
-_CHD_GOLD = 0x9E3779B9  # displacement salt (build/device must agree)
-_HASH_BASE = 0x9E3779B1
 
 
 # ---------------------------------------------------------------------------
@@ -183,24 +177,8 @@ def build_seed_lookup(seed_keys: np.ndarray, seed_pos: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
-# seed stage (plain torch)
+# the query (plain torch around the kernels)
 # ---------------------------------------------------------------------------
-def _mul32(h, c: int):
-    """(h * c) mod 2^32 for h in [0, 2^32) held in int64, without int64
-    overflow: split the constant into 16-bit halves."""
-    lo = h * (c & 0xFFFF)
-    hi = ((h * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
-
-
-def _mix32(h):
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
-
-
 def unpack_reads(codes, read_len):
     """int8 codes [B, L] -> [B, L4]: width rounded up to a multiple of 4 and
     every column at or past read_len set to 4, as the reference's read wire
@@ -222,101 +200,6 @@ def rev_codes(codes, lens):
     return torch.where(ok, 3 - rev, 4).to(torch.int8)
 
 
-def kmer_hashes(codes, k: int):
-    """codes int8 [B, L] -> (mixed canonical hash, int64 holding uint32
-    [B, n], valid bool [B, n])."""
-    B, L = codes.shape
-    n = L - k + 1
-    c = codes.to(torch.int64)
-    pows = [1]
-    for _ in range(1, k):
-        pows.append((pows[-1] * _HASH_BASE) & _M32)
-    hf = torch.zeros((B, n), dtype=torch.int64, device=codes.device)
-    hr = torch.zeros_like(hf)
-    invalid = torch.zeros((B, n), dtype=torch.bool, device=codes.device)
-    for i in range(k):
-        ci = c[:, i:i + n]
-        hf = (hf + ci * pows[k - 1 - i]) & _M32
-        hr = (hr + (3 - ci) * pows[i]) & _M32
-        invalid |= ci == 4
-    return _mix32(torch.minimum(hf, hr)), ~invalid
-
-
-def select_seeds(hashes, valid, density_bits: int, s_max: int):
-    """The first s_max sampled positions per read (-1 padded), their hashes
-    and validity.  Each sampled position's rank is unique in its row, so a
-    scatter places it; unsampled positions write -1 / 0 to a sink column."""
-    mask = valid & ((hashes & ((1 << density_bits) - 1)) == 0)
-    B, n = mask.shape
-    rank = torch.cumsum(mask.to(torch.int32), dim=1)
-    keep = mask & (rank <= s_max)
-    slot = torch.where(keep, rank - 1, s_max).to(torch.int64)
-    pos = torch.arange(n, dtype=torch.int32, device=mask.device).expand(B, n)
-    sel_pos = torch.full((B, s_max + 1), -1, dtype=torch.int32,
-                         device=mask.device)
-    sel_pos.scatter_(1, slot, torch.where(keep, pos, -1))
-    sel_hash = torch.zeros((B, s_max + 1), dtype=torch.int64,
-                           device=mask.device)
-    sel_hash.scatter_(1, slot, torch.where(keep, hashes, 0))
-    sel_pos, sel_hash = sel_pos[:, :s_max], sel_hash[:, :s_max]
-    return sel_pos, sel_hash, sel_pos >= 0
-
-
-def lookup_hits(run_table, seed_pos, bucket_lo, bucket_bits: int, steps: int,
-                sel_hash, sel_valid, hits_per_seed: int):
-    """Text positions of each read seed, [B, S, C] int32, and their validity:
-    the CHD slot table (steps < 0) or bucketed bisection (steps >= 0)."""
-    D = run_table.shape[0]
-    b = sel_hash >> (32 - bucket_bits)
-    c = torch.arange(hits_per_seed, device=sel_hash.device)
-    if steps < 0:
-        if run_table.shape[-1] != 2 + hits_per_seed:
-            raise ValueError("CHD table width does not match hits_per_seed")
-        d = bucket_lo[b].to(torch.int64) & _M32
-        slot = _mix32(sel_hash ^ _mul32(d, _CHD_GOLD)) & (D - 1)
-        row = run_table[slot]
-        key = row[..., 0].to(torch.int64) & _M32
-        ok = (key == sel_hash) & sel_valid
-        rlen = torch.where(ok, row[..., 1], 0)
-        return row[..., 2:], ok[..., None] & (c < rlen[..., None])
-    S_len = seed_pos.shape[0]
-    lo = bucket_lo[b]
-    hi = bucket_lo[b + 1]
-    lo_s, hi_s = lo, hi
-    keys_col = run_table[:, 0].to(torch.int64) & _M32
-    for _ in range(steps):
-        mid = (lo_s + hi_s) >> 1
-        key_mid = keys_col[mid.clamp(0, D - 1)]
-        go_right = (key_mid < sel_hash) & (lo_s < hi_s)
-        lo_s = torch.where(go_right, mid + 1, lo_s)
-        hi_s = torch.where(go_right, hi_s, torch.maximum(mid, lo_s))
-    row = run_table[lo_s.clamp(0, D - 1)]
-    key_j = row[..., 0].to(torch.int64) & _M32
-    found = (key_j == sel_hash) & (lo_s < hi) & sel_valid
-    idx = row[..., 1][..., None] + c
-    pos = seed_pos[idx.clamp(0, S_len - 1)]
-    return pos, found[..., None] & (c < row[..., 2][..., None])
-
-
-def vote_diagonals(diags, valid, band: int, top_k: int):
-    """Top-k candidate diagonals per read by vote count within +-band
-    (pairwise counts, then argmax with kill-within-band)."""
-    BIG = 2**30
-    d = torch.where(valid, diags, BIG)
-    close = ((d[:, :, None] - d[:, None, :]).abs() <= band)
-    close &= valid[:, None, :] & valid[:, :, None]
-    counts = close.sum(dim=2, dtype=torch.int32)
-    del close
-    cand_d, cand_v = [], []
-    for _ in range(top_k):
-        best = torch.argmax(counts, dim=1, keepdim=True)  # first index on ties
-        bd = torch.gather(d, 1, best)
-        cand_d.append(bd[:, 0])
-        cand_v.append(torch.gather(counts, 1, best)[:, 0])
-        counts = torch.where((d - bd).abs() <= band, 0, counts)
-    return torch.stack(cand_d, dim=1), torch.stack(cand_v, dim=1)
-
-
 def _text_bound(text, Lr: int, pad: int) -> tuple[int, int]:
     """(W, T): window width and the reference's text2d bound on w0 + W."""
     W = Lr + 2 * pad
@@ -327,42 +210,13 @@ def all_candidates(text, run_table, seed_pos, bucket_lo, tstart, tnode,
                    codes_fwd, codes_rev, read_len, cfg_static):
     """Scored candidates per read, both strands folded: (scores, ts, te,
     matches, strand, node, off), all [B, K]."""
-    (k, density_bits, bucket_bits, steps, s_max, hits, top_k, pad, match,
-     mismatch, gap) = cfg_static[:11]
+    top_k, pad, match, mismatch, gap = cfg_static[6:11]
     B, Lr = codes_fwd.shape
     W, T = _text_bound(text, Lr, pad)
+    cand_diag, cand_votes, strand = seed_candidates(
+        codes_fwd, read_len, run_table, seed_pos, bucket_lo, cfg_static)
 
-    hashes, valid = kmer_hashes(codes_fwd, k)
-    sel_pos, sel_hash, sel_valid = select_seeds(hashes, valid, density_bits,
-                                                s_max)
-    del hashes, valid
-    hit_pos, hit_valid = lookup_hits(run_table, seed_pos, bucket_lo,
-                                     bucket_bits, steps, sel_hash, sel_valid,
-                                     hits)
-    p = sel_pos[..., None]
-    d_fwd = (hit_pos - p).reshape(B, -1)
-    d_rev = (hit_pos - (read_len[:, None, None] - k - p)).reshape(B, -1)
-    hv = hit_valid.reshape(B, -1)
-    cd_f, cv_f = vote_diagonals(d_fwd, hv, band=pad, top_k=top_k)
-    cd_r, cv_r = vote_diagonals(d_rev, hv, band=pad, top_k=top_k)
-
-    # strand union: the top_k best-voted candidates across both strands;
-    # ties favour the forward slots
     K = top_k
-    diag_u = torch.cat([cd_f, cd_r], dim=1)
-    vote_u = torch.cat([cv_f, cv_r], dim=1)
-    cols2k = torch.arange(2 * K, device=diag_u.device)
-    sel_cols = []
-    v = vote_u
-    for _ in range(K):
-        b = torch.argmax(v, dim=1)
-        sel_cols.append(b)
-        v = torch.where(cols2k == b[:, None], -1, v)
-    sel = torch.stack(sel_cols, dim=1)
-    cand_diag = torch.gather(diag_u, 1, sel)
-    cand_votes = torch.gather(vote_u, 1, sel)
-    strand = (sel >= K).to(torch.int8)
-
     read_rep = torch.where((strand == 1)[:, :, None], codes_rev[:, None, :],
                            codes_fwd[:, None, :]).reshape(B * K, Lr)
     if Lr % 16:

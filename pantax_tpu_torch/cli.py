@@ -392,7 +392,7 @@ def _aligner(index, read_type: str, dev, mesh):
 
 
 def _warm_kernels(args, db, index, dev, mesh) -> None:
-    """--index --warm-kernels: build K1 and K2 (on a card), then run one
+    """--index --warm-kernels: build K1, K2 and K3 (on a card), then run one
     batch of each device path the profiling flows take, so a later run
     pays no first use: the query over all-N reads of zero and of full
     length, and on the short path the fused step and the device profile
@@ -405,9 +405,11 @@ def _warm_kernels(args, db, index, dev, mesh) -> None:
 
     if dev.type == "cuda":
         from .ops.extend import build_kernels
+        from .ops.seed import build_seed_kernel
 
-        with stage_timer("kernel build (K1, K2)"):
+        with stage_timer("kernel build (K1, K2, K3)"):
             build_kernels()
+            build_seed_kernel()
     aligner = _aligner(index, "long" if args.long_read else "short", dev, mesh)
     B = args.batch_size
     if args.long_read:

@@ -10,7 +10,7 @@ the reference's sharded_node_abundances (:369) shards them.
 
 Hashes are uint32 in the reference.  Torch's uint32 lacks most kernels, so
 they are carried in int64 and masked to 32 bits after each multiply
-(align.aligner._mul32)."""
+(ops.seed._mul32)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -18,8 +18,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..align.aligner import _M32, _mul32
 from ..parallel.mesh import check_primary, row_blocks
+from .seed import _M32, _mul32
 
 # float32 holds every integer below 2^24 exactly; the accumulators sum
 # integers, so their float32 image equals the reference's only below it

@@ -51,9 +51,11 @@ NEG = -(10**6)
 _SH_MATCH = 5
 
 # Launch counts, one per function; the kernel's count grows only where the
-# kernel is launched, the plain count where the plain DP runs in its place.
+# kernel is launched, the plain count where the plain version runs in its
+# place (K1, K2 here; K3, the seed stage, in ops/seed.py).
 LAUNCHES = {"banded_extend": 0, "banded_extend_plain": 0,
-            "banded_extend_windows": 0, "banded_extend_windows_plain": 0}
+            "banded_extend_windows": 0, "banded_extend_windows_plain": 0,
+            "seed_stage": 0, "seed_stage_plain": 0}
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "banded_extend.cu"
 _NVCC_FLAGS = (
@@ -185,23 +187,23 @@ def build_dir() -> Path:
     return Path(env) if env else _SRC.parent.parent.parent / "build"
 
 
-def build_kernels(src: Path | str | None = None) -> ctypes.CDLL:
-    """Compile a kernel source (csrc/banded_extend.cu unless ``src`` names
-    another with the same C entry points, such as an earlier commit's; once
-    per source content) and load it.  The library's ``build_log`` holds
-    nvcc's output (ptxas's register and spill report), kept beside the
-    ``.so``."""
-    src = Path(src).resolve() if src is not None else _SRC
+def compile_kernels(src: Path | str) -> ctypes.CDLL:
+    """Compile a kernel source with nvcc for sm_90a (once per source
+    content, into build_dir()/kernels) and load it, once per source path.
+    The library's ``build_log`` holds nvcc's output (ptxas's register and
+    spill report), kept beside the ``.so``.  The caller sets the argument
+    types of its C entry points."""
+    src = Path(src).resolve()
     if src in _libs:
         return _libs[src]
     code = src.read_bytes()
     tag = hashlib.sha256(code + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
     out_dir = build_dir() / "kernels"
     out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / f"banded_extend_{tag}.so"
+    so = out_dir / f"{src.stem}_{tag}.so"
     log = so.with_suffix(".log")
     if not so.exists():
-        tmp = out_dir / f".banded_extend_{tag}.{os.getpid()}.so"
+        tmp = out_dir / f".{src.stem}_{tag}.{os.getpid()}.so"
         proc = subprocess.run(
             [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
             capture_output=True, text=True,
@@ -213,6 +215,15 @@ def build_kernels(src: Path | str | None = None) -> ctypes.CDLL:
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     lib.build_log = log.read_text() if log.exists() else ""
+    _libs[src] = lib
+    return lib
+
+
+def build_kernels(src: Path | str | None = None) -> ctypes.CDLL:
+    """Compile and load K1 and K2 (csrc/banded_extend.cu unless ``src``
+    names another source with the same C entry points, such as an earlier
+    commit's)."""
+    lib = compile_kernels(src if src is not None else _SRC)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.banded_extend_launch.restype = i32
     lib.banded_extend_launch.argtypes = [
@@ -224,7 +235,6 @@ def build_kernels(src: Path | str | None = None) -> ctypes.CDLL:
         vp, i32, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
         vp, vp, vp, vp, vp,
     ]
-    _libs[src] = lib
     return lib
 
 

@@ -13,7 +13,9 @@ from pantax_tpu_torch.benchmarks import (
     dup_db, simulate_long_reads, simulate_read_batch, tiny_db,
 )
 from pantax_tpu_torch.convert import aligner_from_reference
-from pantax_tpu_torch.ops import extend
+from pantax_tpu_torch.align import aligner as aligner_mod
+from pantax_tpu_torch.align.aligner import unpack_reads
+from pantax_tpu_torch.ops import extend, seed
 from pantax_tpu_torch.ops.fused import (
     FusedPipeline, build_fused_tables, profile_from_fused_result,
 )
@@ -73,6 +75,7 @@ def test_wrapper_launches_kernel_on_cuda(cuda):
     assert extend.LAUNCHES == {
         "banded_extend": 1, "banded_extend_plain": 0,
         "banded_extend_windows": 0, "banded_extend_windows_plain": 0,
+        "seed_stage": 0, "seed_stage_plain": 0,
     }
 
 
@@ -299,6 +302,7 @@ def test_windows_wrapper_launches_kernel_on_cuda(cuda):
     assert extend.LAUNCHES == {
         "banded_extend": 0, "banded_extend_plain": 0,
         "banded_extend_windows": 1, "banded_extend_windows_plain": 0,
+        "seed_stage": 0, "seed_stage_plain": 0,
     }
 
 
@@ -317,6 +321,82 @@ def test_windows_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         extend.banded_extend_windows_cuda(windows, reads, lens.long(), 4, 1,
                                           -1, -2)
+
+
+# ---------------------------------------------------------------------------
+# K3, the seed stage (ops/seed.py, csrc/seed_stage.cu)
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def tiny_index(tmp_path_factory):
+    return _host.build_align_index(tiny_db(tmp_path_factory.mktemp("tiny")))
+
+
+def _seed_case(cuda, index, lookup, N, Lr, pad, monkeypatch):
+    """(codes_fwd, read_len, run_table, seed_pos, bucket_lo, cfg_static) on
+    the card: N reads of Lr - 2 bases simulated from the tiny DB at a code
+    width of Lr (rows of length 0, 15 and all N first), unpacked as the
+    query unpacks them, and the aligner's seed tables (CHD, or the bucketed
+    bisection when ``lookup`` is "bisect")."""
+    if lookup == "bisect":
+        monkeypatch.setattr(aligner_mod, "_build_chd", lambda keys: None)
+    cfg = _host.AlignConfig(extension_band=pad)
+    al = aligner_from_reference(index, cfg, cuda)
+    assert (al.lookup_steps >= 0) == (lookup == "bisect")
+    codes, lens, _ = simulate_read_batch(index, max(N, 4), Lr - 2, 0.01,
+                                         seed=N + Lr, indel_rate=0.01)
+    codes = np.ascontiguousarray(codes[:N, :Lr])
+    lens = lens[:N].astype(np.int32)
+    lens[:3] = (0, 15, Lr - 2)[:N]
+    codes[2:3] = 4
+    c, n = (torch.from_numpy(a).to(cuda) for a in (codes, lens))
+    return (unpack_reads(c, n), n, al.run_table, al.seed_pos, al.bucket_lo,
+            al.static())
+
+
+@pytest.mark.parametrize("lookup", ["chd", "bisect"])
+@pytest.mark.parametrize("Lr,pad", [(152, 4), (512, 8)])
+@pytest.mark.parametrize("N", [1, 37, 4099, 70001])
+def test_seed_kernel_matches_plain(cuda, tiny_index, monkeypatch, lookup, Lr,
+                                   pad, N):
+    """K3 against its plain version, bit for bit on its three outputs, at
+    ragged N (the block takes 4 reads), both lookups, the short and the
+    long preset's band and widths."""
+    args = _seed_case(cuda, tiny_index, lookup, N, Lr, pad, monkeypatch)
+    ker = seed.seed_candidates_cuda(*args)
+    plain = seed.seed_candidates_plain(*args)
+    torch.cuda.synchronize()
+    for k, p, name in zip(ker, plain, ("cand_diag", "cand_votes", "strand")):
+        assert k.dtype == p.dtype and torch.equal(k, p), name
+    if N > 3:
+        assert (plain[1][3:, 0] > 0).float().mean() > 0.9
+
+
+def test_seed_wrapper_launches_kernel_on_cuda(cuda, tiny_index, monkeypatch):
+    args = _seed_case(cuda, tiny_index, "chd", 300, 152, 4, monkeypatch)
+    extend.reset_launch_counts()
+    seed.seed_candidates(*args)
+    assert extend.LAUNCHES == {
+        "banded_extend": 0, "banded_extend_plain": 0,
+        "banded_extend_windows": 0, "banded_extend_windows_plain": 0,
+        "seed_stage": 1, "seed_stage_plain": 0,
+    }
+
+
+def test_seed_kernel_rejects_bad_inputs(cuda, tiny_index, monkeypatch):
+    codes, lens, run_table, seed_pos, bucket_lo, cfg = _seed_case(
+        cuda, tiny_index, "chd", 64, 152, 4, monkeypatch)
+    with pytest.raises(ValueError):  # not contiguous
+        seed.seed_candidates(codes[:, ::2], lens, run_table, seed_pos,
+                             bucket_lo, cfg)
+    with pytest.raises(ValueError):  # read_len not int32
+        seed.seed_candidates(codes, lens.long(), run_table, seed_pos,
+                             bucket_lo, cfg)
+    with pytest.raises(ValueError):  # a CHD row of 2 + 3 columns, C = 4
+        seed.seed_candidates(codes, lens, run_table[:, :5].contiguous(),
+                             seed_pos, bucket_lo, cfg)
+    with pytest.raises(ValueError):  # a table on the CPU
+        seed.seed_candidates(codes, lens, run_table.cpu(), seed_pos,
+                             bucket_lo, cfg)
 
 
 def test_extend_rows_cpu_equal_cuda(cuda, tmp_path):
@@ -393,6 +473,7 @@ def test_align_codes_odd_width_cpu_equal_cuda(cuda, tmp_path, width):
         got.append((al.align_codes(codes, lens),
                     al.align_paired_codes(c1, l1, c2, l2)))
         assert extend.LAUNCHES["banded_extend"] == (2 if dev == cuda else 0)
+        assert extend.LAUNCHES["seed_stage"] == (2 if dev == cuda else 0)
     (single, (m1, m2)), (single_d, (m1_d, m2_d)) = got
     for a, b in ((single, single_d), (m1, m1_d), (m2, m2_d)):
         for name in ("text_start", "text_end", "score", "matches", "mapq",
@@ -434,6 +515,8 @@ def test_paired_rows_cpu_equal_cuda(cuda, tmp_path):
                                            *al.upload(c2, l2)).cpu())
     assert extend.LAUNCHES["banded_extend"] == 1
     assert extend.LAUNCHES["banded_extend_plain"] == 0
+    assert extend.LAUNCHES["seed_stage"] == 1
+    assert extend.LAUNCHES["seed_stage_plain"] == 0
     assert torch.equal(rows[0], rows[1])
     assert (rows[1][3] & 1).float().mean() > 0.95
 

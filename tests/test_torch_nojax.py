@@ -298,3 +298,51 @@ def test_cli_runs_without_jax_pandas_pyarrow(argv, tmp_path):
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NOJAX_CLI_OK" in proc.stdout
+
+
+SEED_SCRIPT = textwrap.dedent("""
+    import importlib.abc
+    import sys
+
+    BLOCKED = ("jax", "jaxlib", "pandas", "pyarrow", "pantax_tpu")
+
+    class Blocker(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ModuleNotFoundError(f"blocked: {name}", name=name)
+            return None
+
+    for mod in list(sys.modules):
+        if mod.split(".")[0] in BLOCKED:
+            del sys.modules[mod]
+    sys.meta_path.insert(0, Blocker())
+
+    import numpy as np
+    import torch
+    from pantax_tpu_torch.ops import seed
+
+    rng = np.random.default_rng(0)
+    codes = torch.from_numpy(rng.integers(0, 5, size=(8, 64)).astype(np.int8))
+    lens = torch.full((8,), 64, dtype=torch.int32)
+    table = torch.zeros((1, 6), dtype=torch.int32)  # an empty CHD table
+    diag, votes, strand = seed.seed_candidates(
+        codes, lens, table, torch.zeros(1, dtype=torch.int32),
+        torch.zeros(2, dtype=torch.int32), (21, 3, 1, -1, 16, 4, 2, 4))
+    assert diag.shape == (8, 2) and not votes.any(), (diag, votes)
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("NOJAX_SEED_OK")
+""")
+
+
+def test_seed_stage_runs_without_jax(tmp_path):
+    """pantax_tpu_torch.ops.seed (K3's module) imports and runs its plain
+    version with jax, pandas, pyarrow and the JAX package blocked."""
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([REPO,
+                                           os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", SEED_SCRIPT], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NOJAX_SEED_OK" in proc.stdout
