@@ -8,9 +8,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. require a CUDA device; print the card's name and power limit;
 2. build the banded-DP kernels (K1 and K2, csrc/banded_extend.cu) and the
    seed stage (K3, csrc/seed_stage.cu) with nvcc, one process per source
-   started together, and print ptxas's register report, and the SASS
+   started together, and print ptxas's register report, the SASS
    instructions of one step of K1's and of K2's main loop at pad 4 and pad
-   8 (cuobjdump);
+   8, and those of K3's vote loops (cuobjdump);
 3. hold K1 against its plain torch version on the card, bit for bit on all
    four outputs, at the main path's shape (131072 candidates, 160-base
    reads, pad 4) over the smoke DB's text, at a pad-8 random case and
@@ -22,7 +22,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    cut to 150 bases (width 152), with the CHD lookup at density 3; 131072
    mates (the paired query's rows); 16384 long-read chunks of 512 bases
    at pad 8; the first case on a forced bisection table and on a density-4
-   index of the same DB; time K3 and the plain version at both widths of
+   index of the same DB; the crafted cases of ``seed_cases`` (hand-built
+   seed tables at the edges of the stage's semantics: ties, the strands'
+   tie, a round with every count 0, 256 slots at top_k 8, int32
+   differences of -2^31 and 2^31 - 1, empty, short and all-N rows, a row
+   of 8192 columns); time K3 and the plain version at both widths of
    the first case.  Every later phase that counts K1 launches holds K3's
    to them (one seed stage per query dispatch) and the plain seed stage
    to 0, the subprocesses of phases 11, 12 and 14 included;
@@ -177,10 +181,11 @@ its plain version's, and the bound the card's peaks put on the same work
 (this run's inputs: K1 and K2, read bytes and window bytes over the HBM
 rate against 5 instructions per DP cell over the SMs' instruction issue
 rate; K3, code bytes and the seed rows its valid seeds gather against
-HASH_OPS_PER_POS instructions per k-mer position and VOTE_OPS_PER_PAIR per
-pair of valid hits on each strand); the last line is
-{"ok": true, "device": {...}}.  Databases and the kernel builds (one nvcc
-per source, started together) go under build/ (git-ignored).
+HASH_OPS_PER_POS instructions per k-mer position inside each read's
+read_len and VOTE_OPS_PER_PAIR per pair of valid hits on each strand); the
+last line is {"ok": true, "device": {...}}.  Databases and the kernel
+builds (one nvcc per source, started together) go under build/
+(git-ignored).
 """
 from __future__ import annotations
 
@@ -250,6 +255,9 @@ KERNEL3 = {
     "source": "pantax_tpu_torch/csrc/seed_stage.cu",
     "replaces": "pantax_tpu/align/aligner.py:226",
 }
+# K3's crafted cases (seed_cases), in order
+SEED_CASES = ("one_diagonal", "strand_tie", "all_killed", "nq8", "int32_wrap",
+              "short_rows", "wide")
 MATCH, MISMATCH, GAP = 1, -1, -2
 N_READS, BATCH = 1_000_000, 65536
 # the long path: run_long_e2e_benchmark's read length, read type and batch;
@@ -266,11 +274,12 @@ N_DUP_LONG = 5000
 # diagonal add, and the up and the left add+max as one DPX instruction each)
 HBM_BYTES_PER_S = 3.35e12
 DP_OPS_PER_CELL = 5
-# K3's instructions at their fewest: per k-mer position, the two rolled
-# hashes (5), their min (1), mix32 (8) and the sample test (2); per pair
-# of valid hits on a strand, a difference, a range compare and an add
+# K3's instructions at their fewest: per k-mer position inside read_len,
+# the two rolled hashes (5), their min (1), mix32 (8) and the sample test
+# (2); per pair of valid hits on a strand, a difference, the borrow of the
+# range test and half a carry-add (sm_90's IADD3.X adds two pairs' borrows)
 HASH_OPS_PER_POS = 16
-VOTE_OPS_PER_PAIR = 3
+VOTE_OPS_PER_PAIR = 2.5
 # opcodes whose counts in the kernels' SASS say how the DP was compiled
 CLASS_SPECIES = ("reads_classification.tsv", "species_abundance.txt")
 STRAINS = ("strain_abundance.txt", "ori_strain_abundance.txt")
@@ -330,14 +339,11 @@ def ptxas_lines(log: str) -> list[str]:
     return lines
 
 
-def step_sass(lib_path: str, wb: int,
-              kernel: str = "banded_extend_kernel") -> dict | str:
-    """A DP kernel's main step loop in a built library (cuobjdump beside
-    nvcc): the body of the widest innermost loop of ``kernel``<wb> (K1's
-    banded_extend_kernel or K2's banded_extend_windows_kernel), its SASS
-    instructions, the DP steps it holds (the maxes its max instructions
-    take, fused with an add or not, over the 2 * (wb - 1) of one step) and
-    instructions per step; or why there is none."""
+def innermost_loops(lib_path: str, kernel: str,
+                    wb: int) -> list[list[str]] | str:
+    """The innermost loops of ``kernel``<wb> in a built library (cuobjdump
+    beside nvcc), each as the list of its SASS instructions (guards
+    stripped), or why there are none."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     try:
@@ -370,14 +376,27 @@ def step_sass(lib_path: str, wb: int,
             t = labels.get(m[1]) if m[1].startswith(".") else int(m[1], 16)
             if t is not None and t <= a:
                 loops.append((a - t, t, a))
-    # the widest of the innermost loops (the step loop, not one around it)
     inner = [lp for lp in loops
              if not any(lp[1] <= o[1] and o[2] < lp[2] for o in loops)]
-    if not inner:
-        return "no loop found"
-    _, lo, hi = max(inner)
-    names = [re.sub(r"^@!?U?P\w+\s+", "", op).split()[0]
+    return [[re.sub(r"^@!?U?P\w+\s+", "", op).split()[0]
              for a, op in zip(addrs, ops) if lo <= a <= hi]
+            for _, lo, hi in sorted(inner, reverse=True)]
+
+
+def step_sass(lib_path: str, wb: int,
+              kernel: str = "banded_extend_kernel") -> dict | str:
+    """A DP kernel's main step loop in a built library (cuobjdump beside
+    nvcc): the body of the widest innermost loop of ``kernel``<wb> (K1's
+    banded_extend_kernel or K2's banded_extend_windows_kernel), its SASS
+    instructions, the DP steps it holds (the maxes its max instructions
+    take, fused with an add or not, over the 2 * (wb - 1) of one step) and
+    instructions per step; or why there is none."""
+    loops = innermost_loops(lib_path, kernel, wb)
+    if isinstance(loops, str):
+        return loops
+    if not loops:
+        return "no loop found"
+    names = loops[0]  # the widest of the innermost loops
     dpx = sum(n.startswith("VIADDMNMX") for n in names)
     # a three-input max (VIMNMX3) takes two of the DP's maxes
     maxes = dpx + sum((2 if n.split(".")[0].endswith("3") else 1)
@@ -386,6 +405,31 @@ def step_sass(lib_path: str, wb: int,
     return {"instructions": len(names), "steps": steps,
             "per_step": round(len(names) / steps, 2), "viaddmnmx": dpx,
             "max_ops": maxes}
+
+
+def vote_sass(lib_path: str, nq: int = 2) -> list | str:
+    """K3's vote loops in a built library: the innermost loops of
+    seed_stage_kernel<nq> that broadcast the compacted hits by 16-byte
+    shared loads (one a pair of hits; a loop for each held word count and
+    band test), each with its SASS instructions, the hits it takes an
+    iteration, instructions per hit (both strands), its band test
+    ("carry": the borrow-and-carry adds, IADD3.X; else "wrap", the -2^31
+    test) and its op counts; or why there are none."""
+    loops = innermost_loops(lib_path, "seed_stage_kernel", nq)
+    if isinstance(loops, str):
+        return loops
+    out = []
+    for names in loops:
+        wide = sum(n == "LDS.128" for n in names)
+        if wide:
+            carries = sum(n.startswith("IADD3.X") for n in names)
+            ops = {op: sum(n.split(".")[0] == op for n in names)
+                   for op in ("IMAD", "IADD3", "ISETP")}
+            out.append({"test": "carry" if carries else "wrap",
+                        "instructions": len(names), "hits": 2 * wide,
+                        "per_hit": round(len(names) / (2 * wide), 2),
+                        **ops, "IADD3.X": carries})
+    return out or "no vote loop found"
 
 
 def dp_bound(lens: np.ndarray, Lr: int, pad: int,
@@ -625,9 +669,195 @@ def seed_args(aligner, codes: np.ndarray, lens: np.ndarray) -> tuple:
             aligner.bucket_lo, aligner.static())
 
 
+def chd_table(runs: dict, hits: int) -> tuple:
+    """A CHD seed table over ``runs`` ({uint32 key: (run length, [text
+    positions])}), laid out as align/aligner.build_seed_lookup lays it out:
+    (run_table int32 [D, 2 + hits] of rows [key, run length, the first
+    ``hits`` positions], bucket bits, displacements int32 [2^bits]).  The
+    buckets, fullest first, each take the first displacement that puts
+    their keys on free slots."""
+    keys = np.array(sorted(runs), dtype=np.uint32)
+    bits = max(1, int(np.ceil(np.log2(max(len(keys), 2)))))
+    D = 16
+    while D < 2 * len(keys):
+        D *= 2
+    table = np.zeros((D, 2 + hits), np.int32)
+    disp = np.zeros(1 << bits, np.int32)
+    taken = np.zeros(D, bool)
+    bucket = keys >> np.uint32(32 - bits)
+    for b in np.argsort(-np.bincount(bucket, minlength=1 << bits),
+                        kind="stable"):
+        kb = keys[bucket == b]
+        if not len(kb):
+            break
+        kt = torch.from_numpy(kb.astype(np.int64))
+        for d in range(1 << 20):  # the plain lookup's slot of each key
+            slot = (seed._mix32(kt ^ seed._mul32(torch.tensor(d),
+                                                 seed._CHD_GOLD))
+                    & (D - 1)).numpy()
+            if len(np.unique(slot)) == len(slot) and not taken[slot].any():
+                break
+        else:
+            raise RuntimeError("no displacement places the keys")
+        disp[b] = d
+        taken[slot] = True
+        for key, s in zip(kb, slot):
+            rlen, pos = runs[int(key)]
+            pos = (np.asarray(pos, np.int64)[:hits] + 2**31) % 2**32 - 2**31
+            table[s, 0] = np.uint32(key).view(np.int32)
+            table[s, 1] = rlen
+            table[s, 2:2 + len(pos)] = pos
+    return table, bits, disp
+
+
+def _selected_seeds(codes: np.ndarray, k: int, density_bits: int,
+                    s_max: int) -> tuple:
+    """Each row's selected seeds as the plain stage picks them: (sel_pos,
+    sel_hash uint32, sel_valid), [B, s_max] numpy."""
+    h, v = seed.kmer_hashes(torch.from_numpy(codes), k)
+    p, sh, sv = seed.select_seeds(h, v, density_bits, s_max)
+    return p.numpy(), sh.numpy().astype(np.uint32), sv.numpy()
+
+
+def seed_cases(seed_: int = 0) -> dict:
+    """K3's crafted cases: hand-built CHD seed tables over random codes, each
+    at an edge of the seed stage's semantics.  {name: (codes int8 [B, L],
+    read_len int32 [B], run_table, seed_pos, bucket_lo, cfg_static)}, numpy
+    arrays; cfg_static is (k, density bits, bucket bits, steps, s_max, hits,
+    top_k, pad) as Aligner.static() gives it.
+    - one_diagonal: every hit of a row on one diagonal, so every count ties;
+    - strand_tie: a row's only hits are one or two singletons, so its
+      forward and reverse candidates have equal votes (the forward wins);
+    - all_killed: one seed of a row found, its 4 hits within the band of
+      each other on both strands, so round 2 finds every count 0 and, at
+      top_k 3, the union takes it: slot 0's diagonal with 0 votes where
+      the seed is seed 0 (even rows), BIG where slot 0 is invalid;
+    - nq8: s_max 64 x 4 hits = 256 slots, top_k 8, density bits 0, the
+      hits in clusters of diagonals;
+    - int32_wrap: diagonals 2^30 - 7, its +2^31 (an int32 difference of
+      exactly -2^31: within the band under torch's abs) and its +2^31 - 1
+      (2^31 - 1: not);
+    - short_rows: read_len 0, 1, 20 (< k) and 150 all N among full rows;
+    - wide: one row at the wrapper's widest width, 8192.
+    """
+    rng = np.random.default_rng(seed_)
+    k, pad = 21, 4
+
+    def codes_of(B, L, lens):
+        c = rng.integers(0, 4, size=(B, L)).astype(np.int8)
+        c[np.arange(L)[None, :] >= np.asarray(lens)[:, None]] = 4
+        return c
+
+    def case(codes, lens, runs, s_max=16, hits=4, top_k=2, density=3):
+        table, bits, disp = chd_table(runs, hits)
+        cfg = (k, density, bits, -1, s_max, hits, top_k, pad)
+        return (np.ascontiguousarray(codes), np.asarray(lens, np.int32),
+                table, np.zeros(1, np.int32), disp, cfg)
+
+    cases = {}
+    B, L = 64, 160
+    lens = np.full(B, 150)
+    codes = codes_of(B, L, lens)
+    sp, sh, sv = _selected_seeds(codes, k, 3, 16)
+    runs = {}
+    for r in range(B):
+        d0 = 1000 * (r + 1)
+        for p, h in zip(sp[r][sv[r]], sh[r][sv[r]]):
+            runs[int(h)] = (int(rng.integers(1, 6)), [p + d0] * 4)
+    cases["one_diagonal"] = case(codes, lens, runs)
+
+    codes = codes_of(B, L, lens)
+    sp, sh, sv = _selected_seeds(codes, k, 3, 16)
+    runs = {}
+    for r in range(B):
+        n_hit = 1 + r % 2
+        j = int(rng.integers(0, max(1, sv[r].sum())))
+        if sv[r, j]:
+            runs[int(sh[r, j])] = (n_hit, [sp[r, j] + 5000 * r,
+                                           sp[r, j] + 5000 * r + 999])
+    cases["strand_tie"] = case(codes, lens, runs)
+
+    codes = codes_of(B, L, lens)
+    sp, sh, sv = _selected_seeds(codes, k, 3, 16)
+    runs = {}
+    for r in range(B):
+        n_seed = int(sv[r].sum())
+        if n_seed > 1:
+            j = 0 if r % 2 == 0 else 1 + r % (n_seed - 1)
+            jit = rng.integers(-pad // 2, pad // 2 + 1, size=4)
+            runs[int(sh[r, j])] = (4, list(sp[r, j] + 777 * r + jit))
+    cases["all_killed"] = case(codes, lens, runs, top_k=3)
+
+    codes = codes_of(B, L, lens)
+    sp, sh, sv = _selected_seeds(codes, k, 0, 64)
+    runs = {}
+    for r in range(B):
+        for p, h in zip(sp[r][sv[r]], sh[r][sv[r]]):
+            if rng.random() < 0.1:
+                continue  # absent
+            g = rng.integers(0, 12, size=4)
+            runs[int(h)] = (int(rng.integers(1, 6)),
+                            list(p + 3000 * g + rng.integers(-6, 7, size=4)))
+    cases["nq8"] = case(codes, lens, runs, s_max=64, top_k=8, density=0)
+
+    codes = codes_of(B, L, lens)
+    sp, sh, sv = _selected_seeds(codes, k, 3, 16)
+    a = 2**30 - 7
+    diags = (a, a + 2**31, a + 2**31 - 1)
+    runs = {}
+    for r in range(B):
+        for j in np.flatnonzero(sv[r]):
+            d = diags[(j + r) % 3]
+            runs[int(sh[r, j])] = (int(rng.integers(1, 5)),
+                                   [int(sp[r, j]) + d + int(e)
+                                    for e in rng.integers(0, 3, size=4)])
+    cases["int32_wrap"] = case(codes, lens, runs)
+
+    lens = np.full(B, 150)
+    lens[:4] = (0, 1, 20, 150)
+    codes = codes_of(B, L, lens)
+    codes[3] = 4  # all N
+    sp, sh, sv = _selected_seeds(codes, k, 3, 16)
+    runs = {}
+    for r in range(B):
+        for p, h in zip(sp[r][sv[r]], sh[r][sv[r]]):
+            runs[int(h)] = (2, [p + 100 * r, p + 100 * r + 50])
+    cases["short_rows"] = case(codes, lens, runs)
+
+    W = seed.MAX_WIDTH
+    lens = np.array([W])
+    codes = codes_of(1, W, lens)
+    sp, sh, sv = _selected_seeds(codes, k, 3, 16)
+    runs = {int(h): (3, [p + 40_000, p + 90_000 + 2 * p, p + 40_002])
+            for p, h in zip(sp[0][sv[0]], sh[0][sv[0]])}
+    cases["wide"] = case(codes, lens, runs)
+    assert tuple(cases) == SEED_CASES
+    return cases
+
+
+def seed_lookup(args) -> tuple:
+    """The plain seed stage's selection and lookup on K3's ``args``:
+    (sel_valid [B, s_max], hit validity [B, s_max * hits])."""
+    codes, read_len, run_table, seed_pos, bucket_lo, static = args
+    k, density_bits, bucket_bits, steps, s_max, hits = static[:6]
+    hashes, valid = seed.kmer_hashes(codes, k)
+    _, sel_hash, sel_valid = seed.select_seeds(hashes, valid, density_bits,
+                                               s_max)
+    del hashes, valid
+    _, hv = seed.lookup_hits(run_table, seed_pos, bucket_lo, bucket_bits,
+                             steps, sel_hash, sel_valid, hits)
+    return sel_valid, hv.reshape(codes.shape[0], -1)
+
+
+def valid_hits(args):
+    """Each read's valid seed hits (int64 [B]) on K3's ``args``."""
+    return seed_lookup(args)[1].sum(dim=1)
+
+
 def seed_bound(args, issue_peak: float) -> tuple[float, str]:
     """(bound ms, what bounds it) of the seed stage on ``args``: the
-    k-mer positions at HASH_OPS_PER_POS and, on each strand, the pairs of
+    k-mer positions inside each read's read_len (past it every k-mer holds
+    an N) at HASH_OPS_PER_POS and, on each strand, the pairs of
     each read's valid hits at VOTE_OPS_PER_PAIR, over ``issue_peak``;
     against the code bytes, read_len, what each valid seed gathers (CHD:
     its displacement and slot row; bisection: its bucket bounds, key probes,
@@ -635,14 +865,10 @@ def seed_bound(args, issue_peak: float) -> tuple[float, str]:
     codes, read_len, run_table, seed_pos, bucket_lo, static = args
     k, density_bits, bucket_bits, steps, s_max, hits, top_k = static[:7]
     B, L = codes.shape
-    hashes, valid = seed.kmer_hashes(codes, k)
-    _, sel_hash, sel_valid = seed.select_seeds(hashes, valid, density_bits,
-                                               s_max)
-    del hashes, valid
-    _, hv = seed.lookup_hits(run_table, seed_pos, bucket_lo, bucket_bits,
-                             steps, sel_hash, sel_valid, hits)
-    v = hv.reshape(B, -1).sum(dim=1).double()
-    ops = (B * (L - k + 1) * HASH_OPS_PER_POS
+    sel_valid, hv = seed_lookup(args)
+    v = hv.sum(dim=1).double()
+    positions = (read_len.clamp(0, L) - k + 1).clamp(min=0)
+    ops = (float(positions.double().sum()) * HASH_OPS_PER_POS
            + 2 * float((v * v).sum()) * VOTE_OPS_PER_PAIR)
     row = 4 * run_table.shape[1]
     per_seed = 4 + row if steps < 0 else 8 + 4 * steps + row + 4 * hits
@@ -697,6 +923,12 @@ def seed_phase(db, index, aligner, codes, lens, dev, issue_peak: float):
     errs.append(hold_k3(seed_args(al4, codes[:BATCH], lens[:BATCH]),
                         f"at B={BATCH} L=160 on a density-4 index (CHD)"))
     del al4, index4
+    for name, case in seed_cases().items():
+        args = tuple(torch.from_numpy(a).to(dev) for a in case[:5]) + case[5:]
+        errs.append(hold_k3(args, f"on the crafted case {name} (B="
+                                  f"{len(case[0])} L={case[0].shape[1]}, "
+                                  f"s_max x hits {case[5][4]} x {case[5][5]}, "
+                                  f"top_k {case[5][6]})"))
 
     for name, args in (("main", main), ("w152", w152), ("paired", paired),
                        ("long", long_args)):
@@ -2327,6 +2559,8 @@ def main() -> None:
                for pad in (4, 8)}
     print(f"K1 main step loop SASS: {json.dumps(k1_sass)}")
     print(f"K2 main step loop SASS: {json.dumps(k2_sass)}")
+    k3_sass = vote_sass(lib3._name)
+    print(f"K3 vote loop SASS (seed_stage_kernel<2>): {json.dumps(k3_sass)}")
     for ln in ptxas_lines(lib.build_log) + ptxas_lines(lib3.build_log):
         print(f"  ptxas: {ln}")
 
@@ -2405,7 +2639,7 @@ def main() -> None:
              launches_by_path=k3_by_path, max_abs_err=err3, ms=ms3,
              plain_ms=plain_ms3, bound_ms=bound3, bound_by=by3,
              library_ms=None, shape=f"B {BATCH}, L 160, CHD, density {index.density_bits}",
-             ms_by_case=k3_times),
+             ms_by_case=k3_times, vote_sass=k3_sass),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,15 @@ versions here:
 
 - the CUDA kernel, ``csrc/seed_stage.cu``, built with nvcc for sm_90a at
   first use into the git-ignored build directory (ops/extend.py's
-  ``compile_kernels``) and bound with ctypes: one warp per read, rolling
-  uint32 hashes, a ballot for the first s_max sampled positions, the seed
-  lookup (CHD or bucketed bisection), both strands' votes over the read's
-  seed hits in shared memory, and the strand union;
+  ``compile_kernels``) and bound with ctypes.  One warp per read at 32
+  registers: rolling uint32 hashes, each sampled position's hash kept in
+  shared memory and ranked by a warp scan (no seed hashed twice), one
+  lane per seed for the lookup (CHD or bucketed bisection), the valid
+  hits compacted in slot order and voted on both strands by a shared-
+  memory broadcast with a borrow-and-carry band test, warp-max rounds
+  for top_k and the strand union.  Its bound (chip_smoke.seed_bound) is
+  instruction issue: 16 instructions a k-mer position inside read_len and
+  2.5 a pair of valid hits on each strand;
 - ``seed_candidates_plain``, the plain torch stage (``kmer_hashes`` ->
   ``select_seeds`` -> ``lookup_hits`` -> ``vote_diagonals`` on each strand
   -> the union).  Torch's uint32 lacks most kernels, so its hashes are

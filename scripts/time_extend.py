@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Time two builds of K1 (``banded_extend_launch``) or K2
-(``banded_extend_windows_launch``) on one GPU, in turns: the current
-``csrc/banded_extend.cu`` and a baseline source with the same C entry
-points, such as an earlier commit's:
+"""Time two builds of K1 (``banded_extend_launch``), K2
+(``banded_extend_windows_launch``) or K3 (``seed_stage_launch``) on one
+GPU, in turns: the current ``csrc/banded_extend.cu`` (``csrc/seed_stage.cu``
+for K3) and a baseline source with the same C entry points, such as an
+earlier commit's:
 
     git show <commit>:pantax_tpu_torch/csrc/banded_extend.cu \\
         > build/banded_extend_base.cu
     PYTHONPATH=. python scripts/time_extend.py build/banded_extend_base.cu
     PYTHONPATH=. python scripts/time_extend.py --kernel k2 \\
         build/banded_extend_base.cu
+    git show <commit>:pantax_tpu_torch/csrc/seed_stage.cu \\
+        > build/seed_stage_base.cu
+    PYTHONPATH=. python scripts/time_extend.py --kernel k3 \\
+        build/seed_stage_base.cu [--ablate rehash --ablate carry ...]
 
 or against the current source with one step of the fast DP's design taken
 out (``--ablate unroll``: the step loop not unrolled), written under the
@@ -30,14 +35,24 @@ boundaries); K1 of the current source is timed on the same candidates (it
 fetches the windows from the text itself), and each build's K2 time
 against the number of rows is printed (``chip_smoke.k2_scaling``).
 
-Both builds' four outputs must equal each other's and the plain version's,
+K3 (``--kernel k3``) on the smoke DB (``scale_db`` at its defaults, built
+under the build directory if absent) with its CHD tables at density 3:
+65536 reads of 150 bases at the main path's width (160) and cut to width
+152, 131072 mates (the paired query's rows), and 16384 long-read chunks of
+512 bases at pad 8, as smoke phase 3b makes them.  Given ``--ablate``
+(repeatable) with a baseline, K3 also times the current source with one
+lever of its design taken out (K3_ABLATIONS), in the same turns.
+
+Both builds' outputs must equal each other's and the plain version's,
 bit for bit; then base, new, new, base, ROUNDS times, ITERS launches a
 reading (CUDA events, the stream held by a sleep kernel while the host
 enqueues the launches: ``chip_smoke.cuda_ms``; for K2 two K1 readings
-follow each turn).  Prints the card's name and power limit, each build's
-ptxas registers and main-loop SASS per step, and one JSON line per shape:
-every reading's ms, the bound (``chip_smoke.dp_bound``), each build's
-share of it and the speedup, both from the medians.  Needs a CUDA device.
+follow each turn; for K3 every ablated build takes its two turns between
+the new build's).  Prints the card's name and power limit, each build's
+ptxas registers and main-loop SASS per step (K3: its vote loops'), and one
+JSON line per shape: every reading's ms, the bound (``chip_smoke.dp_bound``,
+``chip_smoke.seed_bound`` for K3), each build's share of it and the
+speedup, both from the medians.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -53,7 +68,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as smoke  # noqa: E402
 from pantax_tpu_torch.device import require_cuda  # noqa: E402
-from pantax_tpu_torch.ops import extend  # noqa: E402
+from pantax_tpu_torch.ops import extend, seed  # noqa: E402
 
 # N, Lr, pad, seed, and read_len for every candidate (None: the case's
 # ragged lengths; 150: the main path's reads, all of one length; 512: full
@@ -63,8 +78,13 @@ SHAPES = {
            (131072, 160, 4, 1, 150)),
     "k2": ((16384, 512, 8, 4, None), (16384, 512, 8, 4, 512),
            (16384, 160, 4, 3, None)),
+    # K3: B, code width, pad, and the rows (the short reads, the paired
+    # query's mates, long-read chunks)
+    "k3": ((65536, 160, 4, "short"), (65536, 152, 4, "short"),
+           (131072, 160, 4, "paired"), (16384, 512, 8, "long")),
 }
-KERNELS = {"k1": "banded_extend_kernel", "k2": "banded_extend_windows_kernel"}
+KERNELS = {"k1": "banded_extend_kernel", "k2": "banded_extend_windows_kernel",
+           "k3": "seed_stage_kernel"}
 TEXT_LEN = 30_000_000
 ITERS = 200  # launches per timed reading
 ROUNDS = 3  # base, new, new, base this many times
@@ -74,17 +94,43 @@ ABLATIONS = {
     "unroll": [("#pragma unroll\n    for (int s = 0; s < kChunk; ++s) {",
                 "#pragma unroll 1\n    for (int s = 0; s < kChunk; ++s) {")],
 }
+# K3's levers, each taken out of csrc/seed_stage.cu: "rehash" hashes each
+# selected seed again from its k codes (no sampled hash kept);
+# "exact_band" runs every vote with the -2^31 test (no span check); "carry"
+# adds the band test's bool (no borrow-and-carry pair)
+K3_ABLATIONS = {
+    "rehash": [
+        ("                hs[p] = h;\n", ""),
+        ("            seeds[rank] = make_int4(ps, static_cast<int>(hs[ps]), 0, 0);",
+         "            uint32_t f = 0, g = 0, pk = 1;\n"
+         "            for (int t = 0; t < k; ++t) {\n"
+         "                const uint32_t c = code_of(cs[ps + t]);\n"
+         "                f = f * kBase + c;\n"
+         "                g += (3u - c) * pk;\n"
+         "                pk *= kBase;\n"
+         "            }\n"
+         "            seeds[rank] = make_int4(ps, static_cast<int>(\n"
+         "                mix32(f < g ? f : g)), 0, 0);"),
+    ],
+    "exact_band": [("    const bool wrap =\n", "    const bool wrap = true ||\n")],
+    "carry": [("""        asm("{\\n\\t.reg .u32 t;\\n\\tsub.cc.u32 t, %1, %2;\\n\\t"
+            "addc.u32 %0, %0, 0;\\n\\t}"
+            : "+r"(cnt) : "r"(band2), "r"(u));""",
+               "        cnt += u <= band2;")],
+}
 
 
 def ablated_source(name: str) -> Path:
-    """The current source with ABLATIONS[name] applied, written under the
-    build directory."""
-    src = extend._SRC.read_text()
-    for old, new in ABLATIONS[name]:
+    """The current source with ABLATIONS[name] (K1's) or K3_ABLATIONS[name]
+    (K3's) applied, written under the build directory."""
+    path, table = ((seed._SRC, K3_ABLATIONS) if name in K3_ABLATIONS
+                   else (extend._SRC, ABLATIONS))
+    src = path.read_text()
+    for old, new in table[name]:
         if old not in src:
-            raise ValueError(f"ablation {name}: {old!r} not in {extend._SRC}")
+            raise ValueError(f"ablation {name}: {old!r} not in {path}")
         src = src.replace(old, new)
-    out = extend.build_dir() / "kernels" / f"banded_extend_no_{name}.cu"
+    out = extend.build_dir() / "kernels" / f"{path.stem}_no_{name}.cu"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(src)
     return out
@@ -93,13 +139,23 @@ def ablated_source(name: str) -> Path:
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("baseline", nargs="?", help="the baseline .cu source")
-    ap.add_argument("--ablate", choices=sorted(ABLATIONS),
-                    help="time the current source without this step instead")
+    ap.add_argument("--ablate", action="append",
+                    choices=sorted(ABLATIONS) + sorted(K3_ABLATIONS),
+                    help="time the current source without this step instead "
+                         "(K3: as well, repeatable)")
     ap.add_argument("--kernel", choices=sorted(SHAPES), default="k1",
-                    help="K1 (text + w0) or K2 (windows given); default k1")
+                    help="K1 (text + w0), K2 (windows given) or K3 (the "
+                         "seed stage); default k1")
     args = ap.parse_args(argv)
-    if (args.baseline is None) == (args.ablate is None):
-        ap.error("give a baseline source or --ablate, not both")
+    mine = K3_ABLATIONS if args.kernel == "k3" else ABLATIONS
+    if any(a not in mine for a in args.ablate or ()):
+        ap.error(f"--ablate for {args.kernel}: one of {sorted(mine)}")
+    if args.kernel == "k3":
+        if args.baseline is None:
+            ap.error("K3 takes a baseline source")
+    elif (args.baseline is None) == (args.ablate is None) or len(
+            args.ablate or ()) > 1:
+        ap.error("give a baseline source or one --ablate, not both")
     return args
 
 
@@ -109,12 +165,95 @@ def check_equal(outs, plain, what: str) -> None:
             raise AssertionError(f"{what} != plain on {out}")
 
 
+def k3_cases(dev):
+    """K3's arguments at each SHAPES["k3"] shape, over the smoke DB's CHD
+    tables at density 3, as smoke phase 3b makes them."""
+    from pantax_tpu_torch import _host
+    from pantax_tpu_torch.align.long_read import LONG_READ_PRESETS
+    from pantax_tpu_torch.benchmarks import scale_db, simulate_read_batch
+    from pantax_tpu_torch.convert import aligner_from_reference
+
+    db = scale_db(str(extend.build_dir() / "scale_db"))
+    index = _host.build_align_index(db)
+    aligner = aligner_from_reference(index, _host.AlignConfig(), dev)
+    long_al = aligner_from_reference(
+        index, _host.AlignConfig.for_read_type("long"), dev)
+    cases = []
+    for B, L, pad, rows in SHAPES["k3"]:
+        if rows == "short":
+            codes, lens, _ = simulate_read_batch(index, B, 150, 0.01, seed=3)
+            if L < 160:
+                codes = np.ascontiguousarray(codes[:, :L - 2])
+                lens = np.minimum(lens, L - 2)
+            args = smoke.seed_args(aligner, codes, lens)
+        elif rows == "paired":
+            (c1, l1, c2, l2), _ = smoke.simulate_pairs(index, B // 2, seed=17)
+            args = smoke.seed_args(aligner, np.concatenate([c1, c2]),
+                                   np.concatenate([l1, l2]))
+        else:
+            chunk = LONG_READ_PRESETS[smoke.READ_TYPE]
+            codes, lens, _ = simulate_read_batch(index, B, chunk, 0.01,
+                                                 seed=19)
+            args = smoke.seed_args(long_al, codes, lens)
+        if tuple(args[0].shape) != (B, L) or args[-1][7] != pad:
+            raise AssertionError(f"K3 case {rows}: {tuple(args[0].shape)} "
+                                 f"pad {args[-1][7]}, not ({B}, {L}) pad {pad}")
+        cases.append((rows, args))
+    return cases
+
+
+def main_k3(args, dev, issue_peak: float) -> None:
+    """K3: the baseline, the current source and its ablations in turns."""
+    srcs = {"base": Path(args.baseline), "new": None}
+    srcs.update((f"no_{a}", ablated_source(a)) for a in args.ablate or ())
+    libs = {}
+    for name, src in srcs.items():
+        libs[name] = seed.build_seed_kernel(src)
+        regs = smoke.ptxas_lines(libs[name].build_log)
+        print(f"{name}: {src or seed._SRC}\n  " + "\n  ".join(regs)
+              + "\n  K3 vote loop SASS: "
+              + json.dumps(smoke.vote_sass(libs[name]._name)), flush=True)
+    others = [n for n in libs if n not in ("base", "new")]
+    turns = ["base", "new", *others, *others[::-1], "new", "base"]
+    for rows, case in k3_cases(dev):
+        B, L = case[0].shape
+        plain = seed.seed_candidates_plain(*case)
+        for name, lib in libs.items():
+            outs = seed.launch_k3(lib, *case)
+            for o, p, out in zip(outs, plain, ("cand_diag", "cand_votes",
+                                               "strand")):
+                if o.dtype != p.dtype or not torch.equal(o, p):
+                    raise AssertionError(f"{name} K3 != plain on {out} at "
+                                         f"B={B} L={L} ({rows})")
+        ms = {name: [] for name in libs}
+        for _ in range(ROUNDS):
+            for name in turns:
+                ms[name].append(smoke.cuda_ms(
+                    lambda: seed.launch_k3(libs[name], *case), ITERS,
+                    hold=True))
+        bound, by = smoke.seed_bound(case, issue_peak)
+        hits = smoke.valid_hits(case).double()
+        med = {k: float(np.median(v)) for k, v in ms.items()}
+        line = {"B": B, "L": L, "pad": case[-1][7], "rows": rows,
+                "valid_hits_mean": float(hits.mean()),
+                "rows_over_32_hits": float((hits > 32).double().mean())}
+        line.update({f"{k}_ms": v for k, v in ms.items()})
+        line.update({"bound_ms": bound, "bound_by": by})
+        line.update({f"{k}_share": bound / med[k] for k in ms})
+        line["speedup"] = med["base"] / med["new"]
+        line.update({f"{k}_vs_new": med[k] / med["new"] for k in others})
+        print(json.dumps(line), flush=True)
+
+
 def main() -> None:
     args = parse_args()
     dev = require_cuda()
     print(smoke.card_line())
     issue_peak = smoke.issue_ops_per_s()
-    base = args.baseline or ablated_source(args.ablate)
+    if args.kernel == "k3":
+        main_k3(args, dev, issue_peak)
+        return
+    base = args.baseline or ablated_source(args.ablate[0])
     kname = KERNELS[args.kernel]
     libs = {}
     for name, src in (("new", None), ("base", base)):

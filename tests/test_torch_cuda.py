@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from pantax_tpu_torch import _host
 from pantax_tpu_torch.align.long_read import align_long_reads
 from pantax_tpu_torch.benchmarks import (
@@ -369,6 +370,27 @@ def test_seed_kernel_matches_plain(cuda, tiny_index, monkeypatch, lookup, Lr,
         assert k.dtype == p.dtype and torch.equal(k, p), name
     if N > 3:
         assert (plain[1][3:, 0] > 0).float().mean() > 0.9
+
+
+@pytest.fixture(scope="module")
+def crafted_seed_cases():
+    return chip_smoke.seed_cases()
+
+
+@pytest.mark.parametrize("name", chip_smoke.SEED_CASES)
+def test_seed_kernel_crafted_case_matches_plain(cuda, crafted_seed_cases,
+                                                name):
+    """K3 against its plain version, bit for bit, on each crafted case:
+    ties, the strands' tie, a round with every count 0, 256 slots at top_k
+    8, int32 differences of -2^31 and 2^31 - 1, empty, short and all-N
+    rows, and a row of the widest width."""
+    case = crafted_seed_cases[name]
+    args = tuple(torch.from_numpy(a).to(cuda) for a in case[:5]) + case[5:]
+    ker = seed.seed_candidates_cuda(*args)
+    plain = seed.seed_candidates_plain(*args)
+    torch.cuda.synchronize()
+    for k, p, out in zip(ker, plain, ("cand_diag", "cand_votes", "strand")):
+        assert k.dtype == p.dtype and torch.equal(k, p), out
 
 
 def test_seed_wrapper_launches_kernel_on_cuda(cuda, tiny_index, monkeypatch):

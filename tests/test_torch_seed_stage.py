@@ -2,8 +2,10 @@
 package's: seed_candidates_plain bit for bit against the composition of
 _kmer_hashes_j, _select_seeds, _lookup_hits, _vote_diagonals on each strand
 and the strand union of _all_candidates, on the same unpacked codes and
-seed tables (CPU).  The kernel itself is held to the plain version on the
-card (tests/test_torch_cuda.py, chip_smoke.py)."""
+seed tables (CPU): simulated reads over the test DBs' tables, and the
+crafted cases of ``chip_smoke.seed_cases`` (hand-built tables at the edges
+of the stage's semantics).  The kernel itself is held to the plain version
+on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 from functools import partial
 
 import jax
@@ -12,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import pantax_tpu.align.aligner as ref
 from pantax_tpu_torch import _host
 from pantax_tpu_torch.align import aligner as port
@@ -133,3 +136,69 @@ def test_seed_candidates_takes_the_plain_version_on_cpu(dbs, monkeypatch):
     run_table = tables[0][:, :5].contiguous()  # a CHD row of 2 + 3 columns
     with pytest.raises(ValueError):
         seed.seed_candidates(codes_fwd, lens, run_table, *tables[1:], cfg)
+
+
+@pytest.fixture(scope="module")
+def crafted():
+    return chip_smoke.seed_cases()
+
+
+def _forward_diags(case):
+    """Each row's valid forward diagonals (int32 values as int64) under
+    the plain selection and lookup."""
+    codes, lens, run_table, seed_pos, bucket_lo = (torch.from_numpy(a)
+                                                   for a in case[:5])
+    k, density_bits, bucket_bits, steps, s_max, hits = case[5][:6]
+    h, v = seed.kmer_hashes(codes, k)
+    sel_pos, sel_hash, sel_valid = seed.select_seeds(h, v, density_bits,
+                                                     s_max)
+    pos, hv = seed.lookup_hits(run_table, seed_pos, bucket_lo, bucket_bits,
+                               steps, sel_hash, sel_valid, hits)
+    d = (pos - sel_pos[..., None]).reshape(len(codes), -1)
+    hv = hv.reshape(len(codes), -1)
+    return [d[r][hv[r]].long() for r in range(len(codes))]
+
+
+@pytest.mark.parametrize("name", chip_smoke.SEED_CASES)
+def test_crafted_seed_case_matches_jax(crafted, name):
+    """The plain stage bit for bit against the JAX stage on each crafted
+    case, and the case really sits at the edge it names."""
+    case = crafted[name]
+    codes, lens, run_table, seed_pos, bucket_lo, cfg = case
+    ours = seed.seed_candidates_plain(
+        *(torch.from_numpy(a) for a in case[:5]), cfg)
+    theirs = _jax_seed_stage(*(jnp.asarray(a) for a in case[:5]), cfg)
+    for a, b, out in zip(ours, theirs, ("cand_diag", "cand_votes",
+                                        "strand")):
+        assert a.numpy().dtype == b.dtype, out
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=out)
+    diag, votes, strand = (a.numpy() for a in ours)
+    B, K = votes.shape
+    voted = votes[:, 0] > 0
+    if name == "one_diagonal":  # the forward's ties: row r's diagonal
+        rows = np.flatnonzero(voted)
+        assert len(rows) > 0.9 * B and (strand[rows, 0] == 0).all()
+        assert (diag[rows, 0] == 1000 * (rows + 1)).all()
+    elif name == "strand_tie":  # singletons: the forward wins each tie
+        rows = np.flatnonzero(voted)
+        assert len(rows) > B // 2 and (votes[rows] == 1).all()
+        assert (strand[rows, 0] == 0).all() and (strand[rows, 1] == 1).any()
+    elif name == "all_killed":  # round 2: slot 0's diagonal, or BIG
+        rows = np.flatnonzero(voted)
+        assert len(rows) > B // 2 and (votes[rows, 2] == 0).all()
+        assert (diag[rows[rows % 2 == 1], 2] == seed.BIG).all()
+        assert (diag[rows[rows % 2 == 0], 2] != seed.BIG).all()
+    elif name == "nq8":
+        assert cfg[4] * cfg[5] == seed.MAX_SLOTS and K == seed.MAX_TOP_K
+        assert voted.all() and (np.diff(votes, axis=1) <= 0).all()
+    elif name == "int32_wrap":  # int32 differences -2^31 and 2^31 - 1
+        diffs = set()
+        for d in _forward_diags(case):
+            x = (d[:, None] - d[None, :]).flatten().tolist()
+            diffs.update(v for v in x if abs(v) >= 2**31 - 1)
+        assert {-2**31, 2**31, 2**31 - 1} <= diffs
+    elif name == "short_rows":  # read_len 0, 1, 20 and all N: no seed
+        assert (votes[:4] == 0).all() and (diag[:4] == seed.BIG).all()
+        assert voted[4:].all()
+    else:
+        assert codes.shape == (1, seed.MAX_WIDTH) and voted.all()

@@ -1,5 +1,5 @@
-"""The K1 / K2 timing tools on the CPU: the arguments, shapes and ablated
-sources of ``scripts/time_extend.py`` and the SASS loop reader of
+"""The K1 / K2 / K3 timing tools on the CPU: the arguments, shapes and
+ablated sources of ``scripts/time_extend.py`` and the SASS loop readers of
 ``chip_smoke.py`` (the card runs them; here only their text handling is
 held)."""
 import importlib.util
@@ -49,6 +49,83 @@ def test_ablations_apply_to_the_current_source(name, tmp_path, monkeypatch):
         assert old in current and new in src
 
 
+@pytest.mark.parametrize("name", sorted(time_extend.K3_ABLATIONS))
+def test_k3_ablations_apply_to_the_current_source(name, tmp_path,
+                                                   monkeypatch):
+    from pantax_tpu_torch.ops import seed
+    monkeypatch.setenv("PANTAX_TORCH_BUILD", str(tmp_path))
+    path = time_extend.ablated_source(name)
+    src, current = path.read_text(), seed._SRC.read_text()
+    assert path.name == f"seed_stage_no_{name}.cu" and src != current
+    for old, new in time_extend.K3_ABLATIONS[name]:
+        assert old in current and (new in src if new else old not in src)
+
+
+def test_k3_shapes_are_phase_3b():
+    """K3's shapes: the main path's batch at widths 160 and 152, the
+    paired query's rows and the long-read chunks at pad 8."""
+    from pantax_tpu_torch.align.long_read import LONG_READ_PRESETS
+    assert time_extend.SHAPES["k3"] == (
+        (chip_smoke.BATCH, 160, 4, "short"), (chip_smoke.BATCH, 152, 4, "short"),
+        (2 * chip_smoke.BATCH, 160, 4, "paired"),
+        (chip_smoke.LONG_BATCH, LONG_READ_PRESETS["hifi"], 8, "long"))
+
+
+def test_vote_sass_reads_the_broadcast_loops(tmp_path, monkeypatch):
+    """K3's vote loops are the innermost loops with 16-byte shared loads,
+    told apart by their band test; a kernel without one says so."""
+    listing = "\n".join(
+        ["\tcode for sm_90a",
+         "\t\tFunction : _ZN12_GLOBAL__N_117seed_stage_kernelILi2EEvPKaii",
+         "        /*0000*/                   LDC R1, c[0x0][0x28] ;",
+         ".L_x_5:",
+         "        /*0010*/                   LDS.128 R4, [R2] ;",
+         "        /*0020*/                   IADD3 R8, R4, -R9, RZ ;",
+         "        /*0030*/                   ISETP.GE.U32.AND P0, PT, R8, R3, PT ;",
+         "        /*0040*/                   IADD3.X R10, RZ, RZ, R10, P0, P2 ;",
+         "        /*0050*/              @P1  BRA `(.L_x_5) ;",
+         ".L_x_6:",
+         "        /*0060*/                   LDS.U8 R4, [R2] ;",
+         "        /*0070*/              @P1  BRA `(.L_x_6) ;",
+         "        /*0080*/                   EXIT ;"])
+    tool = tmp_path / "cuobjdump"
+    tool.write_text("#!/bin/sh\ncat <<'EOF'\n" + listing + "\nEOF\n")
+    tool.chmod(tool.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("PATH", f"{tmp_path}{os.pathsep}{os.environ['PATH']}")
+    assert chip_smoke.vote_sass("lib.so", 2) == [
+        {"test": "carry", "instructions": 5, "hits": 2, "per_hit": 2.5,
+         "IMAD": 0, "IADD3": 2, "ISETP": 1, "IADD3.X": 1}]
+    assert chip_smoke.vote_sass("lib.so", 4) == "kernel not found"
+
+
+@pytest.mark.parametrize("rl,positions", [(21, 1), (30, 10), (50, 20)])
+def test_seed_bound_counts_positions_inside_read_len_and_pairs(rl,
+                                                               positions):
+    """K3's bound: HASH_OPS_PER_POS for each k-mer position inside read_len
+    (clamped to the width) and VOTE_OPS_PER_PAIR for each pair of a row's
+    valid hits on each strand.  Row 0 (width 40, k 21, density 0) finds 3
+    hits at its first seed, row 1 (read_len 0, all N) nothing."""
+    import numpy as np
+    import torch
+    k, L = 21, 40
+    codes = np.random.default_rng(5).integers(0, 4, size=(2, L)).astype(
+        np.int8)
+    codes[0, min(rl, L):] = 4
+    codes[1] = 4
+    _, sh, sv = chip_smoke._selected_seeds(codes, k, 0, 16)
+    assert sv[0, 0] and not sv[1].any()
+    table, bits, disp = chip_smoke.chd_table(
+        {int(sh[0, 0]): (3, [100, 200, 300])}, 4)
+    args = (torch.from_numpy(codes), torch.tensor([rl, 0], dtype=torch.int32),
+            torch.from_numpy(table), torch.zeros(1, dtype=torch.int32),
+            torch.from_numpy(disp), (k, 0, bits, -1, 16, 4, 2, 4))
+    assert chip_smoke.valid_hits(args).tolist() == [3, 0]
+    ms, by = chip_smoke.seed_bound(args, 1e3)  # ops/s: operations bound it
+    assert by == "operations"
+    assert ms == pytest.approx(positions * chip_smoke.HASH_OPS_PER_POS
+                               + 2 * 3 * 3 * chip_smoke.VOTE_OPS_PER_PAIR)
+
+
 def test_k1_step_sass_reads_the_innermost_loop(tmp_path, monkeypatch):
     tool = tmp_path / "cuobjdump"
     tool.write_text("#!/bin/sh\ncat <<'EOF'\n" + _SASS + "\nEOF\n")
@@ -84,8 +161,16 @@ def test_parse_args_takes_the_kernel(argv, kernel):
     assert (args.baseline is None) != (args.ablate is None)
 
 
+def test_parse_args_k3_takes_a_baseline_and_its_ablations():
+    args = time_extend.parse_args(["--kernel", "k3", "base.cu", "--ablate",
+                                   "rehash", "--ablate", "exact_band"])
+    assert (args.kernel, args.baseline) == ("k3", "base.cu")
+    assert args.ablate == ["rehash", "exact_band"]
+    assert time_extend.parse_args(["--kernel", "k3", "b.cu"]).ablate is None
+
+
 @pytest.mark.parametrize("argv", [
-    [], ["--kernel", "k2"], ["--kernel", "k3", "base.cu"],
+    [], ["--kernel", "k2"], ["--kernel", "k3", "--ablate", "unroll", "base.cu"],
     ["--ablate", "unroll", "base.cu"],
 ])
 def test_parse_args_refuses(argv):
