@@ -6,8 +6,9 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. require a CUDA device; print the card's name and power limit;
-2. build the banded-DP kernels (K1 and K2, csrc/banded_extend.cu) and the
-   seed stage (K3, csrc/seed_stage.cu) with nvcc, one process per source
+2. build the banded-DP kernels (K1 and K2, csrc/banded_extend.cu), the
+   seed stage (K3, csrc/seed_stage.cu) and the classify + scatter (K6 and
+   K11, csrc/classify_scatter.cu) with nvcc, one process per source
    started together, and print ptxas's register report, the SASS
    instructions of one step of K1's and of K2's main loop at pad 4 and pad
    8, and those of K3's vote loops (cuobjdump);
@@ -30,6 +31,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the first case.  Every later phase that counts K1 launches holds K3's
    to them (one seed stage per query dispatch) and the plain seed stage
    to 0, the subprocesses of phases 11, 12 and 14 included;
+3c. hold the classify + scatter against its plain torch versions, bit for
+   bit in ridx, overflow and every accumulator (the sink slots aside, the
+   diff array's last slot included; the kernels' sinks stay 0): K6, the
+   range scatter, on the crafted cases of ``scatter_cases`` (tiny_db and
+   the small dup community, the tables as built and ``masked_tables``),
+   phase 5's first 65536 reads, a paired batch of 2 x 65536 mates and an
+   interval batch of 16384 rows of 1-160 segments; K11, the windowed
+   scatter (after phase 9 (b), where the dup DB is built), on the crafted
+   cases at node windows of 8 (tiny_db), 4 and 32 (the dup community),
+   the dup DB's first 65536 reads at its automatic window and at 3
+   segments (overflow) and an interval batch at 8; each timed with its
+   plain version on the same rows, beside its bound (``scatter_work``'s
+   bytes).  Every later phase holds K6's launches to the fused pipeline's
+   range dispatches and K11's to its windowed ones, the plain scatters to
+   0 (``check_k6``, ``check_k11``, in ``check_k3``), and the in-process
+   paths hold those dispatches to their own batch counts
+   (``check_dispatches``);
 4. run the port on the tiny 2-species DB on the CPU (plain versions) and on
    the GPU (kernels): packed query rows, na/ta/bc and the align_long_reads
    arrays of 16 long reads must be identical;
@@ -71,8 +89,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    scatter): (a) has_dups set, the range scatter refused, the node window
    printed; (b) profile_fused on 1M simulated 150 bp reads at batch 65536,
    tail "auto", with K1 once per batch, the plain DP never, >= 99%
-   aligned, >= 99% species accuracy, 10 species and 30 strains, and the
-   windowed classify+scatter timed per batch; (c) the first 65536 reads
+   aligned, >= 99% species accuracy, 10 species and 30 strains, phase
+   3c's K11 half, and the windowed classify+scatter (K11 and its plain
+   version) and the range one (K6 and its plain version) timed per batch
+   of the same reads; (c) the first 65536 reads
    fed at the automatic window and at a window of 3 segments (which sends
    a third of them to the host residual): identical na/ta/bc; (d) 500,000
    FR pairs through feed_paired with K1 once per paired batch and (b)'s
@@ -182,7 +202,9 @@ its plain version's, and the bound the card's peaks put on the same work
 rate against 5 instructions per DP cell over the SMs' instruction issue
 rate; K3, code bytes and the seed rows its valid seeds gather against
 HASH_OPS_PER_POS instructions per k-mer position inside each read's
-read_len and VOTE_OPS_PER_PAIR per pair of valid hits on each strand); the
+read_len and VOTE_OPS_PER_PAIR per pair of valid hits on each strand; K6
+and K11, the per-read columns, a 32-byte sector per gather and 64 bytes
+per atomic that this run's live rows need, over the HBM rate); the
 last line is {"ok": true, "device": {...}}.  Databases and the kernel
 builds (one nvcc per source, started together) go under build/
 (git-ignored).
@@ -199,6 +221,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -222,12 +245,11 @@ from pantax_tpu_torch.io.gaf import (
 )
 from pantax_tpu_torch.align.aligner import Aligner, build_seed_lookup
 from pantax_tpu_torch.align.aligner import unpack_reads
-from pantax_tpu_torch.ops import extend, seed
+from pantax_tpu_torch.ops import extend, scatter, seed
 from pantax_tpu_torch.ops.coverage_device import node_abundances_device
 from pantax_tpu_torch.ops.fused import (
     FusedPipeline, _ensure_tail_tables, _tail_mode, build_fused_tables,
-    classify_scatter, classify_scatter_ranges, profile_from_fused_result,
-    profile_fused,
+    profile_from_fused_result, profile_fused,
 )
 from pantax_tpu_torch.parallel import make_mesh
 from pantax_tpu_torch.pipeline import classify_gaf, profile_from_gaf
@@ -254,6 +276,20 @@ KERNEL3 = {
     "route": "cuda",
     "source": "pantax_tpu_torch/csrc/seed_stage.cu",
     "replaces": "pantax_tpu/align/aligner.py:226",
+}
+# K6 and K11 replace no pl.pallas_call either: the classify + scatter XLA
+# compiles inside the JAX package's jitted fused steps
+KERNEL6 = {
+    "name": "classify_scatter_ranges",
+    "route": "cuda",
+    "source": "pantax_tpu_torch/csrc/classify_scatter.cu",
+    "replaces": "pantax_tpu/ops/fused.py:236",
+}
+KERNEL11 = {
+    "name": "classify_scatter",
+    "route": "cuda",
+    "source": "pantax_tpu_torch/csrc/classify_scatter.cu",
+    "replaces": "pantax_tpu/ops/fused.py:170",
 }
 # K3's crafted cases (seed_cases), in order
 SEED_CASES = ("one_diagonal", "strand_tie", "all_killed", "nq8", "int32_wrap",
@@ -950,13 +986,437 @@ def seed_phase(db, index, aligner, codes, lens, dev, issue_peak: float):
 
 def check_k3(launches: dict, what: str) -> None:
     """K3 launched once per query dispatch, where K1 is (every K1 launch
-    is one query's), and the plain seed stage never."""
+    is one query's), and the plain seed stage never; and K6 and K11 once per
+    range and windowed scatter dispatch, the plain scatters never
+    (check_k6, check_k11)."""
     if (launches["seed_stage"] != launches["banded_extend"]
             or launches["seed_stage_plain"]):
         raise AssertionError(
             f"{what}: K3 launches {launches['seed_stage']} against K1's "
             f"{launches['banded_extend']}, plain seed stage "
             f"{launches['seed_stage_plain']}")
+    check_k6(launches, what)
+    check_k11(launches, what)
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: K6 and K11, the fused step's classify + scatter
+# ---------------------------------------------------------------------------
+# the crafted cases of scatter_cases, in order
+SCATTER_CASES = ("span_1", "span_2", "span_3_up", "cap", "cap_plus_one",
+                 "empty", "unaligned", "text_end", "hap_edges")
+# what K6 and K11 read of FusedTables
+SCATTER_FIELDS = ("hap_offsets", "hap_range", "pos_lo", "nodes_len",
+                  "base_offset", "trio_seg", "win_shift", "pos_steps",
+                  "N_pad", "TB_pad", "U_pad", "has_dups")
+# each path's K6 and K11 launches, by path name (check_k6 / check_k11)
+SCATTER_BY_PATH = {"classify_scatter_ranges": {}, "classify_scatter": {}}
+
+
+def _intervals(rng, index, first, k):
+    """Intervals whose first base lies in segment ``first`` and whose last
+    lies in segment first + k - 1 (the text's last at most), at random
+    offsets in both: (ts, te) int64."""
+    tstart = np.asarray(index.tstart, np.int64)
+    end = np.append(tstart[1:], index.text_len)
+    last = np.minimum(first + k - 1, len(tstart) - 1)
+
+    def pos(seg):
+        return tstart[seg] + (rng.random(len(seg))
+                              * (end[seg] - tstart[seg])).astype(np.int64)
+
+    ts = pos(first)
+    return ts, np.maximum(pos(last) + 1, ts + 1)
+
+
+def scatter_cases(index, L_cap: int, seed_: int = 0, n: int = 256) -> dict:
+    """K6's and K11's crafted cases over ``index``'s text: name -> (ts
+    int32 [n], te int32 [n], aligned bool [n]), a tenth of each case's rows
+    unaligned.  span_1, span_2: the read's first and last base in one and
+    in two consecutive segments; span_3_up: 3 to L_cap + 4 segments; cap,
+    cap_plus_one: exactly L_cap and L_cap + 1 segments (K11's last row in
+    the window and its first overflow); empty: te == ts and te < ts;
+    unaligned: every row; text_end: reads in the text's last L_cap + 2
+    segments (K11's window runs past M) and reads ending at text_len;
+    hap_edges: reads across a haplotype boundary (the trio windows there
+    match nothing)."""
+    rng = np.random.default_rng(seed_)
+    tstart = np.asarray(index.tstart, np.int64)
+    M, T = len(tstart), int(index.text_len)
+
+    def spanning(k):
+        k = np.broadcast_to(k, (n,))
+        return _intervals(rng, index, rng.integers(0, np.maximum(
+            M - k + 1, 1)), k)
+
+    cases = {"span_1": spanning(1), "span_2": spanning(2),
+             "span_3_up": spanning(rng.integers(3, L_cap + 5, size=n)),
+             "cap": spanning(L_cap), "cap_plus_one": spanning(L_cap + 1)}
+    ts = _intervals(rng, index, rng.integers(0, M, size=n), 1)[0]
+    cases["empty"] = (ts, np.where(np.arange(n) % 2 == 0, ts, np.maximum(
+        ts - rng.integers(1, 50, size=n), 0)))
+    cases["unaligned"] = spanning(rng.integers(1, L_cap + 3, size=n))
+    ts, te = _intervals(rng, index, rng.integers(max(M - L_cap - 2, 0), M,
+                                                 size=n),
+                        rng.integers(1, L_cap + 3, size=n))
+    cases["text_end"] = (ts, np.where(np.arange(n) % 4 == 0, T, te))
+    hap = rng.integers(1, max(len(index.hap_offsets) - 1, 2), size=n)
+    edge = np.searchsorted(tstart, index.hap_offsets[hap], side="right") - 1
+    first = np.clip(edge - rng.integers(0, 4, size=n), 0, M - 1)
+    last = np.clip(edge + rng.integers(0, 4, size=n), first, M - 1)
+    cases["hap_edges"] = _intervals(rng, index, first, last - first + 1)
+    out = {}
+    for name in SCATTER_CASES:
+        ts, te = (np.clip(a, 0, T).astype(np.int32) for a in cases[name])
+        aligned = rng.random(n) >= 0.1 if name != "unaligned" else np.zeros(
+            n, bool)
+        out[name] = (ts, te, aligned)
+    return out
+
+
+def masked_tables(tables, seed_: int = 0):
+    """The scatter's fields of ``tables`` (SCATTER_FIELDS) with the first
+    haplotype's species range taken away (its reads classify to -1) and a
+    quarter of the segments' trio matches set to -1."""
+    masked = SimpleNamespace(**{k: getattr(tables, k) for k in SCATTER_FIELDS})
+    masked.hap_range = tables.hap_range.clone()
+    masked.hap_range[0] = -1
+    rng = np.random.default_rng(seed_)
+    drop = torch.from_numpy(rng.random(tables.trio_seg.shape[0]) < 0.25)
+    masked.trio_seg = torch.where(drop.to(tables.trio_seg.device), -1,
+                                  tables.trio_seg)
+    return masked
+
+
+def interval_batch(index, n: int, max_span: int, seed_: int):
+    """``n`` intervals of 1..max_span segments at random over the text (an
+    interval feed's batch): (ts int32, te int32, live bool) numpy."""
+    rng = np.random.default_rng(seed_)
+    k = rng.integers(1, max_span + 1, size=n)
+    ts, te = _intervals(rng, index, rng.integers(0, np.maximum(
+        len(index.tstart) - k + 1, 1)), k)
+    return ts.astype(np.int32), te.astype(np.int32), np.ones(n, bool)
+
+
+def zero_accs(tables, M: int, dev) -> tuple:
+    """The fused pipeline's five accumulators, zero, each with its sink."""
+    return (torch.zeros(tables.N_pad + 1, dtype=torch.int64, device=dev),
+            torch.zeros(tables.TB_pad + 1, dtype=torch.int32, device=dev),
+            torch.zeros(tables.U_pad + 1, dtype=torch.int64, device=dev),
+            torch.zeros(M + 1, dtype=torch.int32, device=dev),
+            torch.zeros(M + 1, dtype=torch.int32, device=dev))
+
+
+def hold_scatter(cols, tables, tstart, tnode, what: str,
+                 L_cap: int | None = None) -> int:
+    """K6 (``L_cap`` None) or K11 at ``L_cap`` against its plain version
+    on the same rows ``cols`` = (ts, te, aligned), each from zero
+    accumulators: ridx (and overflow) and every accumulator bit for bit,
+    the plain version's sink slots aside (the diff array's last slot, which
+    its dropped pairs net to 0, included); the kernel's sinks stay 0.
+    Returns the largest absolute difference (0)."""
+    dev, M = tstart.device, tstart.shape[0]
+    acc_k, acc_p = zero_accs(tables, M, dev), zero_accs(tables, M, dev)
+    if L_cap is None:
+        ker = (scatter.classify_scatter_ranges_cuda(*cols, tables, tstart,
+                                                    tnode, acc_k),)
+        plain = (scatter.classify_scatter_ranges_plain(*cols, tables, tstart,
+                                                       tnode, acc_p),)
+        name, names = "K6", ("ridx",)
+    else:
+        ker = scatter.classify_scatter_cuda(*cols, tables, tstart, tnode,
+                                            acc_k, L_cap)
+        plain = scatter.classify_scatter_plain(*cols, tables, tstart, tnode,
+                                               acc_p, L_cap)
+        name, names = "K11", ("ridx", "overflow")
+    torch.cuda.synchronize()
+    sinks = (tables.N_pad, tables.TB_pad + 1, tables.U_pad, M, M)
+    pairs = [(n, k, p) for n, k, p in zip(names, ker, plain)] + [
+        (f"acc[{i}]", a[:n], b[:n])
+        for i, (a, b, n) in enumerate(zip(acc_k, acc_p, sinks))]
+    err = max(int((k.long() - p.long()).abs().max()) for _, k, p in pairs
+              if k.numel())
+    for n, k, p in pairs:
+        if k.dtype != p.dtype or not torch.equal(k, p):
+            raise AssertionError(f"{name} != plain on {n} {what}")
+    if any(int(a[n:].abs().sum()) for a, n in zip(acc_k, sinks)):
+        raise AssertionError(f"{name} added into a sink slot {what}")
+    live = int((cols[2] & (ker[0] >= 0)).sum())
+    print(f"{name} == plain {what} (ridx{', overflow' if L_cap else ''} and "
+          f"the accumulators bit-identical; {live} of {len(cols[0])} rows "
+          f"classified)")
+    return err
+
+
+def scatter_work(cols, tables, tstart, tnode, L_cap: int | None = None):
+    """(bytes, live rows, gathers, atomics) K6 (``L_cap`` None) or K11 at
+    ``L_cap`` needs on the rows ``cols``, as the kernel does its work: the
+    per-read columns read once and ridx (and overflow) written; each 32-byte
+    sector gathered from the segment, node and trio tables for the live rows
+    (and, for K11, the aligned ones, whose overflow needs i0 and the start
+    scan) and each integer atomic as a sector read and written (64 bytes);
+    the haplotype tables once."""
+    locate_segment = scatter.locate_segment  # K6's and K11's bisection
+    t = tables
+    ts, te, aligned = cols
+    M = tstart.shape[0]
+    h = (torch.searchsorted(t.hap_offsets, ts, right=True) - 1).clamp(
+        0, t.hap_range.shape[0] - 1)
+    ridx = torch.where(aligned, t.hap_range[h], -1)
+    i0 = locate_segment(tstart, t.pos_lo, t.win_shift, t.pos_steps, ts)
+    rs = (ts - tstart[i0]).long()
+    tgt = (te - ts).long()
+    nbytes = (9 + 4 + (L_cap is not None)) * ts.shape[0] + 4 * (
+        t.hap_offsets.shape[0] + t.hap_range.shape[0])
+
+    def ceil8(x):
+        return (x + 7) // 8
+
+    if L_cap is None:
+        live = aligned & (ridx >= 0) & (te > ts)
+        i1 = locate_segment(tstart, t.pos_lo, t.win_shift, t.pos_steps,
+                            torch.maximum(te - 1, ts))
+        span = i1 - i0 + 1
+        multi, trio3 = live & (span >= 2), live & (span >= 3)
+        n0, n1 = tnode[i0] - 1, tnode[i1] - 1
+        nlen0, nlen1 = t.nodes_len[n0].long(), t.nodes_len[n1].long()
+        rem = (te - tstart[i1]).long()
+        m0, m1 = t.trio_seg[i0], t.trio_seg[(i1 - 2).clamp(min=0)]
+        gathers = 4 * live.sum() + 6 * multi.sum() + 2 * trio3.sum()
+        atomics = (3 * (live & ~multi).sum()
+                   + 3 * (multi & (nlen0 != rs)).sum()
+                   + 3 * (multi & (rem != 0)).sum() + 4 * trio3.sum()
+                   + (trio3 & (m0 >= 0) & (rs != 0)).sum()
+                   + (trio3 & (m1 >= 0) & (nlen1 != rem)).sum())
+    else:
+        cols1 = torch.arange(1, L_cap + 1, device=ts.device)[None, :]
+        nxt = i0[:, None] + cols1
+        starts = torch.where(nxt < M, tstart[nxt.clamp(max=M - 1)],
+                             torch.iinfo(torch.int32).max)
+        n_more = (starts <= torch.maximum(te - 1, ts)[:, None]).sum(dim=1)
+        overflow = aligned & (n_more >= L_cap)
+        span = n_more + 1
+        single = span == 1
+        live = aligned & (ridx >= 0) & ~overflow & ~(single & (tgt < 0))
+        gathers = (2 * aligned.sum()
+                   + ceil8((n_more + 1).clamp(max=L_cap))[aligned].sum())
+        pos = torch.arange(L_cap, device=ts.device)[None, :]
+        valid = live[:, None] & (pos < span[:, None])
+        take = (i0[:, None] + pos).clamp(max=M - 1)
+        node = tnode[take] - 1
+        nl = t.nodes_len[node].long()
+        a_nolast = torch.where(valid, torch.where(pos == 0, nl - rs[:, None],
+                                                  nl), 0)
+        seen = torch.cumsum(a_nolast, dim=1) - a_nolast
+        alloc = torch.where(pos == (span - 1)[:, None],
+                            (tgt[:, None] - seen).clamp(min=0), a_nolast)
+        alloc = torch.where(valid, torch.where(single[:, None], tgt[:, None],
+                                               alloc), 0)
+        start = torch.where(pos == 0, rs[:, None], 0)
+        lo = torch.minimum(start.clamp(min=0), nl)
+        hi = torch.minimum(torch.maximum(start + alloc, lo), nl)
+        in_b = (tgt > 0)[:, None] & ((rs + tgt)[:, None] <= nl)
+        d_add = valid & (~single[:, None] | in_b) & (lo != hi)
+        if t.has_dups:
+            nid = torch.where(valid, node, -1)
+            eq = (nid[:, None, :] == nid[:, :, None]) & valid[:, None, :] & \
+                valid[:, :, None]
+            k_first = torch.where(eq, pos[:, :, None], L_cap).amin(dim=1)
+            first = valid & (k_first == pos)
+            ppv = alloc.gather(1, k_first.clamp(max=L_cap - 1))
+        else:
+            first, ppv = valid, alloc
+        atomics = 2 * d_add.sum() + (first & (alloc != 0)).sum()
+        gathers = gathers + (ceil8(span) + span)[live].sum() + d_add.sum()
+        if L_cap >= 3:
+            w_ok = live[:, None] & (pos[:, :L_cap - 2] + 2 < span[:, None])
+            m = t.trio_seg[take[:, :L_cap - 2]]
+            v = ppv[:, :-2] + ppv[:, 1:-1] + ppv[:, 2:]
+            atomics = atomics + (w_ok & (m >= 0) & (v != 0)).sum()
+            gathers = gathers + ceil8(span - 2)[live & (span >= 3)].sum()
+    gathers, atomics = int(gathers), int(atomics)
+    return nbytes + 32 * gathers + 64 * atomics, int(live.sum()), gathers, \
+        atomics
+
+
+def scatter_bound(cols, tables, tstart, tnode, L_cap: int | None = None
+                  ) -> tuple[float, str, str]:
+    """(bound ms, "bytes", what went into it) of K6 / K11 on ``cols``:
+    scatter_work's bytes over the HBM rate."""
+    nbytes, live, g, a = scatter_work(cols, tables, tstart, tnode, L_cap)
+    per = max(live, 1)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", (
+        f"{live} live rows, {g / per:.2f} gathers and {a / per:.2f} atomics "
+        f"a live row, {nbytes / 1e6:.2f} MB")
+
+
+def crafted_setup(path: str, dev, make_db):
+    """(index, tables, tstart, tnode) on ``dev`` of the DB ``make_db(path)``
+    (a cache load where it was built before)."""
+    db = make_db(path)
+    index = _host.build_align_index(db)
+    tstart, tnode = (torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+                     for a in (index.tstart, index.tnode))
+    return index, build_fused_tables(db, index, dev), tstart, tnode
+
+
+def crafted_scatter(build: str, dev, L_caps) -> int:
+    """K6 (``L_caps`` None) or K11 at each of ``L_caps`` (DB name -> node
+    window) against its plain version on every crafted case of
+    scatter_cases, with the tables as built and masked_tables; returns the
+    largest difference (0)."""
+    dbs = {"tiny": lambda p: tiny_db(p),
+           "dup_small": lambda p: dup_db(p, n_species=2, strains=2,
+                                         n_blocks=400)}
+    err = 0
+    for name, caps in ((n, (L_caps or {}).get(n, (None,))) for n in dbs):
+        index, tables, tstart, tnode = crafted_setup(
+            os.path.join(build, "tiny_db" if name == "tiny" else name), dev,
+            dbs[name])
+        for L_cap in caps:
+            cases = scatter_cases(index, L_cap or 32)
+            for tag, t in (("", tables), (", masked", masked_tables(tables))):
+                for case, arrays in cases.items():
+                    cols = [torch.from_numpy(a).to(dev) for a in arrays]
+                    err = max(err, hold_scatter(
+                        cols, t, tstart, tnode,
+                        f"on {name}'s crafted case {case}{tag}"
+                        + (f" at L_cap {L_cap}" if L_cap else ""), L_cap))
+    return err
+
+
+def query_cols(aligner, codes, lens) -> tuple:
+    """(ts, te, aligned) of the query on a host batch, as the fused step's
+    scatter gets them."""
+    ts, te, _s, _m, _q, _st, aligned = aligner.query(
+        *aligner.upload(codes, lens))
+    return ts, te, aligned
+
+
+def time_scatter(cols, tables, tstart, tnode, L_cap: int | None = None
+                 ) -> tuple[float, float]:
+    """(kernel ms, plain ms) of K6 (``L_cap`` None) or K11 at ``L_cap`` on
+    the rows ``cols``, each on accumulators of its own (CUDA events, the
+    stream held while the host enqueues; 51 and 11 calls add at most that
+    many times each row's entries, far inside int32)."""
+    args = (*cols, tables, tstart, tnode)
+    if L_cap is None:
+        fns = (lambda a: scatter.classify_scatter_ranges_cuda(*args, a),
+               lambda a: scatter.classify_scatter_ranges_plain(*args, a))
+    else:
+        fns = (lambda a: scatter.classify_scatter_cuda(*args, a, L_cap),
+               lambda a: scatter.classify_scatter_plain(*args, a, L_cap))
+    out = []
+    for fn, iters in zip(fns, (50, 10)):
+        acc = zero_accs(tables, tstart.shape[0], tstart.device)
+        out.append(cuda_ms(lambda: fn(acc), iters, hold=True))
+    return out[0], out[1]
+
+
+def scatter_timings(name: str, cases, tables, tstart, tnode) -> tuple:
+    """time_scatter and scatter_bound of K6 or K11 on each of ``cases``
+    ((tag, cols, L_cap), the first the kernel's headline), printed with
+    the card's line.  Returns (times by tag, the first case's bound)."""
+    card, times, first = card_line(), {}, None
+    for tag, cols, L_cap in cases:
+        ms, plain = time_scatter(cols, tables, tstart, tnode, L_cap)
+        b = scatter_bound(cols, tables, tstart, tnode, L_cap)
+        first = first or b
+        times.update({tag: ms, f"plain_{tag}": plain, f"bound_{tag}": b[0]})
+        at = f" (L_cap {L_cap})" if L_cap else ""
+        print(f"{name} [{card}] {tag}{at}: {ms:.4f} ms, plain torch "
+              f"{plain:.3f} ms, bound {b[0]:.4f} ms (bytes: {b[2]}), "
+              f"{b[0] / ms:.3f} of the bound")
+    return times, first
+
+
+def k6_phase(build: str, dev, aligner, index, tables, codes, lens) -> tuple:
+    """Phase 3c, K6: against its plain version on the crafted cases (tiny
+    and the small dup community), on phase 5's first batch, on a paired
+    [2B] batch and on a long-read interval batch (spans of up to 160
+    segments), and timed with the plain version on each.  Returns (largest
+    difference, ms, plain ms, bound ms, bound_by, times by case, shape) at
+    phase 5's batch."""
+    errs = [crafted_scatter(build, dev, None)]
+    ts_, tn_ = aligner.tstart, aligner.tnode
+    main = query_cols(aligner, codes[:BATCH], lens[:BATCH])
+    (c1, l1, c2, l2), _ = simulate_pairs(index, BATCH, seed=17)
+    r1, r2 = aligner.query_paired(*aligner.upload(c1, l1),
+                                  *aligner.upload(c2, l2))
+    paired = tuple(torch.cat([r1[i], r2[i]]) for i in (0, 1, 6))
+    iv = tuple(torch.from_numpy(a).to(dev)
+               for a in interval_batch(index, LONG_BATCH, 160, seed_=23))
+    for cols, what in ((main, f"on phase 5's first batch (B={BATCH})"),
+                       (paired, f"on a paired batch (2B={2 * BATCH})"),
+                       (iv, f"on an interval batch ({LONG_BATCH} rows, "
+                            f"1-160 segments)")):
+        errs.append(hold_scatter(cols, tables, ts_, tn_, what))
+    times, bound = scatter_timings(
+        "K6", (("main", main, None), ("paired", paired, None),
+               ("intervals", iv, None)), tables, ts_, tn_)
+    return (max(errs), times["main"], times["plain_main"], bound[0],
+            bound[1], times, f"B {BATCH}, smoke DB (scale_db)")
+
+
+def k11_phase(build: str, dev, aligner, index, tables, codes, lens,
+              L_cap: int) -> tuple:
+    """Phase 3c, K11 (in phase 9, after (b), where the dup DB is built):
+    against its plain version on the crafted cases (tiny_db at an 8-segment
+    window, the small dup community at 4 and 32), on the dup DB's first
+    batch at the automatic window ``L_cap`` and at 3 segments (overflow), on
+    an interval batch at 8 (spans of 1-8 segments, an interval feed's
+    windowed rows), and timed with the plain version on each.  Returns
+    (largest difference, ms, plain ms, bound ms, bound_by, times by case,
+    shape) at the automatic window."""
+    errs = [crafted_scatter(build, dev, {"tiny": (8,), "dup_small": (4, 32)})]
+    ts_, tn_ = aligner.tstart, aligner.tnode
+    main = query_cols(aligner, codes[:BATCH], lens[:BATCH])
+    iv = tuple(torch.from_numpy(a).to(dev)
+               for a in interval_batch(index, LONG_BATCH, 8, seed_=29))
+    cases = (("main", main, L_cap), ("L3", main, 3), ("intervals", iv, 8))
+    for (tag, cols, cap), what in zip(cases, (
+            f"on the dup DB's first batch (B={BATCH}) at L_cap {L_cap}",
+            f"on the dup DB's first batch (B={BATCH}) at L_cap 3",
+            f"on an interval batch ({LONG_BATCH} rows, 1-8 segments) at "
+            f"L_cap 8")):
+        errs.append(hold_scatter(cols, tables, ts_, tn_, what, cap))
+    times, bound = scatter_timings("K11", cases, tables, ts_, tn_)
+    return (max(errs), times["main"], times["plain_main"], bound[0],
+            bound[1], times, f"B {BATCH}, dup_db, L_cap {L_cap}")
+
+
+def _check_scatter(launches: dict, what: str, key: str, tally: str) -> None:
+    if launches[key] != launches[tally] or launches[key + "_plain"]:
+        raise AssertionError(
+            f"{what}: {key} launches {launches[key]} for {launches[tally]} "
+            f"dispatches, plain scatter {launches[key + '_plain']}")
+    if launches[key]:
+        SCATTER_BY_PATH[key][what.replace(" ", "_")] = launches[key]
+
+
+def check_k6(launches: dict, what: str) -> None:
+    """K6 launched once per range dispatch of the fused pipeline, the plain
+    range scatter never; records the path's launches."""
+    _check_scatter(launches, what, "classify_scatter_ranges",
+                   "scatter_range_dispatch")
+
+
+def check_k11(launches: dict, what: str) -> None:
+    """K11 launched once per windowed dispatch of the fused pipeline, the
+    plain windowed scatter never; records the path's launches."""
+    _check_scatter(launches, what, "classify_scatter",
+                   "scatter_window_dispatch")
+
+
+def check_dispatches(launches: dict, what: str, n_range: int,
+                     n_window: int) -> None:
+    """The path's scatter dispatches are its own count of range and
+    windowed batches (one scatter per query dispatch or interval batch)."""
+    got = (launches["scatter_range_dispatch"],
+           launches["scatter_window_dispatch"])
+    if got != (n_range, n_window):
+        raise AssertionError(f"{what}: range / windowed dispatches {got}, "
+                             f"batches {(n_range, n_window)}")
 
 
 def cross_device_check(build: str, dev) -> None:
@@ -1090,6 +1550,7 @@ def main_path(build: str, dev, issue_peak: float):
     err1, ms, plain_ms = check_kernel(index.text, dev, 2 * BATCH, 160, 4,
                                       seed=1, timed=True)
     k3 = seed_phase(db, index, aligner, codes, lens, dev, issue_peak)
+    k6 = k6_phase(build, dev, aligner, index, tables, codes, lens)
 
     cfg = _host.ProfilingConfig.for_read_type("short")
     cfg.tail = "host"
@@ -1119,10 +1580,11 @@ def main_path(build: str, dev, issue_peak: float):
     if launches["banded_extend_plain"] != 0:
         raise AssertionError("the plain DP ran on the CUDA main path")
     check_k3(launches, "short")
+    check_dispatches(launches, "short", stage["n_batches"], 0)
     # reads_classification.tsv rows are R<read index>
     check_tables(out, np.asarray(index.hap_species, dtype=object)[hap],
                  N_READS, stage["n_aligned"], "aligned")
-    return ((launches["banded_extend"], err1, ms, plain_ms), k3,
+    return ((launches["banded_extend"], err1, ms, plain_ms), k3, k6,
             (db, index, tables), (codes, lens, hap, out))
 
 
@@ -1186,6 +1648,7 @@ def long_path(build: str, dev, db, index, tables):
     if launches["banded_extend_plain"] or launches["banded_extend_windows_plain"]:
         raise AssertionError("a plain DP ran on the CUDA long-read path")
     check_k3(launches, "long")
+    check_dispatches(launches, "long", pipe.n_interval_batches, 0)
     if pipe.n_interval_batches != -(-len(merged.read_ids) // LONG_BATCH):
         raise AssertionError("unexpected number of interval batches")
     check_tables(out, np.asarray(index.hap_species, dtype=object)[hap],
@@ -1316,6 +1779,7 @@ def paired_path(build: str, dev, db, index, tables):
     if launches["banded_extend_plain"] != 0:
         raise AssertionError("the plain DP ran on the CUDA paired path")
     check_k3(launches, "paired")
+    check_dispatches(launches, "paired", pipe.n_batches, 0)
     # reads_classification.tsv rows are A<pair index> / B<pair index>
     check_tables(out, np.asarray(index.hap_species, dtype=object)[hap],
                  2 * N_PAIRS, n_aligned, "aligned", min_frac=0.99)
@@ -1332,8 +1796,9 @@ def paired_path(build: str, dev, db, index, tables):
 
 
 def dup_path(build: str, dev):
-    """Phase 9: the dup-graph community through the windowed scatter.
-    Returns K1's launches by path and K2's on the long reads."""
+    """Phase 9 (and phase 3c's K11 half): the dup-graph community through
+    the windowed scatter.  Returns K1's launches by path, K2's on the long
+    reads and k11_phase's results."""
     t0 = time.time()
     db = dup_db(os.path.join(build, "dup_db"))
     index = _host.build_align_index(db)
@@ -1379,23 +1844,24 @@ def dup_path(build: str, dev):
     if launches["banded_extend_plain"] != 0:
         raise AssertionError("the plain DP ran on the CUDA dup path")
     check_k3(launches, "dup short")
+    check_dispatches(launches, "dup short", 0, stage["n_batches"])
     check_tables(out, truth[hap], N_READS, stage["n_aligned"], "aligned",
                  min_frac=0.99)
     by_path = {"dup_short": launches["banded_extend"]}
+    k11 = k11_phase(build, dev, aligner, index, tables, codes, lens, L_cap)
 
-    # the windowed classify+scatter of one batch, against the range scatter
-    # of the same intervals (same reads, not exact on this DB: timing only)
-    up = aligner.upload(codes[:BATCH], lens[:BATCH])
-    ts, te, _s, _m, _q, _st, aligned = aligner.query(*up)
-    pipe = FusedPipeline(aligner, tables, BATCH)
-    win_ms = cuda_ms(lambda: classify_scatter(
-        ts, te, aligned, tables, aligner.tstart, aligner.tnode, pipe.acc,
-        L_cap), 20)
-    rng_ms = cuda_ms(lambda: classify_scatter_ranges(
-        ts, te, aligned, tables, aligner.tstart, aligner.tnode, pipe.acc), 20)
-    print(f"dup: windowed classify+scatter {win_ms:.3f} ms per batch of "
-          f"{BATCH} reads at L_cap {L_cap} (the range scatter over the same "
-          f"intervals {rng_ms:.3f} ms)")
+    # the windowed classify+scatter of one batch, K11 and its plain
+    # version, against the range scatter of the same intervals, K6 and its
+    # plain version (same reads, not exact on this DB: timing only)
+    cols = query_cols(aligner, codes[:BATCH], lens[:BATCH])
+    k11_ms, k11_plain = time_scatter(cols, tables, aligner.tstart,
+                                     aligner.tnode, L_cap)
+    k6_ms, k6_plain = time_scatter(cols, tables, aligner.tstart,
+                                   aligner.tnode)
+    print(f"dup: windowed classify+scatter per batch of {BATCH} reads at "
+          f"L_cap {L_cap}: K11 {k11_ms:.4f} ms, plain torch {k11_plain:.3f} "
+          f"ms (the range scatter over the same intervals: K6 {k6_ms:.4f} "
+          f"ms, plain torch {k6_plain:.3f} ms)")
 
     # (c) the first batch at the automatic window and at 3 segments
     res = []
@@ -1446,6 +1912,7 @@ def dup_path(build: str, dev):
     if launches["banded_extend_plain"] != 0:
         raise AssertionError("the plain DP ran on the CUDA dup paired path")
     check_k3(launches, "dup paired")
+    check_dispatches(launches, "dup paired", 0, pipe.n_batches)
     check_tables(out, truth[phap], 2 * N_PAIRS,
                  int(result.reads["aligned"].sum()), "aligned", min_frac=0.99)
     by_path["dup_paired"] = launches["banded_extend"]
@@ -1491,13 +1958,14 @@ def dup_path(build: str, dev):
     if launches["banded_extend_plain"] or launches["banded_extend_windows_plain"]:
         raise AssertionError("a plain DP ran on the CUDA dup long-read path")
     check_k3(launches, "dup long")
+    check_dispatches(launches, "dup long", 0, pipe.n_interval_batches)
     if pipe.interval_rows["range"]:
         raise AssertionError("dup long: rows took the range scatter")
     check_tables(out, truth[lhap], N_DUP_LONG, len(merged.read_ids),
                  "emitted")
     by_path["dup_long"] = launches["banded_extend"]
-    return by_path, launches["banded_extend_windows"], (db, index, reads,
-                                                        lhap)
+    return by_path, launches["banded_extend_windows"], k11, (db, index,
+                                                             reads, lhap)
 
 
 # ---------------------------------------------------------------------------
@@ -1913,6 +2381,7 @@ def cli_flow(build: str, card: str, scale, fused_out: str, phap,
         os.path.join(build, "cli_short_cls.tsv")], "cli short", card)
     n_batches = fastpath_batches([fq], BATCH)
     check_k1(launches, n_batches, "cli short")
+    check_dispatches(launches, "cli short", n_batches, 0)
     k1["cli_short"] = launches["banded_extend"]
     fused = [os.path.join(fused_out, n) for n in (
         "species_abundance.txt", "strain_abundance.txt",
@@ -1945,6 +2414,7 @@ def cli_flow(build: str, card: str, scale, fused_out: str, phap,
         os.path.join(build, "cli_paired")], "cli paired", card)
     n_batches = fastpath_batches([p1, p2], PAIR_BATCH)
     check_k1(launches, n_batches, "cli paired")
+    check_dispatches(launches, "cli paired", n_batches, 0)
     k1["cli_paired"] = launches["banded_extend"]
     with open(os.path.join(tmp, "reads_classification.tsv")) as f:
         n_out = sum(1 for _ in f)
@@ -1969,7 +2439,8 @@ def cli_flow(build: str, card: str, scale, fused_out: str, phap,
         "-d", db_dir, "-l", "--fastpath", "-r", lfq, "--long-read-type",
         READ_TYPE, "--batch-size", str(LONG_BATCH), "-T", tmp, "--debug",
         "-o", os.path.join(build, "cli_long")], "cli long", card)
-    for key in ("banded_extend", "banded_extend_windows"):
+    for key in ("banded_extend", "banded_extend_windows",
+                "classify_scatter_ranges"):
         if launches[key] != long_launches[key] or not launches[key]:
             raise AssertionError(f"cli long: {key} launched {launches[key]} "
                                  f"times, phase 7 {long_launches[key]}")
@@ -1987,6 +2458,7 @@ def cli_flow(build: str, card: str, scale, fused_out: str, phap,
         str(BATCH), "-T", tmp, "-o", os.path.join(build, "cli_gaf"), "-R",
         os.path.join(build, "cli_gaf_cls.tsv")], "cli gaf short", card)
     check_k1(launches, gaf_k1, "cli gaf short")
+    check_dispatches(launches, "cli gaf short", 0, 0)
     k1["cli_gaf_short"] = launches["banded_extend"]
     same_tables(zip([os.path.join(gaf_out, n) for n in (
         "species_abundance.txt", "strain_abundance.txt",
@@ -2043,6 +2515,7 @@ def mesh_path(build: str, dev, card: str, scale, short) -> int:
             or launches["banded_extend_plain"]):
         raise AssertionError("mesh short: K1 not launched once per row block")
     check_k3(launches, "mesh short")
+    check_dispatches(launches, "mesh short", n_batches, 0)
     for name in ("na_d", "ta_d", "bc_d"):
         if not torch.equal(getattr(res, name), getattr(one, name)):
             raise AssertionError(f"mesh short: {name} differs from one device")
@@ -2151,7 +2624,9 @@ def run_ranks(argv: list, what: str, card: str, base: str) -> list:
               f"{setup:.3f} s, align+cover {align:.3f} s, merge "
               f"{stage_seconds(st, 'cross-process merge'):.3f} s; "
               f"K1 {la['banded_extend']}, K2 {la['banded_extend_windows']}, "
-              f"K3 {la['seed_stage']}, plain DPs {la['banded_extend_plain']} "
+              f"K3 {la['seed_stage']}, K6 {la['classify_scatter_ranges']}, "
+              f"K11 {la['classify_scatter']}, plain DPs "
+              f"{la['banded_extend_plain']} "
               f"and {la['banded_extend_windows_plain']}, plain seed stage "
               f"{la['seed_stage_plain']}")
         print(f"  {what} rank {i} stages: " + "; ".join(
@@ -2208,6 +2683,8 @@ def dist_flow(build: str, card: str, db_dir: str,
     got = [r["launches"]["banded_extend"] for r in reps]
     if got != want:
         raise AssertionError(f"dist short: K1 {got}, dispatches {want}")
+    for i, r in enumerate(reps):
+        check_dispatches(r["launches"], f"dist short rank {i}", want[i], 0)
     k1["dist_short"] = sum(got)
     same_tables(zip([os.path.join(build, n) for n in (
         "cli_short_species_abundance.txt", "cli_short_strains_abundance.txt",
@@ -2226,6 +2703,8 @@ def dist_flow(build: str, card: str, db_dir: str,
     got = [r["launches"]["banded_extend"] for r in reps]
     if not all(got):
         raise AssertionError(f"dist paired: K1 {got}, a rank owned no chunk")
+    for i, r in enumerate(reps):  # one scatter per paired query dispatch
+        check_dispatches(r["launches"], f"dist paired rank {i}", got[i], 0)
     k1["dist_paired"] = sum(got)
     ref = os.path.join(build, "cli_paired")
     same_tables([(f"{ref}_species_abundance.txt", os.path.join(r0, names[0])),
@@ -2247,7 +2726,8 @@ def dist_flow(build: str, card: str, db_dir: str,
                       "--long-read-type", READ_TYPE, "--batch-size",
                       str(LONG_BATCH), "--debug", *out], "dist long", card,
                      base)
-    for key in ("banded_extend", "banded_extend_windows"):
+    for key in ("banded_extend", "banded_extend_windows",
+                "classify_scatter_ranges"):
         got = [r["launches"][key] for r in reps]
         if got != [long_launches[key], 0]:
             raise AssertionError(f"dist long: {key} {got}, phase 7 "
@@ -2304,7 +2784,9 @@ def bench_run(what: str, card: str, fn, *args, k2: bool = False, **kw):
     shown = {k: v for k, v in res.items() if k not in ("pred", "truth")}
     print(f"{what} [{card}]: {json.dumps(shown)}; runner {wall:.3f} s; K1 "
           f"{launches['banded_extend']}, K2 "
-          f"{launches['banded_extend_windows']}")
+          f"{launches['banded_extend_windows']}, K6 "
+          f"{launches['classify_scatter_ranges']}, K11 "
+          f"{launches['classify_scatter']}")
     if (not launches["banded_extend"]
             or k2 != bool(launches["banded_extend_windows"])):
         raise AssertionError(f"{what}: K1 / K2 launches {launches}")
@@ -2546,11 +3028,12 @@ def main() -> None:
           f"TB/s")
     build = str(extend.build_dir())
     t0 = time.time()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
         built = [pool.submit(extend.build_kernels),
-                 pool.submit(seed.build_seed_kernel)]
-        lib, lib3 = (f.result() for f in built)
-    print(f"kernel build (K1 and K2, K3; two nvcc processes) "
+                 pool.submit(seed.build_seed_kernel),
+                 pool.submit(scatter.build_scatter_kernels)]
+        lib, lib3, lib6 = (f.result() for f in built)
+    print(f"kernel build (K1 and K2, K3, K6 and K11; three nvcc processes) "
           f"{time.time() - t0:.2f} s")
     print(f"SASS of K1 and K2: {sass_counts(lib._name)}")
     k1_sass = {f"pad{pad}": step_sass(lib._name, 2 * pad) for pad in (4, 8)}
@@ -2561,7 +3044,8 @@ def main() -> None:
     print(f"K2 main step loop SASS: {json.dumps(k2_sass)}")
     k3_sass = vote_sass(lib3._name)
     print(f"K3 vote loop SASS (seed_stage_kernel<2>): {json.dumps(k3_sass)}")
-    for ln in ptxas_lines(lib.build_log) + ptxas_lines(lib3.build_log):
+    for ln in (ptxas_lines(lib.build_log) + ptxas_lines(lib3.build_log)
+               + ptxas_lines(lib6.build_log)):
         print(f"  ptxas: {ln}")
 
     rng = np.random.default_rng(0)
@@ -2569,7 +3053,7 @@ def main() -> None:
                             np.full(1024, 4, np.int8)])
     err2, _, _ = check_kernel(text8, dev, 4096, 96, 8, seed=2, timed=False)
     cross_device_check(build, dev)
-    (launches, err1, ms, plain_ms), k3, (db, index, tables), short = \
+    (launches, err1, ms, plain_ms), k3, k6, (db, index, tables), short = \
         main_path(build, dev, issue_peak)
     err3, ms3, plain_ms3, bound3, by3, k3_times = k3
     err_c = check_kernel_clamped(index.text, dev)
@@ -2596,7 +3080,7 @@ def main() -> None:
           f"{bound2:.4f} ms ({by2}) at N={LONG_BATCH} Lr={chunk} pad=8")
     long_launches, long_reads = long_path(build, dev, db, index, tables)
     paired_launches, pairs = paired_path(build, dev, db, index, tables)
-    dup_launches, dup_k2, dup_long = dup_path(build, dev)
+    dup_launches, dup_k2, k11, dup_long = dup_path(build, dev)
     card = card_line()
     gaf_k1, gaf_k2, gaf_out = gaf_flow(build, dev, card, (db, index), short,
                                        pairs, dup_long)
@@ -2640,6 +3124,12 @@ def main() -> None:
              plain_ms=plain_ms3, bound_ms=bound3, bound_by=by3,
              library_ms=None, shape=f"B {BATCH}, L 160, CHD, density {index.density_bits}",
              ms_by_case=k3_times, vote_sass=k3_sass),
+        *(dict(kernel, launches=sum(SCATTER_BY_PATH[kernel["name"]].values()),
+               launches_by_path=SCATTER_BY_PATH[kernel["name"]],
+               max_abs_err=res[0], ms=res[1], plain_ms=res[2],
+               bound_ms=res[3], bound_by=res[4], library_ms=None,
+               shape=res[6], ms_by_case=res[5])
+          for kernel, res in ((KERNEL6, k6), (KERNEL11, k11))),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

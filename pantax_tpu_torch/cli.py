@@ -392,9 +392,9 @@ def _aligner(index, read_type: str, dev, mesh):
 
 
 def _warm_kernels(args, db, index, dev, mesh) -> None:
-    """--index --warm-kernels: build K1, K2 and K3 (on a card), then run one
-    batch of each device path the profiling flows take, so a later run
-    pays no first use: the query over all-N reads of zero and of full
+    """--index --warm-kernels: build K1-K3, K6 and K11 (on a card), then
+    run one batch of each device path the profiling flows take, so a later
+    run pays no first use: the query over all-N reads of zero and of full
     length, and on the short path the fused step and the device profile
     tail over a uniform coverage; on the long path the chunk query and
     the seed-free extension at the preset chunk."""
@@ -405,11 +405,13 @@ def _warm_kernels(args, db, index, dev, mesh) -> None:
 
     if dev.type == "cuda":
         from .ops.extend import build_kernels
+        from .ops.scatter import build_scatter_kernels
         from .ops.seed import build_seed_kernel
 
-        with stage_timer("kernel build (K1, K2, K3)"):
+        with stage_timer("kernel build (K1, K2, K3, K6, K11)"):
             build_kernels()
             build_seed_kernel()
+            build_scatter_kernels()
     aligner = _aligner(index, "long" if args.long_read else "short", dev, mesh)
     B = args.batch_size
     if args.long_read:

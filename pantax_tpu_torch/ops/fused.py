@@ -5,16 +5,21 @@ Per read batch, one pass on the device: the aligner query, the haplotype
 classification, and the coverage scatter into the accumulators.  Two
 formulations, chosen per DB as the reference chooses them:
 
-- the range decomposition (``classify_scatter_ranges``): ~12 scatter-adds
-  per read, segment-space depth diffs folded into the node / base / trio
-  accumulators once at finish (``expand_ranges``); exact on DBs whose
-  haplotypes never revisit a node within one read's span;
-- the windowed scatter (``classify_scatter``): each read's first ``L_cap``
-  segments as a padded node-path row (``coverage_scatter``, with the
-  first-occurrence dedup where a haplotype revisits a node).  Reads that
-  span more segments are counted and left out of the device scatter; their
-  contributions come from the host oracle (``host_residual_updates``) at
-  finish.
+- the range decomposition (``classify_scatter_ranges``, K6 on the card):
+  ~12 scatter-adds per read, segment-space depth diffs folded into the
+  node / base / trio accumulators once at finish (``expand_ranges``); exact
+  on DBs whose haplotypes never revisit a node within one read's span;
+- the windowed scatter (``classify_scatter``, K11 on the card): each read's
+  first ``L_cap`` segments as a node-path row (``coverage_scatter``'s
+  allocation, with the first-occurrence dedup where a haplotype revisits a
+  node).  Reads that span more segments are counted and left out of the
+  device scatter; their contributions come from the host oracle
+  (``host_residual_updates``) at finish.
+
+Both live in ops/scatter.py, with their plain torch versions; each scatter
+a fused step or an interval batch dispatches is tallied in
+``extend.LAUNCHES`` ("scatter_range_dispatch", "scatter_window_dispatch"),
+so a run can hold the kernels' launches to it.
 
 Paired feeds run the joint mate query and scatter both mates
 (``feed_paired``); interval feeds (the long-read flow's merged per-read
@@ -50,8 +55,10 @@ import torch
 from torch import nn
 
 from .. import _host
-from .coverage_device import (
-    _add, build_padded_tables, coverage_finalize, coverage_scatter,
+from .coverage_device import _add, build_padded_tables, coverage_finalize
+from .extend import LAUNCHES
+from .scatter import (  # noqa: F401 (locate_segment: the reference's name)
+    classify_scatter, classify_scatter_ranges, locate_segment,
 )
 
 
@@ -247,124 +254,8 @@ def build_fused_tables(db, index, device) -> FusedTables:
 
 
 # ---------------------------------------------------------------------------
-# device step (plain torch)
+# device step: the classify + scatter (K6, K11: ops/scatter.py) and the fold
 # ---------------------------------------------------------------------------
-def locate_segment(tstart, pos_lo, win_shift: int, steps: int, ts):
-    """searchsorted(tstart, ts, side='right') - 1 by a static-depth
-    in-bucket bisection (the reference's locate_segment)."""
-    M = tstart.shape[0]
-    b = (ts >> win_shift).to(torch.int64)
-    lo_s, hi_s = pos_lo[b], pos_lo[b + 1]
-    for _ in range(steps):
-        mid = (lo_s + hi_s) >> 1
-        key = tstart[mid.clamp(0, M - 1)]
-        go_right = (key <= ts) & (lo_s < hi_s)
-        lo_s = torch.where(go_right, mid + 1, lo_s)
-        hi_s = torch.where(go_right, hi_s, torch.maximum(mid, lo_s))
-    return (lo_s - 1).clamp(0, M - 1)
-
-
-def classify_scatter_ranges(ts, te, aligned, tables: FusedTables, tstart,
-                            tnode, acc) -> torch.Tensor:
-    """Classify aligned intervals by haplotype and add their coverage to
-    ``acc`` = (bases, diff, trio, seg_node_depth, seg_trio_depth) in place;
-    returns ridx.  Per read: bases and per-base diffs of the first and last
-    segments directly, middle segments and trio windows as segment-space
-    depth diffs (folded by expand_ranges), and the two end-window trio
-    corrections."""
-    acc_bases, acc_diff, acc_trio, acc_sn, acc_st = acc
-    t = tables
-    h = (torch.searchsorted(t.hap_offsets, ts, right=True) - 1).clamp(
-        0, t.hap_range.shape[0] - 1)
-    ridx = torch.where(aligned, t.hap_range[h], -1)
-    live = aligned & (ridx >= 0) & (te > ts)
-
-    i0 = locate_segment(tstart, t.pos_lo, t.win_shift, t.pos_steps, ts)
-    i1 = locate_segment(tstart, t.pos_lo, t.win_shift, t.pos_steps,
-                        torch.maximum(te - 1, ts))
-    span = i1 - i0 + 1
-    multi = live & (span >= 2)
-    trio3 = live & (span >= 3)
-
-    n0 = tnode[i0] - 1
-    n1 = tnode[i1] - 1
-    rs = ts - tstart[i0]
-    rem = te - tstart[i1]
-    nlen0 = t.nodes_len[n0]
-    nlen1 = t.nodes_len[n1]
-    tgt = te - ts
-
-    N = t.N_pad  # sink slot
-    first_val = torch.where(multi, nlen0 - rs, tgt)
-    _add(acc_bases, torch.cat([torch.where(live, n0, N),
-                               torch.where(multi, n1, N)]),
-         torch.cat([first_val, rem]))
-
-    TB = t.TB_pad  # the diff array's last entry, excluded by the finalize
-    bo0, bo1 = t.base_offset[n0], t.base_offset[n1]
-    first_hi = torch.where(multi, nlen0, rs + tgt)
-    d_lo = torch.cat([torch.where(live, bo0 + rs, TB),
-                      torch.where(multi, bo1, TB)])
-    d_hi = torch.cat([torch.where(live, bo0 + first_hi, TB),
-                      torch.where(multi, bo1 + rem, TB)])
-    _add(acc_diff, d_lo, torch.ones_like(d_lo))
-    _add(acc_diff, d_hi, -torch.ones_like(d_hi))
-
-    S = acc_sn.shape[0] - 1  # sink slot
-    one = torch.ones_like(i0)
-    _add(acc_sn, torch.where(multi, i0 + 1, S), one)
-    _add(acc_sn, torch.where(multi, i1, S), -one)
-    _add(acc_st, torch.where(trio3, i0, S), one)
-    _add(acc_st, torch.where(trio3, i1 - 1, S), -one)
-
-    U = t.U_pad  # sink slot
-    m0 = t.trio_seg[i0]
-    m1 = t.trio_seg[(i1 - 2).clamp(min=0)]
-    _add(acc_trio, torch.cat([torch.where(trio3 & (m0 >= 0), m0, U),
-                              torch.where(trio3 & (m1 >= 0), m1, U)]),
-         torch.cat([-rs, -(nlen1 - rem)]))
-    return ridx
-
-
-def classify_scatter(ts, te, aligned, tables: FusedTables, tstart, tnode,
-                     acc, L_cap: int):
-    """Windowed classify+scatter: classify aligned intervals by haplotype,
-    cut each read's first ``L_cap`` segments into a node-path row and add
-    its coverage to acc[:3] in place (coverage_scatter, with the per-segment
-    trio matches of ``tables.trio_seg``).  A read that spans more than
-    ``L_cap`` segments is left out; returns (ridx, overflow), overflow the
-    aligned reads left out."""
-    t = tables
-    M = tstart.shape[0]
-    h = (torch.searchsorted(t.hap_offsets, ts, right=True) - 1).clamp(
-        0, t.hap_range.shape[0] - 1)
-    ridx = torch.where(aligned, t.hap_range[h], -1)
-
-    i0 = locate_segment(tstart, t.pos_lo, t.win_shift, t.pos_steps, ts)
-    nxt = i0[:, None] + torch.arange(1, L_cap + 1, device=ts.device)[None, :]
-    starts_win = torch.where(nxt < M, tstart[nxt.clamp(max=M - 1)],
-                             torch.iinfo(torch.int32).max)
-    te1 = torch.maximum(te - 1, ts)
-    n_more = (starts_win <= te1[:, None]).sum(dim=1)
-    overflow = aligned & (n_more >= L_cap)
-    span = (n_more + 1).clamp(1, L_cap)
-
-    keep = aligned & (ridx >= 0) & ~overflow
-    cols = torch.arange(L_cap, device=ts.device)[None, :]
-    take = (i0[:, None] + cols).clamp(max=M - 1)
-    nodes = torch.where((cols < span[:, None]) & keep[:, None],
-                        tnode[take] - 1, -1)
-    read_start = torch.where(keep, ts - tstart[i0], 0)
-    # windows are consecutive segments of one haplotype: one gather of the
-    # per-segment trio table replaces the trio lookup
-    trio_match = t.trio_seg[take[:, :L_cap - 2]] if L_cap >= 3 else None
-    coverage_scatter(nodes, torch.where(keep, span, 0), read_start,
-                     torch.where(keep, read_start + (te - ts), 0),
-                     t.nodes_len, t.base_offset, acc[:3],
-                     has_dups=t.has_dups, trio_match=trio_match)
-    return ridx, overflow
-
-
 def expand_ranges(acc, tables: FusedTables, tnode) -> None:
     """Fold the segment-space depth diffs into the node / base-diff / trio
     accumulators in place: depth[i] full copies of segment i's node and
@@ -403,10 +294,12 @@ def _scatter_step(ts, te, mapq, aligned, aligner, tables: FusedTables, acc,
     or the windowed scatter at ``L_cap``; returns (narrow_per_read_nov's
     five per-read columns, the overflow mask or None)."""
     if L_cap is None:
+        LAUNCHES["scatter_range_dispatch"] += 1
         ridx, overflow = classify_scatter_ranges(
             ts, te, aligned, tables, aligner.tstart, aligner.tnode,
             acc), None
     else:
+        LAUNCHES["scatter_window_dispatch"] += 1
         ridx, overflow = classify_scatter(ts, te, aligned, tables,
                                           aligner.tstart, aligner.tnode, acc,
                                           L_cap)
@@ -724,11 +617,13 @@ class FusedPipeline:
             apply_residual(self.acc, host_residual_updates(
                 index, tables, ts[resid], te[resid], ridx[resid]))
         for c_ts, c_te, c_live in self._interval_batches(ts, te, short):
+            LAUNCHES["scatter_window_dispatch"] += 1
             classify_scatter(c_ts, c_te, c_live, tables, aligner.tstart,
                              aligner.tnode, self.acc, self._L_INT)
         # the reference's _interval_range_step: the range scatter without
         # the query (the per-read columns are host-computed)
         for c_ts, c_te, c_live in self._interval_batches(ts, te, long_ok):
+            LAUNCHES["scatter_range_dispatch"] += 1
             classify_scatter_ranges(c_ts, c_te, c_live, tables,
                                     aligner.tstart, aligner.tnode, self.acc)
         for k, sel in (("range", long_ok), ("window", short),

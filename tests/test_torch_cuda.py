@@ -32,6 +32,10 @@ from _torch_helpers import (
 
 pytestmark = pytest.mark.cuda
 MATCH, MIS, GAP = 1, -1, -2
+# the launch counts of K6 and K11 and the fused pipeline's scatter tally
+NO_SCATTER = {"classify_scatter_ranges": 0, "classify_scatter_ranges_plain": 0,
+              "classify_scatter": 0, "classify_scatter_plain": 0,
+              "scatter_range_dispatch": 0, "scatter_window_dispatch": 0}
 
 
 @pytest.fixture
@@ -76,7 +80,7 @@ def test_wrapper_launches_kernel_on_cuda(cuda):
     assert extend.LAUNCHES == {
         "banded_extend": 1, "banded_extend_plain": 0,
         "banded_extend_windows": 0, "banded_extend_windows_plain": 0,
-        "seed_stage": 0, "seed_stage_plain": 0,
+        "seed_stage": 0, "seed_stage_plain": 0, **NO_SCATTER,
     }
 
 
@@ -303,7 +307,7 @@ def test_windows_wrapper_launches_kernel_on_cuda(cuda):
     assert extend.LAUNCHES == {
         "banded_extend": 0, "banded_extend_plain": 0,
         "banded_extend_windows": 1, "banded_extend_windows_plain": 0,
-        "seed_stage": 0, "seed_stage_plain": 0,
+        "seed_stage": 0, "seed_stage_plain": 0, **NO_SCATTER,
     }
 
 
@@ -400,7 +404,7 @@ def test_seed_wrapper_launches_kernel_on_cuda(cuda, tiny_index, monkeypatch):
     assert extend.LAUNCHES == {
         "banded_extend": 0, "banded_extend_plain": 0,
         "banded_extend_windows": 0, "banded_extend_windows_plain": 0,
-        "seed_stage": 1, "seed_stage_plain": 0,
+        "seed_stage": 1, "seed_stage_plain": 0, **NO_SCATTER,
     }
 
 
@@ -591,6 +595,12 @@ def test_windowed_feed_cpu_equal_cuda(cuda, tmp_path, L_cap):
         assert not pipe.use_ranges
         assert extend.LAUNCHES["banded_extend"] == (
             pipe.n_batches if dev == cuda else 0)
+        # K11 once per windowed dispatch on the card, the plain version on
+        # the CPU
+        key = "classify_scatter" if dev == cuda else "classify_scatter_plain"
+        assert extend.LAUNCHES[key] == extend.LAUNCHES[
+            "scatter_window_dispatch"] > 0
+        assert extend.LAUNCHES["classify_scatter_ranges"] == 0
     (cpu, gpu) = res
     for a, b in ((cpu.na_d, gpu.na_d), (cpu.ta_d, gpu.ta_d),
                  (cpu.bc_d, gpu.bc_d)):
@@ -877,3 +887,87 @@ def test_runner_cpu_equal_cuda(cuda, tmp_path, monkeypatch, runner, k1):
                  "ori_strain_abundance.txt", "reads_classification.tsv"):
         assert ((tmp_path / "cpu" / name).read_bytes()
                 == (tmp_path / str(cuda) / name).read_bytes()), name
+
+
+# ---------------------------------------------------------------------------
+# K6 and K11, the classify + scatter (ops/scatter.py, csrc/classify_scatter.cu)
+# ---------------------------------------------------------------------------
+def test_scatter_kernels_crafted_cases_match_plain(cuda, tmp_path):
+    """K6 and K11 against their plain versions on every crafted case of
+    chip_smoke.scatter_cases (tiny_db and the small dup community, tables
+    as built and masked; K11 at 8 on tiny_db, 4 and 32 on the community):
+    ridx, overflow and the accumulators bit for bit, no add into a sink."""
+    assert chip_smoke.crafted_scatter(str(tmp_path), cuda, None) == 0
+    assert chip_smoke.crafted_scatter(
+        str(tmp_path), cuda, {"tiny": (8,), "dup_small": (4, 32)}) == 0
+
+
+@pytest.mark.parametrize("which", ["tiny", "scale", "dup"])
+def test_scatter_kernels_match_plain_on_a_batch(cuda, tmp_path, which):
+    """One query batch of each DB through K6 and K11 (at the automatic node
+    window, and at 3 segments) against the plain versions."""
+    from pantax_tpu_torch.benchmarks import scale_db
+    from pantax_tpu_torch.ops.fused import auto_node_window
+
+    make = {"tiny": lambda p: tiny_db(p),
+            "scale": lambda p: scale_db(p, n_species=2, genome_len=50_000),
+            "dup": lambda p: dup_db(p, n_species=2, strains=2,
+                                    n_blocks=400)}[which]
+    index, tables, tstart, tnode = chip_smoke.crafted_setup(
+        str(tmp_path / which), cuda, make)
+    al = aligner_from_reference(index, _host.AlignConfig(), cuda)
+    codes, lens, _ = simulate_read_batch(index, 4099, 150, 0.01, seed=3,
+                                         indel_rate=0.01)
+    cols = chip_smoke.query_cols(al, codes, lens)
+    assert chip_smoke.hold_scatter(cols, tables, tstart, tnode, which) == 0
+    for L_cap in (auto_node_window(index, 160), 3):
+        assert chip_smoke.hold_scatter(cols, tables, tstart, tnode, which,
+                                       L_cap) == 0
+
+
+def test_scatter_wrappers_launch_kernels_on_cuda(cuda, tmp_path):
+    """On CUDA tensors each dispatcher launches its kernel and counts it
+    (an empty batch launches nothing and counts nothing)."""
+    index, tables, tstart, tnode = chip_smoke.crafted_setup(
+        str(tmp_path / "tiny"), cuda, tiny_db)
+    cols = [torch.from_numpy(a).to(cuda)
+            for a in chip_smoke.scatter_cases(index, 8)["span_3_up"]]
+    from pantax_tpu_torch.ops import scatter
+
+    extend.reset_launch_counts()
+    acc = chip_smoke.zero_accs(tables, tstart.shape[0], cuda)
+    scatter.classify_scatter_ranges(*cols, tables, tstart, tnode, acc)
+    scatter.classify_scatter(*cols, tables, tstart, tnode, acc, 8)
+    empty = [c[:0] for c in cols]
+    ridx, ov = scatter.classify_scatter(*empty, tables, tstart, tnode, acc, 8)
+    torch.cuda.synchronize()
+    assert ridx.shape == ov.shape == (0,)
+    assert extend.LAUNCHES == dict(NO_SCATTER, **{
+        "banded_extend": 0, "banded_extend_plain": 0,
+        "banded_extend_windows": 0, "banded_extend_windows_plain": 0,
+        "seed_stage": 0, "seed_stage_plain": 0,
+        "classify_scatter_ranges": 1, "classify_scatter": 1})
+
+
+def test_scatter_kernels_reject_bad_inputs(cuda, tmp_path):
+    from pantax_tpu_torch.ops import scatter
+
+    index, tables, tstart, tnode = chip_smoke.crafted_setup(
+        str(tmp_path / "tiny"), cuda, tiny_db)
+    ts, te, al = [torch.from_numpy(a).to(cuda)
+                  for a in chip_smoke.scatter_cases(index, 8)["span_2"]]
+    acc = chip_smoke.zero_accs(tables, tstart.shape[0], cuda)
+    with pytest.raises(ValueError):  # int64 positions
+        scatter.classify_scatter_ranges(ts.long(), te, al, tables, tstart,
+                                        tnode, acc)
+    with pytest.raises(ValueError):  # a strided view
+        scatter.classify_scatter(ts[::2], te[::2], al[::2], tables, tstart,
+                                 tnode, acc, 8)
+    with pytest.raises(ValueError):  # a node window past 64
+        scatter.classify_scatter(ts, te, al, tables, tstart, tnode, acc, 65)
+    with pytest.raises(ValueError):  # the accumulators on the CPU
+        scatter.classify_scatter_ranges(ts, te, al, tables, tstart, tnode,
+                                        tuple(a.cpu() for a in acc))
+    with pytest.raises(ValueError):  # a diff array without its sentinel
+        scatter.classify_scatter(ts, te, al, tables, tstart, tnode,
+                                 (acc[0], acc[1][:-1], acc[2]), 8)

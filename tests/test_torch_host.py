@@ -310,6 +310,9 @@ RENAMED = {
         "ops/extend.py:banded_extend",),
     "ops/extend_pallas.py:banded_extend_pallas_dponly": (
         "ops/extend.py:banded_extend_windows",),
+    # the classify + scatter and its bisection live beside K6 and K11
+    # (ops/fused.py imports locate_segment from there)
+    "ops/fused.py:locate_segment": ("ops/scatter.py:locate_segment",),
     "profile/coverage.py:node_abundances": (
         "profile/coverage.py:raw_contributions",
         "profile/coverage.py:node_abundances_packed"),

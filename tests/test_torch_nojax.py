@@ -346,3 +346,68 @@ def test_seed_stage_runs_without_jax(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NOJAX_SEED_OK" in proc.stdout
+
+
+SCATTER_SCRIPT = SEED_SCRIPT.split("    import numpy as np")[0] + textwrap.dedent("""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+    from pantax_tpu_torch.ops import extend, scatter
+    from pantax_tpu_torch.ops.fused import build_pos_lookup
+
+    # 8 segments of 10 bases, one node each, two haplotypes of 4
+    tstart = np.arange(0, 80, 10)
+    pos_lo, win_shift, steps = build_pos_lookup(tstart, 80)
+
+    def i32(a):
+        return torch.tensor(np.asarray(a), dtype=torch.int32)
+
+    t = SimpleNamespace(
+        hap_offsets=i32([0, 40, 80]), hap_range=i32([0, 1]),
+        pos_lo=i32(pos_lo), win_shift=win_shift, pos_steps=steps,
+        nodes_len=i32(np.full(256, 10)),
+        base_offset=i32(np.arange(257) * 10), trio_seg=i32(np.full(8, -1)),
+        N_pad=256, TB_pad=4096, U_pad=64, has_dups=True)
+    ts, te = i32([5, 15, 42]), i32([25, 18, 80])
+    aligned = torch.tensor([True, True, False])
+
+    def accs():
+        return (torch.zeros(257, dtype=torch.int64),
+                torch.zeros(4097, dtype=torch.int32),
+                torch.zeros(65, dtype=torch.int64),
+                torch.zeros(9, dtype=torch.int32),
+                torch.zeros(9, dtype=torch.int32))
+
+    a6, a11 = accs(), accs()
+    ridx = scatter.classify_scatter_ranges(ts, te, aligned, t, i32(tstart),
+                                           i32(np.arange(1, 9)), a6)
+    ridx11, ov = scatter.classify_scatter(ts, te, aligned, t, i32(tstart),
+                                          i32(np.arange(1, 9)), a11, 4)
+    assert ridx.tolist() == ridx11.tolist() == [0, 0, -1], ridx
+    assert not ov.any()
+    # the first read's 20 bases: 5 + 10 + 5 by the window, 5 + 5 directly
+    # and the middle node as a segment depth by the ranges
+    assert a11[0][:3].tolist() == [5, 13, 5], a11[0][:3]
+    assert a6[0][:3].tolist() == [5, 3, 5] and a6[3][1] == 1, a6
+    assert extend.LAUNCHES["classify_scatter_ranges_plain"] == 1
+    assert extend.LAUNCHES["classify_scatter_plain"] == 1
+    assert extend.LAUNCHES["classify_scatter_ranges"] == 0
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("NOJAX_SCATTER_OK")
+""")
+
+
+def test_scatter_runs_without_jax(tmp_path):
+    """pantax_tpu_torch.ops.scatter (K6's and K11's module) imports and runs
+    its plain versions through the dispatchers with jax, pandas, pyarrow and
+    the JAX package blocked."""
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([REPO,
+                                           os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", SCATTER_SCRIPT],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NOJAX_SCATTER_OK" in proc.stdout
