@@ -39,8 +39,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    phase 5's first 65536 reads, a paired batch of 2 x 65536 mates and an
    interval batch of 16384 rows of 1-160 segments; K11, the windowed
    scatter (after phase 9 (b), where the dup DB is built), on the crafted
-   cases at node windows of 8 (tiny_db), 4 and 32 (the dup community),
-   the dup DB's first 65536 reads at its automatic window and at 3
+   cases at node windows of 8 (tiny_db) and 4, 12, 16, 32 and 64 (the dup
+   community: every template width, and a tile left part empty), the dup
+   DB's first 65536 reads at its automatic window and at 3
    segments (overflow) and an interval batch at 8; each timed with its
    plain version on the same rows, beside its bound (``scatter_work``'s
    bytes).  Every later phase holds K6's launches to the fused pipeline's
@@ -221,6 +222,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from types import SimpleNamespace
 
 import numpy as np
@@ -363,15 +365,24 @@ def sass_counts(lib_path: str) -> str:
 
 
 def ptxas_lines(log: str) -> list[str]:
-    """ptxas's register report of each kernel instantiation in an nvcc
-    log, as "kernel<WB>: report"."""
-    lines, entry = [], ""
+    """ptxas's register report of each kernel (and instantiation) in an
+    nvcc log, as "kernel<template arguments>: report", its stack frame and
+    spills after it where ptxas reports them."""
+    lines, entry, frame = [], "", ""
     for ln in log.splitlines():
-        m = re.search(r"((?:banded_extend\w*|seed_stage)_kernel)ILi(\d+)E", ln)
+        # the name after its mangled length (an anonymous namespace's
+        # mangled name holds the file's name before it)
+        m = re.search(r"(?<=\d)((?:banded_extend|seed_stage|classify_scatter)"
+                      r"(?:_[a-z]+)*_kernel)(?:I((?:Li\d+E)+)E)?", ln)
         if m:
-            entry = f"{m[1]}<{m[2]}>"
+            args = ",".join(re.findall(r"\d+", m[2] or ""))
+            entry = f"{m[1]}<{args}>" if args else m[1]
+        elif "stack frame" in ln:
+            frame = ln.strip()
         elif "registers" in ln:
-            lines.append(f"{entry}: {ln.split(':', 1)[1].strip()}")
+            lines.append(f"{entry}: {ln.split(':', 1)[1].strip()}"
+                         + (f"; {frame}" if frame else ""))
+            frame = ""
     return lines
 
 
@@ -1108,8 +1119,9 @@ def zero_accs(tables, M: int, dev) -> tuple:
 
 
 def hold_scatter(cols, tables, tstart, tnode, what: str,
-                 L_cap: int | None = None) -> int:
-    """K6 (``L_cap`` None) or K11 at ``L_cap`` against its plain version
+                 L_cap: int | None = None, lib=None) -> int:
+    """K6 (``L_cap`` None) or K11 at ``L_cap`` (of ``lib``, default the
+    current source's build; launches not counted) against its plain version
     on the same rows ``cols`` = (ts, te, aligned), each from zero
     accumulators: ridx (and overflow) and every accumulator bit for bit,
     the plain version's sink slots aside (the diff array's last slot, which
@@ -1117,15 +1129,15 @@ def hold_scatter(cols, tables, tstart, tnode, what: str,
     Returns the largest absolute difference (0)."""
     dev, M = tstart.device, tstart.shape[0]
     acc_k, acc_p = zero_accs(tables, M, dev), zero_accs(tables, M, dev)
+    lib = lib if lib is not None else scatter.build_scatter_kernels()
     if L_cap is None:
-        ker = (scatter.classify_scatter_ranges_cuda(*cols, tables, tstart,
-                                                    tnode, acc_k),)
+        ker = (scatter.launch_k6(lib, *cols, tables, tstart, tnode, acc_k),)
         plain = (scatter.classify_scatter_ranges_plain(*cols, tables, tstart,
                                                        tnode, acc_p),)
         name, names = "K6", ("ridx",)
     else:
-        ker = scatter.classify_scatter_cuda(*cols, tables, tstart, tnode,
-                                            acc_k, L_cap)
+        ker = scatter.launch_k11(lib, *cols, tables, tstart, tnode, acc_k,
+                                 L_cap)
         plain = scatter.classify_scatter_plain(*cols, tables, tstart, tnode,
                                                acc_p, L_cap)
         name, names = "K11", ("ridx", "overflow")
@@ -1148,63 +1160,80 @@ def hold_scatter(cols, tables, tstart, tnode, what: str,
     return err
 
 
+def _sectors(parts) -> int:
+    """The distinct 32-byte sectors of ``parts``, (table, element indices,
+    element bytes) triples, the table a small integer."""
+    keys = [tab * (1 << 40) + idx.long().reshape(-1) * size // 32
+            for tab, idx, size in parts]
+    return int(torch.unique(torch.cat(keys)).numel())
+
+
 def scatter_work(cols, tables, tstart, tnode, L_cap: int | None = None):
-    """(bytes, live rows, gathers, atomics) K6 (``L_cap`` None) or K11 at
-    ``L_cap`` needs on the rows ``cols``, as the kernel does its work: the
-    per-read columns read once and ridx (and overflow) written; each 32-byte
-    sector gathered from the segment, node and trio tables for the live rows
-    (and, for K11, the aligned ones, whose overflow needs i0 and the start
-    scan) and each integer atomic as a sector read and written (64 bytes);
-    the haplotype tables once."""
-    locate_segment = scatter.locate_segment  # K6's and K11's bisection
+    """(bytes, live rows, gathered sectors, atomic sectors) K6 (``L_cap``
+    None) or K11 at ``L_cap`` must move on the rows ``cols``, each sector
+    once in the launch: the per-read columns read once and ridx (and
+    overflow) written; the haplotype tables once; each 32-byte sector of
+    the bucket, segment, node and trio tables that the rows need (K6's live
+    rows: both ends' buckets, the starts that bracket ts and te - 1, the
+    end segments' nodes and the lengths and offsets of their nodes, the two
+    end windows' trio matches; K11's aligned rows: the bucket and the starts
+    i0 .. i0 + n_more + 1 within the window, and its live rows: the row's
+    nodes, their lengths, the offsets of those with a diff interval and the
+    windows' trio matches) read once; each sector of the accumulators that
+    the plain version leaves non-zero (the sinks aside) read and written
+    once.  Adds that cancel (a node's -1 and the next node's +1 at one diff
+    word) or share a sector cost nothing more."""
     t = tables
     ts, te, aligned = cols
-    M = tstart.shape[0]
-    h = (torch.searchsorted(t.hap_offsets, ts, right=True) - 1).clamp(
-        0, t.hap_range.shape[0] - 1)
-    ridx = torch.where(aligned, t.hap_range[h], -1)
-    i0 = locate_segment(tstart, t.pos_lo, t.win_shift, t.pos_steps, ts)
-    rs = (ts - tstart[i0]).long()
-    tgt = (te - ts).long()
+    dev, M = tstart.device, tstart.shape[0]
+    locate = partial(scatter.locate_segment, tstart, t.pos_lo, t.win_shift,
+                     t.pos_steps)  # K6's and K11's bisection
+
+    def bucket(x):
+        return (x >> int(t.win_shift)).clamp(0, t.pos_lo.shape[0] - 2)
+
+    acc = zero_accs(t, M, dev)
+    i0 = locate(ts)
     nbytes = (9 + 4 + (L_cap is not None)) * ts.shape[0] + 4 * (
         t.hap_offsets.shape[0] + t.hap_range.shape[0])
-
-    def ceil8(x):
-        return (x + 7) // 8
-
     if L_cap is None:
+        ridx = scatter.classify_scatter_ranges_plain(*cols, t, tstart, tnode,
+                                                     acc)
         live = aligned & (ridx >= 0) & (te > ts)
-        i1 = locate_segment(tstart, t.pos_lo, t.win_shift, t.pos_steps,
-                            torch.maximum(te - 1, ts))
-        span = i1 - i0 + 1
-        multi, trio3 = live & (span >= 2), live & (span >= 3)
+        i1 = locate(torch.maximum(te - 1, ts))
+        i0, i1 = i0[live], i1[live]
+        multi, trio3 = i1 > i0, i1 - i0 >= 2
         n0, n1 = tnode[i0] - 1, tnode[i1] - 1
-        nlen0, nlen1 = t.nodes_len[n0].long(), t.nodes_len[n1].long()
-        rem = (te - tstart[i1]).long()
-        m0, m1 = t.trio_seg[i0], t.trio_seg[(i1 - 2).clamp(min=0)]
-        gathers = 4 * live.sum() + 6 * multi.sum() + 2 * trio3.sum()
-        atomics = (3 * (live & ~multi).sum()
-                   + 3 * (multi & (nlen0 != rs)).sum()
-                   + 3 * (multi & (rem != 0)).sum() + 4 * trio3.sum()
-                   + (trio3 & (m0 >= 0) & (rs != 0)).sum()
-                   + (trio3 & (m1 >= 0) & (nlen1 != rem)).sum())
+        b0, b1 = bucket(ts[live]), bucket(torch.maximum(te - 1, ts)[live])
+        gathers = _sectors([
+            (0, torch.cat([b0, b0 + 1, b1, b1 + 1]), 4),
+            (1, torch.cat([i0, i1, i0 + 1, i1 + 1]).clamp(max=M - 1), 4),
+            (2, torch.cat([i0, i1[multi]]), 4),
+            (3, torch.cat([n0, n1])[torch.cat([multi, multi])], 4),
+            (4, torch.cat([n0, n1[multi]]), 4),
+            (5, torch.cat([i0[trio3], (i1 - 2)[trio3]]), 4)])
+        n_acc = 5
     else:
-        cols1 = torch.arange(1, L_cap + 1, device=ts.device)[None, :]
+        ridx, overflow = scatter.classify_scatter_plain(
+            *cols, t, tstart, tnode, acc, L_cap)
+        cols1 = torch.arange(1, L_cap + 1, device=dev)[None, :]
         nxt = i0[:, None] + cols1
         starts = torch.where(nxt < M, tstart[nxt.clamp(max=M - 1)],
                              torch.iinfo(torch.int32).max)
         n_more = (starts <= torch.maximum(te - 1, ts)[:, None]).sum(dim=1)
-        overflow = aligned & (n_more >= L_cap)
         span = n_more + 1
         single = span == 1
+        rs = (ts - tstart[i0]).long()
+        tgt = (te - ts).long()
         live = aligned & (ridx >= 0) & ~overflow & ~(single & (tgt < 0))
-        gathers = (2 * aligned.sum()
-                   + ceil8((n_more + 1).clamp(max=L_cap))[aligned].sum())
-        pos = torch.arange(L_cap, device=ts.device)[None, :]
-        valid = live[:, None] & (pos < span[:, None])
+        pos = torch.arange(L_cap + 1, device=dev)[None, :]
+        scan = aligned[:, None] & (pos <= span.clamp(max=L_cap)[:, None]) \
+            & (i0[:, None] + pos < M)
         take = (i0[:, None] + pos).clamp(max=M - 1)
+        valid = live[:, None] & (pos < span[:, None])
         node = tnode[take] - 1
-        nl = t.nodes_len[node].long()
+        nl = t.nodes_len[node.clamp(min=0)].long()
+        # each position's allocation and diff interval, as the kernel's
         a_nolast = torch.where(valid, torch.where(pos == 0, nl - rs[:, None],
                                                   nl), 0)
         seen = torch.cumsum(a_nolast, dim=1) - a_nolast
@@ -1217,24 +1246,16 @@ def scatter_work(cols, tables, tstart, tnode, L_cap: int | None = None):
         hi = torch.minimum(torch.maximum(start + alloc, lo), nl)
         in_b = (tgt > 0)[:, None] & ((rs + tgt)[:, None] <= nl)
         d_add = valid & (~single[:, None] | in_b) & (lo != hi)
-        if t.has_dups:
-            nid = torch.where(valid, node, -1)
-            eq = (nid[:, None, :] == nid[:, :, None]) & valid[:, None, :] & \
-                valid[:, :, None]
-            k_first = torch.where(eq, pos[:, :, None], L_cap).amin(dim=1)
-            first = valid & (k_first == pos)
-            ppv = alloc.gather(1, k_first.clamp(max=L_cap - 1))
-        else:
-            first, ppv = valid, alloc
-        atomics = 2 * d_add.sum() + (first & (alloc != 0)).sum()
-        gathers = gathers + (ceil8(span) + span)[live].sum() + d_add.sum()
-        if L_cap >= 3:
-            w_ok = live[:, None] & (pos[:, :L_cap - 2] + 2 < span[:, None])
-            m = t.trio_seg[take[:, :L_cap - 2]]
-            v = ppv[:, :-2] + ppv[:, 1:-1] + ppv[:, 2:]
-            atomics = atomics + (w_ok & (m >= 0) & (v != 0)).sum()
-            gathers = gathers + ceil8(span - 2)[live & (span >= 3)].sum()
-    gathers, atomics = int(gathers), int(atomics)
+        b0 = bucket(ts[aligned])
+        gathers = _sectors([
+            (0, torch.cat([b0, b0 + 1]), 4),
+            (1, take[scan], 4), (2, take[valid], 4), (3, node[valid], 4),
+            (4, node[d_add], 4),
+            (5, take[valid & (pos + 2 < span[:, None])], 4)])
+        n_acc = 3
+    sinks = (t.N_pad, t.TB_pad + 1, t.U_pad, M, M)
+    atomics = _sectors([(6 + i, a[:n].nonzero().flatten(), a.element_size())
+                        for i, (a, n) in enumerate(zip(acc[:n_acc], sinks))])
     return nbytes + 32 * gathers + 64 * atomics, int(live.sum()), gathers, \
         atomics
 
@@ -1246,8 +1267,8 @@ def scatter_bound(cols, tables, tstart, tnode, L_cap: int | None = None
     nbytes, live, g, a = scatter_work(cols, tables, tstart, tnode, L_cap)
     per = max(live, 1)
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", (
-        f"{live} live rows, {g / per:.2f} gathers and {a / per:.2f} atomics "
-        f"a live row, {nbytes / 1e6:.2f} MB")
+        f"{live} live rows, {g / per:.2f} gathered and {a / per:.2f} atomic "
+        f"sectors a live row, {nbytes / 1e6:.2f} MB")
 
 
 def crafted_setup(path: str, dev, make_db):
@@ -1293,24 +1314,33 @@ def query_cols(aligner, codes, lens) -> tuple:
     return ts, te, aligned
 
 
+def scatter_ms(cols, tables, tstart, tnode, L_cap: int | None = None,
+               lib=None) -> float:
+    """ms of K6 (``L_cap`` None) or K11 at ``L_cap`` (of ``lib``, default
+    the current source's build; launches not counted) on the rows ``cols``,
+    on accumulators of its own (CUDA events, the stream held while the host
+    enqueues; 51 calls add at most that many times each row's entries, far
+    inside int32)."""
+    lib = lib if lib is not None else scatter.build_scatter_kernels()
+    args = (lib, *cols, tables, tstart, tnode,
+            zero_accs(tables, tstart.shape[0], tstart.device))
+    if L_cap is None:
+        return cuda_ms(lambda: scatter.launch_k6(*args), 50, hold=True)
+    return cuda_ms(lambda: scatter.launch_k11(*args, L_cap), 50, hold=True)
+
+
 def time_scatter(cols, tables, tstart, tnode, L_cap: int | None = None
                  ) -> tuple[float, float]:
     """(kernel ms, plain ms) of K6 (``L_cap`` None) or K11 at ``L_cap`` on
-    the rows ``cols``, each on accumulators of its own (CUDA events, the
-    stream held while the host enqueues; 51 and 11 calls add at most that
-    many times each row's entries, far inside int32)."""
-    args = (*cols, tables, tstart, tnode)
-    if L_cap is None:
-        fns = (lambda a: scatter.classify_scatter_ranges_cuda(*args, a),
-               lambda a: scatter.classify_scatter_ranges_plain(*args, a))
-    else:
-        fns = (lambda a: scatter.classify_scatter_cuda(*args, a, L_cap),
-               lambda a: scatter.classify_scatter_plain(*args, a, L_cap))
-    out = []
-    for fn, iters in zip(fns, (50, 10)):
-        acc = zero_accs(tables, tstart.shape[0], tstart.device)
-        out.append(cuda_ms(lambda: fn(acc), iters, hold=True))
-    return out[0], out[1]
+    the rows ``cols``, each on accumulators of its own (scatter_ms; the
+    plain version over 11 calls)."""
+    args = (*cols, tables, tstart, tnode,
+            zero_accs(tables, tstart.shape[0], tstart.device))
+    plain = (partial(scatter.classify_scatter_ranges_plain, *args)
+             if L_cap is None
+             else partial(scatter.classify_scatter_plain, *args, L_cap))
+    return (scatter_ms(cols, tables, tstart, tnode, L_cap),
+            cuda_ms(plain, 10, hold=True))
 
 
 def scatter_timings(name: str, cases, tables, tstart, tnode) -> tuple:
@@ -1330,15 +1360,10 @@ def scatter_timings(name: str, cases, tables, tstart, tnode) -> tuple:
     return times, first
 
 
-def k6_phase(build: str, dev, aligner, index, tables, codes, lens) -> tuple:
-    """Phase 3c, K6: against its plain version on the crafted cases (tiny
-    and the small dup community), on phase 5's first batch, on a paired
-    [2B] batch and on a long-read interval batch (spans of up to 160
-    segments), and timed with the plain version on each.  Returns (largest
-    difference, ms, plain ms, bound ms, bound_by, times by case, shape) at
-    phase 5's batch."""
-    errs = [crafted_scatter(build, dev, None)]
-    ts_, tn_ = aligner.tstart, aligner.tnode
+def k6_cases(aligner, index, codes, lens, dev) -> tuple:
+    """K6's rows in phase 3c, on the smoke DB: (tag, cols, None, what) of
+    phase 5's first batch, a paired [2B] batch and a long-read interval
+    batch (spans of up to 160 segments)."""
     main = query_cols(aligner, codes[:BATCH], lens[:BATCH])
     (c1, l1, c2, l2), _ = simulate_pairs(index, BATCH, seed=17)
     r1, r2 = aligner.query_paired(*aligner.upload(c1, l1),
@@ -1346,29 +1371,44 @@ def k6_phase(build: str, dev, aligner, index, tables, codes, lens) -> tuple:
     paired = tuple(torch.cat([r1[i], r2[i]]) for i in (0, 1, 6))
     iv = tuple(torch.from_numpy(a).to(dev)
                for a in interval_batch(index, LONG_BATCH, 160, seed_=23))
-    for cols, what in ((main, f"on phase 5's first batch (B={BATCH})"),
-                       (paired, f"on a paired batch (2B={2 * BATCH})"),
-                       (iv, f"on an interval batch ({LONG_BATCH} rows, "
-                            f"1-160 segments)")):
-        errs.append(hold_scatter(cols, tables, ts_, tn_, what))
-    times, bound = scatter_timings(
-        "K6", (("main", main, None), ("paired", paired, None),
-               ("intervals", iv, None)), tables, ts_, tn_)
+    return (("main", main, None, f"on phase 5's first batch (B={BATCH})"),
+            ("paired", paired, None, f"on a paired batch (2B={2 * BATCH})"),
+            ("intervals", iv, None, f"on an interval batch ({LONG_BATCH} "
+                                    f"rows, 1-160 segments)"))
+
+
+def k6_phase(build: str, dev, aligner, index, tables, codes, lens) -> tuple:
+    """Phase 3c, K6: against its plain version on the crafted cases (tiny
+    and the small dup community) and on k6_cases' three batches, and timed
+    with the plain version on each.  Returns (largest difference, ms, plain
+    ms, bound ms, bound_by, times by case, shape) at phase 5's batch."""
+    errs = [crafted_scatter(build, dev, None)]
+    ts_, tn_ = aligner.tstart, aligner.tnode
+    cases = k6_cases(aligner, index, codes, lens, dev)
+    errs += [hold_scatter(cols, tables, ts_, tn_, what)
+             for _, cols, _, what in cases]
+    times, bound = scatter_timings("K6", [c[:3] for c in cases], tables,
+                                   ts_, tn_)
     return (max(errs), times["main"], times["plain_main"], bound[0],
             bound[1], times, f"B {BATCH}, smoke DB (scale_db)")
+
+
+# K11's crafted cases, by DB: the node windows of each template width (a
+# tile of 4, 8, 16 and 32 lanes; two positions a lane at 64), 12 a window
+# that leaves part of its tile empty
+K11_CRAFTED = {"tiny": (8,), "dup_small": (4, 12, 16, 32, 64)}
 
 
 def k11_phase(build: str, dev, aligner, index, tables, codes, lens,
               L_cap: int) -> tuple:
     """Phase 3c, K11 (in phase 9, after (b), where the dup DB is built):
-    against its plain version on the crafted cases (tiny_db at an 8-segment
-    window, the small dup community at 4 and 32), on the dup DB's first
-    batch at the automatic window ``L_cap`` and at 3 segments (overflow), on
-    an interval batch at 8 (spans of 1-8 segments, an interval feed's
-    windowed rows), and timed with the plain version on each.  Returns
-    (largest difference, ms, plain ms, bound ms, bound_by, times by case,
-    shape) at the automatic window."""
-    errs = [crafted_scatter(build, dev, {"tiny": (8,), "dup_small": (4, 32)})]
+    against its plain version on the crafted cases (K11_CRAFTED), on the
+    dup DB's first batch at the automatic window ``L_cap`` and at 3
+    segments (overflow), on an interval batch at 8 (spans of 1-8 segments,
+    an interval feed's windowed rows), and timed with the plain version on
+    each.  Returns (largest difference, ms, plain ms, bound ms, bound_by,
+    times by case, shape) at the automatic window."""
+    errs = [crafted_scatter(build, dev, K11_CRAFTED)]
     ts_, tn_ = aligner.tstart, aligner.tnode
     main = query_cols(aligner, codes[:BATCH], lens[:BATCH])
     iv = tuple(torch.from_numpy(a).to(dev)

@@ -41,18 +41,40 @@
 // each atomic a sector read and written.  K6 does at most 10 gathers and 12
 // atomics a read, K11 about 3 + 2 span gathers and 3 span + span - 2
 // atomics.  Nothing else is worth the bandwidth: a read's work is a few
-// dozen integer instructions.
+// dozen integer instructions.  The least the work needs (chip_smoke.py's
+// scatter_work) is less: each sector once a launch, none for adds that
+// cancel (a node's -1 at its end and the next node's +1 at one diff word).  What keeps a thread a read from that bound
+// is latency: its loads form a chain, each address read from the one
+// before, and a row's gathers were one more link a segment.
 //
-// Design: one thread per read, 256 a block, and only the live rows (and,
-// for K11, the aligned ones, whose overflow needs i0 and n_more) read
-// anything past the per-read columns; the bisections stop once their
-// bracket closes (the plain version's steps after that change nothing).
-// K11 holds a row's nodes and allocations in local arrays of the smallest
-// of 4, 8, 16, 32 or 64 entries that holds L_cap (a template per width),
-// dedups by a direct scan of the earlier positions (what both the plain
-// version's mask form and its sort form give), and reads the start scan
-// only as far as the first start past the read.  No warp aggregation of
-// atomics and no shared-memory staging: a first, simple kernel.
+// K6: one thread per read, 256 a block; only the live rows read anything
+// past the per-read columns; the bisections stop once their bracket closes
+// (the plain version's steps after that change nothing).
+//
+// K11 (redesigned for Hopper): a tile of G lanes a read, the smallest of 4,
+// 8, 16 and 32 that holds L_cap (33-64: 32 lanes of two positions each; a
+// template per width), so 65536 reads at L_cap 4 run 262,144 threads.
+// Every exit is the whole tile's, and every shuffle takes the tile's mask
+// and width, so none waits on a lane that has left.  Each lane runs the
+// haplotype and segment bisections (the tile's lanes load one address);
+// lane l tests start i0 + 1 + l and the ballot's leading run is n_more, one
+// round of loads (at 33-64 a second only when the first 32 hold); lane j
+// gathers position j's node, then its length and offset, and the trio
+// match of the window it starts, so a row takes three rounds of loads
+// whatever its span, coalesced along the segment tables.  The row stays in
+// registers (ptxas: no stack frame at any width, where a thread a read kept
+// it in local arrays of 8 bytes a slot): the allocation before the last
+// sums by a butterfly of shuffles, each position's first occurrence (the
+// dedup both the plain version's mask and sort forms give) by span
+// shuffles of the row's nodes, and each 3-window takes its two
+// neighbours' allocations by shuffle.  Measured by ablation (scripts/
+// time_extend.py --kernel k11; PERF.md): the ballot scan is kept (without
+// it 2-12% slower at L_cap 8-64, 0.6% at 4, 2% faster at 3); dropped were
+// the bisections as G-ary searches on the tile (2-9% slower at L_cap 3-16,
+// within 1% at 32 and 64) and __match_any_sync for the dedup (0.4-3%
+// slower at L_cap 3-32, 0.8% faster at 64).  No warp aggregation of
+// atomics, no shared memory and no TMA: the work is gathers and atomics at
+// scattered addresses.
 
 #include <climits>
 #include <cstdint>
@@ -160,32 +182,81 @@ __global__ void __launch_bounds__(kThreads) classify_scatter_ranges_kernel(
     if (m1 >= 0 && nlen1 != rem) add64(acc_t + m1, rem - nlen1);
 }
 
-template <int LMAX>
+// ---------------------------------------------------------------------------
+// K11: a tile of G lanes a read
+// ---------------------------------------------------------------------------
+// The tile's first lane in its warp, and the tile's lanes as a warp mask.
+template <int G>
+__device__ __forceinline__ int tile_base() {
+    return static_cast<int>(threadIdx.x) & 31 & ~(G - 1);
+}
+
+template <int G>
+__device__ __forceinline__ unsigned tile_mask() {
+    return G == 32 ? 0xffffffffu : ((1u << G) - 1) << tile_base<G>();
+}
+
+// The tile's predicate bits, its lane 0 lowest.
+template <int G>
+__device__ __forceinline__ unsigned tile_ballot(unsigned tmask, bool p) {
+    return (__ballot_sync(tmask, p) & tmask) >> tile_base<G>();
+}
+
+// n_more: how many of the starts tstart[i0 + 1 .. i0 + L_cap] (INT_MAX past
+// M) lie at or before te1, counted up to the first that does not (tstart
+// ascends).  Lane l tests start l + 1, and at S = 2 start l + G + 1 once
+// the first G all hold; the count is the ballot's leading run of ones.
+template <int G, int S>
+__device__ __forceinline__ int start_scan(const Tables& t, int i0, int te1,
+                                          int L_cap, int lane,
+                                          unsigned tmask) {
+    int n_more = 0;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+        const int k = lane + s * G;
+        const int nxt = i0 + 1 + k;
+        const bool le = k < L_cap &&
+                        (nxt < t.M ? __ldg(t.tstart + nxt) : INT_MAX) <= te1;
+        const int run = __clz(__brev(~tile_ballot<G>(tmask, le)));
+        n_more += run;
+        if (run < G) break;
+    }
+    return n_more;
+}
+
+// K11 at a window of up to G * S segments: a tile of G lanes a read,
+// position j of the row on lane j % G (S = 2: two positions a lane).
+// Every exit is the whole tile's, so its shuffles never wait on a lane
+// that has left.
+template <int G, int S>
 __global__ void __launch_bounds__(kThreads) classify_scatter_kernel(
     const int* __restrict__ ts_, const int* __restrict__ te_,
     const unsigned char* __restrict__ aligned, int B, Tables t, int L_cap,
     int has_dups, long long* acc_b, int* acc_d, long long* acc_t,
     int* __restrict__ ridx_out, unsigned char* __restrict__ overflow_out) {
-    const int r = blockIdx.x * kThreads + threadIdx.x;
-    if (r >= B) return;
+    const long long tile =
+        (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / G;
+    if (tile >= B) return;
+    const int r = static_cast<int>(tile);
+    const int lane = static_cast<int>(threadIdx.x) & (G - 1);
+    const unsigned tmask = tile_mask<G>();
     if (!aligned[r]) {
-        ridx_out[r] = -1;
-        overflow_out[r] = 0;
+        if (lane == 0) {
+            ridx_out[r] = -1;
+            overflow_out[r] = 0;
+        }
         return;
     }
     const int ts = ts_[r], te = te_[r];
     const int ridx = __ldg(t.hap_range + haplotype(t, ts));
     const int i0 = locate(t, ts);
     const int te1 = max(te - 1, ts);
-    int n_more = 0;  // tstart ascends: count up to the first start past te1
-    while (n_more < L_cap) {
-        const int nxt = i0 + n_more + 1;
-        if ((nxt < t.M ? __ldg(t.tstart + nxt) : INT_MAX) > te1) break;
-        ++n_more;
-    }
+    const int n_more = start_scan<G, S>(t, i0, te1, L_cap, lane, tmask);
     const bool overflow = n_more >= L_cap;
-    ridx_out[r] = ridx;
-    overflow_out[r] = overflow;
+    if (lane == 0) {
+        ridx_out[r] = ridx;
+        overflow_out[r] = overflow;
+    }
     if (overflow || ridx < 0) return;
 
     const int span = n_more + 1;
@@ -193,56 +264,103 @@ __global__ void __launch_bounds__(kThreads) classify_scatter_kernel(
     const int rs = ts - __ldg(t.tstart + i0);
     const int target = te - ts;  // read_end - read_start
     if (single && target < 0) return;  // the row is dropped
-    int node[LMAX];
-    int alloc[LMAX];
-    long long seen = 0;  // the allocations before j, the last's excepted
-    for (int j = 0; j < span; ++j) {
-        const int n = __ldg(t.tnode + min(i0 + j, t.M - 1)) - 1;
-        const int nl = __ldg(t.nodes_len + n);
-        const int a_nolast = j == 0 ? nl - rs : nl;
-        const int a = single ? target
-                      : j == span - 1
-                          ? static_cast<int>(max(target - seen, 0LL))
-                          : a_nolast;
-        seen += a_nolast;
-        node[j] = n;
-        alloc[j] = a;
+
+    // the row in registers: each position's node, its length and offset,
+    // and the trio match of the 3-window it starts, gathered by all the
+    // tile's lanes at once
+    int node[S], nl[S], bo[S], trio[S], alloc[S], first[S], pv[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+        const int j = lane + s * G;
+        const int seg = min(i0 + j, t.M - 1);
+        node[s] = j < span ? __ldg(t.tnode + seg) - 1 : -1;
+        trio[s] = j + 2 < span ? __ldg(t.trio_seg + seg) : -1;
+    }
+    long long seen = 0;  // the allocations before the last, summed below
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+        const int j = lane + s * G;
+        nl[s] = j < span ? __ldg(t.nodes_len + node[s]) : 0;
+        bo[s] = j < span ? __ldg(t.base_offset + node[s]) : 0;
+        if (j < span - 1) seen += j == 0 ? nl[s] - rs : nl[s];
+    }
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+        seen += __shfl_xor_sync(tmask, seen, off, G);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+        const int j = lane + s * G;
+        const int a_nolast = j == 0 ? nl[s] - rs : nl[s];
+        alloc[s] = j >= span ? 0
+                   : single  ? target
+                   : j == span - 1
+                       ? static_cast<int>(max(target - seen, 0LL))
+                       : a_nolast;
         // the node's per-base interval [lo, hi) of the diff array
         const int start = j == 0 ? rs : 0;
-        const int lo = min(max(start, 0), nl);
+        const int lo = min(max(start, 0), nl[s]);
         const int hi = static_cast<int>(min(
-            max(static_cast<long long>(start) + a, static_cast<long long>(lo)),
-            static_cast<long long>(nl)));
-        const bool in_bounds = target > 0 && rs + target <= nl;
-        if ((!single || in_bounds) && lo != hi) {
-            const int bo = __ldg(t.base_offset + n);
-            atomicAdd(acc_d + bo + lo, 1);
-            atomicAdd(acc_d + bo + hi, -1);
+            max(static_cast<long long>(start) + alloc[s],
+                static_cast<long long>(lo)),
+            static_cast<long long>(nl[s])));
+        const bool in_bounds = target > 0 && rs + target <= nl[s];
+        if (j < span && (!single || in_bounds) && lo != hi) {
+            atomicAdd(acc_d + bo[s] + lo, 1);
+            atomicAdd(acc_d + bo[s] + hi, -1);
         }
+        first[s] = j;
     }
-    // bases at each node's first position in the row; alloc[j] becomes the
-    // first occurrence's allocation, which the trio windows sum
-    for (int j = 0; j < span; ++j) {
-        int first = j;
-        if (has_dups) {
-            for (int k = 0; k < j; ++k) {
-                if (node[k] == node[j]) {
-                    first = k;
-                    break;
-                }
+    // first[s]: the row position of the node's first occurrence, the
+    // lowest of the row's positions that hold it (scanned from the last
+    // position down, so the lowest match is written last)
+    if (has_dups) {
+#pragma unroll
+        for (int h = S - 1; h >= 0; --h) {
+            for (int q = min(G, span - h * G) - 1; q >= 0; --q) {
+                const int v = __shfl_sync(tmask, node[h], q, G);
+#pragma unroll
+                for (int s = h; s < S; ++s)
+                    if (v == node[s]) first[s] = h * G + q;
             }
         }
-        if (first == j) {
-            if (alloc[j] != 0) add64(acc_b + node[j], alloc[j]);
-        } else {
-            alloc[j] = alloc[first];
+    }
+    // bases at each node's first position; pv is the first occurrence's
+    // allocation, which the trio windows sum
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+        const int j = lane + s * G;
+        if (j < span && first[s] == j && alloc[s] != 0)
+            add64(acc_b + node[s], alloc[s]);
+        pv[s] = alloc[s];
+        if (has_dups) {
+            const int src = first[s] & (G - 1);
+            pv[s] = __shfl_sync(tmask, alloc[0], src, G);
+            if (S == 2) {
+                const int hi_half = __shfl_sync(tmask, alloc[S - 1], src, G);
+                if (first[s] >= G) pv[s] = hi_half;
+            }
         }
     }
-    for (int j = 0; j + 2 < span; ++j) {
-        const int m = __ldg(t.trio_seg + min(i0 + j, t.M - 1));
-        const long long v = static_cast<long long>(alloc[j]) + alloc[j + 1]
-                            + alloc[j + 2];
-        if (m >= 0 && v != 0) add64(acc_t + m, v);
+    if (span < 3) return;  // no 3-window
+    // position j's window sums pv at j, j + 1 and j + 2, the last two from
+    // the lanes after it (at S = 2, across the halves: lane l's position
+    // l + d is lane (l + d) % G's, in the next half past G)
+    long long v[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) v[s] = pv[s];
+#pragma unroll
+    for (int d = 1; d <= 2; ++d) {
+        const int src = (lane + d) & (G - 1);
+        const int x0 = __shfl_sync(tmask, pv[0], src, G);
+        const int x1 = S == 2 ? __shfl_sync(tmask, pv[S - 1], src, G) : 0;
+        v[0] += lane + d < G ? x0 : x1;
+        if (S == 2) v[S - 1] += x1;
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+        const int j = lane + s * G;
+        if (j + 2 < span && trio[s] >= 0 && v[s] != 0)
+            add64(acc_t + trio[s], v[s]);
     }
 }
 
@@ -251,12 +369,15 @@ bool tables_ok(const Tables& t) {
            t.steps >= 0 && t.win_shift >= 0 && t.win_shift < 32;
 }
 
-template <int LMAX>
-void launch_windowed(dim3 grid, cudaStream_t s, const int* ts, const int* te,
+template <int G, int S>
+void launch_windowed(cudaStream_t s, const int* ts, const int* te,
                      const unsigned char* al, int B, const Tables& t,
                      int L_cap, int has_dups, long long* acc_b, int* acc_d,
                      long long* acc_t, int* ridx, unsigned char* overflow) {
-    classify_scatter_kernel<LMAX><<<grid, kThreads, 0, s>>>(
+    const long long threads = static_cast<long long>(B) * G;
+    const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) /
+                                          kThreads));
+    classify_scatter_kernel<G, S><<<grid, kThreads, 0, s>>>(
         ts, te, al, B, t, L_cap, has_dups, acc_b, acc_d, acc_t, ridx,
         overflow);
 }
@@ -311,7 +432,6 @@ extern "C" int classify_scatter_launch(
     if (B <= 0) return 0;
     if (!tables_ok(t) || L_cap < 1 || L_cap > kMaxLCap)
         return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((B + kThreads - 1) / kThreads);
     const auto s = static_cast<cudaStream_t>(stream);
     const auto* p_ts = static_cast<const int*>(ts);
     const auto* p_te = static_cast<const int*>(te);
@@ -322,19 +442,19 @@ extern "C" int classify_scatter_launch(
     auto* p_r = static_cast<int*>(ridx);
     auto* p_o = static_cast<unsigned char*>(overflow);
     if (L_cap <= 4)
-        launch_windowed<4>(grid, s, p_ts, p_te, p_al, B, t, L_cap, has_dups,
-                           p_b, p_d, p_t, p_r, p_o);
+        launch_windowed<4, 1>(s, p_ts, p_te, p_al, B, t, L_cap, has_dups,
+                              p_b, p_d, p_t, p_r, p_o);
     else if (L_cap <= 8)
-        launch_windowed<8>(grid, s, p_ts, p_te, p_al, B, t, L_cap, has_dups,
-                           p_b, p_d, p_t, p_r, p_o);
+        launch_windowed<8, 1>(s, p_ts, p_te, p_al, B, t, L_cap, has_dups,
+                              p_b, p_d, p_t, p_r, p_o);
     else if (L_cap <= 16)
-        launch_windowed<16>(grid, s, p_ts, p_te, p_al, B, t, L_cap, has_dups,
-                            p_b, p_d, p_t, p_r, p_o);
+        launch_windowed<16, 1>(s, p_ts, p_te, p_al, B, t, L_cap, has_dups,
+                               p_b, p_d, p_t, p_r, p_o);
     else if (L_cap <= 32)
-        launch_windowed<32>(grid, s, p_ts, p_te, p_al, B, t, L_cap, has_dups,
-                            p_b, p_d, p_t, p_r, p_o);
+        launch_windowed<32, 1>(s, p_ts, p_te, p_al, B, t, L_cap, has_dups,
+                               p_b, p_d, p_t, p_r, p_o);
     else
-        launch_windowed<64>(grid, s, p_ts, p_te, p_al, B, t, L_cap, has_dups,
-                            p_b, p_d, p_t, p_r, p_o);
+        launch_windowed<32, 2>(s, p_ts, p_te, p_al, B, t, L_cap, has_dups,
+                               p_b, p_d, p_t, p_r, p_o);
     return static_cast<int>(cudaGetLastError());
 }

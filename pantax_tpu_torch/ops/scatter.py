@@ -10,11 +10,13 @@ coverage_device.py:110: per-segment trio matches).  Two versions here:
 
 - the CUDA kernels, ``csrc/classify_scatter.cu``, built with nvcc for
   sm_90a at first use into the git-ignored build directory (ops/extend.py's
-  ``compile_kernels``) and bound with ctypes.  One thread per read: the
-  haplotype bisection, the in-bucket segment bisection, the gathers and the
-  integer atomics of that read, for live rows only; dropped entries add
-  nothing (the plain version's sink slots stay as they are), and a pair of
-  adds that cancels (+1 and -1 at one index, a zero addend) is skipped.
+  ``compile_kernels``) and bound with ctypes.  K6 runs one thread per
+  read, K11 a tile of 4-32 lanes per read (the row in registers, one
+  position a lane): the haplotype search, the in-bucket segment search, the
+  gathers and the integer atomics of that read, for live rows only;
+  dropped entries add nothing (the plain version's sink slots stay as they
+  are), and a pair of adds that cancels (+1 and -1 at one index, a zero
+  addend) is skipped.
   Integer sums do not depend on the order of the adds, so the accumulators
   equal the plain version's bit for bit, the sink slots aside;
 - ``classify_scatter_ranges_plain`` and ``classify_scatter_plain``, the
@@ -164,10 +166,11 @@ def classify_scatter_plain(ts, te, aligned, tables, tstart, tnode, acc,
 # ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------
-def build_scatter_kernels() -> ctypes.CDLL:
-    """Compile csrc/classify_scatter.cu (once per source content) and load
-    it."""
-    lib = compile_kernels(_SRC)
+def build_scatter_kernels(src: Path | str | None = None) -> ctypes.CDLL:
+    """Compile csrc/classify_scatter.cu (or ``src``, a source with the same
+    C entry points, such as an earlier commit's; once per source content)
+    and load it."""
+    lib = compile_kernels(src if src is not None else _SRC)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     common = [vp, vp, vp, i32, vp, i32, vp, i32, vp, i32, i32, i32, vp, vp,
               i32, vp, vp, vp]
@@ -244,40 +247,69 @@ def _launch(fn, dev, ts, te, aligned, tables, tstart, tnode, M: int, *rest):
         raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
 
 
-def classify_scatter_ranges_cuda(ts, te, aligned, tables, tstart, tnode,
-                                 acc) -> torch.Tensor:
-    """Check K6's arguments and launch it on the current stream, no
-    synchronise.  Returns ridx int32 [B]."""
+def launch_k6(lib, ts, te, aligned, tables, tstart, tnode,
+              acc) -> torch.Tensor:
+    """Check K6's arguments, then launch ``lib``'s
+    classify_scatter_ranges_launch on the current stream (no synchronise,
+    no count).  Returns ridx int32 [B]."""
     dev, B, M = _check_args(ts, te, aligned, tables, tstart, tnode, acc, 5)
     ridx = torch.empty(B, dtype=torch.int32, device=dev)
     if B:  # a launch of no blocks is an error
-        _launch(build_scatter_kernels().classify_scatter_ranges_launch,
-                dev, ts, te, aligned, tables, tstart, tnode, M,
-                *(a.data_ptr() for a in acc[:5]), ridx.data_ptr())
+        _launch(lib.classify_scatter_ranges_launch, dev, ts, te, aligned,
+                tables, tstart, tnode, M, *(a.data_ptr() for a in acc[:5]),
+                ridx.data_ptr())
+    return ridx
+
+
+def _check_window(L_cap: int) -> None:
+    if not 1 <= L_cap <= MAX_L_CAP:
+        raise ValueError(f"K11 takes a node window of 1..{MAX_L_CAP} "
+                         f"segments (got {L_cap})")
+
+
+def launch_k11(lib, ts, te, aligned, tables, tstart, tnode, acc,
+               L_cap: int):
+    """Check K11's arguments, then launch ``lib``'s classify_scatter_launch
+    on the current stream (no synchronise, no count).  Of ``acc`` K11 adds
+    to the first three (the range scatter's segment-depth pair may
+    follow).  Returns (ridx int32 [B], overflow bool [B])."""
+    _check_window(L_cap)
+    dev, B, M = _check_args(ts, te, aligned, tables, tstart, tnode, acc, 3)
+    ridx = torch.empty(B, dtype=torch.int32, device=dev)
+    overflow = torch.empty(B, dtype=torch.bool, device=dev)
+    if B:
+        _launch(lib.classify_scatter_launch, dev, ts, te, aligned, tables,
+                tstart, tnode, M, int(L_cap), int(bool(tables.has_dups)),
+                *(a.data_ptr() for a in acc[:3]), ridx.data_ptr(),
+                overflow.data_ptr())
+    return ridx, overflow
+
+
+def classify_scatter_ranges_cuda(ts, te, aligned, tables, tstart, tnode,
+                                 acc) -> torch.Tensor:
+    """Check K6's arguments (before building anything) and launch the
+    current source's K6 on the current stream, no synchronise (launch_k6,
+    counted).  Returns ridx int32 [B]."""
+    _check_args(ts, te, aligned, tables, tstart, tnode, acc, 5)
+    ridx = launch_k6(build_scatter_kernels(), ts, te, aligned, tables,
+                     tstart, tnode, acc)
+    if ts.shape[0]:
         LAUNCHES["classify_scatter_ranges"] += 1
     return ridx
 
 
 def classify_scatter_cuda(ts, te, aligned, tables, tstart, tnode, acc,
                           L_cap: int):
-    """Check K11's arguments and launch it on the current stream, no
-    synchronise.  Of ``acc`` K11 adds to the first three (the range
-    scatter's segment-depth pair may follow).  Returns (ridx int32 [B],
-    overflow bool [B])."""
-    if not 1 <= L_cap <= MAX_L_CAP:
-        raise ValueError(f"K11 takes a node window of 1..{MAX_L_CAP} "
-                         f"segments (got {L_cap})")
-    dev, B, M = _check_args(ts, te, aligned, tables, tstart, tnode, acc, 3)
-    ridx = torch.empty(B, dtype=torch.int32, device=dev)
-    overflow = torch.empty(B, dtype=torch.bool, device=dev)
-    if B:
-        _launch(build_scatter_kernels().classify_scatter_launch,
-                dev, ts, te, aligned, tables, tstart, tnode, M, int(L_cap),
-                int(bool(tables.has_dups)),
-                *(a.data_ptr() for a in acc[:3]), ridx.data_ptr(),
-                overflow.data_ptr())
+    """Check K11's arguments (before building anything) and launch the
+    current source's K11 on the current stream, no synchronise
+    (launch_k11, counted).  Returns (ridx int32 [B], overflow bool [B])."""
+    _check_window(L_cap)
+    _check_args(ts, te, aligned, tables, tstart, tnode, acc, 3)
+    out = launch_k11(build_scatter_kernels(), ts, te, aligned, tables,
+                     tstart, tnode, acc, L_cap)
+    if ts.shape[0]:
         LAUNCHES["classify_scatter"] += 1
-    return ridx, overflow
+    return out
 
 
 def classify_scatter_ranges(ts, te, aligned, tables, tstart, tnode,

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time two builds of K1 (``banded_extend_launch``), K2
-(``banded_extend_windows_launch``) or K3 (``seed_stage_launch``) on one
-GPU, in turns: the current ``csrc/banded_extend.cu`` (``csrc/seed_stage.cu``
-for K3) and a baseline source with the same C entry points, such as an
-earlier commit's:
+(``banded_extend_windows_launch``), K3 (``seed_stage_launch``) or K11
+(``classify_scatter_launch``) on one GPU, in turns: the current
+``csrc/banded_extend.cu`` (``csrc/seed_stage.cu`` for K3,
+``csrc/classify_scatter.cu`` for K11) and a baseline source with the same
+C entry points, such as an earlier commit's:
 
     git show <commit>:pantax_tpu_torch/csrc/banded_extend.cu \\
         > build/banded_extend_base.cu
@@ -14,6 +15,10 @@ earlier commit's:
         > build/seed_stage_base.cu
     PYTHONPATH=. python scripts/time_extend.py --kernel k3 \\
         build/seed_stage_base.cu [--ablate rehash --ablate carry ...]
+    git show <commit>:pantax_tpu_torch/csrc/classify_scatter.cu \\
+        > build/classify_scatter_base.cu
+    PYTHONPATH=. python scripts/time_extend.py --kernel k11 \\
+        build/classify_scatter_base.cu [--ablate ballot_scan]
 
 or against the current source with one step of the fast DP's design taken
 out (``--ablate unroll``: the step loop not unrolled), written under the
@@ -43,6 +48,18 @@ under the build directory if absent) with its CHD tables at density 3:
 (repeatable) with a baseline, K3 also times the current source with one
 lever of its design taken out (K3_ABLATIONS), in the same turns.
 
+K11 (``--kernel k11``) on the dup DB (``dup_db`` at its defaults, built
+under the build directory if absent): its first batch of 65536 reads at
+the automatic node window (4) and at 3 (a third of the reads overflow),
+and interval batches of 16384 rows of 1..L_cap segments at L_cap 8 (phase
+3c's), 16, 32 and 64 (the wide rows, one template width each); both
+builds' K6 at phase 3c's three shapes on the smoke DB (base, new, new,
+base), which shows whether K6 moved.  Each build is held to the plain version first
+(``chip_smoke.hold_scatter``); ``--ablate`` (repeatable) times the current
+source without its lever (K11_ABLATIONS) as K3's does.  Each reading is
+50 launches on accumulators of its own (``chip_smoke.scatter_ms``); the
+bound is ``chip_smoke.scatter_bound``.
+
 Both builds' outputs must equal each other's and the plain version's,
 bit for bit; then base, new, new, base, ROUNDS times, ITERS launches a
 reading (CUDA events, the stream held by a sleep kernel while the host
@@ -68,7 +85,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as smoke  # noqa: E402
 from pantax_tpu_torch.device import require_cuda  # noqa: E402
-from pantax_tpu_torch.ops import extend, seed  # noqa: E402
+from pantax_tpu_torch.ops import extend, scatter, seed  # noqa: E402
 
 # N, Lr, pad, seed, and read_len for every candidate (None: the case's
 # ragged lengths; 150: the main path's reads, all of one length; 512: full
@@ -82,9 +99,12 @@ SHAPES = {
     # query's mates, long-read chunks)
     "k3": ((65536, 160, 4, "short"), (65536, 152, 4, "short"),
            (131072, 160, 4, "paired"), (16384, 512, 8, "long")),
+    # K11: the rows and the node window (None: the automatic one)
+    "k11": (("main", None), ("L3", 3), ("intervals", 8), ("intervals", 16),
+            ("intervals", 32), ("intervals", 64)),
 }
 KERNELS = {"k1": "banded_extend_kernel", "k2": "banded_extend_windows_kernel",
-           "k3": "seed_stage_kernel"}
+           "k3": "seed_stage_kernel", "k11": "classify_scatter_kernel"}
 TEXT_LEN = 30_000_000
 ITERS = 200  # launches per timed reading
 ROUNDS = 3  # base, new, new, base this many times
@@ -120,11 +140,27 @@ K3_ABLATIONS = {
 }
 
 
+# K11's lever, taken out of csrc/classify_scatter.cu: without "ballot_scan"
+# every lane counts the start scan one start after another (no ballot)
+K11_ABLATIONS = {
+    "ballot_scan": [
+        ("    const int n_more = start_scan<G, S>(t, i0, te1, L_cap, lane, "
+         "tmask);\n",
+         "    int n_more = 0;\n"
+         "    while (n_more < L_cap && (i0 + n_more + 1 < t.M\n"
+         "               ? __ldg(t.tstart + i0 + n_more + 1) : INT_MAX) <= te1)\n"
+         "        ++n_more;\n"),
+    ],
+}
+
+
 def ablated_source(name: str) -> Path:
-    """The current source with ABLATIONS[name] (K1's) or K3_ABLATIONS[name]
-    (K3's) applied, written under the build directory."""
+    """The current source with ABLATIONS[name] (K1's), K3_ABLATIONS[name]
+    (K3's) or K11_ABLATIONS[name] (K11's) applied, written under the build
+    directory."""
     path, table = ((seed._SRC, K3_ABLATIONS) if name in K3_ABLATIONS
-                   else (extend._SRC, ABLATIONS))
+                   else (scatter._SRC, K11_ABLATIONS)
+                   if name in K11_ABLATIONS else (extend._SRC, ABLATIONS))
     src = path.read_text()
     for old, new in table[name]:
         if old not in src:
@@ -140,19 +176,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("baseline", nargs="?", help="the baseline .cu source")
     ap.add_argument("--ablate", action="append",
-                    choices=sorted(ABLATIONS) + sorted(K3_ABLATIONS),
+                    choices=sorted(ABLATIONS) + sorted(K3_ABLATIONS)
+                    + sorted(K11_ABLATIONS),
                     help="time the current source without this step instead "
-                         "(K3: as well, repeatable)")
+                         "(K3, K11: as well, repeatable)")
     ap.add_argument("--kernel", choices=sorted(SHAPES), default="k1",
-                    help="K1 (text + w0), K2 (windows given) or K3 (the "
-                         "seed stage); default k1")
+                    help="K1 (text + w0), K2 (windows given), K3 (the seed "
+                         "stage) or K11 (the windowed classify + scatter); "
+                         "default k1")
     args = ap.parse_args(argv)
-    mine = K3_ABLATIONS if args.kernel == "k3" else ABLATIONS
+    mine = {"k3": K3_ABLATIONS, "k11": K11_ABLATIONS}.get(args.kernel,
+                                                          ABLATIONS)
     if any(a not in mine for a in args.ablate or ()):
         ap.error(f"--ablate for {args.kernel}: one of {sorted(mine)}")
-    if args.kernel == "k3":
+    if args.kernel in ("k3", "k11"):
         if args.baseline is None:
-            ap.error("K3 takes a baseline source")
+            ap.error(f"{args.kernel.upper()} takes a baseline source")
     elif (args.baseline is None) == (args.ablate is None) or len(
             args.ablate or ()) > 1:
         ap.error("give a baseline source or one --ablate, not both")
@@ -202,19 +241,46 @@ def k3_cases(dev):
     return cases
 
 
-def main_k3(args, dev, issue_peak: float) -> None:
-    """K3: the baseline, the current source and its ablations in turns."""
+def build_turns(args, build, default_src, notes=lambda lib: "") -> dict:
+    """The baseline's, the current source's and each ablated source's
+    builds by name ("base", "new", "no_<lever>"), each printed with its
+    ptxas lines and ``notes(lib)``."""
     srcs = {"base": Path(args.baseline), "new": None}
     srcs.update((f"no_{a}", ablated_source(a)) for a in args.ablate or ())
     libs = {}
     for name, src in srcs.items():
-        libs[name] = seed.build_seed_kernel(src)
-        regs = smoke.ptxas_lines(libs[name].build_log)
-        print(f"{name}: {src or seed._SRC}\n  " + "\n  ".join(regs)
-              + "\n  K3 vote loop SASS: "
-              + json.dumps(smoke.vote_sass(libs[name]._name)), flush=True)
+        libs[name] = build(src)
+        print(f"{name}: {src or default_src}\n  " + "\n  ".join(
+            smoke.ptxas_lines(libs[name].build_log)) + notes(libs[name]),
+            flush=True)
+    return libs
+
+
+def time_in_turns(libs: dict, reading, line: dict, bound: float,
+                  by: str) -> None:
+    """Time ``reading(lib)`` (ms) for each build of ``libs`` in turns
+    (base, new, the ablations, the ablations backwards, new, base; ROUNDS
+    times) and print ``line`` with every reading, the bound, each build's
+    share of it, the speedup and each ablation against the new build, all
+    from the medians."""
     others = [n for n in libs if n not in ("base", "new")]
-    turns = ["base", "new", *others, *others[::-1], "new", "base"]
+    ms = {name: [] for name in libs}
+    for _ in range(ROUNDS):
+        for name in ["base", "new", *others, *others[::-1], "new", "base"]:
+            ms[name].append(reading(libs[name]))
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    line.update({f"{k}_ms": v for k, v in ms.items()})
+    line.update({"bound_ms": bound, "bound_by": by})
+    line.update({f"{k}_share": bound / med[k] for k in ms})
+    line["speedup"] = med["base"] / med["new"]
+    line.update({f"{k}_vs_new": med[k] / med["new"] for k in others})
+    print(json.dumps(line), flush=True)
+
+
+def main_k3(args, dev, issue_peak: float) -> None:
+    """K3: the baseline, the current source and its ablations in turns."""
+    libs = build_turns(args, seed.build_seed_kernel, seed._SRC, lambda lib: (
+        "\n  K3 vote loop SASS: " + json.dumps(smoke.vote_sass(lib._name))))
     for rows, case in k3_cases(dev):
         B, L = case[0].shape
         plain = seed.seed_candidates_plain(*case)
@@ -225,30 +291,75 @@ def main_k3(args, dev, issue_peak: float) -> None:
                 if o.dtype != p.dtype or not torch.equal(o, p):
                     raise AssertionError(f"{name} K3 != plain on {out} at "
                                          f"B={B} L={L} ({rows})")
-        ms = {name: [] for name in libs}
-        for _ in range(ROUNDS):
-            for name in turns:
-                ms[name].append(smoke.cuda_ms(
-                    lambda: seed.launch_k3(libs[name], *case), ITERS,
-                    hold=True))
-        bound, by = smoke.seed_bound(case, issue_peak)
         hits = smoke.valid_hits(case).double()
-        med = {k: float(np.median(v)) for k, v in ms.items()}
-        line = {"B": B, "L": L, "pad": case[-1][7], "rows": rows,
-                "valid_hits_mean": float(hits.mean()),
-                "rows_over_32_hits": float((hits > 32).double().mean())}
-        line.update({f"{k}_ms": v for k, v in ms.items()})
-        line.update({"bound_ms": bound, "bound_by": by})
-        line.update({f"{k}_share": bound / med[k] for k in ms})
-        line["speedup"] = med["base"] / med["new"]
-        line.update({f"{k}_vs_new": med[k] / med["new"] for k in others})
-        print(json.dumps(line), flush=True)
+        time_in_turns(
+            libs, lambda lib: smoke.cuda_ms(
+                lambda: seed.launch_k3(lib, *case), ITERS, hold=True),
+            {"B": B, "L": L, "pad": case[-1][7], "rows": rows,
+             "valid_hits_mean": float(hits.mean()),
+             "rows_over_32_hits": float((hits > 32).double().mean())},
+            *smoke.seed_bound(case, issue_peak))
+
+
+def k11_cases(dev) -> list:
+    """K11's rows at each SHAPES["k11"] shape on the dup DB, and K6's at
+    phase 3c's three shapes on the smoke DB, as smoke phases 3c and 9 make
+    them: [(kernel, tag, cols, node window, (tables, tstart, tnode))]."""
+    from pantax_tpu_torch import _host
+    from pantax_tpu_torch.benchmarks import (
+        dup_db, scale_db, simulate_read_batch)
+    from pantax_tpu_torch.convert import aligner_from_reference
+    from pantax_tpu_torch.ops.fused import (
+        auto_node_window, build_fused_tables)
+
+    cases = []
+    for name, make in (("dup_db", dup_db), ("scale_db", scale_db)):
+        db = make(str(extend.build_dir() / name))
+        index = _host.build_align_index(db)
+        cfg = _host.AlignConfig()
+        aligner = aligner_from_reference(index, cfg, dev)
+        tab = (build_fused_tables(db, index, dev), aligner.tstart,
+               aligner.tnode)
+        codes, lens, _ = simulate_read_batch(index, smoke.BATCH, 150, 0.01,
+                                             seed=3)
+        if name == "scale_db":
+            cases += [("K6", tag, cols, None, tab) for tag, cols, _, _ in
+                      smoke.k6_cases(aligner, index, codes, lens, dev)]
+            continue
+        auto = auto_node_window(index, codes.shape[1], cfg.extension_band)
+        main = smoke.query_cols(aligner, codes, lens)
+        for tag, cap in SHAPES["k11"]:
+            cols = main if tag != "intervals" else tuple(
+                torch.from_numpy(a).to(dev) for a in smoke.interval_batch(
+                    index, smoke.LONG_BATCH, cap, seed_=29))
+            cases.append(("K11", tag, cols, cap or auto, tab))
+    return cases
+
+
+def main_k11(args, dev) -> None:
+    """K11: the baseline, the current source and its ablations in turns;
+    both builds' K6 in turns (base, new, new, base)."""
+    libs = build_turns(args, scatter.build_scatter_kernels, scatter._SRC)
+    for kernel, tag, cols, cap, tab in k11_cases(dev):
+        mine = libs if kernel == "K11" else {k: libs[k] for k in ("base",
+                                                                 "new")}
+        for name, lib in mine.items():
+            smoke.hold_scatter(cols, *tab, f"({name} build, {tag})", cap,
+                               lib=lib)
+        bound, by, work = smoke.scatter_bound(cols, *tab, cap)
+        time_in_turns(
+            mine, lambda lib: smoke.scatter_ms(cols, *tab, cap, lib=lib),
+            {"kernel": kernel, "case": tag, "L_cap": cap,
+             "B": int(cols[0].shape[0]), "work": work}, bound, by)
 
 
 def main() -> None:
     args = parse_args()
     dev = require_cuda()
     print(smoke.card_line())
+    if args.kernel == "k11":
+        main_k11(args, dev)
+        return
     issue_peak = smoke.issue_ops_per_s()
     if args.kernel == "k3":
         main_k3(args, dev, issue_peak)

@@ -895,11 +895,12 @@ def test_runner_cpu_equal_cuda(cuda, tmp_path, monkeypatch, runner, k1):
 def test_scatter_kernels_crafted_cases_match_plain(cuda, tmp_path):
     """K6 and K11 against their plain versions on every crafted case of
     chip_smoke.scatter_cases (tiny_db and the small dup community, tables
-    as built and masked; K11 at 8 on tiny_db, 4 and 32 on the community):
+    as built and masked; K11 at chip_smoke.K11_CRAFTED's windows: 8 on
+    tiny_db, 4, 12, 16, 32 and 64 on the community, every template width):
     ridx, overflow and the accumulators bit for bit, no add into a sink."""
     assert chip_smoke.crafted_scatter(str(tmp_path), cuda, None) == 0
-    assert chip_smoke.crafted_scatter(
-        str(tmp_path), cuda, {"tiny": (8,), "dup_small": (4, 32)}) == 0
+    assert chip_smoke.crafted_scatter(str(tmp_path), cuda,
+                                      chip_smoke.K11_CRAFTED) == 0
 
 
 @pytest.mark.parametrize("which", ["tiny", "scale", "dup"])

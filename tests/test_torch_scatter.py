@@ -9,8 +9,10 @@ haplotype boundary), with the tables as built and with
 ridx < 0, and trio matches of -1 at either end of a read): the five
 accumulators (the range scatter) or three (the windowed), ridx and
 overflow, on tiny_db and on a small dup-graph community at node windows of
-4 and 32.  The dispatchers take the plain version on CPU tensors and count
-it; the kernels' entries refuse CPU tensors.  The kernels themselves are
+4, 12, 16, 32 and 64.  The dispatchers take the plain version on CPU
+tensors and count it; the kernels' entries refuse CPU tensors.  The
+kernels' bound (chip_smoke.scatter_work) equals a count made one row at a
+time.  The kernels themselves are
 held to these plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py phase 3c)."""
 from functools import partial
@@ -122,13 +124,16 @@ def test_ranges_crafted_bit_identical(fixture, case, masked, request):
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("case", chip_smoke.SCATTER_CASES)
 @pytest.mark.parametrize("fixture,L_cap", [("tiny", 8), ("dup", 4),
-                                           ("dup", 32)])
+                                           ("dup", 12), ("dup", 16),
+                                           ("dup", 32), ("dup", 64)])
 def test_windowed_crafted_bit_identical(fixture, L_cap, case, masked,
                                         request):
     """K11's plain version against _classify_scatter: the three
     accumulators (the diff array's last slot included, the sinks aside),
     ridx and overflow; on the dup community the first-occurrence dedup
-    runs (its mask form at 4, the sort form at 32)."""
+    runs (its mask form at 4, 12 and 16, the sort form at 32 and 64).  The
+    windows are K11's card cases (chip_smoke.K11_CRAFTED): every template
+    width, 12 a window that leaves part of its lane tile empty."""
     s = request.getfixturevalue(fixture)
     t = _tables(s, masked)
     cols = chip_smoke.scatter_cases(s.index, L_cap)[case]
@@ -168,8 +173,12 @@ def test_crafted_cases_cover_their_edges(tiny, dup):
     and 2 segments, L_cap and L_cap + 1 (by searchsorted), te <= ts, every
     row unaligned, reads in the text's last segments, reads crossing a
     haplotype boundary, and, masked, trio matches of -1 at a read's first
-    window (range scatter's m0) and last (m1)."""
-    for s, L_cap in ((tiny, 8), (dup, 4), (dup, 32)):
+    window (range scatter's m0) and last (m1).  On the dup community at
+    windows of 12 and up, live rows inside the window revisit a node (the
+    first-occurrence dedup runs); at 64 some revisit lies at position 32 or
+    past it with its first occurrence below 32 (the second position of a
+    lane's pair takes the first half's allocation)."""
+    for s, L_cap in ((tiny, 8), *((dup, k) for k in (4, 12, 16, 32, 64))):
         cases = chip_smoke.scatter_cases(s.index, L_cap)
         tstart = s.index.tstart
 
@@ -201,6 +210,34 @@ def test_crafted_cases_cover_their_edges(tiny, dup):
         ts, te, al = cases["span_3_up"]
         got, i0 = span(ts, te)
         assert (seg[i0] < 0).any() and (seg[i0 + got - 3] < 0).any()
+        if s is dup and L_cap >= 12:
+            revisits = [_revisits(s, L_cap, *cases[name])
+                        for name in ("span_3_up", "cap", "text_end")]
+            assert all(len(r) for r in revisits), L_cap
+            if L_cap == 64:
+                assert any(f < 32 <= j for r in revisits for f, j in r)
+
+
+def _revisits(s, L_cap, ts, te, aligned):
+    """(first position, repeat position) of every repeated node in the
+    live rows of the intervals inside the node window, by searchsorted over
+    the segment starts."""
+    tstart, tnode = s.index.tstart, s.index.tnode
+    hap_range = s.tables.hap_range.numpy()
+    i0 = np.searchsorted(tstart, ts, side="right") - 1
+    i1 = np.searchsorted(tstart, np.maximum(te - 1, ts), side="right") - 1
+    hap = np.clip(np.searchsorted(s.index.hap_offsets, ts, side="right") - 1,
+                  0, len(hap_range) - 1)
+    live = aligned & (hap_range[hap] >= 0) & (i1 - i0 + 1 <= L_cap)
+    out = []
+    for r in np.flatnonzero(live):
+        first = {}
+        for j, node in enumerate(tnode[i0[r]:i1[r] + 1]):
+            if node in first:
+                out.append((first[node], j))
+            else:
+                first[node] = j
+    return out
 
 
 def test_dispatchers_take_the_plain_version_on_cpu(tiny):
@@ -281,3 +318,122 @@ def test_kernel_entries_refuse_cpu_tensors(tiny):
         scatter.classify_scatter_ranges_cuda(cols[0].long(), *cols[1:],
                                              s.tables, s.tstart, s.tnode, acc)
     assert extend.LAUNCHES == before
+
+
+def _work_by_rows(s, cols, L_cap):
+    """chip_smoke.scatter_work of K6 (``L_cap`` None) or K11, counted one
+    row at a time in Python: each table's sectors as sets over the launch,
+    the accumulators' non-zero sectors after the plain version."""
+    t = s.tables
+    ts, te, aligned = (np.asarray(a) for a in cols)
+    tstart, tnode = s.index.tstart, s.index.tnode
+    nodes_len, base_offset = t.nodes_len.numpy(), t.base_offset.numpy()
+    trio_seg, pos_lo = t.trio_seg.numpy(), t.pos_lo.numpy()
+    M = s.M
+    i0s = scatter.locate_segment(s.tstart, t.pos_lo, t.win_shift,
+                                 t.pos_steps, torch.from_numpy(ts)).numpy()
+    acc = chip_smoke.zero_accs(t, M, "cpu")
+    tc = [torch.from_numpy(a) for a in (ts, te, aligned)]
+    if L_cap is None:
+        ridx = scatter.classify_scatter_ranges_plain(*tc, t, s.tstart,
+                                                     s.tnode, acc).numpy()
+        i1s = scatter.locate_segment(
+            s.tstart, t.pos_lo, t.win_shift, t.pos_steps,
+            torch.from_numpy(np.maximum(te - 1, ts))).numpy()
+    else:
+        ridx, overflow = (x.numpy() for x in scatter.classify_scatter_plain(
+            *tc, t, s.tstart, s.tnode, acc, L_cap))
+    sec = {k: set() for k in ("pos_lo", "tstart", "tnode", "nodes_len",
+                              "base_offset", "trio_seg")}
+
+    def bucket(x):
+        b = min(max(int(x) >> int(t.win_shift), 0), len(pos_lo) - 2)
+        sec["pos_lo"].update({b // 8, (b + 1) // 8})
+
+    live = 0
+    for r in range(len(ts)):
+        i0, x1 = int(i0s[r]), max(int(te[r]) - 1, int(ts[r]))
+        rs, tgt = int(ts[r]) - int(tstart[i0]), int(te[r]) - int(ts[r])
+        if L_cap is None:
+            if not (aligned[r] and ridx[r] >= 0 and te[r] > ts[r]):
+                continue
+            live += 1
+            i1 = int(i1s[r])
+            bucket(ts[r])
+            bucket(x1)
+            sec["tstart"].update(min(i, M - 1) // 8
+                                 for i in (i0, i1, i0 + 1, i1 + 1))
+            n0, n1 = tnode[i0] - 1, tnode[i1] - 1
+            sec["tnode"].add(i0 // 8)
+            sec["base_offset"].add(n0 // 8)
+            if i1 > i0:
+                sec["tnode"].add(i1 // 8)
+                sec["nodes_len"].update({n0 // 8, n1 // 8})
+                sec["base_offset"].add(n1 // 8)
+            if i1 - i0 >= 2:
+                sec["trio_seg"].update({i0 // 8, (i1 - 2) // 8})
+            continue
+        if not aligned[r]:
+            continue
+        bucket(ts[r])
+        n_more = 0
+        while (n_more < L_cap and i0 + n_more + 1 < M
+               and tstart[i0 + n_more + 1] <= x1):
+            n_more += 1
+        span = n_more + 1
+        sec["tstart"].update(i // 8 for i in range(
+            i0, min(i0 + min(span, L_cap), M - 1) + 1))
+        if ridx[r] < 0 or overflow[r] or (span == 1 and tgt < 0):
+            continue
+        live += 1
+        nodes = [int(n) - 1 for n in tnode[i0:i0 + span]]
+        nl = [int(nodes_len[n]) for n in nodes]
+        alloc = [nl[0] - rs] + nl[1:-1]
+        alloc = [tgt] if span == 1 else alloc + [max(tgt - sum(alloc), 0)]
+        for j, n in enumerate(nodes):
+            sec["tnode"].add((i0 + j) // 8)
+            sec["nodes_len"].add(n // 8)
+            if j + 2 < span:
+                sec["trio_seg"].add((i0 + j) // 8)
+            start = rs if j == 0 else 0
+            lo = min(max(start, 0), nl[j])
+            hi = min(max(start + alloc[j], lo), nl[j])
+            in_b = 0 < tgt and rs + tgt <= nl[j]
+            if (span > 1 or in_b) and lo != hi:
+                sec["base_offset"].add(n // 8)
+    gathers = sum(len(v) for v in sec.values())
+    sinks = (t.N_pad, t.TB_pad + 1, t.U_pad, M, M)
+    atomics = sum(len({int(i) * a.element_size() // 32
+                       for i in np.flatnonzero(a[:n].numpy())})
+                  for a, n in zip(acc[:5 if L_cap is None else 3], sinks))
+    nbytes = (13 + (L_cap is not None)) * len(ts) + 4 * (
+        len(s.index.hap_offsets) + t.hap_range.shape[0])
+    return nbytes + 32 * gathers + 64 * atomics, live, gathers, atomics
+
+
+@pytest.mark.parametrize("case", ["span_3_up", "cap", "text_end",
+                                  "hap_edges"])
+@pytest.mark.parametrize("fixture,L_cap", [("tiny", None), ("tiny", 8),
+                                           ("dup", None), ("dup", 4),
+                                           ("dup", 16), ("dup", 64)])
+def test_scatter_work_counts_each_sector_once(fixture, L_cap, case,
+                                              request):
+    """K6's and K11's bound (chip_smoke.scatter_work) equals a count made
+    one row at a time, with the tables masked so that rows classify to -1
+    and trio matches are missing; doubling the rows adds only their
+    per-read columns (each sector counts once a launch)."""
+    s = request.getfixturevalue(fixture)
+    t = chip_smoke.masked_tables(s.tables)
+    masked = Setup.__new__(Setup)
+    masked.__dict__.update(s.__dict__, tables=t)
+    cols = chip_smoke.scatter_cases(s.index, L_cap or 32)[case]
+    tc = [torch.from_numpy(a) for a in cols]
+    got = chip_smoke.scatter_work(tc, t, s.tstart, s.tnode, L_cap)
+    assert got == _work_by_rows(masked, cols, L_cap)
+    assert got[1] and got[2] and got[3]
+    twice = [torch.cat([a, a]) for a in tc]
+    nbytes, *rest = chip_smoke.scatter_work(twice, t, s.tstart, s.tnode,
+                                            L_cap)
+    per_read = 13 + (L_cap is not None)
+    assert (nbytes, *rest) == (got[0] + per_read * len(cols[0]),
+                               2 * got[1], *got[2:])

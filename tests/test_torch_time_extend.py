@@ -1,4 +1,4 @@
-"""The K1 / K2 / K3 timing tools on the CPU: the arguments, shapes and
+"""The K1 / K2 / K3 / K11 timing tools on the CPU: the arguments, shapes and
 ablated sources of ``scripts/time_extend.py`` and the SASS loop readers of
 ``chip_smoke.py`` (the card runs them; here only their text handling is
 held)."""
@@ -59,6 +59,29 @@ def test_k3_ablations_apply_to_the_current_source(name, tmp_path,
     assert path.name == f"seed_stage_no_{name}.cu" and src != current
     for old, new in time_extend.K3_ABLATIONS[name]:
         assert old in current and (new in src if new else old not in src)
+
+
+@pytest.mark.parametrize("name", sorted(time_extend.K11_ABLATIONS))
+def test_k11_ablations_apply_to_the_current_source(name, tmp_path,
+                                                    monkeypatch):
+    """Each of K11's levers comes out of csrc/classify_scatter.cu as its
+    text says, into a source of its own under the build directory."""
+    from pantax_tpu_torch.ops import scatter
+    monkeypatch.setenv("PANTAX_TORCH_BUILD", str(tmp_path))
+    path = time_extend.ablated_source(name)
+    src, current = path.read_text(), scatter._SRC.read_text()
+    assert path.name == f"classify_scatter_no_{name}.cu" and src != current
+    for old, new in time_extend.K11_ABLATIONS[name]:
+        assert current.count(old) == 1 and old not in src and new in src
+
+
+def test_k11_shapes_are_phase_3c_and_the_wide_rows():
+    """K11's shapes: phase 3c's (the dup batch at its automatic window and
+    at 3, intervals at 8) and interval rows at each wider template width."""
+    assert time_extend.SHAPES["k11"] == (
+        ("main", None), ("L3", 3), ("intervals", 8), ("intervals", 16),
+        ("intervals", 32), ("intervals", 64))
+    assert time_extend.KERNELS["k11"] == "classify_scatter_kernel"
 
 
 def test_k3_shapes_are_phase_3b():
@@ -169,9 +192,19 @@ def test_parse_args_k3_takes_a_baseline_and_its_ablations():
     assert time_extend.parse_args(["--kernel", "k3", "b.cu"]).ablate is None
 
 
+def test_parse_args_k11_takes_a_baseline_and_its_ablations():
+    args = time_extend.parse_args(["--kernel", "k11", "base.cu", "--ablate",
+                                   "ballot_scan"])
+    assert (args.kernel, args.baseline) == ("k11", "base.cu")
+    assert args.ablate == ["ballot_scan"]
+    assert time_extend.parse_args(["--kernel", "k11", "b.cu"]).ablate is None
+
+
 @pytest.mark.parametrize("argv", [
     [], ["--kernel", "k2"], ["--kernel", "k3", "--ablate", "unroll", "base.cu"],
-    ["--ablate", "unroll", "base.cu"],
+    ["--ablate", "unroll", "base.cu"], ["--kernel", "k11"],
+    ["--kernel", "k11", "--ablate", "rehash", "base.cu"],
+    ["--kernel", "k3", "--ablate", "ballot_scan", "base.cu"],
 ])
 def test_parse_args_refuses(argv):
     with pytest.raises(SystemExit):
@@ -192,6 +225,29 @@ def test_k2_shapes_are_the_rescue_pass():
         assert 1 <= pad <= 8 and Lr % 16 == 0 and N > 0
         assert fixed is None or fixed <= Lr
     assert set(time_extend.KERNELS) == set(time_extend.SHAPES)
+
+
+def test_ptxas_lines_read_the_scatter_kernels_and_their_frames():
+    """K11's two template arguments and K6 (no template) are named (not the
+    file's name that an anonymous namespace mangles in before them), each
+    with the stack frame and spills ptxas reports before its registers."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__"
+        "classify_scatter_cu_c1be1fb523classify_scatter_kernelILi32ELi2EEEv"
+        "PKiS2_PKhiNS_6TablesEiiPxPiS6_S7_Ph' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_123"
+        "classify_scatter_kernelILi32ELi2EEEvPKiS2_PKhiNS_6TablesEiiPxPiS6_"
+        "S7_Ph",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_130"
+        "classify_scatter_ranges_kernelEPKiS2_PKhiNS_6TablesEPxPiS6_S7_S7_"
+        "S7_' for 'sm_90a'",
+        "ptxas info    : Used 28 registers, used 0 barriers"])
+    assert chip_smoke.ptxas_lines(log) == [
+        "classify_scatter_kernel<32,2>: Used 40 registers, used 0 barriers; "
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "classify_scatter_ranges_kernel: Used 28 registers, used 0 barriers"]
 
 
 def test_ptxas_lines_name_each_instantiation():
