@@ -35,9 +35,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bit in ridx, overflow and every accumulator (the sink slots aside, the
    diff array's last slot included; the kernels' sinks stay 0): K6, the
    range scatter, on the crafted cases of ``scatter_cases`` (tiny_db and
-   the small dup community, the tables as built and ``masked_tables``),
-   phase 5's first 65536 reads, a paired batch of 2 x 65536 mates and an
-   interval batch of 16384 rows of 1-160 segments; K11, the windowed
+   the small dup community, each of ``table_variants``' tables: as built,
+   masked, haplotype offsets shifted into segments, buckets 32x wider),
+   phase 5's first 65536 reads, a paired batch of 2 x 65536 mates, an
+   interval batch of 16384 rows of 1-160 segments and reads in the smoke
+   DB's fullest buckets; K11, the windowed
    scatter (after phase 9 (b), where the dup DB is built), on the crafted
    cases at node windows of 8 (tiny_db) and 4, 12, 16, 32 and 64 (the dup
    community: every template width, and a tile left part empty), the dup
@@ -251,7 +253,7 @@ from pantax_tpu_torch.ops import extend, scatter, seed
 from pantax_tpu_torch.ops.coverage_device import node_abundances_device
 from pantax_tpu_torch.ops.fused import (
     FusedPipeline, _ensure_tail_tables, _tail_mode, build_fused_tables,
-    profile_from_fused_result, profile_fused,
+    build_pos_lookup, profile_from_fused_result, profile_fused,
 )
 from pantax_tpu_torch.parallel import make_mesh
 from pantax_tpu_torch.pipeline import classify_gaf, profile_from_gaf
@@ -1013,13 +1015,16 @@ def check_k3(launches: dict, what: str) -> None:
 # ---------------------------------------------------------------------------
 # phase 3c: K6 and K11, the fused step's classify + scatter
 # ---------------------------------------------------------------------------
-# the crafted cases of scatter_cases, in order
+# the crafted cases of scatter_cases, in order, and those added for K6's
+# ends, its bucket scan and its pairs of lanes
 SCATTER_CASES = ("span_1", "span_2", "span_3_up", "cap", "cap_plus_one",
                  "empty", "unaligned", "text_end", "hap_edges")
+K6_CASES = ("seg_start", "ends_at_start", "span_3", "hap_last",
+            "full_bucket", "odd_b")
 # what K6 and K11 read of FusedTables
 SCATTER_FIELDS = ("hap_offsets", "hap_range", "pos_lo", "nodes_len",
                   "base_offset", "trio_seg", "win_shift", "pos_steps",
-                  "N_pad", "TB_pad", "U_pad", "has_dups")
+                  "N_pad", "TB_pad", "U_pad", "has_dups", "seg_rec")
 # each path's K6 and K11 launches, by path name (check_k6 / check_k11)
 SCATTER_BY_PATH = {"classify_scatter_ranges": {}, "classify_scatter": {}}
 
@@ -1050,7 +1055,13 @@ def scatter_cases(index, L_cap: int, seed_: int = 0, n: int = 256) -> dict:
     unaligned: every row; text_end: reads in the text's last L_cap + 2
     segments (K11's window runs past M) and reads ending at text_len;
     hap_edges: reads across a haplotype boundary (the trio windows there
-    match nothing)."""
+    match nothing).  Then K6_CASES: seg_start, reads from a segment's first
+    base (rs 0); ends_at_start, reads whose end is a segment's start (the
+    last segment whole); span_3, exactly three segments; hap_last, reads
+    in a haplotype's last segment (its separator included) and in the
+    text's last; full_bucket, reads whose ends lie in the fullest buckets
+    of pos_lo (build_pos_lookup's: at most 2^pos_steps - 1 segments);
+    odd_b, 255 rows (B odd) of 1 to L_cap + 2 segments."""
     rng = np.random.default_rng(seed_)
     tstart = np.asarray(index.tstart, np.int64)
     M, T = len(tstart), int(index.text_len)
@@ -1082,6 +1093,48 @@ def scatter_cases(index, L_cap: int, seed_: int = 0, n: int = 256) -> dict:
         aligned = rng.random(n) >= 0.1 if name != "unaligned" else np.zeros(
             n, bool)
         out[name] = (ts, te, aligned)
+    for name, (ts, te) in k6_cases_crafted(rng, index, L_cap, n).items():
+        ts, te = (np.clip(a, 0, T).astype(np.int32) for a in (ts, te))
+        out[name] = (ts, te, rng.random(len(ts)) >= 0.1)
+    return out
+
+
+def k6_cases_crafted(rng, index, L_cap: int, n: int) -> dict:
+    """K6_CASES' intervals over ``index``'s text: name -> (ts, te) int64."""
+    tstart = np.asarray(index.tstart, np.int64)
+    M, T = len(tstart), int(index.text_len)
+    first = rng.integers(0, M, size=n)
+    k = rng.integers(1, 5, size=n)
+    out = {"seg_start": (tstart[first], _intervals(rng, index, first, k)[1])}
+    nxt = rng.integers(1, M, size=n)
+    out["ends_at_start"] = (_intervals(rng, index, np.maximum(
+        nxt - rng.integers(1, 4, size=n), 0), 1)[0], tstart[nxt])
+    out["span_3"] = _intervals(rng, index, rng.integers(0, max(M - 2, 1),
+                                                        size=n), 3)
+    hap_end = np.asarray(index.hap_offsets, np.int64)[1:]
+    last = np.searchsorted(tstart, hap_end - 1, side="right") - 1
+    seg = np.where(np.arange(n) % 4 == 0, M - 1,
+                   last[rng.integers(0, len(last), size=n)])
+    ts = _intervals(rng, index, seg, 1)[0]
+    stop = np.where(seg == M - 1, T, np.append(tstart, T)[
+        np.searchsorted(tstart, ts, side="right")])
+    te = ts + 1 + (rng.random(n) * (stop - ts)).astype(np.int64)
+    out["hap_last"] = (ts, np.minimum(te, stop))
+    pos_lo, shift, _ = build_pos_lookup(tstart, T)
+    occ = np.diff(pos_lo)
+    full = np.flatnonzero(occ == occ.max())
+    b0 = full[rng.integers(0, len(full), size=n)]
+    b1 = full[np.minimum(np.searchsorted(full, b0) + rng.integers(
+        0, 2, size=n), len(full) - 1)]
+
+    def inside(b):
+        return (b << shift) + (rng.random(n) * (1 << shift)).astype(np.int64)
+
+    ts, te1 = inside(b0), inside(b1)
+    out["full_bucket"] = (ts, np.maximum(te1, ts) + 1)
+    ks = rng.integers(1, L_cap + 3, size=n - 1)
+    out["odd_b"] = _intervals(rng, index, rng.integers(
+        0, np.maximum(M - ks + 1, 1)), ks)
     return out
 
 
@@ -1096,7 +1149,56 @@ def masked_tables(tables, seed_: int = 0):
     drop = torch.from_numpy(rng.random(tables.trio_seg.shape[0]) < 0.25)
     masked.trio_seg = torch.where(drop.to(tables.trio_seg.device), -1,
                                   tables.trio_seg)
-    return masked
+    return _with_records(masked, tables)
+
+
+def _with_records(variant, tables):
+    """``variant`` with K6's records rebuilt from its own fields (tables
+    without records keep none)."""
+    if tables.seg_rec is not None:
+        variant.seg_rec = scatter.scatter_records(
+            variant, tables.seg_rec[:, 0], tables.seg_rec[:, 1])
+    return variant
+
+
+def shifted_tables(tables):
+    """The scatter's fields of ``tables`` with every haplotype but the
+    first starting one base later, inside its first segment: those
+    segments' records carry scatter.SEARCH_HAP (K6 takes the haplotype
+    search for their reads)."""
+    shifted = SimpleNamespace(**{k: getattr(tables, k)
+                                 for k in SCATTER_FIELDS})
+    shifted.hap_offsets = tables.hap_offsets.clone()
+    shifted.hap_offsets[1:-1] += 1
+    return _with_records(shifted, tables)
+
+
+def coarse_tables(tables, tstart, text_len: int):
+    """The scatter's fields of ``tables`` with buckets 32 times as wide
+    (pos_lo, win_shift and pos_steps rebuilt as build_pos_lookup does), so
+    that K6 meets buckets both of up to 7 segments (its scan) and of more
+    (the bisection)."""
+    coarse = SimpleNamespace(**{k: getattr(tables, k)
+                                for k in SCATTER_FIELDS})
+    coarse.win_shift = int(tables.win_shift) + 5
+    nb = max((tables.pos_lo.shape[0] - 1) >> 5, 1)
+    bounds = np.arange(nb + 1, dtype=np.int64) << coarse.win_shift
+    pos_lo = np.searchsorted(tstart.cpu().numpy().astype(np.int64), bounds,
+                             side="right").astype(np.int32)
+    if bounds[-1] < text_len:
+        raise ValueError("the coarse buckets do not cover the text")
+    occ = int(np.diff(pos_lo).max())
+    coarse.pos_steps = int(np.ceil(np.log2(occ + 1))) if occ > 0 else 0
+    coarse.pos_lo = torch.from_numpy(pos_lo).to(tables.pos_lo.device)
+    return coarse
+
+
+def table_variants(tables, tstart, text_len: int) -> dict:
+    """The crafted cases' tables by tag: as built, masked_tables,
+    shifted_tables and coarse_tables."""
+    return {"": tables, ", masked": masked_tables(tables),
+            ", shifted": shifted_tables(tables),
+            ", coarse": coarse_tables(tables, tstart, text_len)}
 
 
 def interval_batch(index, n: int, max_span: int, seed_: int):
@@ -1284,8 +1386,8 @@ def crafted_setup(path: str, dev, make_db):
 def crafted_scatter(build: str, dev, L_caps) -> int:
     """K6 (``L_caps`` None) or K11 at each of ``L_caps`` (DB name -> node
     window) against its plain version on every crafted case of
-    scatter_cases, with the tables as built and masked_tables; returns the
-    largest difference (0)."""
+    scatter_cases, with each of table_variants' tables; returns the largest
+    difference (0)."""
     dbs = {"tiny": lambda p: tiny_db(p),
            "dup_small": lambda p: dup_db(p, n_species=2, strains=2,
                                          n_blocks=400)}
@@ -1294,9 +1396,10 @@ def crafted_scatter(build: str, dev, L_caps) -> int:
         index, tables, tstart, tnode = crafted_setup(
             os.path.join(build, "tiny_db" if name == "tiny" else name), dev,
             dbs[name])
+        variants = table_variants(tables, tstart, index.text_len)
         for L_cap in caps:
             cases = scatter_cases(index, L_cap or 32)
-            for tag, t in (("", tables), (", masked", masked_tables(tables))):
+            for tag, t in variants.items():
                 for case, arrays in cases.items():
                     cols = [torch.from_numpy(a).to(dev) for a in arrays]
                     err = max(err, hold_scatter(
@@ -1378,15 +1481,27 @@ def k6_cases(aligner, index, codes, lens, dev) -> tuple:
 
 
 def k6_phase(build: str, dev, aligner, index, tables, codes, lens) -> tuple:
-    """Phase 3c, K6: against its plain version on the crafted cases (tiny
-    and the small dup community) and on k6_cases' three batches, and timed
-    with the plain version on each.  Returns (largest difference, ms, plain
-    ms, bound ms, bound_by, times by case, shape) at phase 5's batch."""
+    """Phase 3c, K6: its registers and records' size printed; against its
+    plain version on the crafted cases (tiny and the small dup community),
+    on k6_cases' three batches and on reads in the smoke DB's fullest
+    buckets (each of table_variants' tables); timed with the plain version
+    on each batch.  Returns (largest difference, ms, plain ms, bound ms,
+    bound_by, times by case, shape) at phase 5's batch."""
+    print("K6 registers: " + "; ".join(
+        ln for ln in ptxas_lines(scatter.build_scatter_kernels().build_log)
+        if ln.startswith("classify_scatter_ranges_kernel"))
+          + f"; its records: {tables.seg_rec.shape[0]} segments x 32 B = "
+          f"{tables.seg_rec.numel() * 4 / 1e6:.1f} MB on the card")
     errs = [crafted_scatter(build, dev, None)]
     ts_, tn_ = aligner.tstart, aligner.tnode
     cases = k6_cases(aligner, index, codes, lens, dev)
     errs += [hold_scatter(cols, tables, ts_, tn_, what)
              for _, cols, _, what in cases]
+    full = [torch.from_numpy(a).to(dev)
+            for a in scatter_cases(index, 32)["full_bucket"]]
+    for tag, t in table_variants(tables, ts_, index.text_len).items():
+        errs.append(hold_scatter(full, t, ts_, tn_, "on the smoke DB's "
+                                 f"fullest buckets{tag}"))
     times, bound = scatter_timings("K6", [c[:3] for c in cases], tables,
                                    ts_, tn_)
     return (max(errs), times["main"], times["plain_main"], bound[0],

@@ -25,9 +25,10 @@ def aligner_from_reference(index, cfg, device, mesh=None) -> Aligner:
     return Aligner(index, lookup, cfg, device=device, mesh=mesh)
 
 
-def fused_tables_from_reference(jax_tables, device) -> FusedTables:
+def fused_tables_from_reference(jax_tables, device, index=None) -> FusedTables:
     """A reference FusedTables (pantax_tpu.ops.fused) -> the port's, with its
-    device arrays copied through numpy."""
+    device arrays copied through numpy; given the AlignIndex, with K6's
+    records (the card's range scatter needs them)."""
     t = jax_tables
 
     def host(a, dtype):
@@ -53,6 +54,8 @@ def fused_tables_from_reference(jax_tables, device) -> FusedTables:
         win_shift=int(t.win_shift),
         pos_steps=int(t.pos_steps), N_pad=int(t.N_pad), TB_pad=int(t.TB_pad),
         U_pad=int(t.U_pad), device=device,
+        tstart=None if index is None else index.tstart,
+        tnode=None if index is None else index.tnode,
     )
 
 

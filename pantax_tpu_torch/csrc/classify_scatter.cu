@@ -34,22 +34,52 @@
 // equal the plain version's bit for bit, the sinks aside (the diff array's
 // last slot, which the plain version's dropped pairs net to 0, included).
 //
-// What bounds it: bytes.  Per read it reads ts, te and aligned (9 bytes)
-// and writes ridx (and overflow); a live read gathers from tables that do
-// not fit the 50 MB L2 at the smoke DB's size (the diff array alone is
-// ~120 MB) and adds into them at random: each gather a 32-byte sector read,
-// each atomic a sector read and written.  K6 does at most 10 gathers and 12
-// atomics a read, K11 about 3 + 2 span gathers and 3 span + span - 2
-// atomics.  Nothing else is worth the bandwidth: a read's work is a few
-// dozen integer instructions.  The least the work needs (chip_smoke.py's
-// scatter_work) is less: each sector once a launch, none for adds that
-// cancel (a node's -1 at its end and the next node's +1 at one diff word).  What keeps a thread a read from that bound
-// is latency: its loads form a chain, each address read from the one
-// before, and a row's gathers were one more link a segment.
+// What bounds it.  Per read K6 reads ts, te and aligned (9 bytes) and
+// writes ridx (and K11 overflow); a live read gathers from the segment and
+// node tables and adds into the accumulators at scattered addresses: each
+// gather a 32-byte sector read, each atomic a sector read and written.  K6
+// does about 5 gathers (each end's bucket bounds, starts and record) and at
+// most 12 atomics a read, K11 about 3 + 2 span gathers and 3 span + span -
+// 2 atomics.  At the smoke DB's size (30 Mb of text, 854k segments) the
+// tables the rows share fit the 50 MB L2; only the diff array (~120 MB) is
+// past it.  A read's arithmetic is a few dozen integer instructions.  The
+// least the work needs (chip_smoke.py's scatter_work) is each sector once
+// a launch, none for adds that cancel (a node's -1 at its end and the next
+// node's +1 at one diff word), over the HBM rate.  What keeps the kernels
+// from it: a read's loads form a chain, each address read from the load
+// before, and few reads are in flight (65536 reads one thread each fill a
+// quarter of the card's warp slots); with enough in flight, the launch's
+// requests (K6, below).
 //
-// K6: one thread per read, 256 a block; only the live rows read anything
-// past the per-read columns; the bisections stop once their bracket closes
-// (the plain version's steps after that change nothing).
+// K6 (redesigned for Hopper): two lanes a read, lane 0 its first segment
+// and lane 1 its last, so 65536 reads run 131,072 threads at 32 registers.
+// A lane's chain is four rounds of loads: its end's bucket bounds; the
+// starts of the bucket's segments, all at once (a bucket of more than
+// kScan - 1 segments, or one that the plain version's bisection would not
+// close, takes that bisection); the segment's 32-byte record; then the
+// atomics.  The record (ops/scatter.py's scatter_records, built with the
+// tables) holds what the read needs of its segment and the segment's
+// node: tstart, tnode, trio_seg, the trio_seg two segments before (the
+// last end's correction), ridx, nodes_len and base_offset, so no load
+// waits on the node and no haplotype search runs: ridx is the species
+// range of the haplotype that holds every position the segment answers
+// for (where a haplotype offset cuts the segment, the record says so and
+// its reads take the search).  Both ends are found before the read is
+// known to be live.  The lanes swap i0, i1 and ridx by shuffle on the
+// pair's mask, and every exit is the pair's.  Lane 0 adds the first
+// segment's bases and diff pair, the depth +1s at i0 + 1 and i0 and the
+// trio correction at trio_seg[i0]; lane 1 the last segment's, the -1s at
+// i1 and i1 - 1 and the correction at trio_seg[i1 - 2].  Measured by
+// ablation (scripts/time_extend.py --kernel k6 at 65536 reads, 131072
+// mates and 16384 interval rows; PERF.md), each lever taken out costs:
+// the packed records 31 / 19 / 36% (every field its own load), the
+// node's fields in the record 12 / 5 / 12%, the pair 6 / 4 / 13%, the
+// ends found before the haplotype search and the live test 5 / 2 / 16%,
+// the bucket's starts at once 3 / 1 / 2%.  Dropped: the bucket's whole
+// heads read at once (48 registers, 0.5-3.5% slower) and the bucket
+// bounds in one 8-byte load where aligned (0.1-0.9% slower).  Time per
+// read is the same at 65536 and 131072 reads: the launch is held by its
+// requests (12 atomics and ~5 gathers a read), not by one read's chain.
 //
 // K11 (redesigned for Hopper): a tile of G lanes a read, the smallest of 4,
 // 8, 16 and 32 that holds L_cap (33-64: 32 lanes of two positions each; a
@@ -84,6 +114,16 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxLCap = 64;
+// K6's lanes a read (lane 0 the read's first segment, lane 1 its last) and
+// the ends each lane locates
+constexpr int kLanes = 2;
+constexpr int kEnds = 2 / kLanes;
+// K6 reads a bucket of up to kScan - 1 segments with the record before it
+// in one round
+constexpr int kScan = 8;
+// a segment record's ridx where a haplotype offset cuts the segment's
+// positions: its reads take the haplotype search
+constexpr int kSearchHap = INT_MIN;
 
 struct Tables {
     const int* hap_offsets;  // [H1]
@@ -100,6 +140,10 @@ struct Tables {
     const int* nodes_len;    // [N_pad]
     const int* base_offset;  // [N_pad + 1]
     const int* trio_seg;     // [M]
+    // K6's [M] records of 32 bytes, two int4 a segment: its head (tstart,
+    // tnode, trio_seg, the trio_seg of the segment two before it) and its
+    // tail (ridx, nodes_len and base_offset of its node, 0)
+    const int4* seg_rec;
 };
 
 __device__ __forceinline__ void add64(long long* acc, long long v) {
@@ -118,12 +162,15 @@ __device__ __forceinline__ int haplotype(const Tables& t, int x) {
     return min(max(lo - 1, 0), t.H - 1);
 }
 
+// x's bucket [lo, hi) of pos_lo (text positions lie in [0, text_len), so
+// the bucket is in range; it is clamped all the same)
+__device__ __forceinline__ int bucket(const Tables& t, int x) {
+    return min(max(x >> t.win_shift, 0), t.n_pos - 2);
+}
+
 // locate_segment: searchsorted(tstart, x, side='right') - 1 by the
-// bisection inside x's bucket, clamped to [0, M - 1].  Text positions lie
-// in [0, text_len), so the bucket is in range; it is clamped all the same.
-__device__ __forceinline__ int locate(const Tables& t, int x) {
-    const int b = min(max(x >> t.win_shift, 0), t.n_pos - 2);
-    int lo = __ldg(t.pos_lo + b), hi = __ldg(t.pos_lo + b + 1);
+// bisection inside x's bucket [lo, hi), clamped to [0, M - 1]
+__device__ __forceinline__ int bisect(const Tables& t, int x, int lo, int hi) {
     for (int s = 0; s < t.steps && lo < hi; ++s) {
         const int mid = (lo + hi) >> 1;
         if (__ldg(t.tstart + min(max(mid, 0), t.M - 1)) <= x) lo = mid + 1;
@@ -132,54 +179,135 @@ __device__ __forceinline__ int locate(const Tables& t, int x) {
     return min(max(lo - 1, 0), t.M - 1);
 }
 
+__device__ __forceinline__ int locate(const Tables& t, int x) {
+    const int b = bucket(t, x);
+    return bisect(t, x, __ldg(t.pos_lo + b), __ldg(t.pos_lo + b + 1));
+}
+
+// segment i's record: its head, its start alone, and its tail (the head
+// and the tail share a 32-byte sector, so the tail's load after the
+// head's finds it in L1; ``head`` is for a tail read from the node)
+__device__ __forceinline__ int4 seg_head(const Tables& t, int i) {
+    return __ldg(t.seg_rec + 2 * i);
+}
+
+__device__ __forceinline__ int seg_start(const Tables& t, int i) {
+    return __ldg(&t.seg_rec[2 * i].x);
+}
+
+__device__ __forceinline__ int4 seg_tail(const Tables& t, int i,
+                                         const int4& head) {
+    return __ldg(t.seg_rec + 2 * i + 1);
+}
+
+// The segment (locate_segment's answer) of each of a lane's ends x[k], its
+// head and its tail.  A bucket [lo, hi) of n = hi - lo segments answers lo
+// - 1 + the count of its starts at or before x (tstart ascends), clamped
+// to [0, M - 1]; up to kScan - 1 segments, and no more than the plain
+// version's bisection closes in pos_steps steps, the starts lo .. hi - 1
+// are read at once and counted.  Larger buckets take the bisection.
+__device__ __forceinline__ void locate_ends(const Tables& t,
+                                            const int (&x)[kEnds],
+                                            int (&seg)[kEnds],
+                                            int4 (&rec)[kEnds],
+                                            int4 (&tail)[kEnds]) {
+    int lo[kEnds], hi[kEnds];
+#pragma unroll
+    for (int k = 0; k < kEnds; ++k) {
+        const int b = bucket(t, x[k]);
+        lo[k] = __ldg(t.pos_lo + b);
+        hi[k] = __ldg(t.pos_lo + b + 1);
+    }
+    const int fits = min(kScan, 1 << min(t.steps, 30)) - 1;
+#pragma unroll
+    for (int k = 0; k < kEnds; ++k) {
+        const int n = hi[k] - lo[k];
+        if (n >= 0 && n <= fits) {
+            int st[kScan];
+#pragma unroll
+            for (int j = 1; j < kScan; ++j)
+                if (j <= n) st[j] = seg_start(t, min(lo[k] - 1 + j, t.M - 1));
+            int cnt = 0;
+#pragma unroll
+            for (int j = 1; j < kScan; ++j)
+                if (j <= n && st[j] <= x[k]) cnt = j;
+            seg[k] = min(max(lo[k] - 1 + cnt, 0), t.M - 1);
+        } else {
+            seg[k] = bisect(t, x[k], lo[k], hi[k]);
+        }
+        rec[k] = seg_head(t, seg[k]);
+        tail[k] = seg_tail(t, seg[k], rec[k]);
+    }
+}
+
+// The read's lanes as a warp mask, and end e's v (a lane holds the v[k] of
+// its ends lane * kEnds + k): a shuffle on the pair, or a register where
+// one lane holds both ends
+__device__ __forceinline__ unsigned read_mask() {
+    return kLanes == 1 ? 1u << (threadIdx.x & 31)
+                       : 3u << (threadIdx.x & 30);
+}
+
+__device__ __forceinline__ int at_end(const int (&v)[kEnds], int e) {
+    if constexpr (kLanes == 1) return v[e];
+    else return __shfl_sync(read_mask(), v[0], e, kLanes);
+}
+
 __global__ void __launch_bounds__(kThreads) classify_scatter_ranges_kernel(
     const int* __restrict__ ts_, const int* __restrict__ te_,
     const unsigned char* __restrict__ aligned, int B, Tables t,
     long long* acc_b, int* acc_d, long long* acc_t, int* acc_sn, int* acc_st,
     int* __restrict__ ridx_out) {
-    const int r = blockIdx.x * kThreads + threadIdx.x;
-    if (r >= B) return;
-    const int ts = ts_[r], te = te_[r];
-    const int ridx = aligned[r] ? __ldg(t.hap_range + haplotype(t, ts)) : -1;
-    ridx_out[r] = ridx;
-    if (ridx < 0 || te <= ts) return;  // not live
-
-    const int i0 = locate(t, ts);
-    const int i1 = locate(t, te - 1);
-    const int n0 = __ldg(t.tnode + i0) - 1;
-    const int rs = ts - __ldg(t.tstart + i0);
-    const int bo0 = __ldg(t.base_offset + n0);
-    if (i1 == i0) {  // one segment: its bases and interval, nothing more
-        const int tgt = te - ts;
-        add64(acc_b + n0, tgt);
-        atomicAdd(acc_d + bo0 + rs, 1);
-        atomicAdd(acc_d + bo0 + rs + tgt, -1);
+    const long long g =
+        static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+    if (g >= static_cast<long long>(B) * kLanes) return;  // whole pairs
+    const int r = static_cast<int>(g / kLanes);
+    const int lane = static_cast<int>(threadIdx.x) & (kLanes - 1);
+    if (!aligned[r]) {
+        if (lane == 0) ridx_out[r] = -1;
         return;
     }
-    const int n1 = __ldg(t.tnode + i1) - 1;
-    const int nlen0 = __ldg(t.nodes_len + n0);
-    const int nlen1 = __ldg(t.nodes_len + n1);
-    const int rem = te - __ldg(t.tstart + i1);
-    const int bo1 = __ldg(t.base_offset + n1);
-    if (nlen0 != rs) {
-        add64(acc_b + n0, nlen0 - rs);
-        atomicAdd(acc_d + bo0 + rs, 1);
-        atomicAdd(acc_d + bo0 + nlen0, -1);
+    const int ts = ts_[r], te = te_[r];
+    // this lane's ends, 0 at ts and 1 at max(te - 1, ts), located before
+    // the read is known to be live
+    int x[kEnds], seg[kEnds], w[kEnds];
+    int4 rec[kEnds], tail[kEnds];
+#pragma unroll
+    for (int k = 0; k < kEnds; ++k)
+        x[k] = lane * kEnds + k == 0 ? ts : max(te - 1, ts);
+    locate_ends(t, x, seg, rec, tail);
+#pragma unroll
+    for (int k = 0; k < kEnds; ++k) w[k] = tail[k].x;
+    int ridx = at_end(w, 0);  // the first segment's haplotype's range
+    if (ridx == kSearchHap) ridx = __ldg(t.hap_range + haplotype(t, ts));
+    if (lane == 0) ridx_out[r] = ridx;
+    if (ridx < 0 || te <= ts) return;  // not live: the pair leaves
+    const int i0 = at_end(seg, 0), i1 = at_end(seg, 1);
+    const bool single = i1 == i0, three = i1 - i0 >= 2;
+#pragma unroll
+    for (int k = 0; k < kEnds; ++k) {
+        const int e = lane * kEnds + k;
+        if (e == 1 && single) continue;  // end 0 takes a one-segment read
+        const int n = rec[k].y - 1;
+        const int nlen = tail[k].y, bo = tail[k].z;
+        // the read's part [a, z) of the node; the trio window whose
+        // correction this end makes (i0's, or the one i1 - 2 starts)
+        const int a = e == 0 ? ts - rec[k].x : 0;
+        const int z = e == 1 ? te - rec[k].x : single ? a + (te - ts) : nlen;
+        const int m = !three ? -1 : e == 0 ? rec[k].z : rec[k].w;
+        if (a != z) {
+            add64(acc_b + n, z - a);
+            atomicAdd(acc_d + bo + a, 1);
+            atomicAdd(acc_d + bo + z, -1);
+        }
+        if (three) {  // the middle segments and the windows, by depth
+            const int sign = e == 0 ? 1 : -1;
+            atomicAdd(acc_sn + (e == 0 ? i0 + 1 : i1), sign);
+            atomicAdd(acc_st + (e == 0 ? i0 : i1 - 1), sign);
+            const int cut = e == 0 ? a : nlen - z;  // the node's bases
+            if (m >= 0 && cut != 0) add64(acc_t + m, -cut);  // off the read
+        }
     }
-    if (rem != 0) {
-        add64(acc_b + n1, rem);
-        atomicAdd(acc_d + bo1, 1);
-        atomicAdd(acc_d + bo1 + rem, -1);
-    }
-    if (i1 - i0 < 2) return;  // two segments: no middle, no trio window
-    atomicAdd(acc_sn + i0 + 1, 1);
-    atomicAdd(acc_sn + i1, -1);
-    atomicAdd(acc_st + i0, 1);
-    atomicAdd(acc_st + i1 - 1, -1);
-    const int m0 = __ldg(t.trio_seg + i0);
-    if (m0 >= 0 && rs != 0) add64(acc_t + m0, -rs);
-    const int m1 = __ldg(t.trio_seg + i1 - 2);
-    if (m1 >= 0 && nlen1 != rem) add64(acc_t + m1, rem - nlen1);
 }
 
 // ---------------------------------------------------------------------------
@@ -384,14 +512,14 @@ void launch_windowed(cudaStream_t s, const int* ts, const int* te,
 
 }  // namespace
 
-extern "C" int classify_scatter_ranges_launch(
+extern "C" int classify_scatter_ranges_records_launch(
     const void* ts, const void* te, const void* aligned, int B,
     const void* hap_offsets, int H1, const void* hap_range, int H,
     const void* pos_lo, int n_pos, int win_shift, int steps,
     const void* tstart, const void* tnode, int M, const void* nodes_len,
-    const void* base_offset, const void* trio_seg, void* acc_bases,
-    void* acc_diff, void* acc_trio, void* acc_sn, void* acc_st, void* ridx,
-    void* stream) {
+    const void* base_offset, const void* trio_seg, const void* seg_rec,
+    void* acc_bases, void* acc_diff, void* acc_trio, void* acc_sn,
+    void* acc_st, void* ridx, void* stream) {
     const Tables t{static_cast<const int*>(hap_offsets), H1,
                    static_cast<const int*>(hap_range), H,
                    static_cast<const int*>(pos_lo), n_pos, win_shift, steps,
@@ -399,10 +527,13 @@ extern "C" int classify_scatter_ranges_launch(
                    static_cast<const int*>(tnode), M,
                    static_cast<const int*>(nodes_len),
                    static_cast<const int*>(base_offset),
-                   static_cast<const int*>(trio_seg)};
+                   static_cast<const int*>(trio_seg),
+                   static_cast<const int4*>(seg_rec)};
     if (B <= 0) return 0;
     if (!tables_ok(t)) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((B + kThreads - 1) / kThreads);
+    const long long threads = static_cast<long long>(B) * kLanes;
+    const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) /
+                                          kThreads));
     classify_scatter_ranges_kernel<<<grid, kThreads, 0,
                                      static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(ts), static_cast<const int*>(te),
@@ -428,7 +559,7 @@ extern "C" int classify_scatter_launch(
                    static_cast<const int*>(tnode), M,
                    static_cast<const int*>(nodes_len),
                    static_cast<const int*>(base_offset),
-                   static_cast<const int*>(trio_seg)};
+                   static_cast<const int*>(trio_seg), nullptr};
     if (B <= 0) return 0;
     if (!tables_ok(t) || L_cap < 1 || L_cap > kMaxLCap)
         return static_cast<int>(cudaErrorInvalidValue);

@@ -59,6 +59,7 @@ from .coverage_device import _add, build_padded_tables, coverage_finalize
 from .extend import LAUNCHES
 from .scatter import (  # noqa: F401 (locate_segment: the reference's name)
     classify_scatter, classify_scatter_ranges, locate_segment,
+    scatter_records,
 )
 
 
@@ -173,12 +174,15 @@ class FusedSpecies:
 
 class FusedTables(nn.Module):
     """Global classification and coverage tables (buffers) plus per-species
-    metadata for the profile tail."""
+    metadata for the profile tail.  Given the text's segment starts and
+    nodes (``tstart``, ``tnode``), it also holds K6's records,
+    ``seg_rec`` (ops/scatter.py's scatter_records); else that is None and
+    only the CPU's plain range scatter takes the tables."""
 
     def __init__(self, *, species, ranges, hap_offsets, hap_range, pos_lo,
                  nodes_len, base_offset, trio_len, trio_seg, has_dups: bool,
                  hap_dup, win_shift: int, pos_steps: int, N_pad: int,
-                 TB_pad: int, U_pad: int, device):
+                 TB_pad: int, U_pad: int, device, tstart=None, tnode=None):
         super().__init__()
         self.species = species
         self.ranges = ranges
@@ -196,6 +200,10 @@ class FusedTables(nn.Module):
                           ("trio_len", trio_len), ("trio_seg", trio_seg)):
             self.register_buffer(
                 name, torch.from_numpy(np.array(arr, dtype=np.int32)).to(dev))
+        self.register_buffer("seg_rec", None if tstart is None else
+                             scatter_records(self, torch.from_numpy(
+                                 np.asarray(tstart, np.int32)),
+                                 torch.from_numpy(np.asarray(tnode, np.int32))))
 
     @property
     def device(self) -> torch.device:
@@ -249,7 +257,7 @@ def build_fused_tables(db, index, device) -> FusedTables:
         has_dups=_window_has_dup_nodes(index), hap_dup=hap_dup,
         win_shift=win_shift,
         pos_steps=steps, N_pad=t.N_pad, TB_pad=t.TB_pad, U_pad=t.U_pad,
-        device=device,
+        device=device, tstart=index.tstart, tnode=index.tnode,
     )
 
 

@@ -10,10 +10,15 @@ coverage_device.py:110: per-segment trio matches).  Two versions here:
 
 - the CUDA kernels, ``csrc/classify_scatter.cu``, built with nvcc for
   sm_90a at first use into the git-ignored build directory (ops/extend.py's
-  ``compile_kernels``) and bound with ctypes.  K6 runs one thread per
-  read, K11 a tile of 4-32 lanes per read (the row in registers, one
-  position a lane): the haplotype search, the in-bucket segment search, the
-  gathers and the integer atomics of that read, for live rows only;
+  ``compile_kernels``) and bound with ctypes.  K6 runs two lanes per
+  read, one for each end segment: each lane finds its segment by reading
+  the records of its bucket at once (``scatter_records``: a segment's
+  start, node, trio matches, haplotype range and its node's length and
+  offset in 32 bytes), so that no haplotype search runs before them and
+  no load waits on the node.  K11
+  runs a tile of 4-32 lanes per read (the row in registers, one position a
+  lane): the haplotype search, the in-bucket segment search and the row's
+  gathers.  Both add with integer atomics, for live rows only;
   dropped entries add nothing (the plain version's sink slots stay as they
   are), and a pair of adds that cancels (+1 and -1 at one index, a zero
   addend) is skipped.
@@ -39,9 +44,14 @@ from .coverage_device import _add, coverage_scatter
 from .extend import LAUNCHES, compile_kernels
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "classify_scatter.cu"
+# K6's C entry point, with its records
+_K6_ENTRY = "classify_scatter_ranges_records_launch"
 # K11's widest node window (csrc/classify_scatter.cu; auto_node_window's
 # largest is 64)
 MAX_L_CAP = 64
+# a segment record's ridx where a haplotype offset cuts the segment's
+# positions (csrc/classify_scatter.cu's kSearchHap)
+SEARCH_HAP = -2**31
 
 
 # ---------------------------------------------------------------------------
@@ -163,6 +173,39 @@ def classify_scatter_plain(ts, te, aligned, tables, tstart, tnode, acc,
     return ridx, overflow
 
 
+def scatter_records(tables, tstart, tnode) -> torch.Tensor:
+    """K6's records, int32 [M, 8] on the tables' device: for each segment
+    i, (tstart, tnode, trio_seg[i], trio_seg[i - 2] (-1 for i < 2), ridx,
+    nodes_len and base_offset of its node, 0), 32 bytes.  ridx is
+    hap_range at the haplotype (searchsorted over hap_offsets, as the plain
+    version finds it) of every position that locate_segment puts in the
+    segment (from its start to the next segment's, and past the text's
+    ends for the first and last), or SEARCH_HAP where those positions lie
+    in two haplotypes."""
+    t = tables
+    dev = t.hap_range.device
+    start = tstart.to(dev, torch.int64)
+    node = tnode.to(dev, torch.int64)  # 1-based
+    lim = torch.iinfo(torch.int32)
+    first = torch.cat([torch.tensor([lim.min], device=dev), start[1:]])
+    last = torch.cat([start[1:] - 1, torch.tensor([lim.max], device=dev)])
+    offsets = t.hap_offsets.to(torch.int64)
+
+    def hap(x):
+        return (torch.searchsorted(offsets, x, right=True) - 1).clamp(
+            0, t.hap_range.shape[0] - 1)
+
+    h0, h1 = hap(first), hap(last)
+    ridx = torch.where(h0 == h1, t.hap_range[h0], SEARCH_HAP)
+    trio = t.trio_seg.to(torch.int64)
+    before = torch.cat([torch.full((2,), -1, device=dev), trio])[:len(trio)]
+    return torch.stack([start, node, trio, before, ridx.to(torch.int64),
+                        t.nodes_len[node - 1].to(torch.int64),
+                        t.base_offset[node - 1].to(torch.int64),
+                        torch.zeros_like(start)],
+                       dim=1).to(torch.int32).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------
@@ -174,8 +217,13 @@ def build_scatter_kernels(src: Path | str | None = None) -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     common = [vp, vp, vp, i32, vp, i32, vp, i32, vp, i32, i32, i32, vp, vp,
               i32, vp, vp, vp]
-    lib.classify_scatter_ranges_launch.restype = i32
-    lib.classify_scatter_ranges_launch.argtypes = common + [vp] * 7
+    # K6 takes its records (seg_rec) after trio_seg; sources before the
+    # records have the entry without them
+    for name, records in ((_K6_ENTRY, 1), ("classify_scatter_ranges_launch",
+                                           0)):
+        if hasattr(lib, name):
+            getattr(lib, name).restype = i32
+            getattr(lib, name).argtypes = common + [vp] * (records + 7)
     lib.classify_scatter_launch.restype = i32
     lib.classify_scatter_launch.argtypes = common + [i32, i32] + [vp] * 6
     return lib
@@ -229,6 +277,22 @@ def _check_args(ts, te, aligned, tables, tstart, tnode, acc, n_acc: int):
     return dev, B, M
 
 
+def _check_records(tables, M: int, dev) -> None:
+    """K6's records (``tables.seg_rec``, scatter_records) on ``dev``: int32
+    [M, 8], contiguous, on a 32-byte boundary."""
+    x = getattr(tables, "seg_rec", None)
+    if x is None:
+        raise ValueError("the tables hold no seg_rec (scatter_records; "
+                         "build_fused_tables makes it)")
+    if x.device != dev:
+        raise ValueError(f"seg_rec must be on {dev} (got {x.device})")
+    if x.dtype != torch.int32 or tuple(x.shape) != (M, 8):
+        raise ValueError(f"seg_rec must be int32 [{M}, 8], not {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous() or x.data_ptr() % 32:
+        raise ValueError("seg_rec must be contiguous on a 32-byte boundary")
+
+
 def _launch(fn, dev, ts, te, aligned, tables, tstart, tnode, M: int, *rest):
     """Call the C entry point ``fn`` with the per-read columns, the tables
     and ``rest`` on the current stream (no synchronise); raise on the CUDA
@@ -249,15 +313,22 @@ def _launch(fn, dev, ts, te, aligned, tables, tstart, tnode, M: int, *rest):
 
 def launch_k6(lib, ts, te, aligned, tables, tstart, tnode,
               acc) -> torch.Tensor:
-    """Check K6's arguments, then launch ``lib``'s
-    classify_scatter_ranges_launch on the current stream (no synchronise,
-    no count).  Returns ridx int32 [B]."""
+    """Check K6's arguments, then launch ``lib``'s K6 on the current
+    stream (no synchronise, no count): with the tables' records where the
+    build takes them, else an earlier source's entry without them.  Returns
+    ridx int32 [B]."""
     dev, B, M = _check_args(ts, te, aligned, tables, tstart, tnode, acc, 5)
+    records = ()
+    if hasattr(lib, _K6_ENTRY):
+        _check_records(tables, M, dev)
+        fn = getattr(lib, _K6_ENTRY)
+        records = (tables.seg_rec.data_ptr(),)
+    else:  # an earlier source's K6, without the records
+        fn = lib.classify_scatter_ranges_launch
     ridx = torch.empty(B, dtype=torch.int32, device=dev)
     if B:  # a launch of no blocks is an error
-        _launch(lib.classify_scatter_ranges_launch, dev, ts, te, aligned,
-                tables, tstart, tnode, M, *(a.data_ptr() for a in acc[:5]),
-                ridx.data_ptr())
+        _launch(fn, dev, ts, te, aligned, tables, tstart, tnode, M, *records,
+                *(a.data_ptr() for a in acc[:5]), ridx.data_ptr())
     return ridx
 
 
@@ -290,7 +361,8 @@ def classify_scatter_ranges_cuda(ts, te, aligned, tables, tstart, tnode,
     """Check K6's arguments (before building anything) and launch the
     current source's K6 on the current stream, no synchronise (launch_k6,
     counted).  Returns ridx int32 [B]."""
-    _check_args(ts, te, aligned, tables, tstart, tnode, acc, 5)
+    dev, _, M = _check_args(ts, te, aligned, tables, tstart, tnode, acc, 5)
+    _check_records(tables, M, dev)
     ridx = launch_k6(build_scatter_kernels(), ts, te, aligned, tables,
                      tstart, tnode, acc)
     if ts.shape[0]:

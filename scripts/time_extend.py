@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time two builds of K1 (``banded_extend_launch``), K2
-(``banded_extend_windows_launch``), K3 (``seed_stage_launch``) or K11
-(``classify_scatter_launch``) on one GPU, in turns: the current
-``csrc/banded_extend.cu`` (``csrc/seed_stage.cu`` for K3,
-``csrc/classify_scatter.cu`` for K11) and a baseline source with the same
-C entry points, such as an earlier commit's:
+(``banded_extend_windows_launch``), K3 (``seed_stage_launch``), K6 (the
+range classify + scatter) or K11 (``classify_scatter_launch``) on one GPU,
+in turns: the current ``csrc/banded_extend.cu`` (``csrc/seed_stage.cu``
+for K3, ``csrc/classify_scatter.cu`` for K6 and K11) and a baseline source
+with the same C entry points, such as an earlier commit's (K6's entry with
+or without its records, ``scatter.launch_k6``):
 
     git show <commit>:pantax_tpu_torch/csrc/banded_extend.cu \\
         > build/banded_extend_base.cu
@@ -19,6 +20,8 @@ C entry points, such as an earlier commit's:
         > build/classify_scatter_base.cu
     PYTHONPATH=. python scripts/time_extend.py --kernel k11 \\
         build/classify_scatter_base.cu [--ablate ballot_scan]
+    PYTHONPATH=. python scripts/time_extend.py --kernel k6 \\
+        build/classify_scatter_base.cu [--ablate pair --ablate scan ...]
 
 or against the current source with one step of the fast DP's design taken
 out (``--ablate unroll``: the step loop not unrolled), written under the
@@ -54,11 +57,15 @@ the automatic node window (4) and at 3 (a third of the reads overflow),
 and interval batches of 16384 rows of 1..L_cap segments at L_cap 8 (phase
 3c's), 16, 32 and 64 (the wide rows, one template width each); both
 builds' K6 at phase 3c's three shapes on the smoke DB (base, new, new,
-base), which shows whether K6 moved.  Each build is held to the plain version first
-(``chip_smoke.hold_scatter``); ``--ablate`` (repeatable) times the current
-source without its lever (K11_ABLATIONS) as K3's does.  Each reading is
-50 launches on accumulators of its own (``chip_smoke.scatter_ms``); the
-bound is ``chip_smoke.scatter_bound``.
+base), which shows whether K6 moved.  K6 (``--kernel k6``) on the smoke DB
+at phase 3c's three shapes (``chip_smoke.k6_cases``: phase 5's first batch,
+the paired [2B] batch, 16384 interval rows of 1-160 segments), every build
+on every shape, its levers' ablations (K6_ABLATIONS) in the same turns.
+Each build is held to the plain version first (``chip_smoke.hold_scatter``);
+``--ablate`` (repeatable) times the current source without its lever
+(K11_ABLATIONS, K6_ABLATIONS) as K3's does.  Each reading is 50 launches
+on accumulators of its own (``chip_smoke.scatter_ms``); the bound is
+``chip_smoke.scatter_bound``.
 
 Both builds' outputs must equal each other's and the plain version's,
 bit for bit; then base, new, new, base, ROUNDS times, ITERS launches a
@@ -99,12 +106,15 @@ SHAPES = {
     # query's mates, long-read chunks)
     "k3": ((65536, 160, 4, "short"), (65536, 152, 4, "short"),
            (131072, 160, 4, "paired"), (16384, 512, 8, "long")),
+    # K6: chip_smoke.k6_cases' rows on the smoke DB
+    "k6": ("main", "paired", "intervals"),
     # K11: the rows and the node window (None: the automatic one)
     "k11": (("main", None), ("L3", 3), ("intervals", 8), ("intervals", 16),
             ("intervals", 32), ("intervals", 64)),
 }
 KERNELS = {"k1": "banded_extend_kernel", "k2": "banded_extend_windows_kernel",
-           "k3": "seed_stage_kernel", "k11": "classify_scatter_kernel"}
+           "k3": "seed_stage_kernel", "k6": "classify_scatter_ranges_kernel",
+           "k11": "classify_scatter_kernel"}
 TEXT_LEN = 30_000_000
 ITERS = 200  # launches per timed reading
 ROUNDS = 3  # base, new, new, base this many times
@@ -154,11 +164,58 @@ K11_ABLATIONS = {
 }
 
 
+# K6's levers, each taken out of csrc/classify_scatter.cu: without "pair"
+# one thread takes both ends of a read (their searches in the same rounds);
+# without "scan" every end takes the bisection, then its record; without
+# "packed" a record's fields come from the separate arrays, a load each
+# (tstart, tnode, trio_seg twice; nodes_len and base_offset after the
+# node); without "node_copy" only the node's fields do; without
+# "interleave" the haplotype search and the live test come before the
+# ends' searches
+K6_ABLATIONS = {
+    "pair": [("constexpr int kLanes = 2;", "constexpr int kLanes = 1;")],
+    "scan": [("        if (n >= 0 && n <= fits) {",
+              "        if (false) {")],
+    "packed": [
+        ("    return __ldg(&t.seg_rec[2 * i].x);\n",
+         "    return __ldg(t.tstart + i);\n"),
+        ("    return __ldg(t.seg_rec + 2 * i);\n",
+         "    return make_int4(__ldg(t.tstart + i), __ldg(t.tnode + i),\n"
+         "                     __ldg(t.trio_seg + i),\n"
+         "                     i >= 2 ? __ldg(t.trio_seg + i - 2) : -1);\n"),
+        ("    return __ldg(t.seg_rec + 2 * i + 1);\n",
+         "    return make_int4(__ldg(&t.seg_rec[2 * i + 1].x),\n"
+         "                     __ldg(t.nodes_len + head.y - 1),\n"
+         "                     __ldg(t.base_offset + head.y - 1), 0);\n"),
+    ],
+    "node_copy": [
+        ("    return __ldg(t.seg_rec + 2 * i + 1);\n",
+         "    return make_int4(__ldg(&t.seg_rec[2 * i + 1].x),\n"
+         "                     __ldg(t.nodes_len + head.y - 1),\n"
+         "                     __ldg(t.base_offset + head.y - 1), 0);\n"),
+    ],
+    "interleave": [
+        ("    const int ts = ts_[r], te = te_[r];\n    // this lane's ends",
+         "    const int ts = ts_[r], te = te_[r];\n"
+         "    {\n"
+         "        const int first = __ldg(t.hap_range + haplotype(t, ts));\n"
+         "        if (first < 0 || te <= ts) {\n"
+         "            if (lane == 0) ridx_out[r] = first;\n"
+         "            return;\n"
+         "        }\n"
+         "    }\n"
+         "    // this lane's ends"),
+    ],
+}
+
+
 def ablated_source(name: str) -> Path:
     """The current source with ABLATIONS[name] (K1's), K3_ABLATIONS[name]
-    (K3's) or K11_ABLATIONS[name] (K11's) applied, written under the build
-    directory."""
+    (K3's), K6_ABLATIONS[name] (K6's) or K11_ABLATIONS[name] (K11's)
+    applied, written under the build directory."""
     path, table = ((seed._SRC, K3_ABLATIONS) if name in K3_ABLATIONS
+                   else (scatter._SRC, K6_ABLATIONS)
+                   if name in K6_ABLATIONS
                    else (scatter._SRC, K11_ABLATIONS)
                    if name in K11_ABLATIONS else (extend._SRC, ABLATIONS))
     src = path.read_text()
@@ -177,19 +234,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("baseline", nargs="?", help="the baseline .cu source")
     ap.add_argument("--ablate", action="append",
                     choices=sorted(ABLATIONS) + sorted(K3_ABLATIONS)
-                    + sorted(K11_ABLATIONS),
+                    + sorted(K6_ABLATIONS) + sorted(K11_ABLATIONS),
                     help="time the current source without this step instead "
-                         "(K3, K11: as well, repeatable)")
+                         "(K3, K6, K11: as well, repeatable)")
     ap.add_argument("--kernel", choices=sorted(SHAPES), default="k1",
                     help="K1 (text + w0), K2 (windows given), K3 (the seed "
-                         "stage) or K11 (the windowed classify + scatter); "
-                         "default k1")
+                         "stage), K6 (the range classify + scatter) or K11 "
+                         "(the windowed classify + scatter); default k1")
     args = ap.parse_args(argv)
-    mine = {"k3": K3_ABLATIONS, "k11": K11_ABLATIONS}.get(args.kernel,
-                                                          ABLATIONS)
+    mine = {"k3": K3_ABLATIONS, "k6": K6_ABLATIONS,
+            "k11": K11_ABLATIONS}.get(args.kernel, ABLATIONS)
     if any(a not in mine for a in args.ablate or ()):
         ap.error(f"--ablate for {args.kernel}: one of {sorted(mine)}")
-    if args.kernel in ("k3", "k11"):
+    if args.kernel in ("k3", "k6", "k11"):
         if args.baseline is None:
             ap.error(f"{args.kernel.upper()} takes a baseline source")
     elif (args.baseline is None) == (args.ablate is None) or len(
@@ -301,10 +358,11 @@ def main_k3(args, dev, issue_peak: float) -> None:
             *smoke.seed_bound(case, issue_peak))
 
 
-def k11_cases(dev) -> list:
-    """K11's rows at each SHAPES["k11"] shape on the dup DB, and K6's at
-    phase 3c's three shapes on the smoke DB, as smoke phases 3c and 9 make
-    them: [(kernel, tag, cols, node window, (tables, tstart, tnode))]."""
+def scatter_cases(dev, kernel: str) -> list:
+    """K6's rows at phase 3c's three shapes on the smoke DB (SHAPES["k6"])
+    and, for K11, its rows at each SHAPES["k11"] shape on the dup DB first,
+    as smoke phases 3c and 9 make them: [(kernel, tag, cols, node window,
+    (tables, tstart, tnode))]."""
     from pantax_tpu_torch import _host
     from pantax_tpu_torch.benchmarks import (
         dup_db, scale_db, simulate_read_batch)
@@ -313,7 +371,8 @@ def k11_cases(dev) -> list:
         auto_node_window, build_fused_tables)
 
     cases = []
-    for name, make in (("dup_db", dup_db), ("scale_db", scale_db)):
+    dbs = (("dup_db", dup_db),) if kernel == "k11" else ()
+    for name, make in dbs + (("scale_db", scale_db),):
         db = make(str(extend.build_dir() / name))
         index = _host.build_align_index(db)
         cfg = _host.AlignConfig()
@@ -323,8 +382,10 @@ def k11_cases(dev) -> list:
         codes, lens, _ = simulate_read_batch(index, smoke.BATCH, 150, 0.01,
                                              seed=3)
         if name == "scale_db":
-            cases += [("K6", tag, cols, None, tab) for tag, cols, _, _ in
-                      smoke.k6_cases(aligner, index, codes, lens, dev)]
+            k6 = smoke.k6_cases(aligner, index, codes, lens, dev)
+            if tuple(c[0] for c in k6) != SHAPES["k6"]:
+                raise AssertionError(f"K6's cases {[c[0] for c in k6]}")
+            cases += [("K6", tag, cols, None, tab) for tag, cols, _, _ in k6]
             continue
         auto = auto_node_window(index, codes.shape[1], cfg.extension_band)
         main = smoke.query_cols(aligner, codes, lens)
@@ -336,13 +397,14 @@ def k11_cases(dev) -> list:
     return cases
 
 
-def main_k11(args, dev) -> None:
-    """K11: the baseline, the current source and its ablations in turns;
-    both builds' K6 in turns (base, new, new, base)."""
+def main_scatter(args, dev) -> None:
+    """K6 or K11 (``args.kernel``): the baseline, the current source and
+    its ablations in turns; with K11 both builds' K6 in turns (base, new,
+    new, base)."""
     libs = build_turns(args, scatter.build_scatter_kernels, scatter._SRC)
-    for kernel, tag, cols, cap, tab in k11_cases(dev):
-        mine = libs if kernel == "K11" else {k: libs[k] for k in ("base",
-                                                                 "new")}
+    for kernel, tag, cols, cap, tab in scatter_cases(dev, args.kernel):
+        mine = libs if kernel == args.kernel.upper() else {
+            k: libs[k] for k in ("base", "new")}
         for name, lib in mine.items():
             smoke.hold_scatter(cols, *tab, f"({name} build, {tag})", cap,
                                lib=lib)
@@ -357,8 +419,8 @@ def main() -> None:
     args = parse_args()
     dev = require_cuda()
     print(smoke.card_line())
-    if args.kernel == "k11":
-        main_k11(args, dev)
+    if args.kernel in ("k6", "k11"):
+        main_scatter(args, dev)
         return
     issue_peak = smoke.issue_ops_per_s()
     if args.kernel == "k3":

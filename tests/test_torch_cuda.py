@@ -972,3 +972,48 @@ def test_scatter_kernels_reject_bad_inputs(cuda, tmp_path):
     with pytest.raises(ValueError):  # a diff array without its sentinel
         scatter.classify_scatter(ts, te, al, tables, tstart, tnode,
                                  (acc[0], acc[1][:-1], acc[2]), 8)
+
+
+@pytest.mark.parametrize("variant", ["", ", masked", ", shifted", ", coarse"],
+                         ids=["built", "masked", "shifted", "coarse"])
+def test_k6_table_variants_match_plain_on_a_batch(cuda, tmp_path, variant):
+    """K6 on one query batch of a small scale_db (4099 reads, B odd) and on
+    reads in its fullest buckets, with each of chip_smoke.table_variants'
+    tables (haplotype offsets cut into segments: the haplotype search;
+    buckets 32x wider: the scan and the bisection), against its plain
+    version."""
+    from pantax_tpu_torch.benchmarks import scale_db
+
+    index, tables, tstart, tnode = chip_smoke.crafted_setup(
+        str(tmp_path / "scale"), cuda,
+        lambda p: scale_db(p, n_species=2, genome_len=50_000))
+    t = chip_smoke.table_variants(tables, tstart, index.text_len)[variant]
+    al = aligner_from_reference(index, _host.AlignConfig(), cuda)
+    codes, lens, _ = simulate_read_batch(index, 4099, 150, 0.01, seed=5)
+    cols = chip_smoke.query_cols(al, codes, lens)
+    assert chip_smoke.hold_scatter(cols, t, tstart, tnode, variant) == 0
+    full = [torch.from_numpy(a).to(cuda)
+            for a in chip_smoke.scatter_cases(index, 32)["full_bucket"]]
+    assert chip_smoke.hold_scatter(full, t, tstart, tnode, variant) == 0
+
+
+def test_k6_refuses_tables_without_its_records(cuda, tmp_path):
+    """K6's wrapper raises before launching on tables whose records are
+    missing, on the CPU, or of another shape; nothing is counted."""
+    from types import SimpleNamespace
+    from pantax_tpu_torch.ops import scatter
+
+    index, tables, tstart, tnode = chip_smoke.crafted_setup(
+        str(tmp_path / "tiny"), cuda, tiny_db)
+    cols = [torch.from_numpy(a).to(cuda)
+            for a in chip_smoke.scatter_cases(index, 8)["span_3_up"]]
+    acc = chip_smoke.zero_accs(tables, tstart.shape[0], cuda)
+    extend.reset_launch_counts()
+    for rec in (None, tables.seg_rec.cpu(), tables.seg_rec[:-1],
+                tables.seg_rec.long(), tables.seg_rec[:, :4].contiguous()):
+        t = SimpleNamespace(**{k: getattr(tables, k)
+                               for k in chip_smoke.SCATTER_FIELDS})
+        t.seg_rec = rec
+        with pytest.raises(ValueError):
+            scatter.classify_scatter_ranges(*cols, t, tstart, tnode, acc)
+    assert extend.LAUNCHES["classify_scatter_ranges"] == 0

@@ -9,13 +9,20 @@ haplotype boundary), with the tables as built and with
 ridx < 0, and trio matches of -1 at either end of a read): the five
 accumulators (the range scatter) or three (the windowed), ridx and
 overflow, on tiny_db and on a small dup-graph community at node windows of
-4, 12, 16, 32 and 64.  The dispatchers take the plain version on CPU
-tensors and count it; the kernels' entries refuse CPU tensors.  The
-kernels' bound (chip_smoke.scatter_work) equals a count made one row at a
-time.  The kernels themselves are
+4, 12, 16, 32 and 64.  K6's plain version also on its own cases
+(``chip_smoke.K6_CASES``: reads from a segment's first base, reads ending
+at a segment start, three segments, a haplotype's and the text's last
+segment, the fullest buckets, an odd B) and with haplotype offsets
+shifted into segments and buckets 32x wider; K6's records
+(``scatter.scatter_records``) hold the separate arrays.  The dispatchers
+take the plain version on CPU tensors and count it; the kernels' entries
+refuse CPU tensors and tables without K6's records.  The kernels' bound
+(chip_smoke.scatter_work) equals a count made one row at a time.  The
+kernels themselves are
 held to these plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py phase 3c)."""
 from functools import partial
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -49,6 +56,7 @@ class Setup:
     """Both packages' tables over one DB (the port's built by the port)."""
 
     def __init__(self, db):
+        self.db = db
         self.index = _host.build_align_index(db)
         self.ref_aligner = RefAligner(self.index)
         self.ref_tables = ref_fused.build_fused_tables(db, self.index)
@@ -87,27 +95,23 @@ def _assert_equal(want, got, what):
     np.testing.assert_array_equal(got.astype(want.dtype), want, err_msg=what)
 
 
-@pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("case", chip_smoke.SCATTER_CASES)
-@pytest.mark.parametrize("fixture", ["tiny", "dup"])
-def test_ranges_crafted_bit_identical(fixture, case, masked, request):
-    """K6's plain version against _classify_scatter_ranges: the five
-    accumulators (the diff array's last slot included, the sinks aside)
-    and ridx."""
-    s = request.getfixturevalue(fixture)
-    t = _tables(s, masked)
-    cols = chip_smoke.scatter_cases(s.index, 32)[case]
+def _hold_ranges(s, t, cols):
+    """K6's plain version on ``cols`` over the tables ``t`` against
+    _classify_scatter_ranges given t's haplotype offsets, buckets, ranges
+    and trio matches: the five accumulators (the diff array's last slot
+    included, the sinks aside) and ridx.  Returns ridx."""
     rt = s.ref_tables
     M = s.M
     ref_acc = (jnp.zeros(rt.N_pad, jnp.float32),
                jnp.zeros(rt.TB_pad + 1, jnp.int32),
                jnp.zeros(rt.U_pad, jnp.float32), jnp.zeros(M + 1, jnp.int32),
                jnp.zeros(M + 1, jnp.int32))
-    hap_offsets, hap_range, pos_lo, tstart, tnode, trio_seg = _ref_tables(s, t)
+    _, hap_range, _, tstart, tnode, trio_seg = _ref_tables(s, t)
     ridx_w, want = REF_RANGES(
-        *(jnp.asarray(a) for a in cols), hap_offsets, hap_range, pos_lo,
-        tstart, tnode, trio_seg, rt.nodes_len_d, rt.base_offset_d, ref_acc,
-        win_shift=rt.win_shift, pos_steps=rt.pos_steps,
+        *(jnp.asarray(a) for a in cols), jnp.asarray(t.hap_offsets.numpy()),
+        hap_range, jnp.asarray(t.pos_lo.numpy()), tstart, tnode, trio_seg,
+        rt.nodes_len_d, rt.base_offset_d, ref_acc,
+        win_shift=int(t.win_shift), pos_steps=int(t.pos_steps),
         total_bases=rt.TB_pad)
     acc = chip_smoke.zero_accs(t, M, "cpu")
     ridx = scatter.classify_scatter_ranges_plain(
@@ -117,8 +121,39 @@ def test_ranges_crafted_bit_identical(fixture, case, masked, request):
         _assert_equal(np.asarray(w)[:n], a[:n].numpy(), f"accumulator {i}")
     assert ridx.dtype == torch.int32
     np.testing.assert_array_equal(ridx.numpy(), np.asarray(ridx_w))
+    return ridx
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("case",
+                         chip_smoke.SCATTER_CASES + chip_smoke.K6_CASES)
+@pytest.mark.parametrize("fixture", ["tiny", "dup"])
+def test_ranges_crafted_bit_identical(fixture, case, masked, request):
+    """K6's plain version against _classify_scatter_ranges: the five
+    accumulators (the diff array's last slot included, the sinks aside)
+    and ridx."""
+    s = request.getfixturevalue(fixture)
+    ridx = _hold_ranges(s, _tables(s, masked),
+                        chip_smoke.scatter_cases(s.index, 32)[case])
     if masked and case != "unaligned":
         assert (ridx < 0).any() and (ridx >= 0).any()
+
+
+@pytest.mark.parametrize("case",
+                         chip_smoke.SCATTER_CASES + chip_smoke.K6_CASES)
+@pytest.mark.parametrize("variant", ["shifted", "coarse"])
+@pytest.mark.parametrize("fixture", ["tiny", "dup"])
+def test_ranges_variant_tables_bit_identical(fixture, variant, case,
+                                             request):
+    """K6's plain version against _classify_scatter_ranges on
+    chip_smoke.table_variants' other tables: haplotype offsets shifted one
+    base into a segment (K6's records send those reads to the haplotype
+    search) and buckets 32x wider (K6's scan and, past 7 segments, its
+    bisection)."""
+    s = request.getfixturevalue(fixture)
+    t = chip_smoke.table_variants(s.tables, s.tstart, s.index.text_len)[
+        ", " + variant]
+    _hold_ranges(s, t, chip_smoke.scatter_cases(s.index, 32)[case])
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -216,6 +251,124 @@ def test_crafted_cases_cover_their_edges(tiny, dup):
             assert all(len(r) for r in revisits), L_cap
             if L_cap == 64:
                 assert any(f < 32 <= j for r in revisits for f, j in r)
+
+
+def _locate(s, t, x):
+    return scatter.locate_segment(s.tstart, t.pos_lo, t.win_shift,
+                                  t.pos_steps, torch.from_numpy(x)).numpy()
+
+
+def test_k6_cases_cover_their_edges(tiny, dup):
+    """K6_CASES and the table variants hold what their names say on both
+    DBs: reads from a segment's first base, reads ending at a segment's
+    start, exactly three segments, reads in a haplotype's last segment and
+    in the text's last, ends in the fullest buckets (on the dup community
+    at 2^pos_steps - 1 segments), 255 rows; shifted tables send some
+    reads to the haplotype search; coarse tables give buckets both inside
+    K6's scan (up to 7 segments) and past it."""
+    for s in (tiny, dup):
+        cases = chip_smoke.scatter_cases(s.index, 32)
+        tstart, t = s.index.tstart, s.tables
+        ts, te, _ = cases["seg_start"]
+        assert (ts == tstart[_locate(s, t, ts)]).all()
+        ts, te, _ = cases["ends_at_start"]
+        assert np.isin(te, tstart).all() and (te > ts).all()
+        ts, te, _ = cases["span_3"]
+        span = _locate(s, t, te - 1) - _locate(s, t, ts) + 1
+        assert (span == 3).mean() > 0.9
+        ts, te, _ = cases["hap_last"]
+        i0 = _locate(s, t, ts)
+        hap_end = s.index.hap_offsets[1:]
+        last = np.searchsorted(tstart, hap_end - 1, side="right") - 1
+        assert np.isin(i0, last).all() and (i0 == s.M - 1).any()
+        assert (np.isin(te, hap_end) | (te == s.index.text_len)).any()
+        ts, te, _ = cases["full_bucket"]
+        occ = np.diff(t.pos_lo.numpy())
+        assert (occ[ts >> t.win_shift] == occ.max()).all()
+        assert (occ[(te - 1) >> t.win_shift] == occ.max()).mean() > 0.5
+        if s is dup:
+            assert occ.max() == 2 ** t.pos_steps - 1
+        assert len(cases["odd_b"][0]) % 2 == 1
+        variants = chip_smoke.table_variants(t, s.tstart, s.index.text_len)
+        seg = variants[", shifted"].seg_rec.numpy()
+        flagged = np.flatnonzero(seg[:, 4] == scatter.SEARCH_HAP)
+        ts, te, al = cases["hap_edges"]
+        assert np.isin(_locate(s, t, ts)[al], flagged).any()
+        coarse = variants[", coarse"]
+        occ = np.diff(coarse.pos_lo.numpy())
+        ts = np.concatenate([c[0] for c in cases.values()])
+        at = occ[np.minimum(ts >> coarse.win_shift, len(occ) - 1)]
+        assert (at > 7).any() and ((at >= 2) & (at <= 7)).any()
+        assert 2 ** coarse.pos_steps - 1 >= occ.max() > 7
+
+
+@pytest.mark.parametrize("variant", ["", ", masked", ", shifted"])
+@pytest.mark.parametrize("fixture", ["tiny", "dup"])
+def test_scatter_records_equal_the_separate_arrays(fixture, variant,
+                                                   request):
+    """K6's records hold the separate arrays: each segment's tstart, tnode,
+    trio_seg, the trio_seg of the segment two before (-1 for the first
+    two), ridx (the haplotype range of every position the segment answers
+    for; SEARCH_HAP where two haplotypes share them), its node's nodes_len
+    and base_offset, and 0."""
+    s = request.getfixturevalue(fixture)
+    t = chip_smoke.table_variants(s.tables, s.tstart, s.index.text_len)[
+        variant]
+    seg = t.seg_rec.numpy()
+    assert seg.dtype == np.int32 and seg.shape == (s.M, 8)
+    trio = t.trio_seg.numpy()
+    node = s.index.tnode - 1
+    np.testing.assert_array_equal(seg[:, 0], s.index.tstart)
+    np.testing.assert_array_equal(seg[:, 1], s.index.tnode)
+    np.testing.assert_array_equal(seg[:, 2], trio)
+    np.testing.assert_array_equal(seg[:, 3], np.append([-1, -1], trio[:-2]))
+    np.testing.assert_array_equal(seg[:, 5], t.nodes_len.numpy()[node])
+    np.testing.assert_array_equal(seg[:, 6], t.base_offset.numpy()[node])
+    assert not seg[:, 7].any()
+    offsets, hap_range = t.hap_offsets.numpy(), t.hap_range.numpy()
+
+    def hap(x):
+        h = np.searchsorted(offsets, x, side="right") - 1
+        return np.clip(h, 0, len(hap_range) - 1)
+
+    ends = np.append(s.index.tstart[1:], s.index.text_len)
+    flagged = seg[:, 4] == scatter.SEARCH_HAP
+    assert flagged.any() == (variant == ", shifted")
+    for r in range(s.M):  # every position the segment answers for
+        got = hap(np.arange(s.index.tstart[r], ends[r]))
+        if flagged[r]:
+            assert len(np.unique(got)) > 1
+        else:
+            assert (hap_range[got] == seg[r, 4]).all()
+    assert hap(-1) == hap(0) or flagged[0]
+    built = port_fused.build_fused_tables(s.db, s.index, "cpu")
+    assert torch.equal(built.seg_rec, s.tables.seg_rec)
+
+
+def test_k6_records_are_checked(tiny):
+    """K6's wrapper takes only tables with records of their shape and
+    type: none (tables from the reference without the index), int64, a
+    row short, 4 columns, or a view off its 32-byte boundary raise
+    ValueError."""
+    s = tiny
+    cpu = torch.device("cpu")
+    scatter._check_records(s.tables, s.M, cpu)
+    bad = {"none": None, "int64": s.tables.seg_rec.long(),
+           "short": s.tables.seg_rec[1:],
+           "half": s.tables.seg_rec[:, :4].contiguous(),
+           "offset": torch.cat([torch.zeros(4, dtype=torch.int32),
+                                s.tables.seg_rec.flatten()])[4:].view(s.M, 8)}
+    for what, rec in bad.items():
+        t = SimpleNamespace(**{k: getattr(s.tables, k)
+                               for k in chip_smoke.SCATTER_FIELDS})
+        t.seg_rec = rec
+        with pytest.raises(ValueError):
+            scatter._check_records(t, s.M, cpu)
+    from pantax_tpu_torch.convert import fused_tables_from_reference
+    ref = fused_tables_from_reference(s.ref_tables, "cpu")
+    assert ref.seg_rec is None
+    ref = fused_tables_from_reference(s.ref_tables, "cpu", s.index)
+    assert torch.equal(ref.seg_rec, s.tables.seg_rec)
 
 
 def _revisits(s, L_cap, ts, te, aligned):

@@ -1,4 +1,4 @@
-"""The K1 / K2 / K3 / K11 timing tools on the CPU: the arguments, shapes and
+"""The K1 / K2 / K3 / K6 / K11 timing tools on the CPU: the arguments, shapes and
 ablated sources of ``scripts/time_extend.py`` and the SASS loop readers of
 ``chip_smoke.py`` (the card runs them; here only their text handling is
 held)."""
@@ -73,6 +73,35 @@ def test_k11_ablations_apply_to_the_current_source(name, tmp_path,
     assert path.name == f"classify_scatter_no_{name}.cu" and src != current
     for old, new in time_extend.K11_ABLATIONS[name]:
         assert current.count(old) == 1 and old not in src and new in src
+
+
+@pytest.mark.parametrize("name", sorted(time_extend.K6_ABLATIONS))
+def test_k6_ablations_apply_to_the_current_source(name, tmp_path,
+                                                   monkeypatch):
+    """Each of K6's levers comes out of csrc/classify_scatter.cu as its
+    text says (each text once in the source), into a source of its own
+    under the build directory; K11's kernel is left as it is."""
+    from pantax_tpu_torch.ops import scatter
+    monkeypatch.setenv("PANTAX_TORCH_BUILD", str(tmp_path))
+    path = time_extend.ablated_source(name)
+    src, current = path.read_text(), scatter._SRC.read_text()
+    assert path.name == f"classify_scatter_no_{name}.cu" and src != current
+    for old, new in time_extend.K6_ABLATIONS[name]:
+        assert current.count(old) == 1 and new in src
+        assert old not in src or old in new
+    k11 = current.index("// K11: a tile of G lanes a read")
+    assert src.endswith(current[k11:])
+
+
+def test_k6_shapes_are_phase_3c():
+    """K6's shapes: phase 3c's three batches on the smoke DB, in
+    chip_smoke.k6_cases' order."""
+    import inspect
+    assert time_extend.SHAPES["k6"] == ("main", "paired", "intervals")
+    assert time_extend.KERNELS["k6"] == "classify_scatter_ranges_kernel"
+    body = inspect.getsource(chip_smoke.k6_cases)
+    tags = [body.index(f'("{tag}",') for tag in time_extend.SHAPES["k6"]]
+    assert tags == sorted(tags)
 
 
 def test_k11_shapes_are_phase_3c_and_the_wide_rows():
@@ -198,6 +227,24 @@ def test_parse_args_k11_takes_a_baseline_and_its_ablations():
     assert (args.kernel, args.baseline) == ("k11", "base.cu")
     assert args.ablate == ["ballot_scan"]
     assert time_extend.parse_args(["--kernel", "k11", "b.cu"]).ablate is None
+
+
+def test_parse_args_k6_takes_a_baseline_and_its_ablations():
+    args = time_extend.parse_args(["--kernel", "k6", "base.cu", "--ablate",
+                                   "pair", "--ablate", "scan"])
+    assert (args.kernel, args.baseline) == ("k6", "base.cu")
+    assert args.ablate == ["pair", "scan"]
+    assert time_extend.parse_args(["--kernel", "k6", "b.cu"]).ablate is None
+
+
+@pytest.mark.parametrize("argv", [
+    ["--kernel", "k6"], ["--kernel", "k6", "--ablate", "ballot_scan",
+                         "base.cu"],
+    ["--kernel", "k11", "--ablate", "pair", "base.cu"],
+])
+def test_parse_args_refuses_k6_mixups(argv):
+    with pytest.raises(SystemExit):
+        time_extend.parse_args(argv)
 
 
 @pytest.mark.parametrize("argv", [
