@@ -7,8 +7,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. require a CUDA device; print the card's name and power limit;
 2. build the banded-DP kernels (K1 and K2, csrc/banded_extend.cu), the
-   seed stage (K3, csrc/seed_stage.cu) and the classify + scatter (K6 and
-   K11, csrc/classify_scatter.cu) with nvcc, one process per source
+   seed stage (K3, csrc/seed_stage.cu), the classify + scatter (K6 and
+   K11, csrc/classify_scatter.cu) and the ADMM chunk (K8,
+   csrc/admm_chunk.cu) with nvcc, one process per source
    started together, and print ptxas's register report, the SASS
    instructions of one step of K1's and of K2's main loop at pad 4 and pad
    8, and those of K3's vote loops (cuobjdump);
@@ -51,6 +52,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    0 (``check_k6``, ``check_k11``, in ``check_k3``), and the in-process
    paths hold those dispatches to their own batch counts
    (``check_dispatches``);
+3d. hold the strain solve's ADMM chunk (K8, csrc/admm_chunk.cu) against
+   its plain torch version (in phase 8, after the device tail, whose
+   buckets it takes): the device tail once more with the plain chunk put
+   in its place by assignment in this process, recording each chunk's
+   inputs, its tables against K8's (the same strains, abundances within
+   2e-4); the device tail once more with K8, its tables byte-identical
+   to the first run's, and each chunk's residual of both runs printed
+   beside four chunks of the plain chunk in float64 from the largest
+   bucket's zero state;
+   K8 against the plain chunk after one step and after 25 (every state
+   vector and the residual within K8_BARS, the inputs untouched) on the
+   largest bucket's first chunk (the zero state, aliased as the solvers
+   pass it) and its next, and on a crafted wide-row case (2, 4096, 132:
+   rows streamed, L in global memory); two launches of 250 steps
+   bit-identical; K8 and the plain chunk timed at 250 steps beside
+   ``admm_bound``.  Every profile of every later phase (and phases 5 and
+   7) holds K8's launches to the chunks the solvers dispatched and the
+   plain chunk to 0 (``check_k8``, in ``check_k3`` and around each
+   profile call), the subprocesses of phases 12 and 14 included;
 4. run the port on the tiny 2-species DB on the CPU (plain versions) and on
    the GPU (kernels): packed query rows, na/ta/bc and the align_long_reads
    arrays of 16 long reads must be identical;
@@ -207,7 +227,9 @@ rate; K3, code bytes and the seed rows its valid seeds gather against
 HASH_OPS_PER_POS instructions per k-mer position inside each read's
 read_len and VOTE_OPS_PER_PAIR per pair of valid hits on each strand; K6
 and K11, the per-read columns, a 32-byte sector per gather and 64 bytes
-per atomic that this run's live rows need, over the HBM rate); the
+per atomic that this run's live rows need, over the HBM rate; K8,
+ADMM_OPS_ROW + 2 p instructions a row a step over every row of the
+bucket against its inputs and outputs once); the
 last line is {"ok": true, "device": {...}}.  Databases and the kernel
 builds (one nvcc per source, started together) go under build/
 (git-ignored).
@@ -249,7 +271,7 @@ from pantax_tpu_torch.io.gaf import (
 )
 from pantax_tpu_torch.align.aligner import Aligner, build_seed_lookup
 from pantax_tpu_torch.align.aligner import unpack_reads
-from pantax_tpu_torch.ops import extend, scatter, seed
+from pantax_tpu_torch.ops import admm, extend, profile_tail, scatter, seed
 from pantax_tpu_torch.ops.coverage_device import node_abundances_device
 from pantax_tpu_torch.ops.fused import (
     FusedPipeline, _ensure_tail_tables, _tail_mode, build_fused_tables,
@@ -257,6 +279,7 @@ from pantax_tpu_torch.ops.fused import (
 )
 from pantax_tpu_torch.parallel import make_mesh
 from pantax_tpu_torch.pipeline import classify_gaf, profile_from_gaf
+from pantax_tpu_torch.profile import pao
 from pantax_tpu_torch.profile.coverage import pack_reads
 from pantax_tpu_torch.profile.records import ReadRecord
 from pantax_tpu_torch.sim import simulate_reads
@@ -295,6 +318,14 @@ KERNEL11 = {
     "source": "pantax_tpu_torch/csrc/classify_scatter.cu",
     "replaces": "pantax_tpu/ops/fused.py:170",
 }
+# K8 replaces no pl.pallas_call: XLA compiles the ADMM chunk, a jitted vmap
+# of a lax.scan, into one device program a chunk
+KERNEL8 = {
+    "name": "admm_chunk",
+    "route": "cuda",
+    "source": "pantax_tpu_torch/csrc/admm_chunk.cu",
+    "replaces": "pantax_tpu/profile/pao.py:133",
+}
 # K3's crafted cases (seed_cases), in order
 SEED_CASES = ("one_diagonal", "strand_tie", "all_killed", "nq8", "int32_wrap",
               "short_rows", "wide")
@@ -326,6 +357,19 @@ STRAINS = ("strain_abundance.txt", "ori_strain_abundance.txt")
 BASES = np.frombuffer(b"ACGTN", np.uint8)
 SASS_OPS = ("VIADDMNMX", "VIMNMX", "IMNMX", "IADD3", "IMAD", "ISETP", "SEL",
             "LOP3")
+# K8's instructions a row a step besides its 2 p multiply-adds (A^T v and
+# Ax): b + z - uz (2), Ax_r (3), z_new (2), the soft threshold (4), uz (3)
+ADMM_OPS_ROW = 14
+# K8 against its plain version after one step, on every state vector and
+# the residual: the sums run in another order (float32 rounding of sums
+# over the bucket's rows), the same bar as the CPU test's against the JAX
+# chunk (tests/test_torch_admm.py)
+K8_STEP_BAR = 5e-5
+# ... and after 25 steps, which reach what one step does not (the CTA
+# sums' buffer parity, w and uw carried between steps, the
+# over-relaxation of a non-zero w): the rounding differences are carried
+# and amplified by the iteration, the CPU test's 25-step bar
+K8_BARS = {1: K8_STEP_BAR, 25: 1e-3}
 # device (float32) against host (float64) coverage in the per-species flow:
 # every numeric column of the strain tables within this relative
 # difference.  On an H100 the largest was 1.84e-6, in total_cov_diff, a
@@ -374,8 +418,9 @@ def ptxas_lines(log: str) -> list[str]:
     for ln in log.splitlines():
         # the name after its mangled length (an anonymous namespace's
         # mangled name holds the file's name before it)
-        m = re.search(r"(?<=\d)((?:banded_extend|seed_stage|classify_scatter)"
-                      r"(?:_[a-z]+)*_kernel)(?:I((?:Li\d+E)+)E)?", ln)
+        m = re.search(r"(?<=\d)((?:banded_extend|seed_stage|classify_scatter"
+                      r"|admm_chunk)(?:_[a-z]+)*_kernel)(?:I((?:Li\d+E)+)E)?",
+                      ln)
         if m:
             args = ",".join(re.findall(r"\d+", m[2] or ""))
             entry = f"{m[1]}<{args}>" if args else m[1]
@@ -999,9 +1044,10 @@ def seed_phase(db, index, aligner, codes, lens, dev, issue_peak: float):
 
 def check_k3(launches: dict, what: str) -> None:
     """K3 launched once per query dispatch, where K1 is (every K1 launch
-    is one query's), and the plain seed stage never; and K6 and K11 once per
+    is one query's), and the plain seed stage never; K6 and K11 once per
     range and windowed scatter dispatch, the plain scatters never
-    (check_k6, check_k11)."""
+    (check_k6, check_k11); and K8 once per ADMM chunk dispatch, the plain
+    chunk never (check_k8)."""
     if (launches["seed_stage"] != launches["banded_extend"]
             or launches["seed_stage_plain"]):
         raise AssertionError(
@@ -1010,6 +1056,7 @@ def check_k3(launches: dict, what: str) -> None:
             f"{launches['seed_stage_plain']}")
     check_k6(launches, what)
     check_k11(launches, what)
+    check_k8(launches, what)
 
 
 # ---------------------------------------------------------------------------
@@ -1574,6 +1621,267 @@ def check_dispatches(launches: dict, what: str, n_range: int,
                              f"batches {(n_range, n_window)}")
 
 
+# ---------------------------------------------------------------------------
+# phase 3d: K8, the strain solve's batched ADMM chunk
+# K8's launches by path (check_k8)
+ADMM_BY_PATH: dict = {}
+
+
+def check_k8(launches: dict, what: str) -> None:
+    """K8 launched once per chunk the strain solvers dispatched, the plain
+    chunk never; records the path's launches."""
+    if (launches["admm_chunk"] != launches["admm_chunk_dispatch"]
+            or launches["admm_chunk_plain"]):
+        raise AssertionError(
+            f"{what}: K8 launches {launches['admm_chunk']} for "
+            f"{launches['admm_chunk_dispatch']} chunk dispatches, plain "
+            f"chunk {launches['admm_chunk_plain']}")
+    if launches["admm_chunk"]:
+        ADMM_BY_PATH[what.replace(" ", "_")] = launches["admm_chunk"]
+
+
+def admm_bound(S: int, n_pad: int, p_pad: int, iters: int,
+               issue_peak: float) -> tuple[float, str, dict]:
+    """(bound ms, what bounds it, work) of one ADMM chunk: every row of
+    the bucket (the function computes them all), ADMM_OPS_ROW + 2 p_pad
+    instructions a row a step, over ``issue_peak``; against A, b, ub, L
+    and the state read once and the state and res written once, over the
+    HBM rate."""
+    ops = (ADMM_OPS_ROW + 2 * p_pad) * n_pad * iters * S
+    state = 3 * S * p_pad + 2 * S * n_pad
+    nbytes = 4 * (S * n_pad * p_pad + S * n_pad + S * p_pad
+                  + S * p_pad * p_pad + 2 * state + S)
+    t_ops, t_bytes = ops / issue_peak, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            {"ops": ops, "bytes": nbytes})
+
+
+def admm_case(seed_: int, S: int, n_pad: int, p_pad: int, seeded: bool):
+    """S instances of one bucket as the solvers build them: 0/1 columns
+    over fewer rows than n_pad (the rest zero rows), one padded column
+    past p where p_pad > 4 (A and ub zero there), b normalised to max 1,
+    and a path of each instance pinned by ub 0.  The state is the
+    callers' aliased zero state (one array as x, w and uw, one as z and
+    uz) or, ``seeded``, five independent random vectors.  Returns numpy
+    float32 (A, b, ub, state, L), L the port's factor of A^T A + I."""
+    rng = np.random.default_rng(seed_)
+    A = np.zeros((S, n_pad, p_pad), np.float32)
+    b = np.zeros((S, n_pad), np.float32)
+    ub = np.zeros((S, p_pad), np.float32)
+    for s in range(S):
+        n = n_pad - int(rng.integers(1, n_pad // 4))
+        p = p_pad - 1 if p_pad > 4 else p_pad
+        A[s, :n, :p] = rng.random((n, p)) < 0.6
+        bb = np.maximum(A[s, :n, :p] @ rng.uniform(0.2, 1.0, p)
+                        + rng.normal(0, 0.3, n), 0)
+        b[s, :n] = bb / bb.max()
+        ub[s, :p] = 3.15 / bb.max()
+        ub[s, s % p] = 0.0
+    if seeded:
+        state = tuple(a.astype(np.float32) for a in (
+            rng.uniform(0, 1, (S, p_pad)), rng.normal(0, 0.01, (S, n_pad)),
+            rng.uniform(0, 1, (S, p_pad)), rng.normal(0, 0.01, (S, n_pad)),
+            rng.normal(0, 0.01, (S, p_pad))))
+    else:
+        x0 = np.zeros((S, p_pad), np.float32)
+        z0 = np.zeros((S, n_pad), np.float32)
+        state = (x0, z0, x0, z0, x0)
+    L = pao._admm_factor(torch.from_numpy(A)).contiguous().numpy()
+    return A, b, ub, state, L
+
+
+def admm_args(case, dev) -> tuple:
+    """admm_case's arrays as the chunk's arguments on ``dev``: (A, b, ub,
+    rho 1, state, L), the zero state aliased as the callers pass it (one
+    tensor as x, w and uw, one as z and uz) and L in the layout of
+    torch.linalg.cholesky on the card (a transposed view)."""
+    A, b, ub, state, L = case
+    t = [torch.from_numpy(a).to(dev) for a in (A, b, ub)]
+    if state[0] is state[2] is state[4]:
+        x0, z0 = (torch.from_numpy(a).to(dev) for a in state[:2])
+        st = (x0, z0, x0, z0, x0)
+    else:
+        st = tuple(torch.from_numpy(a).to(dev) for a in state)
+    Lt = torch.from_numpy(np.ascontiguousarray(L.transpose(0, 2, 1))).to(dev)
+    return (*t, 1.0, st, Lt.mT)
+
+
+def hold_k8(args, what: str, steps: int = 1, exact: bool = False) -> float:
+    """K8 (uncounted) against its plain version after ``steps`` steps (1
+    or 25) from the state in ``args`` (A, b, ub, rho, state, L): every
+    state vector and the residual within K8_BARS[steps], the inputs
+    untouched.  ``exact``: the plain version runs in float64 on the same
+    float32 inputs (at p_pad 2048 the float32 plain chunk is itself
+    6.0e-5 off it after one step, 2.7x K8's error).  Returns the largest
+    difference."""
+    bar = K8_BARS[steps]
+    before = [t.clone() for t in (*args[:3], *args[4], args[5])]
+    got = admm.launch_k8(*args, steps)
+    A, b, ub, rho, state, L = args
+    if exact:
+        A, b, ub, L = (t.double() for t in (A, b, ub, L))
+        state = tuple(t.double() for t in state)
+    want = pao._admm_chunk_batch_plain(A, b, ub, rho, state, L, steps)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, w in zip(("x", "z", "w", "uz", "uw", "res"),
+                          (*got[0], got[1]), (*want[0], want[1])):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"K8 {what}: {name} not finite")
+        e = float((g.double() - w.double()).abs().max())
+        if e > bar:
+            raise AssertionError(f"K8 {what}: {name} differs from the plain "
+                                 f"chunk by {e:.3g} after {steps} steps (bar "
+                                 f"{bar})")
+        err = max(err, e)
+    for t, t0 in zip((*args[:3], *args[4], args[5]), before):
+        if not torch.equal(t, t0):
+            raise AssertionError(f"K8 {what}: an input changed")
+    S, n, p = args[0].shape
+    print(f"K8 == plain{' (float64)' if exact else ''} within {err:.3g} "
+          f"after {steps} steps {what} "
+          f"(S {S}, n_pad {n}, p_pad {p}, {admm.launch_plan(S, n, p)})")
+    return err
+
+
+def k8_repeats(args, iters: int, what: str) -> None:
+    """Two K8 launches of ``iters`` steps on the same inputs give the same
+    bits (no float atomics: the device tail's tables are byte-identical
+    across calls)."""
+    a, b = (admm.launch_k8(*args, iters) for _ in range(2))
+    for x, y in zip((*a[0], a[1]), (*b[0], b[1])):
+        if not torch.equal(x, y):
+            raise AssertionError(f"K8 {what}: two launches differ")
+
+
+def k8_times(args, iters: int) -> tuple[float, float]:
+    """(K8 ms, plain ms) of one chunk of ``iters`` steps (CUDA events; K8
+    uncounted over 20 launches with the stream held, the plain chunk over
+    3 calls)."""
+    ms = cuda_ms(lambda: admm.launch_k8(*args, iters), 20, hold=True)
+    plain = cuda_ms(lambda: pao._admm_chunk_batch_plain(*args, iters), 3)
+    return ms, plain
+
+
+def chunk_recorder(chunk, log: list):
+    """``chunk`` (a strain solver's chunk function) that also appends each
+    call's (inputs, residual) to ``log``."""
+    def recorded(A, b, ub, rho, state, L, iters):
+        out = chunk(A, b, ub, rho, state, L, iters)
+        log.append(((A, b, ub, rho, state, L, iters), out[1]))
+        return out
+    return recorded
+
+
+def residual_runs(log: list) -> str:
+    """Each solver run's chunk residuals (the bucket's largest), in call
+    order: a run starts at the callers' aliased zero state."""
+    runs = []
+    for args, res in log:
+        shape, st = tuple(args[0].shape), args[4]
+        if st[0] is st[2] or not any(r[0] == shape for r in runs):
+            runs.append((shape, []))
+        next(r for r in reversed(runs) if r[0] == shape)[1].append(
+            float(res.max()))
+    return "; ".join(f"{shape}: " + ", ".join(f"{v:.3g}" for v in rs)
+                     for shape, rs in runs)
+
+
+def admm_phase(build: str, dev, result, tables, index, db, cfg, out: str,
+               issue_peak: float) -> tuple:
+    """Phase 3d (in phase 8, after the device tail, whose buckets it
+    takes): the device tail once more with the plain chunk in its place
+    (by assignment, in this process), recording each chunk's inputs and
+    residual, its tables against ``out``'s (K8's: the same strains,
+    abundances within 2e-4) and its seconds; once more with K8, recorded
+    the same way, its tables byte-identical to ``out``'s, and both runs'
+    chunk residuals printed beside the float64 plain chunk's on the
+    largest bucket; K8 against the plain chunk after 1 and 25
+    steps on the largest bucket's first chunk (the zero state, aliased)
+    and its second (a state in flight), and on the crafted wide-row case
+    (2, 4096, 132); two launches bit-identical; K8 and the plain chunk
+    timed on the first chunk at 250 steps beside admm_bound.  Returns
+    (largest difference after one step, ms, plain ms, bound ms, bound_by,
+    extra keys, shape)."""
+    k8_chunk = profile_tail._admm_chunk_batch
+    logs, secs = {}, {}
+    for name, chunk in (("plain", pao._admm_chunk_batch_plain),
+                        ("k8", k8_chunk)):
+        logs[name] = []
+        run_out = os.path.join(build, f"smoke_paired_{name}_chunk_out")
+        shutil.rmtree(run_out, ignore_errors=True)
+        profile_tail._admm_chunk_batch = chunk_recorder(chunk, logs[name])
+        stage = {}
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            profile_from_fused_result(result, tables, index, db, cfg,
+                                      run_out, stage_out=stage)
+            torch.cuda.synchronize()
+        finally:
+            profile_tail._admm_chunk_batch = k8_chunk
+        secs[name] = (time.time() - t0, stage, run_out)
+    t_plain, stage, out_plain = secs["plain"]
+    k8_ab, plain_ab = strain_abundance(out), strain_abundance(out_plain)
+    if set(k8_ab) != set(plain_ab):
+        raise AssertionError("K8 and plain-chunk device tails report "
+                             "different strains")
+    diff = max(abs(k8_ab[k] - plain_ab[k]) for k in k8_ab)
+    if diff > 2e-4:
+        raise AssertionError(f"K8 and plain-chunk device tails: abundances "
+                             f"differ by {diff:.3g} (> 2e-4)")
+    files_identical(out, secs["k8"][2], (*CLASS_SPECIES, *STRAINS),
+                    "paired device tail, K8 recorded")
+    print(f"K8 device tail against the plain chunk's: the same "
+          f"{len(k8_ab)} strains, abundances within {diff:.3g}; the plain "
+          f"chunk's tail {t_plain:.3f} s ({len(logs['plain'])} chunks; "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stage.items()) + "), "
+          f"K8's {secs['k8'][0]:.3f} s ({len(logs['k8'])} chunks; "
+          + ", ".join(f"{k} {v:.3f}" for k, v in secs["k8"][1].items())
+          + ")")
+    for name in ("k8", "plain"):
+        print(f"{name} chunk residuals by solver run (S, n_pad, p_pad): "
+              f"{residual_runs(logs[name])}")
+
+    calls = [args for args, _res in logs["plain"]]
+    big = max(calls, key=lambda c: c[0].numel())
+    firsts = [c for c in calls if c[0] is big[0]]
+    S, n, p = big[0].shape
+    # where the exact iteration goes from the largest bucket's zero state:
+    # four chunks of the plain chunk in float64
+    A, b, ub, rho, state, L, iters = big
+    A, b, ub, L = (t.double() for t in (A, b, ub, L))
+    state = tuple(t.double() for t in state)
+    exact = []
+    for _ in range(4):
+        state, res = pao._admm_chunk_batch_plain(A, b, ub, rho, state, L,
+                                                 iters)
+        exact.append(f"{float(res.max()):.3g}")
+    print(f"float64 chunk residuals from the zero state ({S}, {n}, {p}): "
+          + ", ".join(exact))
+    valid = ((big[1] != 0) | (big[0] != 0).any(-1)).float().mean().item()
+    wide = admm_args(admm_case(132, 2, 4096, 132, seeded=False), dev)
+    cases = [(firsts[0][:6], "on the paired device tail's largest bucket, "
+              "zero state"), (wide, "on the crafted wide rows")]
+    if len(firsts) > 1:
+        cases.append((firsts[1][:6], "on the same bucket's second chunk"))
+    errs = {steps: max(hold_k8(args, what, steps) for args, what in cases)
+            for steps in K8_BARS}
+    k8_repeats(firsts[0][:6], 250, "at the device tail's bucket")
+    ms, plain_ms = k8_times(firsts[0][:6], 250)
+    bound, by, work = admm_bound(S, n, p, 250, issue_peak)
+    print(f"K8 [{card_line()}] at (S {S}, n_pad {n}, p_pad {p}), 250 steps: "
+          f"{ms:.4f} ms, plain chunk {plain_ms:.3f} ms, bound {bound:.4f} ms "
+          f"({by}: {work['ops']} instructions, {work['bytes']} bytes; valid "
+          f"rows {valid:.3f} of the bucket), {bound / ms:.3f} of the bound")
+    return (errs[1], ms, plain_ms, bound, by,
+            {"valid_row_share": valid, "plain_chunk_tail_s": t_plain,
+             "max_abs_err_25_steps": errs[25]},
+            f"S {S}, n_pad {n}, p_pad {p}, 250 steps (the paired device "
+            f"tail's largest bucket)")
+
+
 def cross_device_check(build: str, dev) -> None:
     """The port on CPU (plain versions) and on the GPU (kernel) agree."""
     db = tiny_db(os.path.join(build, "tiny_db"))
@@ -1855,9 +2163,10 @@ def strain_abundance(out: str) -> dict:
             for r in read_table(os.path.join(out, "strain_abundance.txt"))}
 
 
-def paired_path(build: str, dev, db, index, tables):
-    """Phase 8: paired reads over the smoke DB, the device tail, and the host
-    tail on the same result."""
+def paired_path(build: str, dev, db, index, tables, issue_peak: float):
+    """Phase 8: paired reads over the smoke DB, the device tail, phase 3d
+    (K8 on the device tail's buckets), and the host tail on the same
+    result.  Returns K1's launches, the pairs and admm_phase's results."""
     aligner = aligner_from_reference(index, _host.AlignConfig(), dev)
     t0 = time.time()
     (c1, l1, c2, l2), hap = simulate_pairs(index, N_PAIRS, seed=13)
@@ -1901,17 +2210,21 @@ def paired_path(build: str, dev, db, index, tables):
     # the device tail adds its float32 sums in one order every run
     files_identical(out + "_cold", out, (*CLASS_SPECIES, *STRAINS),
                     "paired device tail, two calls")
+    k8 = admm_phase(build, dev, result, tables, index, db, cfg, out,
+                    issue_peak)
 
     cfg.tail = "host"
     out_host = os.path.join(build, "smoke_paired_host_out")
     shutil.rmtree(out_host, ignore_errors=True)
     stage_h = {}
+    extend.reset_launch_counts()
     torch.cuda.synchronize()
     t1 = time.time()
     profile_from_fused_result(result, tables, index, db, cfg, out_host,
                               stage_out=stage_h)
     torch.cuda.synchronize()
     t_host = time.time() - t1
+    check_k8(dict(extend.LAUNCHES), "paired host tail")
 
     n_aligned = int(result.reads["aligned"].sum())
     t_dev, stage_d = times["warm"]
@@ -1947,7 +2260,7 @@ def paired_path(build: str, dev, db, index, tables):
           f"tail's two calls wrote byte-identical tables")
     if diff > 2e-4:
         raise AssertionError("device and host tail abundances differ by > 2e-4")
-    return launches["banded_extend"], ((c1, l1, c2, l2), hap)
+    return launches["banded_extend"], ((c1, l1, c2, l2), hap), k8
 
 
 def dup_path(build: str, dev):
@@ -2196,9 +2509,10 @@ def worst_text(worst: dict) -> str:
 
 
 def profile_gaf_runs(records, db, dev, read_type: str, out_base: str,
-                     coverages=("device", "host")):
-    """profile_from_gaf with each coverage (ADMM): {coverage: (seconds,
-    stage, out dir)}."""
+                     what: str, coverages=("device", "host")):
+    """profile_from_gaf with each coverage (ADMM), each run's K8 launches
+    held to its chunk dispatches (check_k8, path "<what> <coverage>"):
+    {coverage: (seconds, stage, out dir)}."""
     runs = {}
     for cov in coverages:
         cfg = _host.ProfilingConfig.for_read_type(read_type)
@@ -2206,11 +2520,13 @@ def profile_gaf_runs(records, db, dev, read_type: str, out_base: str,
         out = f"{out_base}_{cov}"
         shutil.rmtree(out, ignore_errors=True)
         stage = {}
+        extend.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.time()
         profile_from_gaf(records, db, cfg, out, device=dev, stage_out=stage)
         torch.cuda.synchronize()
         runs[cov] = (time.time() - t0, stage, out)
+        check_k8(dict(extend.LAUNCHES), f"{what} {cov}")
     return runs
 
 
@@ -2300,7 +2616,7 @@ def gaf_flow(build: str, dev, card: str, scale, short, pairs, dup_long):
     k1["gaf_short"] = launches["banded_extend"]
     back, t_gaf = gaf_round_trip(records, os.path.join(build, "smoke.gaf"))
     runs = profile_gaf_runs(back, db, dev, "short",
-                            os.path.join(build, "smoke_gaf"))
+                            os.path.join(build, "smoke_gaf"), "gaf short")
     out_dev, out_host = runs["device"][2], runs["host"][2]
     files_identical(out_dev, out_host, CLASS_SPECIES, "gaf short")
     worst = strains_agree(out_dev, out_host, "gaf short")
@@ -2338,7 +2654,7 @@ def gaf_flow(build: str, dev, card: str, scale, short, pairs, dup_long):
                                  os.path.join(build, "smoke_pairs.gaf"))
     runs = profile_gaf_runs(back, db, dev, "short",
                             os.path.join(build, "smoke_gaf_paired"),
-                            coverages=("device",))
+                            "gaf paired", coverages=("device",))
     print(stage_line("gaf paired", card, t_align, t_gaf, runs)
           + f"; {len(records)} GAF records, {stage['n_batches']} paired "
           f"batches, K1 {launches['banded_extend']}")
@@ -2362,11 +2678,13 @@ def gaf_flow(build: str, dev, card: str, scale, short, pairs, dup_long):
     out = os.path.join(build, "smoke_arrays_out")
     shutil.rmtree(out, ignore_errors=True)
     st = {}
+    extend.reset_launch_counts()
     t0 = time.time()
     profile_from_alignments(arrays, index, db, cfg, out, device=dev,
                             stage_out=st)
     torch.cuda.synchronize()
     t_prof = time.time() - t0
+    check_k8(dict(extend.LAUNCHES), "arrays short profile")
     files_identical(out, fused_out, CLASS_SPECIES + STRAINS,
                     "arrays short vs profile_fused")
     print(f"arrays short [{card}]: align {t_align:.3f} s "
@@ -2409,7 +2727,8 @@ def gaf_flow(build: str, dev, card: str, scale, short, pairs, dup_long):
     if widest <= 64:
         raise AssertionError("gaf dup long: no node row wider than 64")
     runs = profile_gaf_runs(back, ddb, dev, "long",
-                            os.path.join(build, "smoke_gaf_dup_long"))
+                            os.path.join(build, "smoke_gaf_dup_long"),
+                            "gaf dup long")
     files_identical(runs["device"][2], runs["host"][2], CLASS_SPECIES,
                     "gaf dup long")
     worst = strains_agree(runs["device"][2], runs["host"][2], "gaf dup long")
@@ -2682,7 +3001,9 @@ def mesh_path(build: str, dev, card: str, scale, short) -> int:
     cfg.solver = "admm"
     out = os.path.join(build, "smoke_mesh_out")
     shutil.rmtree(out, ignore_errors=True)
+    extend.reset_launch_counts()
     profile_from_fused_result(res, tables, index, db, cfg, out)
+    check_k8(dict(extend.LAUNCHES), "mesh short profile")
     files_identical(out, fused_out, ("species_abundance.txt",
                                      "strain_abundance.txt",
                                      "reads_classification.tsv"),
@@ -3002,9 +3323,11 @@ def sim_flow(build: str, dev, card: str, db, index) -> int:
     outs, t_prof = {}, {}
     for tag, records in (("aligned", gaf), ("truth", [r.truth for r in reads])):
         outs[tag] = os.path.join(build, f"p13_sim_{tag}")
+        extend.reset_launch_counts()
         t0 = time.time()
         profile_from_gaf(records, db, cfg, outs[tag], force=True, device=dev)
         t_prof[tag] = time.time() - t0
+        check_k8(dict(extend.LAUNCHES), f"sim {tag} profile")
     species_of = {r.read_id: r.species for r in reads}
     with open(os.path.join(outs["aligned"], "reads_classification.tsv")) as f:
         n_ok = sum(species_of[ln.split("\t")[0]] == ln.split("\t")[2]
@@ -3183,13 +3506,14 @@ def main() -> None:
           f"TB/s")
     build = str(extend.build_dir())
     t0 = time.time()
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, together
         built = [pool.submit(extend.build_kernels),
                  pool.submit(seed.build_seed_kernel),
-                 pool.submit(scatter.build_scatter_kernels)]
-        lib, lib3, lib6 = (f.result() for f in built)
-    print(f"kernel build (K1 and K2, K3, K6 and K11; three nvcc processes) "
-          f"{time.time() - t0:.2f} s")
+                 pool.submit(scatter.build_scatter_kernels),
+                 pool.submit(admm.build_admm_kernel)]
+        lib, lib3, lib6, lib8 = (f.result() for f in built)
+    print(f"kernel build (K1 and K2, K3, K6 and K11, K8; four nvcc "
+          f"processes) {time.time() - t0:.2f} s")
     print(f"SASS of K1 and K2: {sass_counts(lib._name)}")
     k1_sass = {f"pad{pad}": step_sass(lib._name, 2 * pad) for pad in (4, 8)}
     k2_sass = {f"pad{pad}": step_sass(lib._name, 2 * pad,
@@ -3200,7 +3524,7 @@ def main() -> None:
     k3_sass = vote_sass(lib3._name)
     print(f"K3 vote loop SASS (seed_stage_kernel<2>): {json.dumps(k3_sass)}")
     for ln in (ptxas_lines(lib.build_log) + ptxas_lines(lib3.build_log)
-               + ptxas_lines(lib6.build_log)):
+               + ptxas_lines(lib6.build_log) + ptxas_lines(lib8.build_log)):
         print(f"  ptxas: {ln}")
 
     rng = np.random.default_rng(0)
@@ -3234,7 +3558,8 @@ def main() -> None:
           f"{bound1_l:.4f} ms at N={2 * LONG_BATCH} Lr={chunk} pad=8; K2 "
           f"{bound2:.4f} ms ({by2}) at N={LONG_BATCH} Lr={chunk} pad=8")
     long_launches, long_reads = long_path(build, dev, db, index, tables)
-    paired_launches, pairs = paired_path(build, dev, db, index, tables)
+    paired_launches, pairs, k8 = paired_path(build, dev, db, index, tables,
+                                             issue_peak)
     dup_launches, dup_k2, k11, dup_long = dup_path(build, dev)
     card = card_line()
     gaf_k1, gaf_k2, gaf_out = gaf_flow(build, dev, card, (db, index), short,
@@ -3285,6 +3610,10 @@ def main() -> None:
                bound_ms=res[3], bound_by=res[4], library_ms=None,
                shape=res[6], ms_by_case=res[5])
           for kernel, res in ((KERNEL6, k6), (KERNEL11, k11))),
+        dict(KERNEL8, launches=sum(ADMM_BY_PATH.values()),
+             launches_by_path=ADMM_BY_PATH, max_abs_err=k8[0], ms=k8[1],
+             plain_ms=k8[2], bound_ms=k8[3], bound_by=k8[4], library_ms=None,
+             shape=k8[6], **k8[5]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,15 +53,20 @@ _SH_MATCH = 5
 # Launch counts, one per function; the kernel's count grows only where the
 # kernel is launched, the plain count where the plain version runs in its
 # place (K1, K2 here; K3, the seed stage, in ops/seed.py; K6 and K11, the
-# classify + scatter, in ops/scatter.py).  The two "scatter_*_dispatch"
-# counts are the fused pipeline's scatter calls by formulation (ops/
-# fused.py), whatever runs them: on the card each is one K6 or K11 launch.
+# classify + scatter, in ops/scatter.py; K8, the ADMM chunk, in
+# ops/admm.py).  The two "scatter_*_dispatch" counts are the fused
+# pipeline's scatter calls by formulation (ops/fused.py), whatever runs
+# them: on the card each is one K6 or K11 launch.  "admm_chunk_dispatch"
+# counts the strain solvers' chunk calls (profile/pao.py's
+# _admm_solve_stack, ops/profile_tail.py's DeviceTailSolver): on the card
+# each is one K8 launch.
 LAUNCHES = {"banded_extend": 0, "banded_extend_plain": 0,
             "banded_extend_windows": 0, "banded_extend_windows_plain": 0,
             "seed_stage": 0, "seed_stage_plain": 0,
             "classify_scatter_ranges": 0, "classify_scatter_ranges_plain": 0,
             "classify_scatter": 0, "classify_scatter_plain": 0,
-            "scatter_range_dispatch": 0, "scatter_window_dispatch": 0}
+            "scatter_range_dispatch": 0, "scatter_window_dispatch": 0,
+            "admm_chunk": 0, "admm_chunk_plain": 0, "admm_chunk_dispatch": 0}
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "banded_extend.cu"
 _NVCC_FLAGS = (

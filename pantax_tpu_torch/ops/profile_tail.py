@@ -14,7 +14,8 @@ uploads every species' PAO matrix.  This tail keeps them on the device:
      profile/filters.first_filter_paths;
   3. ``DeviceTailSolver`` builds each species' 0/1 path matrix on the device
      from static path tables (``TailTables``, built once per database), runs
-     the batched ADMM of profile/pao.py, and polishes on the device with a
+     the batched ADMM of profile/pao.py (K8 on the card, one launch a
+     chunk), and polishes on the device with a
      coordinate median in exact float32 elementwise sums.  Only the [S, p]
      solutions come back.
 
@@ -33,6 +34,7 @@ import torch
 
 from .. import _host
 from ..profile.pao import _admm_chunk_batch, _bucket, _p_pad
+from .extend import LAUNCHES
 
 log = logging.getLogger("pantax_tpu_torch")
 
@@ -465,6 +467,7 @@ class DeviceTailSolver:
                          "left": max(iters // chunk, 1), "prev": None})
 
         def step(r):
+            LAUNCHES["admm_chunk_dispatch"] += 1
             r["state"], r["res"] = _admm_chunk_batch(
                 r["prep"]["A"], r["prep"]["b"], r["ub"], 1.0, r["state"],
                 r["prep"]["L"], chunk)

@@ -11,7 +11,9 @@ oracle.
 The ADMM runs in float32.  Matrix products are kept in full float32: TF32
 (about three decimal digits) would move the iterate by more than the
 solver's 1e-5 stopping tolerance, so the solve sets
-``torch.backends.cuda.matmul.allow_tf32 = False``.
+``torch.backends.cuda.matmul.allow_tf32 = False``.  A chunk of ADMM steps
+(``_admm_chunk_batch``) is K8 on the card (ops/admm.py, one launch a
+chunk) and ``_admm_chunk_batch_plain`` on the CPU.
 """
 from __future__ import annotations
 
@@ -20,6 +22,9 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..ops import admm
+from ..ops.extend import LAUNCHES
 
 log = logging.getLogger("pantax_tpu_torch")
 
@@ -65,7 +70,20 @@ def _admm_factor(A):
 def _admm_chunk_batch(A, b, ub, rho: float, state, L, iters: int):
     """Advance S independent ADMM instances by ``iters`` steps; returns the
     new state and each instance's residual max(|Ax-b-z|, |x-w|,
-    |w - w_entry|).  A [S, n, p], b [S, n], ub [S, p] (0 pins a path)."""
+    |w - w_entry|).  A [S, n, p], b [S, n], ub [S, p] (0 pins a path), L
+    [S, p, p] the Cholesky factor of A^T A + I.  The plain version where
+    every tensor lies on the CPU; otherwise K8, one launch
+    (ops/admm.admm_chunk_cuda), which raises on anything but one CUDA
+    device's float32 tensors of one bucket."""
+    if all(t.device.type == "cpu" for t in (A, b, ub, *state, L)):
+        LAUNCHES["admm_chunk_plain"] += 1
+        return _admm_chunk_batch_plain(A, b, ub, rho, state, L, iters)
+    return admm.admm_chunk_cuda(A, b, ub, rho, state, L, iters)
+
+
+def _admm_chunk_batch_plain(A, b, ub, rho: float, state, L, iters: int):
+    """Plain torch version of K8: _admm_chunk_batch as a Python loop of
+    torch operations a step."""
     n = A.shape[1]
     thresh = 1.0 / (max(n, 1) * rho)
     alpha = 1.6  # over-relaxation
@@ -104,6 +122,7 @@ def _admm_solve_stack(A_st, b_st, ub_st, device, iters: int, chunk: int,
     z0 = torch.zeros((S, n), dtype=torch.float32, device=device)
     state = (x0, z0, x0, z0, x0)
     for _ in range(max(iters // chunk, 1)):
+        LAUNCHES["admm_chunk_dispatch"] += 1
         state, res = _admm_chunk_batch(A, b, ub, 1.0, state, L, chunk)
         worst = float(res.max())
         if worst < tol:

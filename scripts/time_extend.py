@@ -29,6 +29,18 @@ build directory:
 
     PYTHONPATH=. python scripts/time_extend.py --ablate unroll
 
+K8 (``--kernel k8``, no baseline) is timed against the plain chunk and a
+CUDA-graph replay of the plain chunk (a yardstick: the same ~9,000 small
+launches without their host overhead, its solve on cuSOLVER, which a
+graph can capture), in turns (K8, plain, graph, graph,
+plain, K8; ROUNDS times), at 250 steps on ``chip_smoke.admm_case``
+buckets (10, 65536, 4) and (1, 65536, 4), and the streamed plan's
+(1, 524288, 4) and (1, 65536, 32), from the callers' zero state, each
+held to the plain chunk after 1 and 25 steps first
+(``chip_smoke.hold_k8``):
+
+    PYTHONPATH=. python scripts/time_extend.py --kernel k8
+
 K1 (the default) at the main path's shape (131072 candidates of 160
 bases, pad 4) and the long-read seeded pass's (32768 candidates of 512
 bases, pad 8), on ``chip_smoke.dp_case`` candidates (read lengths uniform
@@ -92,7 +104,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as smoke  # noqa: E402
 from pantax_tpu_torch.device import require_cuda  # noqa: E402
-from pantax_tpu_torch.ops import extend, scatter, seed  # noqa: E402
+from pantax_tpu_torch.ops import admm, extend, scatter, seed  # noqa: E402
+from pantax_tpu_torch.profile import pao  # noqa: E402
 
 # N, Lr, pad, seed, and read_len for every candidate (None: the case's
 # ragged lengths; 150: the main path's reads, all of one length; 512: full
@@ -111,10 +124,17 @@ SHAPES = {
     # K11: the rows and the node window (None: the automatic one)
     "k11": (("main", None), ("L3", 3), ("intervals", 8), ("intervals", 16),
             ("intervals", 32), ("intervals", 64)),
+    # K8: (S, n_pad, p_pad) at K8_STEPS steps: the smoke's device-tail
+    # bucket and one of its instances alone
+    "k8": ((10, 65536, 4), (1, 65536, 4)),
 }
+# K8's streamed plan (rows read from L2 every step): the host tail's
+# largest singleton bucket (500,000 sampled nodes) and wide rows
+K8_STREAMED = ((1, 524288, 4), (1, 65536, 32))
 KERNELS = {"k1": "banded_extend_kernel", "k2": "banded_extend_windows_kernel",
            "k3": "seed_stage_kernel", "k6": "classify_scatter_ranges_kernel",
-           "k11": "classify_scatter_kernel"}
+           "k11": "classify_scatter_kernel", "k8": "admm_chunk_kernel"}
+K8_STEPS = 250  # the solvers' chunk
 TEXT_LEN = 30_000_000
 ITERS = 200  # launches per timed reading
 ROUNDS = 3  # base, new, new, base this many times
@@ -239,14 +259,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(K3, K6, K11: as well, repeatable)")
     ap.add_argument("--kernel", choices=sorted(SHAPES), default="k1",
                     help="K1 (text + w0), K2 (windows given), K3 (the seed "
-                         "stage), K6 (the range classify + scatter) or K11 "
-                         "(the windowed classify + scatter); default k1")
+                         "stage), K6 (the range classify + scatter), K11 "
+                         "(the windowed classify + scatter) or K8 (the ADMM "
+                         "chunk); default k1")
     args = ap.parse_args(argv)
     mine = {"k3": K3_ABLATIONS, "k6": K6_ABLATIONS,
             "k11": K11_ABLATIONS}.get(args.kernel, ABLATIONS)
     if any(a not in mine for a in args.ablate or ()):
         ap.error(f"--ablate for {args.kernel}: one of {sorted(mine)}")
-    if args.kernel in ("k3", "k6", "k11"):
+    if args.kernel == "k8":
+        if args.baseline is not None or args.ablate:
+            ap.error("K8 takes no baseline and no --ablate")
+    elif args.kernel in ("k3", "k6", "k11"):
         if args.baseline is None:
             ap.error(f"{args.kernel.upper()} takes a baseline source")
     elif (args.baseline is None) == (args.ablate is None) or len(
@@ -415,6 +439,72 @@ def main_scatter(args, dev) -> None:
              "B": int(cols[0].shape[0]), "work": work}, bound, by)
 
 
+def plain_chunk_graph(args8, steps: int):
+    """A CUDA graph of the plain chunk of ``steps`` steps on ``args8``
+    (captured after a warm-up on a side stream), or the capture's error.
+    Its cholesky_solve goes to cuSOLVER: MAGMA's batched solve, which
+    PyTorch picks for a batch of more than one, allocates device memory
+    and cannot be captured."""
+    library = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            pao._admm_chunk_batch_plain(*args8, steps)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            pao._admm_chunk_batch_plain(*args8, steps)
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0]
+    finally:
+        torch.backends.cuda.preferred_linalg_library(library)
+    return graph, None
+
+
+def main_k8(dev, issue_peak: float) -> None:
+    """K8, the plain chunk and the plain chunk's graph replay in turns at
+    each SHAPES["k8"] and K8_STREAMED bucket, K8_STEPS steps from the
+    zero state."""
+    print(f"K8: {admm._SRC}\n  " + "\n  ".join(
+        smoke.ptxas_lines(admm.build_admm_kernel().build_log)), flush=True)
+    for S, n, p in (*SHAPES["k8"], *K8_STREAMED):
+        args8 = smoke.admm_args(smoke.admm_case(S + n + p, S, n, p, False),
+                                dev)
+        err = {steps: smoke.hold_k8(args8, f"at ({S}, {n}, {p})", steps)
+               for steps in smoke.K8_BARS}
+        graph, why = plain_chunk_graph(args8, K8_STEPS)
+        readings = {
+            "k8": lambda: smoke.cuda_ms(
+                lambda: admm.launch_k8(*args8, K8_STEPS), 20, hold=True),
+            "plain": lambda: smoke.cuda_ms(
+                lambda: pao._admm_chunk_batch_plain(*args8, K8_STEPS), 3),
+        }
+        if graph is not None:
+            readings["graph"] = lambda: smoke.cuda_ms(graph.replay, 5)
+        order = list(readings) + list(readings)[::-1]
+        ms = {k: [] for k in readings}
+        for _ in range(ROUNDS):
+            for name in order:
+                ms[name].append(readings[name]())
+        med = {k: float(np.median(v)) for k, v in ms.items()}
+        bound, by, work = smoke.admm_bound(S, n, p, K8_STEPS, issue_peak)
+        line = {"kernel": "K8", "S": S, "n_pad": n, "p_pad": p,
+                "steps": K8_STEPS, "plan": str(admm.launch_plan(S, n, p)),
+                "step_err": err[1], "err_25_steps": err[25],
+                "card": smoke.card_line(),
+                **{f"{k}_ms": v for k, v in ms.items()},
+                "bound_ms": bound, "bound_by": by, "work": work,
+                "k8_share": bound / med["k8"],
+                "plain_vs_k8": med["plain"] / med["k8"]}
+        if graph is not None:
+            line["graph_vs_k8"] = med["graph"] / med["k8"]
+        else:
+            line["graph_error"] = why
+        print(json.dumps(line), flush=True)
+
+
 def main() -> None:
     args = parse_args()
     dev = require_cuda()
@@ -423,6 +513,9 @@ def main() -> None:
         main_scatter(args, dev)
         return
     issue_peak = smoke.issue_ops_per_s()
+    if args.kernel == "k8":
+        main_k8(dev, issue_peak)
+        return
     if args.kernel == "k3":
         main_k3(args, dev, issue_peak)
         return

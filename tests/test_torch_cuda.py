@@ -35,7 +35,10 @@ MATCH, MIS, GAP = 1, -1, -2
 # the launch counts of K6 and K11 and the fused pipeline's scatter tally
 NO_SCATTER = {"classify_scatter_ranges": 0, "classify_scatter_ranges_plain": 0,
               "classify_scatter": 0, "classify_scatter_plain": 0,
-              "scatter_range_dispatch": 0, "scatter_window_dispatch": 0}
+              "scatter_range_dispatch": 0, "scatter_window_dispatch": 0,
+              # and K8's, the ADMM chunk's
+              "admm_chunk": 0, "admm_chunk_plain": 0,
+              "admm_chunk_dispatch": 0}
 
 
 @pytest.fixture
@@ -1017,3 +1020,127 @@ def test_k6_refuses_tables_without_its_records(cuda, tmp_path):
         with pytest.raises(ValueError):
             scatter.classify_scatter_ranges(*cols, t, tstart, tnode, acc)
     assert extend.LAUNCHES["classify_scatter_ranges"] == 0
+
+
+# ---------------------------------------------------------------------------
+# K8, the strain solve's batched ADMM chunk
+# (S, n_pad, p_pad): the smoke's buckets, the smallest, more instances
+# than clusters fit at once, wide rows (p_pad 36 on chip; 132 and 260
+# streamed, with L in global memory) and a streamed bucket
+K8_SHAPES = [(10, 65536, 4), (1, 4096, 4), (34, 65536, 4), (3, 8192, 36),
+             (2, 4096, 132), (1, 4096, 260), (1, 1048576, 4)]
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["zero", "seeded"])
+@pytest.mark.parametrize("shape", K8_SHAPES,
+                         ids=[f"{s}x{n}x{p}" for s, n, p in K8_SHAPES])
+def test_k8_matches_plain_after_one_step(cuda, shape, seeded):
+    """K8 against the plain chunk after one step (chip_smoke.hold_k8:
+    every state vector and res within K8_STEP_BAR, the inputs untouched),
+    a path of each instance pinned, from the callers' aliased zero state
+    and from a random one; L as the card's cholesky lays it out."""
+    S, n, p = shape
+    case = chip_smoke.admm_case(S + n + p, S, n, p, seeded)
+    args = chip_smoke.admm_args(case, cuda)
+    assert chip_smoke.hold_k8(args, f"at {shape}") <= chip_smoke.K8_STEP_BAR
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["zero", "seeded"])
+@pytest.mark.parametrize("shape", K8_SHAPES,
+                         ids=[f"{s}x{n}x{p}" for s, n, p in K8_SHAPES])
+def test_k8_matches_plain_after_25_steps(cuda, shape, seeded):
+    """K8 against the plain chunk after 25 steps (chip_smoke.hold_k8,
+    K8_BARS[25]): what one step does not reach, the CTA sums' buffer
+    parity, w and uw carried between steps, the over-relaxation of a
+    non-zero w, on chip and streamed."""
+    S, n, p = shape
+    case = chip_smoke.admm_case(S + n + p, S, n, p, seeded)
+    args = chip_smoke.admm_args(case, cuda)
+    assert chip_smoke.hold_k8(args, f"at {shape}", 25) <= \
+        chip_smoke.K8_BARS[25]
+
+
+@pytest.mark.parametrize("steps", [1, 25])
+@pytest.mark.parametrize("seeded", [False, True], ids=["zero", "seeded"])
+def test_k8_at_p_pad_2048_matches_the_exact_steps(cuda, steps, seeded):
+    """p_pad 2048 at 8192 rows, past what the CTA's shared memory took
+    while it held the warps' sums of every column: streamed, L from global
+    memory.  K8 within K8_BARS[steps] of the plain chunk run in float64 on
+    the same inputs (chip_smoke.hold_k8, exact): the float32 plain chunk
+    is itself 6.0e-5 off that after one step (NVIDIA H100), so it cannot
+    referee at this width."""
+    case = chip_smoke.admm_case(1 + 8192 + 2048, 1, 8192, 2048, seeded)
+    args = chip_smoke.admm_args(case, cuda)
+    assert chip_smoke.hold_k8(args, "at p_pad 2048", steps, exact=True) \
+        <= chip_smoke.K8_BARS[steps]
+
+
+@pytest.mark.parametrize("shape,iters", [((10, 65536, 4), 250),
+                                         ((1, 4096, 260), 25),
+                                         ((1, 1048576, 4), 25),
+                                         ((1, 8192, 2048), 2)])
+def test_k8_two_launches_are_identical(cuda, shape, iters):
+    args = chip_smoke.admm_args(chip_smoke.admm_case(1, *shape, False), cuda)
+    chip_smoke.k8_repeats(args, iters, f"at {shape}")
+
+
+def _pao_instances(seed):
+    """The CPU test's instances (tests/test_torch_fused.py, one pinned
+    path) and larger ones: buckets (5, 4096, 4), (2, 8192, 4) and the
+    singletons (4096, 8), (4096, 12), (4096, 32)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n, p in ((300, 2), (300, 3), (300, 5), (2000, 3), (3000, 4),
+                 (6000, 3), (5000, 4), (1500, 9), (1200, 30)):
+        A = (rng.random((n, p)) < 0.7).astype(np.float64)
+        b = np.maximum(A @ rng.uniform(1, 8, size=p)
+                       + rng.normal(0, 0.5, size=n), 0)
+        out.append((A, b, 1.05 * b.max(), None))
+    out.append((out[0][0], out[0][1], out[0][2], np.array([False, True])))
+    return out
+
+
+def test_k8_full_solves_match_highs_and_the_plain_run(cuda):
+    """solve_pao_batch on the card (every chunk one K8 launch) reaches
+    HiGHS's objective and the CPU run's (the plain chunk) within 1e-4
+    relative, the pinned path at 0."""
+    from pantax_tpu_torch.profile.pao import solve_pao_batch
+
+    inst = _pao_instances(7)
+    extend.reset_launch_counts()
+    card = solve_pao_batch(inst, "admm", device=cuda)
+    launches = dict(extend.LAUNCHES)
+    assert launches["admm_chunk"] == launches["admm_chunk_dispatch"] > 0
+    assert launches["admm_chunk_plain"] == 0
+    plain = solve_pao_batch(inst, "admm", device="cpu")
+    exact = solve_pao_batch(inst, "highs", device="cpu")
+    for k, p, e in zip(card, plain, exact):
+        assert k.objective <= e.objective * (1 + 1e-4) + 1e-6
+        assert k.objective <= p.objective * (1 + 1e-4) + 1e-6
+        assert p.objective <= k.objective * (1 + 1e-4) + 1e-6
+    assert card[-1].x[1] == 0.0
+
+
+def test_k8_rejects_bad_inputs(cuda):
+    from pantax_tpu_torch.profile import pao
+
+    A, b, ub, rho, state, L = chip_smoke.admm_args(
+        chip_smoke.admm_case(2, 2, 4096, 4, False), cuda)
+    bad = [
+        (A, b.cpu(), ub, rho, state, L, 1),                  # CPU and CUDA
+        (A.double(), b, ub, rho, state, L, 1),               # float64
+        (A, b, ub, rho, (state[0], state[1].double(), *state[2:]), L, 1),
+        (A.mT.contiguous().mT, b, ub, rho, state, L, 1),     # not contiguous
+        (A, b[:, :2048].contiguous(), ub, rho, state, L, 1),  # shapes
+        (A, b, ub[:1], rho, state, L, 1),
+        (A, b, ub, rho, state, L[:, :2], 1),
+        (A, b, ub, rho, state, L, 0),                        # no step
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            pao._admm_chunk_batch(*args)
+    # a bucket no plan fits: 3 x 4096 rows
+    A3, b3, ub3, _, st3, L3 = chip_smoke.admm_args(
+        chip_smoke.admm_case(3, 1, 12288, 4, False), cuda)
+    with pytest.raises(ValueError):
+        pao._admm_chunk_batch(A3, b3, ub3, 1.0, st3, L3, 1)

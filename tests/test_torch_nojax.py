@@ -411,3 +411,44 @@ def test_scatter_runs_without_jax(tmp_path):
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NOJAX_SCATTER_OK" in proc.stdout
+
+
+ADMM_SCRIPT = SEED_SCRIPT.split("    import numpy as np")[0] + textwrap.dedent("""
+    import torch
+    from pantax_tpu_torch.ops import extend
+    from pantax_tpu_torch.profile import pao
+
+    # two instances of 4096 rows and 4 paths, the second path pinned
+    g = torch.Generator().manual_seed(0)
+    A = (torch.rand((2, 4096, 4), generator=g) < 0.6).float()
+    b = A @ torch.tensor([0.5, 0.0, 0.3, 0.2])
+    b = b / b.amax(dim=1, keepdim=True)
+    ub = torch.tensor([[1.0, 0.0, 1.0, 1.0]] * 2)
+    L = torch.linalg.cholesky(A.mT @ A + torch.eye(4))
+    x0, z0 = torch.zeros((2, 4)), torch.zeros((2, 4096))
+    state, res = pao._admm_chunk_batch(A, b, ub, 1.0, (x0, z0, x0, z0, x0),
+                                       L, 25)
+    assert [tuple(t.shape) for t in state] == [(2, 4), (2, 4096), (2, 4),
+                                               (2, 4096), (2, 4)]
+    assert res.shape == (2,) and bool(torch.isfinite(res).all()), res
+    assert float(state[2][:, 1].abs().max()) == 0.0  # the pinned path
+    assert extend.LAUNCHES["admm_chunk_plain"] == 1
+    assert extend.LAUNCHES["admm_chunk"] == 0
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("NOJAX_ADMM_OK")
+""")
+
+
+def test_admm_chunk_runs_without_jax(tmp_path):
+    """pantax_tpu_torch.ops.admm (K8's module), imported first, runs its
+    plain version through the dispatcher with jax, pandas, pyarrow and the
+    JAX package blocked."""
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([REPO,
+                                           os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", ADMM_SCRIPT], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NOJAX_ADMM_OK" in proc.stdout

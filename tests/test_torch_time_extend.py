@@ -1,7 +1,7 @@
-"""The K1 / K2 / K3 / K6 / K11 timing tools on the CPU: the arguments, shapes and
-ablated sources of ``scripts/time_extend.py`` and the SASS loop readers of
-``chip_smoke.py`` (the card runs them; here only their text handling is
-held)."""
+"""The K1 / K2 / K3 / K6 / K11 / K8 timing tools on the CPU: the arguments,
+shapes and ablated sources of ``scripts/time_extend.py`` and the SASS loop
+readers of ``chip_smoke.py`` (the card runs them; here only their text
+handling is held)."""
 import importlib.util
 import os
 import stat
@@ -229,6 +229,35 @@ def test_parse_args_k11_takes_a_baseline_and_its_ablations():
     assert time_extend.parse_args(["--kernel", "k11", "b.cu"]).ablate is None
 
 
+def test_parse_args_k8_takes_no_baseline():
+    assert time_extend.parse_args(["--kernel", "k8"]).kernel == "k8"
+    for argv in (["--kernel", "k8", "base.cu"],
+                 ["--kernel", "k8", "--ablate", "unroll"]):
+        with pytest.raises(SystemExit):
+            time_extend.parse_args(argv)
+
+
+def test_k8_shapes_are_the_smoke_bucket():
+    """K8's shapes: the smoke DB's device-tail bucket (10 species of
+    65536 padded rows, 4 paths) and one of its instances alone, at the
+    solvers' chunk of 250 steps; K8 has a plan at both."""
+    from pantax_tpu_torch.ops import admm
+    assert time_extend.SHAPES["k8"] == ((10, 65536, 4), (1, 65536, 4))
+    assert time_extend.K8_STEPS == 250
+    for shape in time_extend.SHAPES["k8"]:
+        assert admm.launch_plan(*shape).on_chip
+
+
+def test_k8_streamed_shapes_take_the_streamed_plan():
+    """The streamed plan's timings: the host tail's largest singleton
+    bucket (500,000 sampled nodes pad to 524288 rows) and 32 paths at
+    65536 rows; neither fits on chip."""
+    from pantax_tpu_torch.ops import admm
+    assert time_extend.K8_STREAMED == ((1, 524288, 4), (1, 65536, 32))
+    for shape in time_extend.K8_STREAMED:
+        assert not admm.launch_plan(*shape).on_chip
+
+
 def test_parse_args_k6_takes_a_baseline_and_its_ablations():
     args = time_extend.parse_args(["--kernel", "k6", "base.cu", "--ablate",
                                    "pair", "--ablate", "scan"])
@@ -295,6 +324,15 @@ def test_ptxas_lines_read_the_scatter_kernels_and_their_frames():
         "classify_scatter_kernel<32,2>: Used 40 registers, used 0 barriers; "
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "classify_scatter_ranges_kernel: Used 28 registers, used 0 barriers"]
+
+
+def test_ptxas_lines_name_k8s_instantiations():
+    log = ("ptxas info    : Compiling entry function "
+           "'_ZN12_GLOBAL__N_117admm_chunk_kernelILi8EEEvNS_4ArgsE' for "
+           "'sm_90a'\n"
+           "ptxas info    : Used 40 registers, used 1 barriers\n")
+    assert chip_smoke.ptxas_lines(log) == [
+        "admm_chunk_kernel<8>: Used 40 registers, used 1 barriers"]
 
 
 def test_ptxas_lines_name_each_instantiation():
