@@ -61,13 +61,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    to the first run's, and each chunk's residual of both runs printed
    beside four chunks of the plain chunk in float64 from the largest
    bucket's zero state;
-   K8 against the plain chunk after one step and after 25 (every state
-   vector and the residual within K8_BARS, the inputs untouched) on the
-   largest bucket's first chunk (the zero state, aliased as the solvers
-   pass it) and its next, and on a crafted wide-row case (2, 4096, 132:
-   rows streamed, L in global memory); two launches of 250 steps
-   bit-identical; K8 and the plain chunk timed at 250 steps beside
-   ``admm_bound``.  Every profile of every later phase (and phases 5 and
+   the plan (cluster, rows a thread, bits or float) of every bucket the
+   tail dispatched; K8 against the plain chunk after one step and after
+   25 (every state vector and the residual within K8_BARS, the inputs
+   untouched) on the largest bucket's first chunk (the zero state,
+   aliased as the solvers pass it; the bits plan, and the float plan as
+   a non-0/1 A takes it) and its next, on a crafted wide-row case (2,
+   4096, 132: the float plan, rows streamed, L in global memory), on
+   the bits plan's smallest bucket (1, 4096, 4) and on 0/1 wide rows (1,
+   65536, 32); two launches of 250 steps bit-identical (both plans); K8
+   and the plain chunk timed at 250 steps beside ``admm_bound`` on the
+   bucket, (1, 4096, 4) and (1, 65536, 32).  Every profile of every later phase (and phases 5 and
    7) holds K8's launches to the chunks the solvers dispatched and the
    plain chunk to 0 (``check_k8``, in ``check_k3`` and around each
    profile call), the subprocesses of phases 12 and 14 included;
@@ -1707,17 +1711,19 @@ def admm_args(case, dev) -> tuple:
     return (*t, 1.0, st, Lt.mT)
 
 
-def hold_k8(args, what: str, steps: int = 1, exact: bool = False) -> float:
+def hold_k8(args, what: str, steps: int = 1, exact: bool = False,
+            binary: bool = False) -> float:
     """K8 (uncounted) against its plain version after ``steps`` steps (1
     or 25) from the state in ``args`` (A, b, ub, rho, state, L): every
     state vector and the residual within K8_BARS[steps], the inputs
-    untouched.  ``exact``: the plain version runs in float64 on the same
-    float32 inputs (at p_pad 2048 the float32 plain chunk is itself
-    6.0e-5 off it after one step, 2.7x K8's error).  Returns the largest
-    difference."""
+    untouched; ``binary`` as the solvers pass it (A is 0/1: the bits
+    plan where the bucket fits it).  ``exact``: the plain version runs in
+    float64 on the same float32 inputs (at p_pad 2048 the float32 plain
+    chunk is itself 6.0e-5 off it after one step, 2.7x K8's error).
+    Returns the largest difference."""
     bar = K8_BARS[steps]
     before = [t.clone() for t in (*args[:3], *args[4], args[5])]
-    got = admm.launch_k8(*args, steps)
+    got = admm.launch_k8(*args, steps, binary)
     A, b, ub, rho, state, L = args
     if exact:
         A, b, ub, L = (t.double() for t in (A, b, ub, L))
@@ -1741,25 +1747,26 @@ def hold_k8(args, what: str, steps: int = 1, exact: bool = False) -> float:
     S, n, p = args[0].shape
     print(f"K8 == plain{' (float64)' if exact else ''} within {err:.3g} "
           f"after {steps} steps {what} "
-          f"(S {S}, n_pad {n}, p_pad {p}, {admm.launch_plan(S, n, p)})")
+          f"(S {S}, n_pad {n}, p_pad {p}, "
+          f"{admm.launch_plan(S, n, p, binary)})")
     return err
 
 
-def k8_repeats(args, iters: int, what: str) -> None:
+def k8_repeats(args, iters: int, what: str, binary: bool = False) -> None:
     """Two K8 launches of ``iters`` steps on the same inputs give the same
     bits (no float atomics: the device tail's tables are byte-identical
     across calls)."""
-    a, b = (admm.launch_k8(*args, iters) for _ in range(2))
+    a, b = (admm.launch_k8(*args, iters, binary) for _ in range(2))
     for x, y in zip((*a[0], a[1]), (*b[0], b[1])):
         if not torch.equal(x, y):
             raise AssertionError(f"K8 {what}: two launches differ")
 
 
-def k8_times(args, iters: int) -> tuple[float, float]:
+def k8_times(args, iters: int, binary: bool = False) -> tuple[float, float]:
     """(K8 ms, plain ms) of one chunk of ``iters`` steps (CUDA events; K8
     uncounted over 20 launches with the stream held, the plain chunk over
     3 calls)."""
-    ms = cuda_ms(lambda: admm.launch_k8(*args, iters), 20, hold=True)
+    ms = cuda_ms(lambda: admm.launch_k8(*args, iters, binary), 20, hold=True)
     plain = cuda_ms(lambda: pao._admm_chunk_batch_plain(*args, iters), 3)
     return ms, plain
 
@@ -1767,9 +1774,9 @@ def k8_times(args, iters: int) -> tuple[float, float]:
 def chunk_recorder(chunk, log: list):
     """``chunk`` (a strain solver's chunk function) that also appends each
     call's (inputs, residual) to ``log``."""
-    def recorded(A, b, ub, rho, state, L, iters):
-        out = chunk(A, b, ub, rho, state, L, iters)
-        log.append(((A, b, ub, rho, state, L, iters), out[1]))
+    def recorded(A, b, ub, rho, state, L, iters, binary=False):
+        out = chunk(A, b, ub, rho, state, L, iters, binary)
+        log.append(((A, b, ub, rho, state, L, iters, binary), out[1]))
         return out
     return recorded
 
@@ -1797,13 +1804,16 @@ def admm_phase(build: str, dev, result, tables, index, db, cfg, out: str,
     abundances within 2e-4) and its seconds; once more with K8, recorded
     the same way, its tables byte-identical to ``out``'s, and both runs'
     chunk residuals printed beside the float64 plain chunk's on the
-    largest bucket; K8 against the plain chunk after 1 and 25
-    steps on the largest bucket's first chunk (the zero state, aliased)
-    and its second (a state in flight), and on the crafted wide-row case
-    (2, 4096, 132); two launches bit-identical; K8 and the plain chunk
-    timed on the first chunk at 250 steps beside admm_bound.  Returns
-    (largest difference after one step, ms, plain ms, bound ms, bound_by,
-    extra keys, shape)."""
+    largest bucket; the plan of every bucket the tail dispatched; K8
+    against the plain chunk after 1 and 25 steps on the largest bucket's
+    first chunk (the zero state, aliased; the bits plan, and the float
+    plan as a non-0/1 A takes it) and its second (a state in flight), on
+    the crafted wide-row case (2, 4096, 132: the float plan, streamed)
+    and on the bits plan's smallest bucket (1, 4096, 4) and 0/1 wide rows
+    (1, 65536, 32); two launches bit-identical; K8 and the plain chunk
+    timed at 250 steps beside admm_bound on the first chunk and the two
+    bits-plan cases.  Returns (largest difference after one step, ms,
+    plain ms, bound ms, bound_by, extra keys, shape)."""
     k8_chunk = profile_tail._admm_chunk_batch
     logs, secs = {}, {}
     for name, chunk in (("plain", pao._admm_chunk_batch_plain),
@@ -1844,13 +1854,22 @@ def admm_phase(build: str, dev, result, tables, index, db, cfg, out: str,
         print(f"{name} chunk residuals by solver run (S, n_pad, p_pad): "
               f"{residual_runs(logs[name])}")
 
+    plans = {}
+    for args, _res in logs["k8"]:
+        shape, binary = tuple(args[0].shape), args[7]
+        plans[shape, binary] = admm.launch_plan(*shape, binary)
+    print("K8 plans of the device tail's buckets: " + "; ".join(
+        f"{shape}{' 0/1' if binary else ''}: cluster {pl.cluster}, "
+        f"{pl.rows_per_thread} rows a thread of {pl.threads}, "
+        f"{'bits' if pl.bits else 'float'}"
+        for (shape, binary), pl in plans.items()))
     calls = [args for args, _res in logs["plain"]]
     big = max(calls, key=lambda c: c[0].numel())
     firsts = [c for c in calls if c[0] is big[0]]
     S, n, p = big[0].shape
     # where the exact iteration goes from the largest bucket's zero state:
     # four chunks of the plain chunk in float64
-    A, b, ub, rho, state, L, iters = big
+    A, b, ub, rho, state, L, iters, _binary = big
     A, b, ub, L = (t.double() for t in (A, b, ub, L))
     state = tuple(t.double() for t in state)
     exact = []
@@ -1862,22 +1881,41 @@ def admm_phase(build: str, dev, result, tables, index, db, cfg, out: str,
           + ", ".join(exact))
     valid = ((big[1] != 0) | (big[0] != 0).any(-1)).float().mean().item()
     wide = admm_args(admm_case(132, 2, 4096, 132, seeded=False), dev)
-    cases = [(firsts[0][:6], "on the paired device tail's largest bucket, "
-              "zero state"), (wide, "on the crafted wide rows")]
+    small = admm_args(admm_case(4101, 1, 4096, 4, seeded=False), dev)
+    wide01 = admm_args(admm_case(65569, 1, 65536, 32, seeded=False), dev)
+    tail = firsts[0][:6]
+    cases = [(tail, "on the paired device tail's largest bucket, zero "
+              "state", True),
+             (tail, "on the same, as a non-0/1 A", False),
+             (wide, "on the crafted wide rows", True),
+             (small, "on the smallest bucket", True),
+             (wide01, "on 0/1 wide rows", True)]
     if len(firsts) > 1:
-        cases.append((firsts[1][:6], "on the same bucket's second chunk"))
-    errs = {steps: max(hold_k8(args, what, steps) for args, what in cases)
+        cases.append((firsts[1][:6], "on the same bucket's second chunk",
+                      True))
+    errs = {steps: max(hold_k8(args, what, steps, binary=binary)
+                       for args, what, binary in cases)
             for steps in K8_BARS}
-    k8_repeats(firsts[0][:6], 250, "at the device tail's bucket")
-    ms, plain_ms = k8_times(firsts[0][:6], 250)
-    bound, by, work = admm_bound(S, n, p, 250, issue_peak)
-    print(f"K8 [{card_line()}] at (S {S}, n_pad {n}, p_pad {p}), 250 steps: "
-          f"{ms:.4f} ms, plain chunk {plain_ms:.3f} ms, bound {bound:.4f} ms "
-          f"({by}: {work['ops']} instructions, {work['bytes']} bytes; valid "
-          f"rows {valid:.3f} of the bucket), {bound / ms:.3f} of the bound")
+    for args, what, binary in cases[:2]:
+        k8_repeats(args, 250, what, binary)
+    times = {}
+    for name, args in (("tail", tail), ("1x4096x4", small),
+                       ("1x65536x32", wide01)):
+        ms, plain_ms = k8_times(args, 250, binary=True)
+        bound, by, work = admm_bound(*args[0].shape, 250, issue_peak)
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": by}
+        print(f"K8 [{card_line()}] at {tuple(args[0].shape)}, 250 steps, "
+              f"{admm.launch_plan(*args[0].shape, True)}: {ms:.4f} ms, "
+              f"plain chunk {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}: "
+              f"{work['ops']} instructions, {work['bytes']} bytes), "
+              f"{bound / ms:.3f} of the bound")
+    print(f"K8's bucket: valid rows {valid:.3f} of the bucket")
+    ms, plain_ms, bound, by = (times["tail"][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by"))
     return (errs[1], ms, plain_ms, bound, by,
             {"valid_row_share": valid, "plain_chunk_tail_s": t_plain,
-             "max_abs_err_25_steps": errs[25]},
+             "max_abs_err_25_steps": errs[25], "ms_by_case": times},
             f"S {S}, n_pad {n}, p_pad {p}, 250 steps (the paired device "
             f"tail's largest bucket)")
 

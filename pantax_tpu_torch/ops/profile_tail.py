@@ -470,7 +470,7 @@ class DeviceTailSolver:
             LAUNCHES["admm_chunk_dispatch"] += 1
             r["state"], r["res"] = _admm_chunk_batch(
                 r["prep"]["A"], r["prep"]["b"], r["ub"], 1.0, r["state"],
-                r["prep"]["L"], chunk)
+                r["prep"]["L"], chunk, binary=True)  # build_A_b's 0/1 A
             r["left"] -= 1
 
         # round-robin over buckets: every bucket keeps a chunk in flight

@@ -67,23 +67,28 @@ def _admm_factor(A):
     return torch.linalg.cholesky(A.mT @ A + eye)
 
 
-def _admm_chunk_batch(A, b, ub, rho: float, state, L, iters: int):
+def _admm_chunk_batch(A, b, ub, rho: float, state, L, iters: int,
+                      binary: bool = False):
     """Advance S independent ADMM instances by ``iters`` steps; returns the
     new state and each instance's residual max(|Ax-b-z|, |x-w|,
     |w - w_entry|).  A [S, n, p], b [S, n], ub [S, p] (0 pins a path), L
-    [S, p, p] the Cholesky factor of A^T A + I.  The plain version where
-    every tensor lies on the CPU; otherwise K8, one launch
-    (ops/admm.admm_chunk_cuda), which raises on anything but one CUDA
-    device's float32 tensors of one bucket."""
+    [S, p, p] the Cholesky factor of A^T A + I; ``binary``: the caller
+    knows every entry of A is 0 or 1.  The plain version where every
+    tensor lies on the CPU; otherwise K8, one launch
+    (ops/admm.admm_chunk_cuda: its bits plan where ``binary``), which
+    raises on anything but one CUDA device's float32 tensors of one
+    bucket."""
     if all(t.device.type == "cpu" for t in (A, b, ub, *state, L)):
         LAUNCHES["admm_chunk_plain"] += 1
-        return _admm_chunk_batch_plain(A, b, ub, rho, state, L, iters)
-    return admm.admm_chunk_cuda(A, b, ub, rho, state, L, iters)
+        return _admm_chunk_batch_plain(A, b, ub, rho, state, L, iters,
+                                       binary)
+    return admm.admm_chunk_cuda(A, b, ub, rho, state, L, iters, binary)
 
 
-def _admm_chunk_batch_plain(A, b, ub, rho: float, state, L, iters: int):
+def _admm_chunk_batch_plain(A, b, ub, rho: float, state, L, iters: int,
+                            binary: bool = False):
     """Plain torch version of K8: _admm_chunk_batch as a Python loop of
-    torch operations a step."""
+    torch operations a step (``binary`` is K8's plan choice: ignored)."""
     n = A.shape[1]
     thresh = 1.0 / (max(n, 1) * rho)
     alpha = 1.6  # over-relaxation
@@ -108,11 +113,19 @@ def _admm_chunk_batch_plain(A, b, ub, rho: float, state, L, iters: int):
     return (x, z, w, uz, uw), torch.maximum(torch.maximum(r_z, r_w), d_w)
 
 
+def _zero_one(A_st: np.ndarray) -> bool:
+    """Whether every entry of the host stack is 0 or 1 (K8's bits plan):
+    the host tail's node-membership rows are, a caller's own A need not
+    be."""
+    return bool(((A_st == 0) | (A_st == 1)).all())
+
+
 def _admm_solve_stack(A_st, b_st, ub_st, device, iters: int, chunk: int,
                       tol: float) -> np.ndarray:
     """Run the batched ADMM to the residual tolerance (or the iteration
     cap); returns the w iterate, float64 [S, p_pad]."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    binary = _zero_one(A_st)
     A = torch.as_tensor(A_st).to(device).to(torch.float32)
     b = torch.as_tensor(b_st).to(device)
     ub = torch.as_tensor(ub_st).to(device)
@@ -123,7 +136,8 @@ def _admm_solve_stack(A_st, b_st, ub_st, device, iters: int, chunk: int,
     state = (x0, z0, x0, z0, x0)
     for _ in range(max(iters // chunk, 1)):
         LAUNCHES["admm_chunk_dispatch"] += 1
-        state, res = _admm_chunk_batch(A, b, ub, 1.0, state, L, chunk)
+        state, res = _admm_chunk_batch(A, b, ub, 1.0, state, L, chunk,
+                                       binary)
         worst = float(res.max())
         if worst < tol:
             break

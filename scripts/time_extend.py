@@ -29,17 +29,25 @@ build directory:
 
     PYTHONPATH=. python scripts/time_extend.py --ablate unroll
 
-K8 (``--kernel k8``, no baseline) is timed against the plain chunk and a
-CUDA-graph replay of the plain chunk (a yardstick: the same ~9,000 small
-launches without their host overhead, its solve on cuSOLVER, which a
-graph can capture), in turns (K8, plain, graph, graph,
-plain, K8; ROUNDS times), at 250 steps on ``chip_smoke.admm_case``
-buckets (10, 65536, 4) and (1, 65536, 4), and the streamed plan's
-(1, 524288, 4) and (1, 65536, 32), from the callers' zero state, each
-held to the plain chunk after 1 and 25 steps first
-(``chip_smoke.hold_k8``):
+K8 (``--kernel k8``) times the current ``csrc/admm_chunk.cu`` against a
+baseline source, driven through its own C entry (``admm_chunk_launch``
+with the float plan, where the source has no ``admm_chunk_plan_launch``),
+its levers' ablations (K8_ABLATIONS), the plain chunk and a CUDA-graph
+replay of the plain chunk (a yardstick: the same ~9,000 small launches
+without their host overhead, its solve on cuSOLVER, which a graph can
+capture), in turns, at 250 steps on ``chip_smoke.admm_case`` buckets
+(10, 65536, 4) and (1, 65536, 4), the smallest (1, 4096, 4) and 0/1
+(1, 65536, 32) (K8_BITS), and K8_STREAMED's (1, 524288, 4) and
+(1, 65536, 32) as a non-0/1 A (the float plan), from the callers' zero
+state, every build held to the plain chunk after 1 and 25 steps first
+(``chip_smoke.K8_BARS``).  Then the current source at every cluster size
+the bits plan could take at each bucket (K8_TABLE), the times behind
+ops/admm.py's BITS_CLUSTER:
 
-    PYTHONPATH=. python scripts/time_extend.py --kernel k8
+    git show <commit>:pantax_tpu_torch/csrc/admm_chunk.cu \
+        > build/admm_chunk_base.cu
+    PYTHONPATH=. python scripts/time_extend.py --kernel k8 \
+        build/admm_chunk_base.cu [--ablate regs --ablate push ...]
 
 K1 (the default) at the main path's shape (131072 candidates of 160
 bases, pad 4) and the long-read seeded pass's (32768 candidates of 512
@@ -128,9 +136,15 @@ SHAPES = {
     # bucket and one of its instances alone
     "k8": ((10, 65536, 4), (1, 65536, 4)),
 }
+# K8's bits plan past the smoke's bucket: the smallest bucket and wide
+# 0/1 rows
+K8_BITS = ((1, 4096, 4), (1, 65536, 32))
 # K8's streamed plan (rows read from L2 every step): the host tail's
-# largest singleton bucket (500,000 sampled nodes) and wide rows
+# largest singleton bucket (500,000 sampled nodes) and wide rows of a
+# non-0/1 A
 K8_STREAMED = ((1, 524288, 4), (1, 65536, 32))
+# the bits plan's cluster sizes timed at each bucket: (S, p_pad) by n_pad
+K8_TABLE = ((1, 4), (10, 4), (1, 32))
 KERNELS = {"k1": "banded_extend_kernel", "k2": "banded_extend_windows_kernel",
            "k3": "seed_stage_kernel", "k6": "classify_scatter_ranges_kernel",
            "k11": "classify_scatter_kernel", "k8": "admm_chunk_kernel"}
@@ -229,11 +243,50 @@ K6_ABLATIONS = {
 }
 
 
+# K8's levers, each taken out of csrc/admm_chunk.cu's bits plan: without
+# "regs" the rows' b and c sit in shared memory at p 4 too (the bits stay
+# in registers); without "mbar" the CTAs' pushed sums are waited for by a
+# cluster barrier a step, not by each CTA's barrier counting their bytes;
+# without "push" each CTA writes its sums into its own slot and every warp
+# reads the other CTAs' through distributed shared memory after a cluster
+# barrier (a pull); without "cluster" every bucket takes a cluster of 8
+_K8_WAIT = ("        mbar_wait(bar + (k & 1), (k >> 1) & 1);\n"
+            "        if (tid == 0) mbar_expect(bar + (k & 1), slot_bytes);")
+_K8_PUSH = "                st_async(sl + rank * PC + c, bar + parity, lane, t);"
+K8_ABLATIONS = {
+    "regs": [("__host__ __device__ constexpr bool rows_in_registers(int pc) "
+              "{\n    return pc == 4;\n}",
+              "__host__ __device__ constexpr bool rows_in_registers(int pc) "
+              "{\n    return false;\n}")],
+    "mbar": [(_K8_WAIT, "        cluster.sync();"),
+             (_K8_PUSH, "                cluster.map_shared_rank(sl, lane)"
+                        "[rank * PC + c] = t;")],
+    "push": [
+        (_K8_WAIT, "        cluster.sync();"),
+        ("        auto slot_of = [&](int r) -> const float* "
+         "{ return sl + r * PC; };",
+         "        auto slot_of = [&](int r) -> const float* {\n"
+         "            return cluster.map_shared_rank(sl, r) + r * PC;\n"
+         "        };"),
+        ("            if (lane < C)  // slot `rank` of every CTA in the "
+         "cluster\n" + _K8_PUSH,
+         "            if (lane == 0) sl[rank * PC + c] = t;  // its own slot"),
+    ],
+    "cluster": [("    const int C = cluster, T = threads, R = rpt;",
+                 "    const int C = bits ? kBitsCluster : cluster;\n"
+                 "    const int T = bits ? (n / C < kMaxThreads ? n / C : "
+                 "kMaxThreads) : threads;\n"
+                 "    const int R = bits ? n / (C * T) : rpt;")],
+}
+
+
 def ablated_source(name: str) -> Path:
     """The current source with ABLATIONS[name] (K1's), K3_ABLATIONS[name]
-    (K3's), K6_ABLATIONS[name] (K6's) or K11_ABLATIONS[name] (K11's)
-    applied, written under the build directory."""
+    (K3's), K6_ABLATIONS[name] (K6's), K11_ABLATIONS[name] (K11's) or
+    K8_ABLATIONS[name] (K8's) applied, written under the build
+    directory."""
     path, table = ((seed._SRC, K3_ABLATIONS) if name in K3_ABLATIONS
+                   else (admm._SRC, K8_ABLATIONS) if name in K8_ABLATIONS
                    else (scatter._SRC, K6_ABLATIONS)
                    if name in K6_ABLATIONS
                    else (scatter._SRC, K11_ABLATIONS)
@@ -254,23 +307,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("baseline", nargs="?", help="the baseline .cu source")
     ap.add_argument("--ablate", action="append",
                     choices=sorted(ABLATIONS) + sorted(K3_ABLATIONS)
-                    + sorted(K6_ABLATIONS) + sorted(K11_ABLATIONS),
+                    + sorted(K6_ABLATIONS) + sorted(K11_ABLATIONS)
+                    + sorted(K8_ABLATIONS),
                     help="time the current source without this step instead "
-                         "(K3, K6, K11: as well, repeatable)")
+                         "(K3, K6, K11, K8: as well, repeatable)")
     ap.add_argument("--kernel", choices=sorted(SHAPES), default="k1",
                     help="K1 (text + w0), K2 (windows given), K3 (the seed "
                          "stage), K6 (the range classify + scatter), K11 "
                          "(the windowed classify + scatter) or K8 (the ADMM "
                          "chunk); default k1")
     args = ap.parse_args(argv)
-    mine = {"k3": K3_ABLATIONS, "k6": K6_ABLATIONS,
-            "k11": K11_ABLATIONS}.get(args.kernel, ABLATIONS)
+    mine = {"k3": K3_ABLATIONS, "k6": K6_ABLATIONS, "k11": K11_ABLATIONS,
+            "k8": K8_ABLATIONS}.get(args.kernel, ABLATIONS)
     if any(a not in mine for a in args.ablate or ()):
         ap.error(f"--ablate for {args.kernel}: one of {sorted(mine)}")
-    if args.kernel == "k8":
-        if args.baseline is not None or args.ablate:
-            ap.error("K8 takes no baseline and no --ablate")
-    elif args.kernel in ("k3", "k6", "k11"):
+    if args.kernel in ("k3", "k6", "k11", "k8"):
         if args.baseline is None:
             ap.error(f"{args.kernel.upper()} takes a baseline source")
     elif (args.baseline is None) == (args.ablate is None) or len(
@@ -324,13 +375,16 @@ def k3_cases(dev):
 
 def build_turns(args, build, default_src, notes=lambda lib: "") -> dict:
     """The baseline's, the current source's and each ablated source's
-    builds by name ("base", "new", "no_<lever>"), each printed with its
-    ptxas lines and ``notes(lib)``."""
+    builds by name ("base", "new", "no_<lever>"), one nvcc each at once,
+    each printed with its ptxas lines and ``notes(lib)``."""
+    from concurrent.futures import ThreadPoolExecutor
+
     srcs = {"base": Path(args.baseline), "new": None}
     srcs.update((f"no_{a}", ablated_source(a)) for a in args.ablate or ())
-    libs = {}
+    with ThreadPoolExecutor(len(srcs)) as pool:
+        built = {name: pool.submit(build, src) for name, src in srcs.items()}
+    libs = {name: f.result() for name, f in built.items()}
     for name, src in srcs.items():
-        libs[name] = build(src)
         print(f"{name}: {src or default_src}\n  " + "\n  ".join(
             smoke.ptxas_lines(libs[name].build_log)) + notes(libs[name]),
             flush=True)
@@ -463,46 +517,131 @@ def plain_chunk_graph(args8, steps: int):
     return graph, None
 
 
-def main_k8(dev, issue_peak: float) -> None:
-    """K8, the plain chunk and the plain chunk's graph replay in turns at
-    each SHAPES["k8"] and K8_STREAMED bucket, K8_STEPS steps from the
-    zero state."""
-    print(f"K8: {admm._SRC}\n  " + "\n  ".join(
-        smoke.ptxas_lines(admm.build_admm_kernel().build_log)), flush=True)
-    for S, n, p in (*SHAPES["k8"], *K8_STREAMED):
+def k8_launch(lib, args8, steps: int, binary: bool, plan=None):
+    """One uncounted launch of any build of K8 on admm_args' ``args8``:
+    through ``admm_chunk_plan_launch`` with ``plan`` (default
+    admm.launch_plan's for ``binary``), or, for a source without it,
+    through its own ``admm_chunk_launch`` with the float plan (a cluster
+    of 8).  Returns ((x, z, w, uz, uw), res)."""
+    A, b, ub, rho, state, L = args8
+    S, n, p = A.shape
+    outs = tuple(torch.empty_like(t) for t in state)
+    res = torch.empty(S, dtype=torch.float32, device=A.device)
+    ptrs = (A.data_ptr(), b.data_ptr(), ub.data_ptr(), state[1].data_ptr(),
+            state[2].data_ptr(), state[3].data_ptr(), state[4].data_ptr(),
+            L.data_ptr(), *L.stride(), S, n, p, steps, 1.0 / (n * rho))
+    tail = (*(t.data_ptr() for t in outs), res.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    try:
+        entry = lib.admm_chunk_plan_launch
+    except AttributeError:
+        pl = admm.launch_plan(S, n, p)
+        rc = lib.admm_chunk_launch(*ptrs, pl.threads, pl.rows_per_thread,
+                                   int(pl.on_chip), *tail)
+    else:
+        pl = plan or admm.launch_plan(S, n, p, binary)
+        rc = entry(*ptrs, pl.cluster, pl.threads, pl.rows_per_thread,
+                   int(pl.on_chip), int(pl.bits), *tail)
+    if rc != 0:
+        raise RuntimeError(f"K8 launch failed: CUDA error {rc}")
+    return outs, res
+
+
+def k8_held(lib, args8, binary: bool, what: str) -> dict:
+    """A build of K8 against the plain chunk after each K8_BARS step count
+    (every state vector and res within its bar); the largest
+    differences by step count."""
+    errs = {}
+    for steps, bar in smoke.K8_BARS.items():
+        got = k8_launch(lib, args8, steps, binary)
+        want = pao._admm_chunk_batch_plain(*args8, steps)
+        errs[steps] = max(float((g - w).abs().max()) for g, w in
+                          zip((*got[0], got[1]), (*want[0], want[1])))
+        if not errs[steps] <= bar:
+            raise AssertionError(f"K8 {what}: {errs[steps]:.3g} from the "
+                                 f"plain chunk after {steps} steps (bar "
+                                 f"{bar})")
+    return errs
+
+
+def main_k8(args, dev, issue_peak: float) -> None:
+    """K8: the baseline, the current source, its ablations, the plain
+    chunk and its graph replay in turns at each SHAPES["k8"], K8_BITS and
+    K8_STREAMED bucket, K8_STEPS steps from the zero state; then the
+    current source at each cluster size of K8_TABLE."""
+    libs = build_turns(args, compile_k8, admm._SRC)
+    cases = ([(shape, True) for shape in (*SHAPES["k8"], *K8_BITS)]
+             + [(shape, False) for shape in K8_STREAMED])
+    for (S, n, p), binary in cases:
         args8 = smoke.admm_args(smoke.admm_case(S + n + p, S, n, p, False),
                                 dev)
-        err = {steps: smoke.hold_k8(args8, f"at ({S}, {n}, {p})", steps)
-               for steps in smoke.K8_BARS}
+        what = f"at ({S}, {n}, {p}){' 0/1' if binary else ''}"
+        errs = {name: k8_held(lib, args8, binary, f"{name} {what}")
+                for name, lib in libs.items()}
         graph, why = plain_chunk_graph(args8, K8_STEPS)
-        readings = {
-            "k8": lambda: smoke.cuda_ms(
-                lambda: admm.launch_k8(*args8, K8_STEPS), 20, hold=True),
-            "plain": lambda: smoke.cuda_ms(
-                lambda: pao._admm_chunk_batch_plain(*args8, K8_STEPS), 3),
-        }
+        turns = dict(libs, plain="plain")
         if graph is not None:
-            readings["graph"] = lambda: smoke.cuda_ms(graph.replay, 5)
-        order = list(readings) + list(readings)[::-1]
-        ms = {k: [] for k in readings}
-        for _ in range(ROUNDS):
-            for name in order:
-                ms[name].append(readings[name]())
-        med = {k: float(np.median(v)) for k, v in ms.items()}
+            turns["graph"] = "graph"
+
+        def reading(lib):
+            if lib == "plain":
+                return smoke.cuda_ms(lambda: pao._admm_chunk_batch_plain(
+                    *args8, K8_STEPS), 3)
+            if lib == "graph":
+                return smoke.cuda_ms(graph.replay, 5)
+            return smoke.cuda_ms(lambda: k8_launch(lib, args8, K8_STEPS,
+                                                   binary), 20, hold=True)
+
         bound, by, work = smoke.admm_bound(S, n, p, K8_STEPS, issue_peak)
         line = {"kernel": "K8", "S": S, "n_pad": n, "p_pad": p,
-                "steps": K8_STEPS, "plan": str(admm.launch_plan(S, n, p)),
-                "step_err": err[1], "err_25_steps": err[25],
-                "card": smoke.card_line(),
-                **{f"{k}_ms": v for k, v in ms.items()},
-                "bound_ms": bound, "bound_by": by, "work": work,
-                "k8_share": bound / med["k8"],
-                "plain_vs_k8": med["plain"] / med["k8"]}
-        if graph is not None:
-            line["graph_vs_k8"] = med["graph"] / med["k8"]
-        else:
+                "binary": binary, "steps": K8_STEPS,
+                "plan": str(admm.launch_plan(S, n, p, binary)),
+                "errs": errs, "card": smoke.card_line(), "work": work}
+        if graph is None:
             line["graph_error"] = why
-        print(json.dumps(line), flush=True)
+        time_in_turns(turns, reading, line, bound, by)
+    new = libs["new"]
+    for S, p in K8_TABLE:
+        for n in sorted(admm.BITS_CLUSTER):
+            args8 = smoke.admm_args(smoke.admm_case(S + n + p, S, n, p,
+                                                    False), dev)
+            for cluster in (1, 2, 4, 8):
+                threads = min(admm.MAX_THREADS, n // cluster)
+                rpt = n // (cluster * threads)
+                if rpt not in ((1, 2, 4, 8) if p == 4 else (4, 8)):
+                    continue
+                plan = admm.AdmmPlan(cluster, threads, rpt, True, 0, True)
+                got = k8_launch(new, args8, 1, True, plan)
+                want = pao._admm_chunk_batch_plain(*args8, 1)
+                err = max(float((g - w).abs().max()) for g, w in
+                          zip((*got[0], got[1]), (*want[0], want[1])))
+                if not err <= smoke.K8_STEP_BAR:
+                    raise AssertionError(f"K8 cluster {cluster} at ({S}, "
+                                         f"{n}, {p}): {err:.3g}")
+                ms = [smoke.cuda_ms(lambda: k8_launch(
+                    new, args8, K8_STEPS, True, plan), 20, hold=True)
+                    for _ in range(2 * ROUNDS)]
+                print(json.dumps({
+                    "kernel": "K8", "table": True, "S": S, "n_pad": n,
+                    "p_pad": p, "cluster": cluster, "threads": threads,
+                    "rows_per_thread": rpt, "step_err": err,
+                    "chosen": admm.launch_plan(S, n, p, True).cluster
+                    == cluster, "ms": ms,
+                    "median_ms": float(np.median(ms))}), flush=True)
+
+
+def compile_k8(src):
+    """Build K8 from ``src`` (None: the current source) and set the
+    argument types of its C entry, the current one or a baseline's."""
+    import ctypes
+    lib = extend.compile_kernels(src or admm._SRC)
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    head = [vp] * 8 + [i64] * 3 + [i32] * 4 + [ctypes.c_float]
+    try:
+        lib.admm_chunk_plan_launch.argtypes = head + [i32] * 5 + [vp] * 7
+    except AttributeError:
+        lib.admm_chunk_launch.argtypes = head + [i32] * 3 + [vp] * 7
+    return lib
 
 
 def main() -> None:
@@ -514,7 +653,7 @@ def main() -> None:
         return
     issue_peak = smoke.issue_ops_per_s()
     if args.kernel == "k8":
-        main_k8(dev, issue_peak)
+        main_k8(args, dev, issue_peak)
         return
     if args.kernel == "k3":
         main_k3(args, dev, issue_peak)

@@ -109,20 +109,116 @@ def test_launch_plan_covers_every_row(p_pad):
             plan.threads, plan.rows_per_thread, p_pad, plan.on_chip)
 
 
-@pytest.mark.parametrize("n_pad,p_pad,on_chip,rows,threads", [
-    (65536, 4, True, 8, 1024),      # the smoke's buckets
-    (4096, 4, True, 1, 512),        # the smallest bucket
-    (8192, 36, True, 1, 1024),
-    (4096, 132, False, 1, 512),     # the wide rows: A past shared memory
-    (4096, 260, False, 1, 512),
-    (131072, 4, False, 16, 1024),   # 16 rows a thread: streamed
-    (1048576, 4, False, 128, 1024),
+def _documented(n_pad, p_pad, on_chip, rows, threads, binary=False,
+                cluster=8):
+    """A row of test_launch_plan_at_documented_shapes: the float plan's
+    rows keep their ids, the bits plan's end in "-bits"."""
+    return pytest.param(
+        n_pad, p_pad, on_chip, rows, threads, binary, cluster,
+        id=f"{n_pad}-{p_pad}-{on_chip}-{rows}-{threads}"
+           + ("-bits" if binary else ""))
+
+
+@pytest.mark.parametrize("n_pad,p_pad,on_chip,rows,threads,binary,cluster", [
+    _documented(65536, 4, True, 8, 1024),     # the smoke's buckets
+    _documented(4096, 4, True, 1, 512),       # the smallest bucket
+    _documented(8192, 36, True, 1, 1024),
+    _documented(4096, 132, False, 1, 512),    # the wide rows: A past shared
+    _documented(4096, 260, False, 1, 512),    # memory
+    _documented(131072, 4, False, 16, 1024),  # 16 rows a thread: streamed
+    _documented(1048576, 4, False, 128, 1024),
+    # the bits plan (A 0/1): the smoke's buckets, small buckets spread
+    # over 4-8 CTAs, 0/1 wide rows on chip; past its reach, the float plan
+    _documented(65536, 4, True, 8, 1024, True, 8),
+    _documented(4096, 4, True, 1, 512, True, 8),
+    _documented(8192, 4, True, 2, 1024, True, 4),
+    _documented(65536, 32, True, 8, 1024, True, 8),
+    _documented(8192, 36, True, 4, 1024, True, 2),
+    _documented(131072, 4, False, 16, 1024, True, 8),
+    _documented(4096, 132, False, 1, 512, True, 8),
 ])
 def test_launch_plan_at_documented_shapes(n_pad, p_pad, on_chip, rows,
-                                          threads):
-    plan = admm.launch_plan(10, n_pad, p_pad)
+                                          threads, binary, cluster):
+    plan = admm.launch_plan(10, n_pad, p_pad, binary)
     assert (plan.on_chip, plan.rows_per_thread, plan.threads) == (
         on_chip, rows, threads)
+    assert (plan.bits, plan.cluster) == (binary and on_chip, cluster)
+
+
+# the bits plan's CTAs an instance at p_pad 4, as BITS_CLUSTER's measured
+# table sets them: 4-8 CTAs at every bucket, 1-8 rows a thread
+BITS_P4 = [(4096, 8, 512, 1), (8192, 4, 1024, 2), (16384, 8, 1024, 2),
+           (32768, 8, 1024, 4), (65536, 8, 1024, 8)]
+
+
+@pytest.mark.parametrize("n_pad,cluster,threads,rows", BITS_P4,
+                         ids=[str(r[0]) for r in BITS_P4])
+def test_bits_plan_sizes_the_cluster_to_the_bucket(n_pad, cluster, threads,
+                                                   rows):
+    plan = admm.launch_plan(3, n_pad, 4, binary=True)
+    assert plan.bits and plan.on_chip
+    assert (plan.cluster, plan.threads, plan.rows_per_thread) == (
+        cluster, threads, rows)
+    assert plan.smem_bytes == admm.bits_smem_bytes(threads, rows, 4)
+
+
+@pytest.mark.parametrize("p_pad", [8, 12, 16, 32, 36, 64])
+def test_bits_plan_reach(p_pad):
+    """0/1 A of p_pad 8-64 takes the bits plan on chip at every bucket up
+    to 65536 rows (4 or 8 rows a thread, the widths' instantiations),
+    within shared memory; A that is not 0/1 takes the float plan exactly
+    as before; past 65536 rows or 64 paths 0/1 A takes it too."""
+    for n_pad in N_PADS:
+        plan = admm.launch_plan(2, n_pad, p_pad, binary=True)
+        float_plan = admm.launch_plan(2, n_pad, p_pad)
+        assert not float_plan.bits and float_plan.cluster == admm.CLUSTER
+        if n_pad > 65536:
+            assert plan == float_plan
+            continue
+        assert plan.bits and plan.on_chip
+        assert plan.rows_per_thread in (4, 8)
+        assert plan.smem_bytes == admm.bits_smem_bytes(
+            plan.threads, plan.rows_per_thread, admm.bits_width(p_pad))
+        assert plan.smem_bytes <= admm.MAX_SMEM
+    assert admm.bits_width(p_pad) == next(
+        w for w in (4, 8, 16, 32, 64) if w >= p_pad)
+    wider = admm.launch_plan(2, 65536, p_pad + 64, binary=True)
+    assert wider == admm.launch_plan(2, 65536, p_pad + 64)
+
+
+@pytest.mark.parametrize("p_pad", [4, 8, 32, 64])
+def test_bits_plan_covers_every_row(p_pad):
+    """Every row of every bucket once: cluster x threads x rows a thread is
+    n_pad, a whole number of warps, at most 8 rows a thread and 8 CTAs."""
+    for n_pad in N_PADS[:5]:
+        plan = admm.launch_plan(5, n_pad, p_pad, binary=True)
+        assert plan.bits
+        assert plan.cluster * plan.threads * plan.rows_per_thread == n_pad
+        assert plan.cluster in (1, 2, 4, 8) and plan.rows_per_thread <= 8
+        assert 32 <= plan.threads <= 1024 and plan.threads % 32 == 0
+
+
+def test_solve_stack_flags_zero_one_a(monkeypatch):
+    """_admm_solve_stack tests its host A once a solve: 0/1 A goes to the
+    chunk as binary (K8's bits plan), A with a 2.0 (a path that revisits
+    a node) or a 0.5 does not; every chunk of the solve gets the flag."""
+    A, b, ub, _state, _L = chip_smoke.admm_case(4, 2, 4096, 4, False)
+    seen = []
+    chunk = pao._admm_chunk_batch
+
+    def recorded(*args, **kw):
+        seen.append(args[7] if len(args) > 7 else kw.get("binary", False))
+        return chunk(*args, **kw)
+
+    monkeypatch.setattr(pao, "_admm_chunk_batch", recorded)
+    for value, binary in ((1.0, True), (2.0, False), (0.5, False)):
+        A2 = A.copy()
+        A2[1, 7, 2] = value
+        seen.clear()
+        pao._admm_solve_stack(A2, b, ub, "cpu", iters=500, chunk=250,
+                              tol=0.0)
+        assert seen == [binary, binary], value
+        assert pao._zero_one(A2) == binary
 
 
 @pytest.mark.parametrize("S,n_pad,p_pad", [

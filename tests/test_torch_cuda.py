@@ -1024,6 +1024,7 @@ def test_k6_refuses_tables_without_its_records(cuda, tmp_path):
 
 # ---------------------------------------------------------------------------
 # K8, the strain solve's batched ADMM chunk
+# the float plan (binary not given: a non-0/1 A takes it)
 # (S, n_pad, p_pad): the smoke's buckets, the smallest, more instances
 # than clusters fit at once, wide rows (p_pad 36 on chip; 132 and 260
 # streamed, with L in global memory) and a streamed bucket
@@ -1119,6 +1120,100 @@ def test_k8_full_solves_match_highs_and_the_plain_run(cuda):
         assert k.objective <= p.objective * (1 + 1e-4) + 1e-6
         assert p.objective <= k.objective * (1 + 1e-4) + 1e-6
     assert card[-1].x[1] == 0.0
+
+
+# the bits plan (0/1 A): every bucket (clusters of 4 and 8 CTAs at p_pad
+# 4; of 1, 2, 4 and 8 past it) at every width (p_pad 4 and 8; 12, 32 and
+# 36 pad to 16, 32 and 64)
+K8_BITS_SHAPES = [(2, n, p) for n in (4096, 8192, 16384, 32768, 65536)
+                  for p in (4, 8, 12, 32, 36)]
+
+
+@pytest.mark.parametrize("steps", [1, 25])
+@pytest.mark.parametrize("seeded", [False, True], ids=["zero", "seeded"])
+@pytest.mark.parametrize("shape", K8_BITS_SHAPES,
+                         ids=[f"{s}x{n}x{p}" for s, n, p in K8_BITS_SHAPES])
+def test_k8_bits_plan_matches_plain(cuda, shape, seeded, steps):
+    """The bits plan against the plain chunk after 1 and 25 steps (every
+    state vector and res within K8_BARS, the inputs untouched), from the
+    callers' aliased zero state and a random one."""
+    from pantax_tpu_torch.ops import admm
+
+    S, n, p = shape
+    assert admm.launch_plan(S, n, p, binary=True).bits
+    args = chip_smoke.admm_args(chip_smoke.admm_case(S + n + p, S, n, p,
+                                                     seeded), cuda)
+    assert chip_smoke.hold_k8(args, f"at {shape}", steps, binary=True) <= \
+        chip_smoke.K8_BARS[steps]
+
+
+@pytest.mark.parametrize("steps", [1, 25])
+@pytest.mark.parametrize("seeded", [False, True], ids=["zero", "seeded"])
+def test_k8_bits_at_p_pad_64_matches_the_exact_steps(cuda, steps, seeded):
+    """The bits plan's widest instantiation (64 paths at 65536 rows, 8
+    CTAs) within K8_BARS[steps] of the plain chunk in float64."""
+    args = chip_smoke.admm_args(chip_smoke.admm_case(
+        1 + 65536 + 64, 1, 65536, 64, seeded), cuda)
+    assert chip_smoke.hold_k8(args, "at p_pad 64", steps, exact=True,
+                              binary=True) <= chip_smoke.K8_BARS[steps]
+
+
+@pytest.mark.parametrize("shape", [(10, 65536, 4), (3, 4096, 4),
+                                   (2, 16384, 12), (2, 32768, 32),
+                                   (1, 65536, 64)])
+def test_k8_bits_two_launches_are_identical(cuda, shape):
+    args = chip_smoke.admm_args(chip_smoke.admm_case(1, *shape, False), cuda)
+    chip_smoke.k8_repeats(args, 250, f"at {shape}", binary=True)
+
+
+@pytest.mark.parametrize("steps", [1, 25])
+@pytest.mark.parametrize("shape", [(2, 65536, 4), (2, 8192, 36)])
+def test_k8_non_zero_one_a_takes_the_float_plan(cuda, shape, steps):
+    """A with entries of 2.0 (a path that revisits a node) is not 0/1 as
+    _admm_solve_stack tests it, so it takes the float plan, within
+    K8_BARS of the plain chunk."""
+    from pantax_tpu_torch.ops import admm
+    from pantax_tpu_torch.profile import pao
+
+    S, n, p = shape
+    A, b, ub, state, _L = chip_smoke.admm_case(S + n, S, n, p, True)
+    rows = np.random.default_rng(3).integers(0, n // 2, size=64)
+    A[:, rows, 1] *= 2.0
+    L = pao._admm_factor(torch.from_numpy(A)).contiguous().numpy()
+    binary = pao._zero_one(A)
+    assert not binary and not admm.launch_plan(S, n, p, binary).bits
+    args = chip_smoke.admm_args((A, b, ub, state, L), cuda)
+    assert chip_smoke.hold_k8(args, f"at {shape} with 2.0s", steps,
+                              binary=binary) <= chip_smoke.K8_BARS[steps]
+
+
+def test_k8_bits_plan_solves_match_highs(cuda):
+    """solve_pao_batch on the card with the bits plan at every width
+    (0/1 instances of 6-40 paths over 2,000-9,000 rows: widths 8, 16, 32
+    and 64, buckets of one and two CTAs) reaches HiGHS's objective and
+    the CPU run's within 1e-4 relative, as
+    test_k8_full_solves_match_highs_and_the_plain_run holds the smoke's
+    widths."""
+    from pantax_tpu_torch.profile.pao import solve_pao_batch
+
+    rng = np.random.default_rng(11)
+    inst = []
+    for n, p in ((2000, 6), (3000, 7), (9000, 12), (3000, 30), (4000, 40)):
+        A = (rng.random((n, p)) < 0.6).astype(np.float64)
+        b = np.maximum(A @ rng.uniform(1, 8, size=p)
+                       + rng.normal(0, 0.5, size=n), 0)
+        inst.append((A, b, 1.05 * b.max(), None))
+    extend.reset_launch_counts()
+    card = solve_pao_batch(inst, "admm", device=cuda)
+    launches = dict(extend.LAUNCHES)
+    assert launches["admm_chunk"] == launches["admm_chunk_dispatch"] > 0
+    assert launches["admm_chunk_plain"] == 0
+    plain = solve_pao_batch(inst, "admm", device="cpu")
+    exact = solve_pao_batch(inst, "highs", device="cpu")
+    for k, p, e in zip(card, plain, exact):
+        assert k.objective <= e.objective * (1 + 1e-4) + 1e-6
+        assert k.objective <= p.objective * (1 + 1e-4) + 1e-6
+        assert p.objective <= k.objective * (1 + 1e-4) + 1e-6
 
 
 def test_k8_rejects_bad_inputs(cuda):

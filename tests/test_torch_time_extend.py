@@ -230,11 +230,50 @@ def test_parse_args_k11_takes_a_baseline_and_its_ablations():
 
 
 def test_parse_args_k8_takes_no_baseline():
-    assert time_extend.parse_args(["--kernel", "k8"]).kernel == "k8"
-    for argv in (["--kernel", "k8", "base.cu"],
-                 ["--kernel", "k8", "--ablate", "unroll"]):
+    """K8 given no baseline is refused, as K3, K6 and K11 are: it takes a
+    baseline source (an earlier admm_chunk.cu) and its own ablations."""
+    args = time_extend.parse_args(["--kernel", "k8", "base.cu", "--ablate",
+                                   "regs", "--ablate", "mbar", "--ablate",
+                                   "push", "--ablate", "cluster"])
+    assert (args.kernel, args.baseline) == ("k8", "base.cu")
+    assert args.ablate == ["regs", "mbar", "push", "cluster"]
+    assert time_extend.parse_args(["--kernel", "k8", "b.cu"]).ablate is None
+    for argv in (["--kernel", "k8"],
+                 ["--kernel", "k8", "--ablate", "unroll", "base.cu"],
+                 ["--kernel", "k3", "--ablate", "push", "base.cu"]):
         with pytest.raises(SystemExit):
             time_extend.parse_args(argv)
+
+
+@pytest.mark.parametrize("name", sorted(time_extend.K8_ABLATIONS))
+def test_k8_ablations_apply_to_the_current_source(name, tmp_path,
+                                                   monkeypatch):
+    """Each of K8's levers comes out of csrc/admm_chunk.cu as its text
+    says (each text once in the source), into a source of its own under
+    the build directory; the float plan's kernel is left as it is."""
+    from pantax_tpu_torch.ops import admm
+    monkeypatch.setenv("PANTAX_TORCH_BUILD", str(tmp_path))
+    path = time_extend.ablated_source(name)
+    src, current = path.read_text(), admm._SRC.read_text()
+    assert path.name == f"admm_chunk_no_{name}.cu" and src != current
+    for old, new in time_extend.K8_ABLATIONS[name]:
+        assert current.count(old) == 1 and old not in src and new in src
+    bits = current.index("// The bits plan: A known to be 0/1")
+    assert src.startswith(current[:bits])
+
+
+def test_k8_bits_shapes_take_the_bits_plan():
+    """K8_BITS and the smoke's bucket take the bits plan on 0/1 A: 8 CTAs
+    at 65536 rows and at (1, 4096, 4), the wide 0/1 rows at width 32;
+    K8_STREAMED's (1, 65536, 32) as a non-0/1 A keeps the float plan."""
+    from pantax_tpu_torch.ops import admm
+    assert time_extend.K8_BITS == ((1, 4096, 4), (1, 65536, 32))
+    plans = [admm.launch_plan(*shape, binary=True)
+             for shape in (*time_extend.SHAPES["k8"], *time_extend.K8_BITS)]
+    assert all(pl.bits and pl.on_chip for pl in plans)
+    assert [pl.cluster for pl in plans] == [8, 8, 8, 8]
+    assert not admm.launch_plan(*time_extend.K8_STREAMED[1]).bits
+    assert not admm.launch_plan(*time_extend.K8_STREAMED[0], True).bits
 
 
 def test_k8_shapes_are_the_smoke_bucket():
@@ -333,6 +372,22 @@ def test_ptxas_lines_name_k8s_instantiations():
            "ptxas info    : Used 40 registers, used 1 barriers\n")
     assert chip_smoke.ptxas_lines(log) == [
         "admm_chunk_kernel<8>: Used 40 registers, used 1 barriers"]
+
+
+def test_ptxas_lines_name_k8s_bits_instantiations():
+    """The bits plan's kernel and its two template arguments (rows a
+    thread, width) are named, with the frame and spills before them."""
+    log = ("ptxas info    : Compiling entry function "
+           "'_ZN12_GLOBAL__N_122admm_chunk_bits_kernelILi8ELi32EEEvNS_4"
+           "ArgsEi' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _ZN12_GLOBAL__N_122"
+           "admm_chunk_bits_kernelILi8ELi32EEEvNS_4ArgsEi\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 56 registers, used 1 barriers\n")
+    assert chip_smoke.ptxas_lines(log) == [
+        "admm_chunk_bits_kernel<8,32>: Used 56 registers, used 1 barriers; "
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"]
 
 
 def test_ptxas_lines_name_each_instantiation():
