@@ -8,8 +8,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. require a CUDA device; print the card's name and power limit;
 2. build the banded-DP kernels (K1 and K2, csrc/banded_extend.cu), the
    seed stage (K3, csrc/seed_stage.cu), the classify + scatter (K6 and
-   K11, csrc/classify_scatter.cu) and the ADMM chunk (K8,
-   csrc/admm_chunk.cu) with nvcc, one process per source
+   K11, csrc/classify_scatter.cu), the ADMM chunk (K8,
+   csrc/admm_chunk.cu) and the device tail's stats and polish (K9 and
+   K10b, csrc/profile_tail.cu) with nvcc, one process per source
    started together, and print ptxas's register report, the SASS
    instructions of one step of K1's and of K2's main loop at pad 4 and pad
    8, and those of K3's vote loops (cuobjdump);
@@ -75,6 +76,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    7) holds K8's launches to the chunks the solvers dispatched and the
    plain chunk to 0 (``check_k8``, in ``check_k3`` and around each
    profile call), the subprocesses of phases 12 and 14 included;
+3e. hold the device tail's strain stats (K9) and coordinate-median polish
+   (K10b, both csrc/profile_tail.cu) against their plain torch versions
+   (in phase 8, after phase 3d): the device tail once more with the plain
+   stats and polish put in their places by assignment, once more with
+   the kernels, recording their inputs: its tables byte-identical to
+   phase 8's, the plain stages' the same strains with every numeric
+   column within STRAIN_RTOL, both runs' strain_s printed, K9 and K10b
+   once per dispatch; K9 against the plain stats on the recorded coverage
+   and on crafted tables whose trio owners interleave (``k9_case``):
+   counts, path_cov, sp_max and sp_valid exact, the float sums within
+   K9_RTOL, two launches bit-identical; K10b against the plain polish bit
+   for bit (the sign of a zero aside) on every recorded bucket and on the
+   crafted edges of ``polish_case`` at (5, 4096, 4) and (5, 65536, 4),
+   two launches bit-identical; both timed beside their bounds
+   (``tail_stats_bound``, ``polish_bound``), the plain versions and a
+   CUDA-graph replay of the plain polish.  Every later phase holds K9's
+   launches to dispatch_tail_stats' calls and K10b's to the device
+   polish calls, the plain versions to 0 (``check_k9_k10b``, in
+   ``check_k3``);
 4. run the port on the tiny 2-species DB on the CPU (plain versions) and on
    the GPU (kernels): packed query rows, na/ta/bc and the align_long_reads
    arrays of 16 long reads must be identical;
@@ -233,7 +253,9 @@ read_len and VOTE_OPS_PER_PAIR per pair of valid hits on each strand; K6
 and K11, the per-read columns, a 32-byte sector per gather and 64 bytes
 per atomic that this run's live rows need, over the HBM rate; K8,
 ADMM_OPS_ROW + 2 p instructions a row a step over every row of the
-bucket against its inputs and outputs once); the
+bucket against its inputs and outputs once; K9, its inputs' bytes once
+over the HBM rate; K10b, POLISH_OPS_ROW instructions a row of a column of
+a sweep against A's bytes once); the
 last line is {"ok": true, "device": {...}}.  Databases and the kernel
 builds (one nvcc per source, started together) go under build/
 (git-ignored).
@@ -275,7 +297,9 @@ from pantax_tpu_torch.io.gaf import (
 )
 from pantax_tpu_torch.align.aligner import Aligner, build_seed_lookup
 from pantax_tpu_torch.align.aligner import unpack_reads
-from pantax_tpu_torch.ops import admm, extend, profile_tail, scatter, seed
+from pantax_tpu_torch.ops import (
+    admm, extend, profile_tail, scatter, seed, tail_kernels,
+)
 from pantax_tpu_torch.ops.coverage_device import node_abundances_device
 from pantax_tpu_torch.ops.fused import (
     FusedPipeline, _ensure_tail_tables, _tail_mode, build_fused_tables,
@@ -329,6 +353,20 @@ KERNEL8 = {
     "route": "cuda",
     "source": "pantax_tpu_torch/csrc/admm_chunk.cu",
     "replaces": "pantax_tpu/profile/pao.py:133",
+}
+# K9 and K10b replace no pl.pallas_call: the device tail's stats and polish
+# are jitted programs XLA compiles
+KERNEL9 = {
+    "name": "tail_stats",
+    "route": "cuda",
+    "source": "pantax_tpu_torch/csrc/profile_tail.cu",
+    "replaces": "pantax_tpu/ops/profile_tail.py:167",
+}
+KERNEL10B = {
+    "name": "polish",
+    "route": "cuda",
+    "source": "pantax_tpu_torch/csrc/profile_tail.cu",
+    "replaces": "pantax_tpu/ops/profile_tail.py:391",
 }
 # K3's crafted cases (seed_cases), in order
 SEED_CASES = ("one_diagonal", "strand_tie", "all_killed", "nq8", "int32_wrap",
@@ -423,7 +461,8 @@ def ptxas_lines(log: str) -> list[str]:
         # the name after its mangled length (an anonymous namespace's
         # mangled name holds the file's name before it)
         m = re.search(r"(?<=\d)((?:banded_extend|seed_stage|classify_scatter"
-                      r"|admm_chunk)(?:_[a-z]+)*_kernel)(?:I((?:Li\d+E)+)E)?",
+                      r"|admm_chunk|tail_stats|polish)(?:_[a-z]+)*_kernel)"
+                      r"(?:I((?:Li\d+E)+)E)?",
                       ln)
         if m:
             args = ",".join(re.findall(r"\d+", m[2] or ""))
@@ -1050,8 +1089,9 @@ def check_k3(launches: dict, what: str) -> None:
     """K3 launched once per query dispatch, where K1 is (every K1 launch
     is one query's), and the plain seed stage never; K6 and K11 once per
     range and windowed scatter dispatch, the plain scatters never
-    (check_k6, check_k11); and K8 once per ADMM chunk dispatch, the plain
-    chunk never (check_k8)."""
+    (check_k6, check_k11); K8 once per ADMM chunk dispatch, the plain
+    chunk never (check_k8); and K9 and K10b once per device-tail stats and
+    polish dispatch, their plain versions never (check_k9_k10b)."""
     if (launches["seed_stage"] != launches["banded_extend"]
             or launches["seed_stage_plain"]):
         raise AssertionError(
@@ -1061,6 +1101,7 @@ def check_k3(launches: dict, what: str) -> None:
     check_k6(launches, what)
     check_k11(launches, what)
     check_k8(launches, what)
+    check_k9_k10b(launches, what)
 
 
 # ---------------------------------------------------------------------------
@@ -1920,6 +1961,372 @@ def admm_phase(build: str, dev, result, tables, index, db, cfg, out: str,
             f"tail's largest bucket)")
 
 
+# ---------------------------------------------------------------------------
+# phase 3e: K9 and K10b, the device tail's strain stats and polish
+# K9's and K10b's launches by path (check_k9_k10b)
+TAIL_BY_PATH: dict = {"tail_stats": {}, "polish": {}}
+# K10b's instructions a row visit (a row of a column of a sweep) at their
+# fewest: the column's 0/1 test, the key (negate, flip), one count of a
+# single-pass selection, and the residual's add (the 0/1 multiply exact)
+POLISH_OPS_ROW = 6
+# K9's float sums against the plain version's (float32 sums in another
+# order): the CPU test's bar against the JAX stats
+K9_RTOL = 1e-5
+
+
+def check_k9_k10b(launches: dict, what: str) -> None:
+    """K9 launched once per dispatch_tail_stats and K10b once per device
+    polish, their plain versions never; records each path's launches."""
+    for key in TAIL_BY_PATH:
+        if (launches[key] != launches[f"{key}_dispatch"]
+                or launches[f"{key}_plain"]):
+            raise AssertionError(
+                f"{what}: {key} launches {launches[key]} for "
+                f"{launches[key + '_dispatch']} dispatches, plain "
+                f"{launches[key + '_plain']}")
+        if launches[key]:
+            TAIL_BY_PATH[key][what.replace(" ", "_")] = launches[key]
+
+
+def tail_stats_bound(path_node, order, G: int, S: int
+                     ) -> tuple[float, str, dict]:
+    """(bound ms, "bytes", work) of one K9 launch with TailTables' order
+    (ORDER_FIELDS): what it reads once, the na of the species' node spans,
+    ta and the owner order over the real trios, path_node and the bc of
+    each node a path holds (once a node), the offsets (2 (G + 1) + 2 S),
+    and the 3 G + 4 S outputs written once, over the HBM rate (a few
+    instructions an element)."""
+    trio_order, span = order[0], order[3]
+    na_read = int((span[S:] - span[:S]).sum())
+    nodes = int(torch.unique(path_node).numel())
+    nbytes = 4 * (na_read + 2 * trio_order.numel() + path_node.numel()
+                  + nodes + 2 * (G + 1) + 2 * S + 3 * G + 4 * S)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", {"bytes": nbytes}
+
+
+def polish_bound(S: int, n_pad: int, p_pad: int, sweeps: int,
+                 issue_peak: float) -> tuple[float, str, dict]:
+    """(bound ms, what bounds it, work) of one K10b launch: every row of
+    the bucket in every column of every sweep (the residual update touches
+    them all), POLISH_OPS_ROW instructions each, over ``issue_peak``;
+    against A, b, x and ub read once and x written once, over the HBM
+    rate."""
+    ops = POLISH_OPS_ROW * sweeps * p_pad * n_pad * S
+    nbytes = 4 * (S * n_pad * p_pad + S * n_pad + 3 * S * p_pad)
+    t_ops, t_bytes = ops / issue_peak, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            {"ops": ops, "bytes": nbytes})
+
+
+def polish_case(seed_: int, S: int, n_pad: int, p_pad: int,
+                crafted: bool = False):
+    """S instances of one bucket as DeviceTailSolver polishes them: 0/1
+    columns over fewer rows than n_pad, rows of abundance 0 zeroed in A and
+    b (build_A_b's row selection), one padded column past p where p_pad >
+    4, b normalised to max 1, ub 1.05 but a path of each instance pinned
+    by ub 0, and x near the solution, clipped into [0, ub] (the ADMM's).
+    ``crafted`` turns instance s into edge s % 5: 0 ties at every median
+    (x 0, b in steps of 1/8); 1 zeros of both signs (x -0.0, b +-0.0 on a
+    third of the rows); 2 a column with no live row and t* past the upper
+    clip (ub 0.01 under an optimum ~1); 3 t* past the lower clip (x 0.5
+    over b 0); 4 a dead instance (A and b 0).  Returns numpy float32 (A,
+    b, x, ub)."""
+    rng = np.random.default_rng(seed_)
+    A = np.zeros((S, n_pad, p_pad), np.float32)
+    b = np.zeros((S, n_pad), np.float32)
+    x = np.zeros((S, p_pad), np.float32)
+    ub = np.zeros((S, p_pad), np.float32)
+    p = p_pad - 1 if p_pad > 4 else p_pad
+    for s in range(S):
+        n = n_pad - int(rng.integers(1, n_pad // 4))
+        A[s, :n, :p] = rng.random((n, p)) < 0.6
+        xt = rng.uniform(0.2, 1.0, p)
+        bb = np.maximum(A[s, :n, :p] @ xt + rng.normal(0, 0.3, n), 0)
+        bb[rng.random(n) < 0.1] = 0.0
+        A[s, :n][bb == 0] = 0.0
+        b[s, :n] = bb / bb.max()
+        ub[s, :p] = 1.05
+        ub[s, s % p] = 0.0
+        x[s, :p] = np.clip(xt / bb.max() + rng.normal(0, 0.05, p), 0,
+                           ub[s, :p])
+        if not crafted:
+            continue
+        edge = s % 5
+        if edge == 0:
+            x[s] = 0.0
+            b[s, :n] = np.round(b[s, :n] * 8) / 8 * (A[s, :n].any(-1))
+        elif edge == 1:
+            x[s, :p] = -0.0
+            third = rng.random(n_pad) < 1 / 3
+            b[s, third] = np.where(rng.random(third.sum()) < 0.5, -0.0, 0.0)
+        elif edge == 2:
+            A[s, :, p - 1] = 0.0
+            x[s, 0], ub[s, 0] = 0.0, 0.01
+            b[s, :n] = np.where(A[s, :n, 0] > 0, 1.0, b[s, :n])
+        elif edge == 3:
+            x[s, 0], ub[s, 0] = 0.5, 1.05
+            b[s] = 0.0
+        else:
+            A[s], b[s] = 0.0, 0.0
+    return A, b, x, ub
+
+
+def hold_k10b(args, what: str, sweeps: int = 8, lib=None) -> float:
+    """K10b (uncounted; ``lib``'s build, default the current source's)
+    against its plain version on the same (A, b, x, ub): x bit for bit,
+    the sign of a zero aside (compared as x + 0.0), the inputs untouched.
+    Returns the largest absolute difference."""
+    before = [t.clone() for t in args]
+    got = tail_kernels.launch_k10b(*args, sweeps, lib=lib)
+    want = profile_tail.polish_batch_plain(*args, sweeps)
+    torch.cuda.synchronize()
+    if not torch.equal(got + 0.0, want + 0.0):
+        bad = (got + 0.0 != want + 0.0).nonzero()[:4].tolist()
+        raise AssertionError(f"K10b {what}: x differs from the plain polish "
+                             f"at {bad}: {got[tuple(zip(*bad))].tolist()} "
+                             f"against {want[tuple(zip(*bad))].tolist()}")
+    for t, t0 in zip(args, before):
+        if not torch.equal(t, t0):
+            raise AssertionError(f"K10b {what}: an input changed")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    S, n, p = args[0].shape
+    print(f"K10b == plain (bit for bit, +-0 equal) {what} (S {S}, n_pad {n}, "
+          f"p_pad {p}, {tail_kernels.polish_plan(S, n, p)})")
+    return err
+
+
+def repeats_identical(fn, what: str) -> None:
+    """Two calls of ``fn`` (a kernel's launch) give the same bits."""
+    a, b = fn(), fn()
+    for x, y in zip(a if isinstance(a, tuple) else (a,),
+                    b if isinstance(b, tuple) else (b,)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: two launches differ")
+
+
+K9_OUTPUTS = ("c1", "freq_mean", "path_cov", "sp_nz_cnt", "sp_nz_sum",
+              "sp_max", "sp_valid")
+
+
+def hold_k9(args: tuple, kw: dict, what: str, lib=None) -> float:
+    """K9 (uncounted; ``lib``'s build, default the current source's)
+    against its plain version on the same tail_stats arguments (``kw``
+    holds G, S and order): the counts, path_cov and sp_max exact,
+    freq_mean and sp_nz_sum within K9_RTOL; two launches bit-identical.
+    Returns the largest absolute difference."""
+    na, ta, bc, _trio_hap, path_node = args[:5]
+    G, S, order = kw["G"], kw["S"], kw["order"]
+
+    def launch():
+        return tail_kernels.launch_k9(na, ta, bc, path_node, order, args[7],
+                                      G=G, S=S, lib=lib)
+
+    got = launch()
+    want = profile_tail.tail_stats_plain(*args, G=G, S=S)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, w in zip(K9_OUTPUTS, got, want):
+        if name in ("freq_mean", "sp_nz_sum"):
+            torch.testing.assert_close(g, w, rtol=K9_RTOL, atol=0,
+                                       msg=f"K9 {what}: {name}")
+        elif not torch.equal(g, w):
+            raise AssertionError(f"K9 {what}: {name} differs from the plain "
+                                 f"version")
+        fin = torch.isfinite(w)
+        if fin.any():
+            err = max(err, float((g[fin] - w[fin]).abs().max()))
+    repeats_identical(launch, f"K9 {what}")
+    print(f"K9 == plain {what} (G {G}, S {S}: counts, path_cov, sp_max and "
+          f"sp_valid exact, sums within {K9_RTOL} relative; largest "
+          f"difference {err:.3g}; two launches bit-identical)")
+    return err
+
+
+def k9_case(seed_: int, dev, G: int = 12, S: int = 4, nodes: int = 4000,
+            trios: int = 9000) -> tuple:
+    """Crafted stats tables whose trio owners interleave within each
+    species (and pad trios, owner G, among them), on ``dev``: S species of
+    consecutive haps, the last species without nodes, node_species sorted,
+    each hap's path a random walk over its species' nodes; hap 0 owns no
+    trio, hap 1 only zero trios, hap 2 one nonzero trio (sigma 0).
+    Returns tail_stats' (args, kw) with K9's order tables."""
+    rng = np.random.default_rng(seed_)
+    hap_sp = np.sort(rng.integers(0, S - 1, G))
+    hap_sp[:S - 1] = np.arange(S - 1)
+    hap_sp.sort()
+    node_sp = np.sort(rng.integers(0, S - 1, nodes)).astype(np.int32)
+    node_sp[:S - 1] = np.arange(S - 1)
+    node_sp.sort()
+    n_pad = nodes + 96
+    node_species = np.concatenate([node_sp, np.full(96, S, np.int32)])
+    trio_hap = rng.integers(3, G + 1, trios).astype(np.int32)  # G: pads
+    trio_hap[rng.choice(trios, 45, replace=False)] = [1] * 40 + [2] * 5
+    ta = np.where(rng.random(trios) < 0.3, 0.0,
+                  rng.gamma(2.0, 4.0, trios)).astype(np.float32)
+    ta[trio_hap == 1] = 0.0
+    two = np.flatnonzero(trio_hap == 2)
+    ta[two] = 0.0
+    ta[two[0]] = 3.0
+    na = np.where(rng.random(n_pad) < 0.25, 0.0,
+                  rng.gamma(2.0, 4.0, n_pad)).astype(np.float32)
+    bc = rng.integers(0, 400, n_pad).astype(np.int32)
+    parts = []
+    for g in range(G):
+        own = np.flatnonzero(node_species == hap_sp[g])
+        parts.append(rng.choice(own, size=int(rng.integers(1, 3 * len(own))))
+                     .astype(np.int32))
+    path_node = np.concatenate(parts)
+    hap_node_off = np.zeros(G + 1, np.int64)
+    np.cumsum([len(q) for q in parts], out=hap_node_off[1:])
+    path_hap = np.repeat(np.arange(G, dtype=np.int32), [len(q) for q in parts])
+    sp_off = np.searchsorted(node_sp, np.arange(S))
+    order = profile_tail.owner_tables(trio_hap, hap_node_off, sp_off,
+                                      np.bincount(node_sp, minlength=S), G,
+                                      dev)
+    t = [torch.from_numpy(a).to(dev) for a in (
+        na, ta, bc, trio_hap, path_node, path_hap, node_species)]
+    return ((*t, 1.5), {"G": G, "S": S, "order": tuple(
+        order[f] for f in profile_tail.ORDER_FIELDS)})
+
+
+def graph_of(fn):
+    """A CUDA graph of ``fn`` (captured after a warm-up on a side stream),
+    or the capture's error: a yardstick, the same launches without their
+    host overhead."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0]
+    return graph, None
+
+
+def tail_phase(build: str, dev, result, tables, index, db, cfg, out: str,
+               issue_peak: float) -> tuple:
+    """Phase 3e (in phase 8, after phase 3d): the device tail once with
+    the plain stats and polish in place of K9 and K10b (by assignment, in
+    this process) and once with the kernels, recording their inputs: its
+    tables byte-identical to ``out``'s, the plain stages' within
+    strains_agree's bars, each run's strain_s printed, K9 and K10b once per
+    dispatch; K9 against the plain stats on the recorded coverage and on
+    crafted tables (owners interleaved), two launches bit-identical; K10b
+    against the plain polish on every recorded bucket and the crafted
+    edges (polish_case), two launches bit-identical; each timed (CUDA
+    events, the stream held) beside its bound, the plain version and, for
+    K10b, a CUDA-graph replay of the plain polish (a yardstick).  Returns
+    ((max err, ms, plain ms, bound ms, bound_by, extra, shape) of K9, the
+    same of K10b)."""
+    stats_fn, polish_fn = profile_tail.tail_stats, profile_tail.polish_batch
+    stats_log, polish_log, runs = [], [], {}
+
+    def recorded(fn, log):
+        def call(*args, **kw):
+            log.append((args, kw))
+            return fn(*args, **kw)
+        return call
+
+    def plain_stats(*args, order=None, **kw):
+        return profile_tail.tail_stats_plain(*args, **kw)
+
+    for name, stats, polish in (
+            ("plain", plain_stats, profile_tail.polish_batch_plain),
+            ("kernels", recorded(stats_fn, stats_log),
+             recorded(polish_fn, polish_log))):
+        run_out = os.path.join(build, f"smoke_paired_{name}_tail_out")
+        shutil.rmtree(run_out, ignore_errors=True)
+        profile_tail.tail_stats, profile_tail.polish_batch = stats, polish
+        stage = {}
+        extend.reset_launch_counts()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            profile_from_fused_result(result, tables, index, db, cfg,
+                                      run_out, stage_out=stage)
+            torch.cuda.synchronize()
+        finally:
+            profile_tail.tail_stats = stats_fn
+            profile_tail.polish_batch = polish_fn
+        runs[name] = (time.time() - t0, stage, run_out, dict(extend.LAUNCHES))
+    launches = runs["kernels"][3]
+    check_k9_k10b(launches, "paired tail 3e")
+    if not launches["tail_stats"] or not launches["polish"]:
+        raise AssertionError(f"phase 3e: K9 {launches['tail_stats']}, K10b "
+                             f"{launches['polish']} launches")
+    files_identical(out, runs["kernels"][2], (*CLASS_SPECIES, *STRAINS),
+                    "paired device tail, K9 and K10b recorded")
+    worst = strains_agree(runs["kernels"][2], runs["plain"][2],
+                          "paired device tail, plain stats and polish")
+    print(f"K9 and K10b device tail against the plain stages': the same "
+          f"strains, numeric columns within {STRAIN_RTOL} (largest "
+          f"{max(worst.values(), default=0.0):.3g}); strain_s "
+          f"{runs['kernels'][1]['strain_s']:.4f} s with the kernels (K9 "
+          f"{launches['tail_stats']}, K10b {launches['polish']} launches), "
+          f"{runs['plain'][1]['strain_s']:.4f} s with the plain stages; "
+          "stages: kernels " + ", ".join(
+              f"{k} {v:.4f}" for k, v in runs["kernels"][1].items())
+          + "; plain " + ", ".join(
+              f"{k} {v:.4f}" for k, v in runs["plain"][1].items()))
+
+    # K9 on the recorded coverage and on crafted tables
+    args, kw = stats_log[0]
+    err9 = max(hold_k9(args, kw, "on the paired device tail's coverage"),
+               hold_k9(*k9_case(9, dev), "on crafted tables"))
+    na, ta, bc, _trio_hap, path_node = args[:5]
+    G, S, order = kw["G"], kw["S"], kw["order"]
+    ms9 = cuda_ms(lambda: tail_kernels.launch_k9(
+        na, ta, bc, path_node, order, args[7], G=G, S=S), 50, hold=True)
+    plain9 = cuda_ms(lambda: profile_tail.tail_stats_plain(*args, G=G, S=S),
+                     5)
+    bound9, by9, work9 = tail_stats_bound(path_node, order, G, S)
+    print(f"K9 [{card_line()}] on the paired device tail (G {G}, S {S}, "
+          f"N_pad {na.numel()}, {order[0].numel()} trios, "
+          f"{path_node.numel()} path nodes): {ms9:.4f} ms, plain "
+          f"{plain9:.3f} ms, bound {bound9:.4f} ms ({by9}: {work9['bytes']} "
+          f"bytes), {bound9 / ms9:.3f} of the bound")
+
+    # K10b on every recorded bucket and on the crafted edges
+    err10 = 0.0
+    for i, (pargs, _kw) in enumerate(polish_log):
+        err10 = max(err10, hold_k10b(
+            pargs[:4], f"on the paired device tail's bucket, polish call {i}"))
+    for shape in ((5, 4096, 4), (5, 65536, 4)):
+        crafted = [torch.from_numpy(a).to(dev)
+                   for a in polish_case(sum(shape), *shape, crafted=True)]
+        err10 = max(err10, hold_k10b(crafted, "on the crafted edges"))
+    big = max((pargs[:4] for pargs, _kw in polish_log),
+              key=lambda a: a[0].numel())
+    repeats_identical(lambda: tail_kernels.launch_k10b(*big),
+                      "K10b on the largest bucket")
+    S10, n10, p10 = big[0].shape
+    ms10 = cuda_ms(lambda: tail_kernels.launch_k10b(*big), 20, hold=True)
+    plain10 = cuda_ms(lambda: profile_tail.polish_batch_plain(*big), 3)
+    graph, why = graph_of(lambda: profile_tail.polish_batch_plain(*big))
+    graph10 = cuda_ms(graph.replay, 5) if graph is not None else None
+    bound10, by10, work10 = polish_bound(S10, n10, p10, 8, issue_peak)
+    print(f"K10b [{card_line()}] at ({S10}, {n10}, {p10}), 8 sweeps, "
+          f"{tail_kernels.polish_plan(S10, n10, p10)}: {ms10:.4f} ms, plain "
+          f"{plain10:.3f} ms, its graph replay "
+          + (f"{graph10:.3f} ms" if graph10 is not None else f"not captured "
+             f"({why})")
+          + f", bound {bound10:.4f} ms ({by10}: {work10['ops']} "
+          f"instructions, {work10['bytes']} bytes), {bound10 / ms10:.4f} "
+          f"of the bound")
+    tail_s = {name: runs[name][1]["strain_s"] for name in runs}
+    return ((err9, ms9, plain9, bound9, by9, {"strain_s": tail_s},
+             f"G {G}, S {S}, N_pad {na.numel()} (the paired device tail)"),
+            (err10, ms10, plain10, bound10, by10,
+             {"graph_replay_ms": graph10, "strain_s": tail_s},
+             f"S {S10}, n_pad {n10}, p_pad {p10}, 8 sweeps (the paired "
+             f"device tail's bucket)"))
+
+
 def cross_device_check(build: str, dev) -> None:
     """The port on CPU (plain versions) and on the GPU (kernel) agree."""
     db = tiny_db(os.path.join(build, "tiny_db"))
@@ -2202,9 +2609,10 @@ def strain_abundance(out: str) -> dict:
 
 
 def paired_path(build: str, dev, db, index, tables, issue_peak: float):
-    """Phase 8: paired reads over the smoke DB, the device tail, phase 3d
-    (K8 on the device tail's buckets), and the host tail on the same
-    result.  Returns K1's launches, the pairs and admm_phase's results."""
+    """Phase 8: paired reads over the smoke DB, the device tail, phases 3d
+    (K8 on the device tail's buckets) and 3e (K9 and K10b on its coverage
+    and buckets), and the host tail on the same result.  Returns K1's
+    launches, the pairs, admm_phase's and tail_phase's results."""
     aligner = aligner_from_reference(index, _host.AlignConfig(), dev)
     t0 = time.time()
     (c1, l1, c2, l2), hap = simulate_pairs(index, N_PAIRS, seed=13)
@@ -2250,6 +2658,8 @@ def paired_path(build: str, dev, db, index, tables, issue_peak: float):
                     "paired device tail, two calls")
     k8 = admm_phase(build, dev, result, tables, index, db, cfg, out,
                     issue_peak)
+    k9_k10b = tail_phase(build, dev, result, tables, index, db, cfg, out,
+                         issue_peak)
 
     cfg.tail = "host"
     out_host = os.path.join(build, "smoke_paired_host_out")
@@ -2285,6 +2695,10 @@ def paired_path(build: str, dev, db, index, tables, issue_peak: float):
     if launches["banded_extend_plain"] != 0:
         raise AssertionError("the plain DP ran on the CUDA paired path")
     check_k3(launches, "paired")
+    if not launches["tail_stats"] or not launches["polish"]:
+        raise AssertionError(f"paired: the device tail launched K9 "
+                             f"{launches['tail_stats']} and K10b "
+                             f"{launches['polish']} times")
     check_dispatches(launches, "paired", pipe.n_batches, 0)
     # reads_classification.tsv rows are A<pair index> / B<pair index>
     check_tables(out, np.asarray(index.hap_species, dtype=object)[hap],
@@ -2298,7 +2712,7 @@ def paired_path(build: str, dev, db, index, tables, issue_peak: float):
           f"tail's two calls wrote byte-identical tables")
     if diff > 2e-4:
         raise AssertionError("device and host tail abundances differ by > 2e-4")
-    return launches["banded_extend"], ((c1, l1, c2, l2), hap), k8
+    return launches["banded_extend"], ((c1, l1, c2, l2), hap), k8, k9_k10b
 
 
 def dup_path(build: str, dev):
@@ -3544,14 +3958,15 @@ def main() -> None:
           f"TB/s")
     build = str(extend.build_dir())
     t0 = time.time()
-    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(5) as pool:  # one nvcc per source, together
         built = [pool.submit(extend.build_kernels),
                  pool.submit(seed.build_seed_kernel),
                  pool.submit(scatter.build_scatter_kernels),
-                 pool.submit(admm.build_admm_kernel)]
-        lib, lib3, lib6, lib8 = (f.result() for f in built)
-    print(f"kernel build (K1 and K2, K3, K6 and K11, K8; four nvcc "
-          f"processes) {time.time() - t0:.2f} s")
+                 pool.submit(admm.build_admm_kernel),
+                 pool.submit(tail_kernels.build_tail_kernels)]
+        lib, lib3, lib6, lib8, lib9 = (f.result() for f in built)
+    print(f"kernel build (K1 and K2, K3, K6 and K11, K8, K9 and K10b; five "
+          f"nvcc processes) {time.time() - t0:.2f} s")
     print(f"SASS of K1 and K2: {sass_counts(lib._name)}")
     k1_sass = {f"pad{pad}": step_sass(lib._name, 2 * pad) for pad in (4, 8)}
     k2_sass = {f"pad{pad}": step_sass(lib._name, 2 * pad,
@@ -3562,7 +3977,8 @@ def main() -> None:
     k3_sass = vote_sass(lib3._name)
     print(f"K3 vote loop SASS (seed_stage_kernel<2>): {json.dumps(k3_sass)}")
     for ln in (ptxas_lines(lib.build_log) + ptxas_lines(lib3.build_log)
-               + ptxas_lines(lib6.build_log) + ptxas_lines(lib8.build_log)):
+               + ptxas_lines(lib6.build_log) + ptxas_lines(lib8.build_log)
+               + ptxas_lines(lib9.build_log)):
         print(f"  ptxas: {ln}")
 
     rng = np.random.default_rng(0)
@@ -3596,8 +4012,8 @@ def main() -> None:
           f"{bound1_l:.4f} ms at N={2 * LONG_BATCH} Lr={chunk} pad=8; K2 "
           f"{bound2:.4f} ms ({by2}) at N={LONG_BATCH} Lr={chunk} pad=8")
     long_launches, long_reads = long_path(build, dev, db, index, tables)
-    paired_launches, pairs, k8 = paired_path(build, dev, db, index, tables,
-                                             issue_peak)
+    paired_launches, pairs, k8, (k9, k10b) = paired_path(
+        build, dev, db, index, tables, issue_peak)
     dup_launches, dup_k2, k11, dup_long = dup_path(build, dev)
     card = card_line()
     gaf_k1, gaf_k2, gaf_out = gaf_flow(build, dev, card, (db, index), short,
@@ -3652,6 +4068,12 @@ def main() -> None:
              launches_by_path=ADMM_BY_PATH, max_abs_err=k8[0], ms=k8[1],
              plain_ms=k8[2], bound_ms=k8[3], bound_by=k8[4], library_ms=None,
              shape=k8[6], **k8[5]),
+        *(dict(kernel, launches=sum(TAIL_BY_PATH[kernel["name"]].values()),
+               launches_by_path=TAIL_BY_PATH[kernel["name"]],
+               max_abs_err=res[0], ms=res[1], plain_ms=res[2],
+               bound_ms=res[3], bound_by=res[4], library_ms=None,
+               shape=res[6], **res[5])
+          for kernel, res in ((KERNEL9, k9), (KERNEL10B, k10b))),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,7 @@ import torch
 
 from .align.aligner import Aligner, build_seed_lookup
 from .ops.fused import FusedSpecies, FusedTables
-from .ops.profile_tail import TailTables
+from .ops.profile_tail import ORDER_FIELDS, TailTables, owner_tables
 
 
 def aligner_from_reference(index, cfg, device, mesh=None) -> Aligner:
@@ -62,7 +62,7 @@ def fused_tables_from_reference(jax_tables, device, index=None) -> FusedTables:
 def tail_tables_from_reference(jax_tt, device) -> TailTables:
     """A reference TailTables (pantax_tpu.ops.profile_tail) -> the port's:
     its device arrays as int32 tensors on ``device``, its host metadata
-    as it is."""
+    as it is, and K9's slices (ORDER_FIELDS) derived from them."""
     dev = {"trio_hap": "trio_hap_d", "path_node": "path_node_d",
            "path_hap": "path_hap_d", "node_species": "node_species_d"}
     kw = {}
@@ -70,6 +70,9 @@ def tail_tables_from_reference(jax_tt, device) -> TailTables:
         if f.name in dev:
             a = np.asarray(getattr(jax_tt, dev[f.name]), dtype=np.int32)
             kw[f.name] = torch.from_numpy(a.copy()).to(device)
-        else:
+        elif f.name not in ORDER_FIELDS:
             kw[f.name] = getattr(jax_tt, f.name)
+    # K9's slices, which the reference's tables lack
+    kw.update(owner_tables(np.asarray(jax_tt.trio_hap_d), jax_tt.hap_node_off,
+                           jax_tt.sp_off, jax_tt.sp_nvert, jax_tt.G, device))
     return TailTables(**kw)

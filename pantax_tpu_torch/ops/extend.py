@@ -66,7 +66,9 @@ LAUNCHES = {"banded_extend": 0, "banded_extend_plain": 0,
             "classify_scatter_ranges": 0, "classify_scatter_ranges_plain": 0,
             "classify_scatter": 0, "classify_scatter_plain": 0,
             "scatter_range_dispatch": 0, "scatter_window_dispatch": 0,
-            "admm_chunk": 0, "admm_chunk_plain": 0, "admm_chunk_dispatch": 0}
+            "admm_chunk": 0, "admm_chunk_plain": 0, "admm_chunk_dispatch": 0,
+            "tail_stats": 0, "tail_stats_plain": 0, "tail_stats_dispatch": 0,
+            "polish": 0, "polish_plain": 0, "polish_dispatch": 0}
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "banded_extend.cu"
 _NVCC_FLAGS = (

@@ -8,7 +8,8 @@ uploads every species' PAO matrix.  This tail keeps them on the device:
 
   1. ``tail_stats`` reduces them to per-strain / per-species scalars (trio
      counts and zscore-filtered trio means, path base coverage, species
-     nonzero mean, max and valid-node count), the only download;
+     nonzero mean, max and valid-node count), the only download (K9 on the
+     card, one launch, ops/tail_kernels.py);
   2. ``first_filter_from_stats`` runs the first filter's branch logic on the
      host over those scalars, line for line with
      profile/filters.first_filter_paths;
@@ -16,8 +17,8 @@ uploads every species' PAO matrix.  This tail keeps them on the device:
      from static path tables (``TailTables``, built once per database), runs
      the batched ADMM of profile/pao.py (K8 on the card, one launch a
      chunk), and polishes on the device with a
-     coordinate median in exact float32 elementwise sums.  Only the [S, p]
-     solutions come back.
+     coordinate median in exact float32 elementwise sums (K10b on the card,
+     one launch a bucket).  Only the [S, p] solutions come back.
 
 The stats run in float32, as the reference's do, so they differ from the
 host tail's float64 filters only in reduction rounding; the host tail stays
@@ -35,6 +36,7 @@ import torch
 from .. import _host
 from ..profile.pao import _admm_chunk_batch, _bucket, _p_pad
 from .extend import LAUNCHES
+from .tail_kernels import polish_cuda, tail_stats_cuda
 
 log = logging.getLogger("pantax_tpu_torch")
 
@@ -51,7 +53,13 @@ class TailTables:
     trio_hap: torch.Tensor       # [U_pad] owning global hap, G = pad
     path_node: torch.Tensor      # [Pn] global node ids grouped by hap
     path_hap: torch.Tensor       # [Pn] owning global hap (sorted)
-    node_species: torch.Tensor   # [N_pad] species index, S = pad
+    node_species: torch.Tensor   # [N_pad] species index, S = pad (sorted)
+    # K9's slices (owner_tables): the real trios sorted by owner (stable),
+    # each hap's slice of them, of path_node, and each species' nodes
+    trio_order: torch.Tensor     # [U] trio indices, pads left out
+    hap_trio_off: torch.Tensor   # [G + 1]
+    hap_path_off: torch.Tensor   # [G + 1] hap_node_off on the device
+    sp_node_span: torch.Tensor   # [2 S] sp_off, then sp_off + sp_nvert
     # host metadata
     hap_node_off: np.ndarray     # int64 [G + 1] slice of path_node per hap
     trio_count: np.ndarray       # int64 [G] unique trios owned per hap
@@ -65,6 +73,27 @@ class TailTables:
     sp_off: np.ndarray           # int64 [S] global node offset
     G: int
     S: int
+
+
+ORDER_FIELDS = ("trio_order", "hap_trio_off", "hap_path_off", "sp_node_span")
+
+
+def owner_tables(trio_hap: np.ndarray, hap_node_off: np.ndarray,
+                 sp_off: np.ndarray, sp_nvert: np.ndarray, G: int,
+                 device) -> dict:
+    """K9's slices, ORDER_FIELDS, as int32 tensors on ``device``: trio
+    owners vary within a species, so the trios owned by a hap (owner < G;
+    pads, owner G, left out) sorted by owner, stably, and each hap's
+    offsets into them; hap_node_off; each species' node slice
+    [sp_off, sp_off + sp_nvert), its starts then its ends."""
+    trio_hap = np.asarray(trio_hap)
+    order = np.argsort(trio_hap, kind="stable")
+    hap_trio_off = np.searchsorted(trio_hap[order], np.arange(G + 1))
+    sp_off = np.asarray(sp_off)
+    arrays = (order[:hap_trio_off[G]], hap_trio_off, hap_node_off,
+              np.concatenate([sp_off, sp_off + np.asarray(sp_nvert)]))
+    return {name: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+            .to(device) for name, a in zip(ORDER_FIELDS, arrays)}
 
 
 def build_tail_tables(tables) -> TailTables:
@@ -133,6 +162,8 @@ def build_tail_tables(tables) -> TailTables:
     return TailTables(
         trio_hap=put(trio_hap), path_node=put(path_node),
         path_hap=put(path_hap), node_species=put(node_species),
+        **owner_tables(trio_hap, hap_node_off, sp_off, sp_nvert, G,
+                       tables.device),
         hap_node_off=hap_node_off,
         trio_count=np.asarray(trio_count, dtype=np.int64),
         path_len=np.asarray(path_len, dtype=np.float64),
@@ -158,9 +189,25 @@ def _seg_sum(vals, seg, n: int):
 
 
 def tail_stats(na, ta, bc, trio_hap, path_node, path_hap, node_species,
-               min_depth: float, *, G: int, S: int):
+               min_depth: float, *, G: int, S: int, order=None):
     """All host-filter inputs as [G] / [S] float32 reductions, the
-    reference's ``_tail_stats``: per-hap nonzero trio count and
+    reference's ``_tail_stats``: (c1, freq_mean, path_cov, sp_nz_cnt,
+    sp_nz_sum, sp_max, sp_valid).  The plain version where na lies on the
+    CPU; on the card K9 (ops/tail_kernels.py), one launch, which reads
+    ``order``, TailTables' ORDER_FIELDS (from owner_tables), in place of
+    trio_hap, path_hap and node_species, and raises without it."""
+    if na.device.type == "cpu":
+        LAUNCHES["tail_stats_plain"] += 1
+        return tail_stats_plain(na, ta, bc, trio_hap, path_node, path_hap,
+                                node_species, min_depth, G=G, S=S)
+    if order is None:
+        raise ValueError("K9 needs TailTables' owner order (order=)")
+    return tail_stats_cuda(na, ta, bc, path_node, order, min_depth, G=G, S=S)
+
+
+def tail_stats_plain(na, ta, bc, trio_hap, path_node, path_hap, node_species,
+                     min_depth: float, *, G: int, S: int):
+    """Plain torch version of K9: per-hap nonzero trio count and
     zscore(3)-filtered nonzero trio mean, per-hap path base coverage, and
     per-species nonzero count / sum of the min_depth-clamped node abundance,
     max node abundance and valid-node count."""
@@ -211,8 +258,10 @@ class TailStats:
 def dispatch_tail_stats(tt: TailTables, na, ta, bc, min_depth: float):
     """Launch the stats reductions (asynchronous on a CUDA device, so they
     overlap host work until collect_tail_stats)."""
+    LAUNCHES["tail_stats_dispatch"] += 1
     return tail_stats(na, ta, bc, tt.trio_hap, tt.path_node, tt.path_hap,
-                      tt.node_species, min_depth, G=tt.G, S=tt.S)
+                      tt.node_species, min_depth, G=tt.G, S=tt.S,
+                      order=tuple(getattr(tt, f) for f in ORDER_FIELDS))
 
 
 def collect_tail_stats(out) -> TailStats:
@@ -351,9 +400,19 @@ def exact_residual(A, x):
 
 def polish_batch(A, b, x, ub, sweeps: int = 8):
     """Batched coordinate-median polish: exact L1 coordinate descent within
-    the box [0, ub].  A binary column's optimal step is the ((cnt-1)//2)-th
-    order statistic of the negated residuals at its live rows.  All math is
-    elementwise float32."""
+    the box [0, ub].  The plain version where A lies on the CPU; on the
+    card K10b (ops/tail_kernels.py), one launch, x bit for bit (up to the
+    sign of a zero)."""
+    if A.device.type == "cpu":
+        LAUNCHES["polish_plain"] += 1
+        return polish_batch_plain(A, b, x, ub, sweeps)
+    return polish_cuda(A, b, x, ub, sweeps)
+
+
+def polish_batch_plain(A, b, x, ub, sweeps: int = 8):
+    """Plain torch version of K10b: a binary column's optimal step is the
+    ((cnt-1)//2)-th order statistic of the negated residuals at its live
+    rows, clipped to the box.  All math is elementwise float32."""
     p = A.shape[-1]
     r = exact_residual(A, x) - b
     big = 3.4e38  # sorts after every live row
@@ -500,6 +559,7 @@ class DeviceTailSolver:
         for r in runs:
             prep = r["prep"]
             x = torch.minimum(torch.clamp(r["state"][2], min=0.0), r["ub"])
+            LAUNCHES["polish_dispatch"] += 1
             X = polish_batch(prep["A"], prep["b"], x, r["ub"]).cpu().numpy()
             for s, (ji, _si, gs, _lens, _ub) in enumerate(prep["rows"]):
                 results[ji] = (X[s, :len(gs)].astype(np.float64)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time two builds of K1 (``banded_extend_launch``), K2
 (``banded_extend_windows_launch``), K3 (``seed_stage_launch``), K6 (the
-range classify + scatter) or K11 (``classify_scatter_launch``) on one GPU,
+range classify + scatter), K11 (``classify_scatter_launch``), K8, K9 or
+K10b on one GPU,
 in turns: the current ``csrc/banded_extend.cu`` (``csrc/seed_stage.cu``
 for K3, ``csrc/classify_scatter.cu`` for K6 and K11) and a baseline source
 with the same C entry points, such as an earlier commit's (K6's entry with
@@ -48,6 +49,21 @@ ops/admm.py's BITS_CLUSTER:
         > build/admm_chunk_base.cu
     PYTHONPATH=. python scripts/time_extend.py --kernel k8 \
         build/admm_chunk_base.cu [--ablate regs --ablate push ...]
+
+K9 (``--kernel k9``) and K10b (``--kernel k10b``), the device tail's
+stats and polish (``csrc/profile_tail.cu``), time the current source
+against a baseline source with the same C entry points, in turns with the
+plain version (and for K10b a CUDA-graph replay of the plain polish, a
+yardstick), every build held to the plain version first
+(``chip_smoke.hold_k9``, ``hold_k10b``): K9 on ``chip_smoke.k9_case``
+tables at the smoke DB's size (SHAPES["k9"]), K10b on
+``chip_smoke.polish_case`` buckets (SHAPES["k10b"]), beside
+``chip_smoke.tail_stats_bound`` and ``polish_bound``:
+
+    git show <commit>:pantax_tpu_torch/csrc/profile_tail.cu \
+        > build/profile_tail_base.cu
+    PYTHONPATH=. python scripts/time_extend.py --kernel k10b \
+        build/profile_tail_base.cu
 
 K1 (the default) at the main path's shape (131072 candidates of 160
 bases, pad 4) and the long-read seeded pass's (32768 candidates of 512
@@ -112,7 +128,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as smoke  # noqa: E402
 from pantax_tpu_torch.device import require_cuda  # noqa: E402
-from pantax_tpu_torch.ops import admm, extend, scatter, seed  # noqa: E402
+from pantax_tpu_torch.ops import (  # noqa: E402
+    admm, extend, profile_tail, scatter, seed, tail_kernels,
+)
 from pantax_tpu_torch.profile import pao  # noqa: E402
 
 # N, Lr, pad, seed, and read_len for every candidate (None: the case's
@@ -135,6 +153,13 @@ SHAPES = {
     # K8: (S, n_pad, p_pad) at K8_STEPS steps: the smoke's device-tail
     # bucket and one of its instances alone
     "k8": ((10, 65536, 4), (1, 65536, 4)),
+    # K9: chip_smoke.k9_case's (G, S, nodes, trios) at the smoke DB's size
+    # (30 haps of 10 species, the last of S without nodes; N_pad 524288)
+    "k9": ((30, 11, 524192, 500_000),),
+    # K10b: (S, n_pad, p_pad) of chip_smoke.polish_case: the smoke's
+    # device-tail bucket, the smallest, wide rows and the residuals in
+    # global memory
+    "k10b": ((10, 65536, 4), (1, 4096, 4), (1, 65536, 32), (1, 524288, 4)),
 }
 # K8's bits plan past the smoke's bucket: the smallest bucket and wide
 # 0/1 rows
@@ -147,7 +172,8 @@ K8_STREAMED = ((1, 524288, 4), (1, 65536, 32))
 K8_TABLE = ((1, 4), (10, 4), (1, 32))
 KERNELS = {"k1": "banded_extend_kernel", "k2": "banded_extend_windows_kernel",
            "k3": "seed_stage_kernel", "k6": "classify_scatter_ranges_kernel",
-           "k11": "classify_scatter_kernel", "k8": "admm_chunk_kernel"}
+           "k11": "classify_scatter_kernel", "k8": "admm_chunk_kernel",
+           "k9": "tail_stats_kernel", "k10b": "polish_kernel"}
 K8_STEPS = 250  # the solvers' chunk
 TEXT_LEN = 30_000_000
 ITERS = 200  # launches per timed reading
@@ -314,14 +340,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--kernel", choices=sorted(SHAPES), default="k1",
                     help="K1 (text + w0), K2 (windows given), K3 (the seed "
                          "stage), K6 (the range classify + scatter), K11 "
-                         "(the windowed classify + scatter) or K8 (the ADMM "
-                         "chunk); default k1")
+                         "(the windowed classify + scatter), K8 (the ADMM "
+                         "chunk), K9 (the device tail's stats) or K10b (its "
+                         "polish); default k1")
     args = ap.parse_args(argv)
     mine = {"k3": K3_ABLATIONS, "k6": K6_ABLATIONS, "k11": K11_ABLATIONS,
-            "k8": K8_ABLATIONS}.get(args.kernel, ABLATIONS)
+            "k8": K8_ABLATIONS, "k9": {}, "k10b": {}}.get(args.kernel,
+                                                           ABLATIONS)
     if any(a not in mine for a in args.ablate or ()):
         ap.error(f"--ablate for {args.kernel}: one of {sorted(mine)}")
-    if args.kernel in ("k3", "k6", "k11", "k8"):
+    if args.kernel in ("k3", "k6", "k11", "k8", "k9", "k10b"):
         if args.baseline is None:
             ap.error(f"{args.kernel.upper()} takes a baseline source")
     elif (args.baseline is None) == (args.ablate is None) or len(
@@ -502,19 +530,10 @@ def plain_chunk_graph(args8, steps: int):
     library = torch.backends.cuda.preferred_linalg_library()
     torch.backends.cuda.preferred_linalg_library("cusolver")
     try:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            pao._admm_chunk_batch_plain(*args8, steps)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            pao._admm_chunk_batch_plain(*args8, steps)
-    except RuntimeError as e:
-        return None, str(e).splitlines()[0]
+        return smoke.graph_of(
+            lambda: pao._admm_chunk_batch_plain(*args8, steps))
     finally:
         torch.backends.cuda.preferred_linalg_library(library)
-    return graph, None
 
 
 def k8_launch(lib, args8, steps: int, binary: bool, plan=None):
@@ -630,6 +649,68 @@ def main_k8(args, dev, issue_peak: float) -> None:
                     "median_ms": float(np.median(ms))}), flush=True)
 
 
+def main_tail(args, dev, issue_peak: float) -> None:
+    """K9 or K10b: the baseline and the current source in turns with the
+    plain version (and for K10b a CUDA-graph replay of the plain polish,
+    a yardstick), at each SHAPES shape, each build held to the plain
+    version first (chip_smoke.hold_k9, hold_k10b)."""
+    libs = build_turns(args, tail_kernels.build_tail_kernels,
+                       tail_kernels._SRC)
+    for shape in SHAPES[args.kernel]:
+        line = {"kernel": args.kernel.upper(), "card": smoke.card_line()}
+        if args.kernel == "k9":
+            G, S, nodes, trios = shape
+            targs, kw = smoke.k9_case(sum(shape), dev, G, S, nodes, trios)
+            na, ta, bc, _trio_hap, path_node = targs[:5]
+            order = kw["order"]
+            for name, lib in libs.items():
+                smoke.hold_k9(targs, kw, f"{name} at {shape}", lib)
+
+            def run(lib):
+                return tail_kernels.launch_k9(na, ta, bc, path_node, order,
+                                              targs[7], G=G, S=S, lib=lib)
+
+            def plain():
+                return profile_tail.tail_stats_plain(*targs, G=G, S=S)
+
+            bound, by, work = smoke.tail_stats_bound(path_node, order, G, S)
+            line.update(G=G, S=S, N_pad=na.numel(), trios=order[0].numel(),
+                        path_nodes=path_node.numel(), work=work)
+            graph = None
+        else:
+            S, n, p = shape
+            pargs = [torch.from_numpy(a).to(dev)
+                     for a in smoke.polish_case(sum(shape), *shape)]
+            for name, lib in libs.items():
+                smoke.hold_k10b(pargs, f"{name} at {shape}", lib=lib)
+
+            def run(lib):
+                return tail_kernels.launch_k10b(*pargs, lib=lib)
+
+            def plain():
+                return profile_tail.polish_batch_plain(*pargs)
+
+            graph, why = smoke.graph_of(plain)
+            bound, by, work = smoke.polish_bound(S, n, p, 8, issue_peak)
+            line.update(S=S, n_pad=n, p_pad=p, sweeps=8,
+                        plan=str(tail_kernels.polish_plan(S, n, p)),
+                        work=work)
+            if graph is None:
+                line["graph_error"] = why
+        turns = dict(libs, plain="plain")
+        if graph is not None:
+            turns["graph"] = "graph"
+
+        def reading(lib):
+            if lib == "plain":
+                return smoke.cuda_ms(plain, 3)
+            if lib == "graph":
+                return smoke.cuda_ms(graph.replay, 5)
+            return smoke.cuda_ms(lambda: run(lib), 20, hold=True)
+
+        time_in_turns(turns, reading, line, bound, by)
+
+
 def compile_k8(src):
     """Build K8 from ``src`` (None: the current source) and set the
     argument types of its C entry, the current one or a baseline's."""
@@ -654,6 +735,9 @@ def main() -> None:
     issue_peak = smoke.issue_ops_per_s()
     if args.kernel == "k8":
         main_k8(args, dev, issue_peak)
+        return
+    if args.kernel in ("k9", "k10b"):
+        main_tail(args, dev, issue_peak)
         return
     if args.kernel == "k3":
         main_k3(args, dev, issue_peak)

@@ -38,7 +38,11 @@ NO_SCATTER = {"classify_scatter_ranges": 0, "classify_scatter_ranges_plain": 0,
               "scatter_range_dispatch": 0, "scatter_window_dispatch": 0,
               # and K8's, the ADMM chunk's
               "admm_chunk": 0, "admm_chunk_plain": 0,
-              "admm_chunk_dispatch": 0}
+              "admm_chunk_dispatch": 0,
+              # and K9's and K10b's, the device tail's stats and polish
+              "tail_stats": 0, "tail_stats_plain": 0,
+              "tail_stats_dispatch": 0, "polish": 0, "polish_plain": 0,
+              "polish_dispatch": 0}
 
 
 @pytest.fixture
@@ -1239,3 +1243,157 @@ def test_k8_rejects_bad_inputs(cuda):
         chip_smoke.admm_case(3, 1, 12288, 4, False), cuda)
     with pytest.raises(ValueError):
         pao._admm_chunk_batch(A3, b3, ub3, 1.0, st3, L3, 1)
+
+
+# ---------------------------------------------------------------------------
+# K9 and K10b, the device tail's strain stats and coordinate-median polish
+# (S, n_pad, p_pad): the smoke's bucket, the smallest, p_pad 8 and 32, a
+# 16-CTA-row bucket and one whose residuals sit in global memory
+K10B_SHAPES = [(10, 65536, 4), (1, 4096, 4), (3, 8192, 8), (2, 16384, 32),
+               (4, 32768, 8), (1, 524288, 4)]
+# the crafted edges of chip_smoke.polish_case, one instance each
+K10B_CRAFTED = [(5, 4096, 4), (5, 8192, 8), (5, 65536, 4), (5, 4096, 32)]
+
+
+def _polish_args(cuda, shape, crafted=False):
+    return [torch.from_numpy(a).to(cuda)
+            for a in chip_smoke.polish_case(sum(shape), *shape, crafted)]
+
+
+@pytest.mark.parametrize("shape", K10B_SHAPES,
+                         ids=[f"{s}x{n}x{p}" for s, n, p in K10B_SHAPES])
+def test_k10b_matches_plain_bit_for_bit(cuda, shape):
+    """K10b's x equals the plain polish's bit for bit (the sign of a zero
+    aside), the inputs untouched (chip_smoke.hold_k10b)."""
+    chip_smoke.hold_k10b(_polish_args(cuda, shape), f"at {shape}")
+
+
+@pytest.mark.parametrize("shape", K10B_CRAFTED,
+                         ids=[f"{s}x{n}x{p}" for s, n, p in K10B_CRAFTED])
+def test_k10b_crafted_edges_match_plain(cuda, shape):
+    """Ties at every median, zeros of both signs, a column with no live
+    row, t* past both clips and a dead instance, bit for bit."""
+    chip_smoke.hold_k10b(_polish_args(cuda, shape, True),
+                         f"on the crafted edges at {shape}")
+
+
+@pytest.mark.parametrize("sweeps", [0, 1, 3])
+def test_k10b_other_sweep_counts_match_plain(cuda, sweeps):
+    chip_smoke.hold_k10b(_polish_args(cuda, (3, 8192, 4)), f"at {sweeps} "
+                         f"sweeps", sweeps)
+
+
+@pytest.mark.parametrize("shape", [(10, 65536, 4), (1, 524288, 4)])
+def test_k10b_two_launches_are_identical(cuda, shape):
+    from pantax_tpu_torch.ops import tail_kernels
+
+    args = _polish_args(cuda, shape)
+    chip_smoke.repeats_identical(lambda: tail_kernels.launch_k10b(*args),
+                                 f"K10b at {shape}")
+
+
+def test_k10b_rejects_bad_inputs(cuda):
+    from pantax_tpu_torch.ops import profile_tail
+
+    A, b, x, ub = _polish_args(cuda, (2, 4096, 4))
+    bad = [
+        (A, b.cpu(), x, ub),                      # CPU and CUDA
+        (A.double(), b, x, ub),                   # float64
+        (A, b, x.double(), ub),
+        (A.mT.contiguous().mT, b, x, ub),         # not contiguous
+        (A, b[:, :2048].contiguous(), x, ub),     # shapes
+        (A, b, x[:1], ub),
+        (A, b, x, ub[:, :2]),
+        (A[:, :1000].contiguous(), b[:, :1000].contiguous(), x, ub),  # n_pad
+    ]
+    extend.reset_launch_counts()
+    for args in bad:
+        with pytest.raises(ValueError):
+            profile_tail.polish_batch(*args)
+    with pytest.raises(ValueError):
+        profile_tail.polish_batch(A, b, x, ub, -1)
+    assert extend.LAUNCHES["polish"] == extend.LAUNCHES["polish_plain"] == 0
+
+
+def _stats_case(cuda, tmp_path):
+    """tail_stats' arguments on a scale_db slice's paired coverage, fed
+    on the card, as dispatch_tail_stats passes them."""
+    from pantax_tpu_torch.benchmarks import scale_db
+    from pantax_tpu_torch.ops import profile_tail
+    from pantax_tpu_torch.ops.fused import _ensure_tail_tables
+
+    db = scale_db(tmp_path / "scale", n_species=3, genome_len=50_000)
+    index = _host.build_align_index(db)
+    al = aligner_from_reference(index, _host.AlignConfig(), cuda)
+    pipe = FusedPipeline(al, build_fused_tables(db, index, cuda), 2048)
+    pipe.feed_paired(*simulate_pairs(index, 6000, seed=11))
+    r = pipe.finish()
+    tt = _ensure_tail_tables(pipe.tables)
+    return ((r.na_d, r.ta_d, r.bc_d, tt.trio_hap, tt.path_node, tt.path_hap,
+             tt.node_species, 0.0),
+            {"G": tt.G, "S": tt.S, "order": tuple(
+                getattr(tt, f) for f in profile_tail.ORDER_FIELDS)})
+
+
+def test_k9_matches_plain_on_fed_coverage(cuda, tmp_path):
+    """K9 against the plain stats on paired coverage of a scale_db slice:
+    counts, path_cov, sp_max and sp_valid exact, the float sums within
+    K9_RTOL; two launches bit-identical (chip_smoke.hold_k9)."""
+    args, kw = _stats_case(cuda, tmp_path)
+    chip_smoke.hold_k9(args, kw, "on a scale_db slice's coverage")
+    chip_smoke.hold_k9((*args[:7], 2.5), kw, "at min_depth 2.5")
+
+
+@pytest.mark.parametrize("seed", [9, 10, 11])
+def test_k9_matches_plain_on_crafted_tables(cuda, seed):
+    """Trio owners interleaved within each species (pads among them), a
+    hap without trios, one of zero trios, one of a single nonzero trio, a
+    species without nodes (chip_smoke.k9_case)."""
+    chip_smoke.hold_k9(*chip_smoke.k9_case(seed, cuda), f"crafted {seed}")
+
+
+def test_k9_rejects_bad_inputs(cuda):
+    from pantax_tpu_torch.ops import profile_tail
+
+    args, kw = chip_smoke.k9_case(9, cuda)
+    na, ta, bc = args[:3]
+    G, S, order = kw["G"], kw["S"], kw["order"]
+    extend.reset_launch_counts()
+    bad = [((na, ta.cpu(), bc, *args[3:]), order),
+           ((na.double(), ta, bc, *args[3:]), order),
+           ((na, ta, bc.long(), *args[3:]), order),
+           ((na, ta, bc[:-1], *args[3:]), order),
+           (args, (order[0], order[1][:-1], *order[2:])),
+           (args, (order[0].long(), *order[1:])),
+           (args, None)]
+    for a, o in bad:
+        with pytest.raises(ValueError):
+            profile_tail.tail_stats(*a, G=G, S=S, order=o)
+    assert extend.LAUNCHES["tail_stats"] == 0
+
+
+def test_device_tail_launches_k9_and_k10b_once_per_dispatch(cuda, tmp_path):
+    """The device tail on the card: dispatch_tail_stats launches K9 once,
+    every polish launches K10b, the plain versions never; two calls write
+    byte-identical tables."""
+    db = tiny_db(tmp_path / "tiny")
+    index = _host.build_align_index(db)
+    cfg = _host.ProfilingConfig.for_read_type("short")
+    cfg.tail = "device"
+    al = aligner_from_reference(index, _host.AlignConfig(), cuda)
+    pipe = FusedPipeline(al, build_fused_tables(db, index, cuda), 1024)
+    pipe.feed_paired(*simulate_pairs(index, 4096, seed=4))
+    result = pipe.finish()
+    outs = []
+    for rep in range(2):
+        extend.reset_launch_counts()
+        out = tmp_path / f"out{rep}"
+        assert profile_from_fused_result(result, pipe.tables, index, db, cfg,
+                                         out)
+        la = extend.LAUNCHES
+        assert la["tail_stats"] == la["tail_stats_dispatch"] == 1
+        assert la["polish"] == la["polish_dispatch"] > 0
+        assert la["tail_stats_plain"] == la["polish_plain"] == 0
+        outs.append(out)
+    for name in ("strain_abundance.txt", "ori_strain_abundance.txt"):
+        assert ((outs[0] / name).read_bytes() == (outs[1] / name).read_bytes())

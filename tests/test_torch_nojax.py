@@ -452,3 +452,57 @@ def test_admm_chunk_runs_without_jax(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NOJAX_ADMM_OK" in proc.stdout
+
+
+TAIL_SCRIPT = SEED_SCRIPT.split("    import numpy as np")[0] + textwrap.dedent("""
+    import torch
+    from pantax_tpu_torch.ops import tail_kernels
+    from pantax_tpu_torch.ops import extend, profile_tail
+
+    # two instances of 4096 rows and 4 paths, a path pinned
+    g = torch.Generator().manual_seed(0)
+    A = (torch.rand((2, 4096, 4), generator=g) < 0.6).float()
+    b = A @ torch.tensor([0.5, 0.0, 0.3, 0.2])
+    b = b / b.amax(dim=1, keepdim=True)
+    ub = torch.tensor([[1.05, 0.0, 1.05, 1.05]] * 2)
+    x = torch.tensor([[0.4, 0.0, 0.4, 0.1]] * 2)
+    out = profile_tail.polish_batch(A, b, x, ub)
+    assert out.shape == (2, 4) and float(out[:, 1].abs().max()) == 0.0
+    assert tail_kernels.polish_plan(2, 4096, 4).cluster == 1
+    # a species of 3 nodes and 2 haps over 5 trios (one a pad)
+    tt = profile_tail.owner_tables(torch.tensor([1, 0, 2, 1, 0]).numpy(),
+                                   torch.tensor([0, 2, 3]).numpy(),
+                                   torch.tensor([0]).numpy(),
+                                   torch.tensor([3]).numpy(), 2, "cpu")
+    stats = profile_tail.tail_stats(
+        torch.tensor([1.0, 2.0, 0.0, 0.0]), torch.tensor([1.0, 2.0, 3.0,
+                                                          0.0, 5.0]),
+        torch.tensor([10, 20, 30, 0], dtype=torch.int32),
+        torch.tensor([1, 0, 2, 1, 0], dtype=torch.int32),
+        torch.tensor([0, 1, 2], dtype=torch.int32),
+        torch.tensor([0, 0, 1], dtype=torch.int32),
+        torch.tensor([0, 0, 0, 1], dtype=torch.int32), 0.0, G=2, S=1,
+        order=tuple(tt[f] for f in profile_tail.ORDER_FIELDS))
+    assert [float(t[0]) for t in stats] == [2.0, 3.5, 30.0, 2.0, 3.0, 2.0,
+                                            2.0], stats
+    assert extend.LAUNCHES["tail_stats_plain"] == 1
+    assert extend.LAUNCHES["polish_plain"] == 1
+    assert extend.LAUNCHES["tail_stats"] == extend.LAUNCHES["polish"] == 0
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("NOJAX_TAIL_OK")
+""")
+
+
+def test_tail_kernels_run_without_jax(tmp_path):
+    """pantax_tpu_torch.ops.tail_kernels (K9's and K10b's module), imported
+    first, and the device tail's dispatchers run their plain versions with
+    jax, pandas, pyarrow and the JAX package blocked."""
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([REPO,
+                                           os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", TAIL_SCRIPT], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NOJAX_TAIL_OK" in proc.stdout

@@ -202,6 +202,35 @@ def test_build_tail_tables_array_equal(scale):
             is port_fused._ensure_tail_tables(scale.tables))
 
 
+def test_k9_order_tables_equal_from_both_table_sources(scale):
+    """K9's slices (ORDER_FIELDS) equal whether build_tail_tables makes
+    them from the port's FusedTables or tail_tables_from_reference derives
+    them from the reference's TailTables, which lacks them; and they slice
+    what the owner arrays say."""
+    got = port_tail.build_tail_tables(
+        port_fused.build_fused_tables(scale.db, scale.index, "cpu"))
+    ref = tail_tables_from_reference(
+        ref_tail.build_tail_tables(scale.ref_tables), "cpu")
+    for name in port_tail.ORDER_FIELDS:
+        assert getattr(got, name).dtype == torch.int32, name
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      getattr(ref, name).numpy(),
+                                      err_msg=name)
+    trio_hap = got.trio_hap.numpy()
+    off = got.hap_trio_off.numpy()
+    order = got.trio_order.numpy()
+    for g in range(got.G):
+        np.testing.assert_array_equal(order[off[g]:off[g + 1]],
+                                      np.flatnonzero(trio_hap == g))
+    np.testing.assert_array_equal(got.hap_path_off.numpy(), got.hap_node_off)
+    span = got.sp_node_span.numpy()
+    np.testing.assert_array_equal(span[:got.S], got.sp_off)
+    np.testing.assert_array_equal(span[got.S:] - span[:got.S], got.sp_nvert)
+    node_species = got.node_species.numpy()
+    for s in range(got.S):
+        assert (node_species[span[s]:span[got.S + s]] == s).all()
+
+
 def test_tail_stats_match_reference_and_host_math():
     rng = np.random.default_rng(7)
     nodes_len, paths, ti = _random_species(rng, n_haps=5, n_nodes=200)

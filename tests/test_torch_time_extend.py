@@ -396,3 +396,48 @@ def test_ptxas_lines_name_each_instantiation():
            "ptxas info    : Used 80 registers, used 0 barriers\n")
     assert chip_smoke.ptxas_lines(log) == [
         "banded_extend_kernel<16>: Used 80 registers, used 0 barriers"]
+
+
+@pytest.mark.parametrize("kernel", ["k9", "k10b"])
+def test_parse_args_k9_k10b_take_a_baseline_and_no_ablation(kernel):
+    """K9 and K10b are timed against a baseline source (an earlier
+    profile_tail.cu) and have no levers to ablate."""
+    args = time_extend.parse_args(["--kernel", kernel, "base.cu"])
+    assert (args.kernel, args.baseline, args.ablate) == (kernel, "base.cu",
+                                                         None)
+    for argv in (["--kernel", kernel],
+                 ["--kernel", kernel, "--ablate", "regs", "base.cu"]):
+        with pytest.raises(SystemExit):
+            time_extend.parse_args(argv)
+
+
+def test_k9_k10b_shapes_are_the_smoke_tail():
+    """K9 at the smoke DB's size (30 haps, 10 species with nodes, N_pad
+    524288); K10b at the smoke's device-tail bucket, the smallest, wide
+    rows and a bucket whose residuals sit in global memory."""
+    from pantax_tpu_torch.ops import tail_kernels
+    (G, S, nodes, _trios), = time_extend.SHAPES["k9"]
+    assert (G, S - 1, nodes + 96) == (30, 10, 524288)
+    shapes = time_extend.SHAPES["k10b"]
+    assert shapes[0] == (10, 65536, 4)
+    plans = [tail_kernels.polish_plan(*shape) for shape in shapes]
+    assert [pl.on_chip for pl in plans] == [True, True, True, False]
+
+
+def test_ptxas_lines_name_the_tail_kernels():
+    log = ("ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__54b5"
+           "94ff_15_profile_tail_cu_4496dc4213polish_kernelENS_10PolishArgsE'"
+           " for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 64 registers, used 1 barriers\n"
+           "ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__54b5"
+           "94ff_15_profile_tail_cu_4496dc4217tail_stats_kernelENS_9StatsArgs"
+           "E' for 'sm_90a'\n"
+           "ptxas info    : Used 32 registers, used 1 barriers, 768 bytes "
+           "smem\n")
+    assert chip_smoke.ptxas_lines(log) == [
+        "polish_kernel: Used 64 registers, used 1 barriers; 0 bytes stack "
+        "frame, 0 bytes spill stores, 0 bytes spill loads",
+        "tail_stats_kernel: Used 32 registers, used 1 barriers, 768 bytes "
+        "smem"]
