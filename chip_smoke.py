@@ -88,13 +88,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    counts, path_cov, sp_max and sp_valid exact, the float sums within
    K9_RTOL, two launches bit-identical; K10b against the plain polish bit
    for bit (the sign of a zero aside) on every recorded bucket and on the
-   crafted edges of ``polish_case`` at (5, 4096, 4) and (5, 65536, 4),
-   two launches bit-identical; both timed beside their bounds
+   crafted edges of ``polish_case`` at (6, 4096, 4) and (6, 65536, 4), at
+   0, 1, 3, 8 and 20 sweeps, two launches bit-identical; K9 timed on the
+   recorded coverage, K10b on every recorded bucket, beside their bounds
    (``tail_stats_bound``, ``polish_bound``), the plain versions and a
-   CUDA-graph replay of the plain polish.  Every later phase holds K9's
-   launches to dispatch_tail_stats' calls and K10b's to the device
-   polish calls, the plain versions to 0 (``check_k9_k10b``, in
-   ``check_k3``);
+   CUDA-graph replay of the plain polish, with the sweeps each instance
+   ran (``sweeps_run``, from the plain polish) and its live columns.
+   Every later phase holds K9's launches to dispatch_tail_stats' calls
+   and K10b's to the device polish calls, the plain versions to 0
+   (``check_k9_k10b``, in ``check_k3``);
 4. run the port on the tiny 2-species DB on the CPU (plain versions) and on
    the GPU (kernels): packed query rows, na/ta/bc and the align_long_reads
    arrays of 16 long reads must be identical;
@@ -462,7 +464,7 @@ def ptxas_lines(log: str) -> list[str]:
         # mangled name holds the file's name before it)
         m = re.search(r"(?<=\d)((?:banded_extend|seed_stage|classify_scatter"
                       r"|admm_chunk|tail_stats|polish)(?:_[a-z]+)*_kernel)"
-                      r"(?:I((?:Li\d+E)+)E)?",
+                      r"(?:I((?:L[ib]\d+E)+)E)?",
                       ln)
         if m:
             args = ",".join(re.findall(r"\d+", m[2] or ""))
@@ -1972,6 +1974,8 @@ POLISH_OPS_ROW = 6
 # K9's float sums against the plain version's (float32 sums in another
 # order): the CPU test's bar against the JAX stats
 K9_RTOL = 1e-5
+# the sweep counts K10b is held to the plain polish at
+POLISH_SWEEPS = (0, 1, 3, 8, 20)
 
 
 def check_k9_k10b(launches: dict, what: str) -> None:
@@ -2030,8 +2034,10 @@ def polish_case(seed_: int, S: int, n_pad: int, p_pad: int,
     (x 0, b in steps of 1/8); 1 zeros of both signs (x -0.0, b +-0.0 on a
     third of the rows); 2 a column with no live row and t* past the upper
     clip (ub 0.01 under an optimum ~1); 3 t* past the lower clip (x 0.5
-    over b 0); 4 a dead instance (A and b 0).  Returns numpy float32 (A,
-    b, x, ub)."""
+    over b 0); 4 a dead instance (A and b 0); 5 the first column's live
+    rows in one bin of K10b's first digit (x 0, b in [1, 1.2)), more of
+    them than its candidate buffer holds (MAX_CAP) from 65536 rows.
+    Returns numpy float32 (A, b, x, ub)."""
     rng = np.random.default_rng(seed_)
     A = np.zeros((S, n_pad, p_pad), np.float32)
     b = np.zeros((S, n_pad), np.float32)
@@ -2052,7 +2058,7 @@ def polish_case(seed_: int, S: int, n_pad: int, p_pad: int,
                            ub[s, :p])
         if not crafted:
             continue
-        edge = s % 5
+        edge = s % 6
         if edge == 0:
             x[s] = 0.0
             b[s, :n] = np.round(b[s, :n] * 8) / 8 * (A[s, :n].any(-1))
@@ -2067,9 +2073,32 @@ def polish_case(seed_: int, S: int, n_pad: int, p_pad: int,
         elif edge == 3:
             x[s, 0], ub[s, 0] = 0.5, 1.05
             b[s] = 0.0
-        else:
+        elif edge == 4:
             A[s], b[s] = 0.0, 0.0
+        else:
+            x[s] = 0.0
+            col0 = A[s, :, 0] > 0
+            b[s, col0] = 1.0 + 0.2 * rng.random(int(col0.sum()))
     return A, b, x, ub
+
+
+def sweeps_run(args, sweeps: int = 8) -> list[int]:
+    """The sweeps K10b runs for each instance of (A, b, x, ub), counted on
+    the plain polish: up to and with the first sweep in which no step of
+    the instance is not 0 (every later sweep would repeat it), else
+    ``sweeps``."""
+    moved: list = []
+    profile_tail.polish_batch_plain(*args, sweeps, moved=moved)
+    if not moved:
+        return [0] * args[0].shape[0]
+    m = torch.stack(moved).cpu()
+    return [int(still[0]) + 1 if len(still := (~m[:, s]).nonzero())
+            else sweeps for s in range(m.shape[1])]
+
+
+def live_columns(A) -> list[int]:
+    """Each instance's columns with at least one live row."""
+    return (A > 0).any(dim=1).sum(dim=1).tolist()
 
 
 def hold_k10b(args, what: str, sweeps: int = 8, lib=None) -> float:
@@ -2141,6 +2170,16 @@ def hold_k9(args: tuple, kw: dict, what: str, lib=None) -> float:
           f"sp_valid exact, sums within {K9_RTOL} relative; largest "
           f"difference {err:.3g}; two launches bit-identical)")
     return err
+
+
+def k9_args(tt, na, ta, bc, min_depth: float) -> tuple:
+    """The (args, kw) of tail_stats_plain and hold_k9 for one
+    dispatch_tail_stats call: the coverage and tt's tables, G, S and K9's
+    owner order."""
+    return ((na, ta, bc, tt.trio_hap, tt.path_node, tt.path_hap,
+             tt.node_species, min_depth),
+            {"G": tt.G, "S": tt.S, "order": tuple(
+                getattr(tt, f) for f in profile_tail.ORDER_FIELDS)})
 
 
 def k9_case(seed_: int, dev, G: int = 12, S: int = 4, nodes: int = 4000,
@@ -2218,12 +2257,15 @@ def tail_phase(build: str, dev, result, tables, index, db, cfg, out: str,
     dispatch; K9 against the plain stats on the recorded coverage and on
     crafted tables (owners interleaved), two launches bit-identical; K10b
     against the plain polish on every recorded bucket and the crafted
-    edges (polish_case), two launches bit-identical; each timed (CUDA
-    events, the stream held) beside its bound, the plain version and, for
-    K10b, a CUDA-graph replay of the plain polish (a yardstick).  Returns
-    ((max err, ms, plain ms, bound ms, bound_by, extra, shape) of K9, the
-    same of K10b)."""
-    stats_fn, polish_fn = profile_tail.tail_stats, profile_tail.polish_batch
+    edges (polish_case) at each of POLISH_SWEEPS, two launches
+    bit-identical; K9 timed on the recorded coverage and K10b on each
+    recorded bucket (CUDA events, the stream held) beside its bound, the
+    plain version and, for K10b, a CUDA-graph replay of the plain polish
+    (a yardstick), the sweeps each instance ran and its live columns.
+    Returns ((max err, ms, plain ms, bound ms, bound_by, extra, shape) of
+    K9, the same of K10b at its largest bucket)."""
+    stats_fn = profile_tail.dispatch_tail_stats
+    polish_fn = profile_tail.polish_batch
     stats_log, polish_log, runs = [], [], {}
 
     def recorded(fn, log):
@@ -2232,8 +2274,10 @@ def tail_phase(build: str, dev, result, tables, index, db, cfg, out: str,
             return fn(*args, **kw)
         return call
 
-    def plain_stats(*args, order=None, **kw):
-        return profile_tail.tail_stats_plain(*args, **kw)
+    def plain_stats(tt, na, ta, bc, min_depth):
+        return profile_tail.tail_stats_plain(*k9_args(tt, na, ta, bc,
+                                                      min_depth)[0],
+                                             G=tt.G, S=tt.S)
 
     for name, stats, polish in (
             ("plain", plain_stats, profile_tail.polish_batch_plain),
@@ -2241,7 +2285,8 @@ def tail_phase(build: str, dev, result, tables, index, db, cfg, out: str,
              recorded(polish_fn, polish_log))):
         run_out = os.path.join(build, f"smoke_paired_{name}_tail_out")
         shutil.rmtree(run_out, ignore_errors=True)
-        profile_tail.tail_stats, profile_tail.polish_batch = stats, polish
+        profile_tail.dispatch_tail_stats = stats
+        profile_tail.polish_batch = polish
         stage = {}
         extend.reset_launch_counts()
         try:
@@ -2251,7 +2296,7 @@ def tail_phase(build: str, dev, result, tables, index, db, cfg, out: str,
                                       run_out, stage_out=stage)
             torch.cuda.synchronize()
         finally:
-            profile_tail.tail_stats = stats_fn
+            profile_tail.dispatch_tail_stats = stats_fn
             profile_tail.polish_batch = polish_fn
         runs[name] = (time.time() - t0, stage, run_out, dict(extend.LAUNCHES))
     launches = runs["kernels"][3]
@@ -2275,7 +2320,7 @@ def tail_phase(build: str, dev, result, tables, index, db, cfg, out: str,
               f"{k} {v:.4f}" for k, v in runs["plain"][1].items()))
 
     # K9 on the recorded coverage and on crafted tables
-    args, kw = stats_log[0]
+    args, kw = k9_args(*stats_log[0][0])
     err9 = max(hold_k9(args, kw, "on the paired device tail's coverage"),
                hold_k9(*k9_case(9, dev), "on crafted tables"))
     na, ta, bc, _trio_hap, path_node = args[:5]
@@ -2291,38 +2336,61 @@ def tail_phase(build: str, dev, result, tables, index, db, cfg, out: str,
           f"{plain9:.3f} ms, bound {bound9:.4f} ms ({by9}: {work9['bytes']} "
           f"bytes), {bound9 / ms9:.3f} of the bound")
 
-    # K10b on every recorded bucket and on the crafted edges
+    # K10b on every recorded bucket and on the crafted edges, at each of
+    # POLISH_SWEEPS
     err10 = 0.0
     for i, (pargs, _kw) in enumerate(polish_log):
-        err10 = max(err10, hold_k10b(
-            pargs[:4], f"on the paired device tail's bucket, polish call {i}"))
-    for shape in ((5, 4096, 4), (5, 65536, 4)):
+        for sw in POLISH_SWEEPS:
+            err10 = max(err10, hold_k10b(
+                pargs[:4], f"on the paired device tail's bucket, polish "
+                f"call {i}, {sw} sweeps", sw))
+    for shape in ((6, 4096, 4), (6, 65536, 4)):
         crafted = [torch.from_numpy(a).to(dev)
                    for a in polish_case(sum(shape), *shape, crafted=True)]
-        err10 = max(err10, hold_k10b(crafted, "on the crafted edges"))
+        for sw in POLISH_SWEEPS:
+            err10 = max(err10, hold_k10b(crafted, f"on the crafted edges, "
+                                         f"{sw} sweeps", sw))
     big = max((pargs[:4] for pargs, _kw in polish_log),
               key=lambda a: a[0].numel())
     repeats_identical(lambda: tail_kernels.launch_k10b(*big),
                       "K10b on the largest bucket")
-    S10, n10, p10 = big[0].shape
-    ms10 = cuda_ms(lambda: tail_kernels.launch_k10b(*big), 20, hold=True)
-    plain10 = cuda_ms(lambda: profile_tail.polish_batch_plain(*big), 3)
-    graph, why = graph_of(lambda: profile_tail.polish_batch_plain(*big))
-    graph10 = cuda_ms(graph.replay, 5) if graph is not None else None
-    bound10, by10, work10 = polish_bound(S10, n10, p10, 8, issue_peak)
-    print(f"K10b [{card_line()}] at ({S10}, {n10}, {p10}), 8 sweeps, "
-          f"{tail_kernels.polish_plan(S10, n10, p10)}: {ms10:.4f} ms, plain "
-          f"{plain10:.3f} ms, its graph replay "
-          + (f"{graph10:.3f} ms" if graph10 is not None else f"not captured "
-             f"({why})")
-          + f", bound {bound10:.4f} ms ({by10}: {work10['ops']} "
-          f"instructions, {work10['bytes']} bytes), {bound10 / ms10:.4f} "
-          f"of the bound")
+    by_bucket = []
+    for i, (pargs, _kw) in enumerate(polish_log):
+        args10 = pargs[:4]
+        S10, n10, p10 = args10[0].shape
+        ms = cuda_ms(lambda: tail_kernels.launch_k10b(*args10), 20, hold=True)
+        plain = cuda_ms(lambda: profile_tail.polish_batch_plain(*args10), 3)
+        graph, why = graph_of(lambda: profile_tail.polish_batch_plain(*args10))
+        graph_ms = cuda_ms(graph.replay, 5) if graph is not None else None
+        bound, by, work = polish_bound(S10, n10, p10, 8, issue_peak)
+        run, live = sweeps_run(args10), live_columns(args10[0])
+        print(f"K10b [{card_line()}] polish call {i} at ({S10}, {n10}, "
+              f"{p10}), 8 sweeps, {tail_kernels.polish_plan(S10, n10, p10)}:"
+              f" {ms:.4f} ms, plain {plain:.3f} ms, its graph replay "
+              + (f"{graph_ms:.3f} ms" if graph_ms is not None else
+                 f"not captured ({why})")
+              + f", bound {bound:.6f} ms ({by}: {work['ops']} instructions "
+              f"for 8 sweeps of every column, {work['bytes']} bytes), "
+              f"{bound / ms:.4f} of the bound; sweeps run by instance {run} "
+              f"(of 8), live columns by instance {live}")
+        by_bucket.append({"shape": [S10, n10, p10], "ms": ms,
+                          "plain_ms": plain, "graph_replay_ms": graph_ms,
+                          "bound_ms": bound, "sweeps_run": run,
+                          "live_columns": live})
+    top = max(range(len(by_bucket)),
+              key=lambda i: (polish_log[i][0][0].numel(), -i))
+    ms10, plain10 = by_bucket[top]["ms"], by_bucket[top]["plain_ms"]
+    graph10 = by_bucket[top]["graph_replay_ms"]
+    S10, n10, p10 = by_bucket[top]["shape"]
+    bound10, by10, _work = polish_bound(S10, n10, p10, 8, issue_peak)
     tail_s = {name: runs[name][1]["strain_s"] for name in runs}
     return ((err9, ms9, plain9, bound9, by9, {"strain_s": tail_s},
              f"G {G}, S {S}, N_pad {na.numel()} (the paired device tail)"),
             (err10, ms10, plain10, bound10, by10,
-             {"graph_replay_ms": graph10, "strain_s": tail_s},
+             {"graph_replay_ms": graph10, "strain_s": tail_s,
+              "sweeps_run": by_bucket[top]["sweeps_run"],
+              "live_columns": by_bucket[top]["live_columns"],
+              "by_bucket": by_bucket},
              f"S {S10}, n_pad {n10}, p_pad {p10}, 8 sweeps (the paired "
              f"device tail's bucket)"))
 

@@ -6,10 +6,10 @@ abundance, trio abundance, per-node covered bases).  The host tail
 (ops/fused.py) downloads them, runs the strain filters in float64 numpy and
 uploads every species' PAO matrix.  This tail keeps them on the device:
 
-  1. ``tail_stats`` reduces them to per-strain / per-species scalars (trio
-     counts and zscore-filtered trio means, path base coverage, species
-     nonzero mean, max and valid-node count), the only download (K9 on the
-     card, one launch, ops/tail_kernels.py);
+  1. ``dispatch_tail_stats`` reduces them to per-strain / per-species
+     scalars (trio counts and zscore-filtered trio means, path base
+     coverage, species nonzero mean, max and valid-node count), the only
+     download (K9 on the card, one launch, ops/tail_kernels.py);
   2. ``first_filter_from_stats`` runs the first filter's branch logic on the
      host over those scalars, line for line with
      profile/filters.first_filter_paths;
@@ -188,23 +188,6 @@ def _seg_sum(vals, seg, n: int):
     return out[:n]
 
 
-def tail_stats(na, ta, bc, trio_hap, path_node, path_hap, node_species,
-               min_depth: float, *, G: int, S: int, order=None):
-    """All host-filter inputs as [G] / [S] float32 reductions, the
-    reference's ``_tail_stats``: (c1, freq_mean, path_cov, sp_nz_cnt,
-    sp_nz_sum, sp_max, sp_valid).  The plain version where na lies on the
-    CPU; on the card K9 (ops/tail_kernels.py), one launch, which reads
-    ``order``, TailTables' ORDER_FIELDS (from owner_tables), in place of
-    trio_hap, path_hap and node_species, and raises without it."""
-    if na.device.type == "cpu":
-        LAUNCHES["tail_stats_plain"] += 1
-        return tail_stats_plain(na, ta, bc, trio_hap, path_node, path_hap,
-                                node_species, min_depth, G=G, S=S)
-    if order is None:
-        raise ValueError("K9 needs TailTables' owner order (order=)")
-    return tail_stats_cuda(na, ta, bc, path_node, order, min_depth, G=G, S=S)
-
-
 def tail_stats_plain(na, ta, bc, trio_hap, path_node, path_hap, node_species,
                      min_depth: float, *, G: int, S: int):
     """Plain torch version of K9: per-hap nonzero trio count and
@@ -256,12 +239,22 @@ class TailStats:
 
 
 def dispatch_tail_stats(tt: TailTables, na, ta, bc, min_depth: float):
-    """Launch the stats reductions (asynchronous on a CUDA device, so they
-    overlap host work until collect_tail_stats)."""
+    """Launch the stats reductions, the reference's ``_tail_stats``: (c1,
+    freq_mean, path_cov, sp_nz_cnt, sp_nz_sum, sp_max, sp_valid) as [G] /
+    [S] float32.  The plain version where na lies on the CPU; on the card
+    K9 (ops/tail_kernels.py), one launch, which reads tt's owner order
+    (ORDER_FIELDS) in place of trio_hap, path_hap and node_species.
+    Asynchronous on a CUDA device, so it overlaps host work until
+    collect_tail_stats."""
     LAUNCHES["tail_stats_dispatch"] += 1
-    return tail_stats(na, ta, bc, tt.trio_hap, tt.path_node, tt.path_hap,
-                      tt.node_species, min_depth, G=tt.G, S=tt.S,
-                      order=tuple(getattr(tt, f) for f in ORDER_FIELDS))
+    if na.device.type == "cpu":
+        LAUNCHES["tail_stats_plain"] += 1
+        return tail_stats_plain(na, ta, bc, tt.trio_hap, tt.path_node,
+                                tt.path_hap, tt.node_species, min_depth,
+                                G=tt.G, S=tt.S)
+    return tail_stats_cuda(na, ta, bc, tt.path_node,
+                           tuple(getattr(tt, f) for f in ORDER_FIELDS),
+                           min_depth, G=tt.G, S=tt.S)
 
 
 def collect_tail_stats(out) -> TailStats:
@@ -409,15 +402,19 @@ def polish_batch(A, b, x, ub, sweeps: int = 8):
     return polish_cuda(A, b, x, ub, sweeps)
 
 
-def polish_batch_plain(A, b, x, ub, sweeps: int = 8):
+def polish_batch_plain(A, b, x, ub, sweeps: int = 8, moved=None):
     """Plain torch version of K10b: a binary column's optimal step is the
     ((cnt-1)//2)-th order statistic of the negated residuals at its live
-    rows, clipped to the box.  All math is elementwise float32."""
+    rows, clipped to the box.  All math is elementwise float32.  Given a
+    list ``moved``, appends for each sweep a bool [S]: whether any column's
+    step of the instance was not 0 (K10b stops an instance after its first
+    sweep without one)."""
     p = A.shape[-1]
     r = exact_residual(A, x) - b
     big = 3.4e38  # sorts after every live row
     x = x.clone()
     for _ in range(sweeps):
+        still = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
         for j in range(p):
             col = A[:, :, j]
             m = col > 0.0
@@ -429,6 +426,10 @@ def polish_batch_plain(A, b, x, ub, sweeps: int = 8):
             t = torch.where(cnt > 0, t, 0.0)
             x[:, j] = x[:, j] + t
             r = r + col * t[:, None]
+            if moved is not None:
+                still &= t == 0
+        if moved is not None:
+            moved.append(~still)
     return x
 
 

@@ -11,16 +11,21 @@ coordinate median over a bucket of solutions.  Two versions of each here:
   ``dispatch_tail_stats``: a CTA a hap over its owner-sorted trios and its
   path, a CTA a species over its node slice, every float sum in a fixed
   order.  K10b is one launch a bucket a solve: a thread block cluster an
-  instance (``polish_plan``), each column's median an exact radix select;
+  instance (``polish_plan``), A read once into live bits, each column's
+  median an exact radix select (one cluster round for the first digit,
+  one to push the candidates of its bin, the rest in each CTA alone), an
+  instance stopped after a sweep that moves nothing;
 - the plain torch versions, ops/profile_tail.py's ``tail_stats_plain`` and
   ``polish_batch_plain``.
 
-ops/profile_tail.py's ``tail_stats`` and ``polish_batch`` take the plain
-versions only where the tensors lie on the CPU, and these wrappers
-otherwise: on a CUDA tensor they launch the kernel or raise; nothing falls
-back.  K10b gives the plain polish's x bit for bit (up to the sign of a
-zero); K9 gives its counts, path_cov and max exactly and its float sums to
-float32 rounding (it sums in double, in one order every launch).
+ops/profile_tail.py's ``dispatch_tail_stats`` and ``polish_batch`` take
+the plain versions only where the tensors lie on the CPU, and these
+wrappers otherwise: on a CUDA tensor they launch the kernel or raise;
+nothing falls back.  K10b gives the plain polish's x bit for bit (up to
+the sign of a zero; it takes A to be 0/1, as the device tail builds it,
+and gives NaN x to an instance whose A holds another value); K9 gives its
+counts, path_cov and max exactly and its float sums to float32 rounding
+(it sums in double, in one order every launch).
 """
 from __future__ import annotations
 
@@ -37,37 +42,66 @@ POLISH_THREADS = 1024   # a K10b CTA's threads
 MAX_CLUSTER = 8         # CTAs a K10b cluster (portable)
 CLUSTER_ROWS = 8192     # K10b adds a CTA to the cluster for each this many rows
 MAX_SMEM = 232_448      # a block's shared memory on sm_90
-BINS = 256              # a radix pass's digits
+DIGIT_BINS = 2048       # the first radix digit's bins (11 bits)
+REG_ROWS = 8            # rows a K10b thread holds in registers at most
+MAX_CAP = 16384         # candidate keys a K10b CTA holds at most
+MIN_CAP = 4096          # r on chip only where this many candidates still fit
+RANK_SELECT = 256       # candidates K10b ranks at once
 
 
 @dataclass(frozen=True)
 class PolishPlan:
     """How K10b runs one bucket: ``cluster`` CTAs of POLISH_THREADS threads
-    an instance, ``rows`` = n_pad / cluster rows a CTA; ``on_chip``: the
-    rows' residuals in shared memory (else a global scratch);
+    an instance, ``rows`` = n_pad / cluster rows a CTA, ``reg_rows`` of
+    them a thread in registers (0: in memory); ``bits_on_chip``: the rows'
+    live bits on chip, ``on_chip``: their residuals too (else in a global
+    scratch of ``scratch`` floats); ``cap`` candidate keys a CTA;
     ``smem_bytes`` of dynamic shared memory a CTA."""
 
     cluster: int
     rows: int
+    reg_rows: int
     on_chip: bool
+    bits_on_chip: bool
+    cap: int
     smem_bytes: int
+    scratch: int
 
 
-def polish_smem_bytes(rows: int, p_pad: int, on_chip: bool) -> int:
+def polish_reg_rows(rows: int, p_pad: int) -> int:
+    """Rows a K10b thread holds in registers (csrc/profile_tail.cu's
+    polish_reg_rows): all of a CTA's 4096 or 8192 rows, a column a bit, at
+    p_pad up to 32; else 0 (r and the live bits in memory)."""
+    return (rows // POLISH_THREADS if p_pad <= 32 and rows in (
+        4 * POLISH_THREADS, REG_ROWS * POLISH_THREADS) else 0)
+
+
+def polish_smem_bytes(rows: int, p_pad: int, on_chip: bool,
+                      bits_on_chip: bool, cap: int) -> int:
     """A K10b CTA's dynamic shared memory (csrc/profile_tail.cu's
-    polish_smem_bytes): two histograms, a column's live bits, x and ub,
-    the bins' warp totals and the selection, and the rows' r on chip."""
-    return (4 * (2 * BINS + rows // 32 + 2 * p_pad + BINS // 32 + 4)
-            + (4 * rows if on_chip else 0))
+    polish_fixed_words and polish_layout): the exchanges' three barriers
+    (eight words), the histogram twice, the cluster's sums by 32 bins
+    twice (a slot a rank) and the CTA's own, the selection's words, the warps' counts, the
+    last RANK_SELECT candidates, four words a column (live count, k, x,
+    ub) and two flags; the live bits, a word a column per 32 rows, and the
+    rows' r, where on chip and not in registers; the candidates."""
+    mem = not polish_reg_rows(rows, p_pad)
+    return 4 * (2 * DIGIT_BINS + (2 * MAX_CLUSTER + 1) * (DIGIT_BINS // 32)
+                + 8 + 32 + RANK_SELECT + 4 * p_pad + 2 + 8
+                + (p_pad * (rows // 32) if bits_on_chip and mem else 0)
+                + (rows if on_chip and mem else 0) + cap)
 
 
 def polish_plan(S: int, n_pad: int, p_pad: int) -> PolishPlan:
     """K10b's plan for S instances of n_pad rows and p_pad columns: the
     largest power of two up to MAX_CLUSTER and n_pad / CLUSTER_ROWS that
     cuts n_pad into whole blocks of POLISH_THREADS rows (1 CTA at 4096 and
-    8192 rows, 8 from 65536); the residuals on chip where they fit.
+    8192 rows, 8 from 65536); a CTA's rows in registers where
+    polish_reg_rows says so; else the live bits in shared memory where
+    MIN_CAP candidates still fit beside them, the residuals too where they
+    also fit; the candidates in the room left, at most MAX_CAP and n_pad.
     Raises ValueError where no plan fits: n_pad not a positive multiple of
-    POLISH_THREADS, or a CTA's live bits and x past shared memory."""
+    POLISH_THREADS, or a CTA's words past shared memory."""
     if S < 1 or p_pad < 1:
         raise ValueError(f"K10b takes S >= 1 and p_pad >= 1 (got {S}, "
                          f"{p_pad})")
@@ -79,12 +113,21 @@ def polish_plan(S: int, n_pad: int, p_pad: int) -> PolishPlan:
            and n_pad % (2 * cluster * POLISH_THREADS) == 0):
         cluster *= 2
     rows = n_pad // cluster
-    on_chip = polish_smem_bytes(rows, p_pad, True) <= MAX_SMEM
-    smem = polish_smem_bytes(rows, p_pad, on_chip)
-    if smem > MAX_SMEM:
-        raise ValueError(f"K10b: {smem} bytes of shared memory a CTA at "
+    reg = polish_reg_rows(rows, p_pad)
+    fixed = polish_smem_bytes(rows, p_pad, False, False, 0)
+    bits = 0 if reg else 4 * p_pad * (rows // 32)
+    bits_on_chip = fixed + bits + 4 * MIN_CAP <= MAX_SMEM
+    on_chip = bits_on_chip and (
+        reg > 0 or fixed + bits + 4 * (rows + MIN_CAP) <= MAX_SMEM)
+    used = polish_smem_bytes(rows, p_pad, on_chip, bits_on_chip, 0)
+    cap = min(MAX_CAP, n_pad, (MAX_SMEM - used) // 4)
+    if cap < 0:
+        raise ValueError(f"K10b: {used} bytes of shared memory a CTA at "
                          f"n_pad {n_pad}, p_pad {p_pad} (at most {MAX_SMEM})")
-    return PolishPlan(cluster, rows, on_chip, smem)
+    scratch = (0 if on_chip else S * n_pad
+               + (0 if bits_on_chip else S * p_pad * (n_pad // 32)))
+    return PolishPlan(cluster, rows, reg, on_chip, bits_on_chip, cap,
+                      used + 4 * cap, scratch)
 
 
 def build_tail_kernels(src: Path | str | None = None) -> ctypes.CDLL:
@@ -176,8 +219,8 @@ def launch_k10b(A, b, x, ub, sweeps: int = 8, lib=None):
     plan = polish_plan(S, n, p)
     lib = lib or build_tail_kernels()
     out = torch.empty((S, p), dtype=f32, device=dev)
-    r = (None if plan.on_chip
-         else torch.empty((S, n), dtype=f32, device=dev))
+    r = (torch.empty(plan.scratch, dtype=f32, device=dev) if plan.scratch
+         else None)
     with torch.cuda.device(dev):
         rc = lib.polish_launch(
             A.data_ptr(), b.data_ptr(), x.data_ptr(), ub.data_ptr(), S, n, p,

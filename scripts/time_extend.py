@@ -57,13 +57,17 @@ plain version (and for K10b a CUDA-graph replay of the plain polish, a
 yardstick), every build held to the plain version first
 (``chip_smoke.hold_k9``, ``hold_k10b``): K9 on ``chip_smoke.k9_case``
 tables at the smoke DB's size (SHAPES["k9"]), K10b on
-``chip_smoke.polish_case`` buckets (SHAPES["k10b"]), beside
-``chip_smoke.tail_stats_bound`` and ``polish_bound``:
+``chip_smoke.polish_case`` buckets (SHAPES["k10b"], and its crafted edges
+at K10B_CRAFTED, where instances stop early; each line prints the sweeps
+each instance runs and its live columns), beside
+``chip_smoke.tail_stats_bound`` and ``polish_bound``.  Given ``--ablate``
+(repeatable), K10b also times the current source without one lever of its
+design (K10B_ABLATIONS), in the same turns:
 
     git show <commit>:pantax_tpu_torch/csrc/profile_tail.cu \
         > build/profile_tail_base.cu
     PYTHONPATH=. python scripts/time_extend.py --kernel k10b \
-        build/profile_tail_base.cu
+        build/profile_tail_base.cu [--ablate stop --ablate candidates ...]
 
 K1 (the default) at the main path's shape (131072 candidates of 160
 bases, pad 4) and the long-read seeded pass's (32768 candidates of 512
@@ -306,13 +310,37 @@ K8_ABLATIONS = {
 }
 
 
+# K10b's levers, each taken out of csrc/profile_tail.cu: without "stop"
+# every instance runs every sweep; without "candidates" no bin's keys are
+# pushed (every selection takes three rounds over all rows); without
+# "registers" r and the live bits stay in shared memory; without "rank"
+# the last candidates take radix rounds to the last bit (none ranked)
+_K10B_REGS = ("(rows == 4 * kPolishThreads || rows == kRegRows * "
+              "kPolishThreads)")
+K10B_ABLATIONS = {
+    "stop": [("        if (!moved) break;  // every later sweep would "
+              "repeat this one\n", "")],
+    "candidates": [("    L->cap = static_cast<int>(cap);",
+                    "    L->cap = 0;")],
+    "registers": [(f"    return p <= 32 && {_K10B_REGS}",
+                   f"    return false && {_K10B_REGS}")],
+    "rank": [("constexpr int kRankSelect = 256;",
+              "constexpr int kRankSelect = 0;")],
+}
+# K10b's crafted buckets timed beside SHAPES["k10b"]: the edges of
+# chip_smoke.polish_case, where instances stop early
+K10B_CRAFTED = ((6, 65536, 4),)
+
+
 def ablated_source(name: str) -> Path:
     """The current source with ABLATIONS[name] (K1's), K3_ABLATIONS[name]
-    (K3's), K6_ABLATIONS[name] (K6's), K11_ABLATIONS[name] (K11's) or
-    K8_ABLATIONS[name] (K8's) applied, written under the build
-    directory."""
+    (K3's), K6_ABLATIONS[name] (K6's), K11_ABLATIONS[name] (K11's),
+    K8_ABLATIONS[name] (K8's) or K10B_ABLATIONS[name] (K10b's) applied,
+    written under the build directory."""
     path, table = ((seed._SRC, K3_ABLATIONS) if name in K3_ABLATIONS
                    else (admm._SRC, K8_ABLATIONS) if name in K8_ABLATIONS
+                   else (tail_kernels._SRC, K10B_ABLATIONS)
+                   if name in K10B_ABLATIONS
                    else (scatter._SRC, K6_ABLATIONS)
                    if name in K6_ABLATIONS
                    else (scatter._SRC, K11_ABLATIONS)
@@ -334,9 +362,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ablate", action="append",
                     choices=sorted(ABLATIONS) + sorted(K3_ABLATIONS)
                     + sorted(K6_ABLATIONS) + sorted(K11_ABLATIONS)
-                    + sorted(K8_ABLATIONS),
+                    + sorted(K8_ABLATIONS) + sorted(K10B_ABLATIONS),
                     help="time the current source without this step instead "
-                         "(K3, K6, K11, K8: as well, repeatable)")
+                         "(K3, K6, K11, K8, K10b: as well, repeatable)")
     ap.add_argument("--kernel", choices=sorted(SHAPES), default="k1",
                     help="K1 (text + w0), K2 (windows given), K3 (the seed "
                          "stage), K6 (the range classify + scatter), K11 "
@@ -345,7 +373,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "polish); default k1")
     args = ap.parse_args(argv)
     mine = {"k3": K3_ABLATIONS, "k6": K6_ABLATIONS, "k11": K11_ABLATIONS,
-            "k8": K8_ABLATIONS, "k9": {}, "k10b": {}}.get(args.kernel,
+            "k8": K8_ABLATIONS, "k9": {},
+            "k10b": K10B_ABLATIONS}.get(args.kernel,
                                                            ABLATIONS)
     if any(a not in mine for a in args.ablate or ()):
         ap.error(f"--ablate for {args.kernel}: one of {sorted(mine)}")
@@ -656,7 +685,10 @@ def main_tail(args, dev, issue_peak: float) -> None:
     version first (chip_smoke.hold_k9, hold_k10b)."""
     libs = build_turns(args, tail_kernels.build_tail_kernels,
                        tail_kernels._SRC)
-    for shape in SHAPES[args.kernel]:
+    cases = [(shape, False) for shape in SHAPES[args.kernel]]
+    if args.kernel == "k10b":
+        cases += [(shape, True) for shape in K10B_CRAFTED]
+    for shape, crafted in cases:
         line = {"kernel": args.kernel.upper(), "card": smoke.card_line()}
         if args.kernel == "k9":
             G, S, nodes, trios = shape
@@ -680,7 +712,7 @@ def main_tail(args, dev, issue_peak: float) -> None:
         else:
             S, n, p = shape
             pargs = [torch.from_numpy(a).to(dev)
-                     for a in smoke.polish_case(sum(shape), *shape)]
+                     for a in smoke.polish_case(sum(shape), *shape, crafted)]
             for name, lib in libs.items():
                 smoke.hold_k10b(pargs, f"{name} at {shape}", lib=lib)
 
@@ -692,8 +724,10 @@ def main_tail(args, dev, issue_peak: float) -> None:
 
             graph, why = smoke.graph_of(plain)
             bound, by, work = smoke.polish_bound(S, n, p, 8, issue_peak)
-            line.update(S=S, n_pad=n, p_pad=p, sweeps=8,
+            line.update(S=S, n_pad=n, p_pad=p, sweeps=8, crafted=crafted,
                         plan=str(tail_kernels.polish_plan(S, n, p)),
+                        sweeps_run=smoke.sweeps_run(pargs),
+                        live_columns=smoke.live_columns(pargs[0]),
                         work=work)
             if graph is None:
                 line["graph_error"] = why

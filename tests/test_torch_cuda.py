@@ -1248,11 +1248,15 @@ def test_k8_rejects_bad_inputs(cuda):
 # ---------------------------------------------------------------------------
 # K9 and K10b, the device tail's strain stats and coordinate-median polish
 # (S, n_pad, p_pad): the smoke's bucket, the smallest, p_pad 8 and 32, a
-# 16-CTA-row bucket and one whose residuals sit in global memory
+# 16-CTA-row bucket and one whose residuals sit in global memory (rows in
+# registers up to here); rows in shared memory in one CTA and in a
+# cluster, p_pad past 32, and the live bits in global memory too
 K10B_SHAPES = [(10, 65536, 4), (1, 4096, 4), (3, 8192, 8), (2, 16384, 32),
-               (4, 32768, 8), (1, 524288, 4)]
-# the crafted edges of chip_smoke.polish_case, one instance each
-K10B_CRAFTED = [(5, 4096, 4), (5, 8192, 8), (5, 65536, 4), (5, 4096, 32)]
+               (4, 32768, 8), (1, 524288, 4), (1, 12288, 4), (2, 24576, 4),
+               (1, 65536, 36), (1, 524288, 32)]
+# the crafted edges of chip_smoke.polish_case, one instance each (edge 5
+# overfills K10b's candidate buffer from 65536 rows)
+K10B_CRAFTED = [(6, 4096, 4), (6, 8192, 8), (6, 65536, 4), (6, 4096, 32)]
 
 
 def _polish_args(cuda, shape, crafted=False):
@@ -1272,15 +1276,39 @@ def test_k10b_matches_plain_bit_for_bit(cuda, shape):
                          ids=[f"{s}x{n}x{p}" for s, n, p in K10B_CRAFTED])
 def test_k10b_crafted_edges_match_plain(cuda, shape):
     """Ties at every median, zeros of both signs, a column with no live
-    row, t* past both clips and a dead instance, bit for bit."""
+    row, t* past both clips, a dead instance and a first digit's bin
+    holding every live row, bit for bit."""
     chip_smoke.hold_k10b(_polish_args(cuda, shape, True),
                          f"on the crafted edges at {shape}")
 
 
-@pytest.mark.parametrize("sweeps", [0, 1, 3])
+@pytest.mark.parametrize("sweeps", [0, 1, 3, 8, 20])
 def test_k10b_other_sweep_counts_match_plain(cuda, sweeps):
     chip_smoke.hold_k10b(_polish_args(cuda, (3, 8192, 4)), f"at {sweeps} "
                          f"sweeps", sweeps)
+
+
+@pytest.mark.parametrize("sweeps", [0, 1, 3, 8, 20])
+@pytest.mark.parametrize("shape", [(6, 4096, 4), (6, 65536, 4)])
+def test_k10b_crafted_edges_at_each_sweep_count(cuda, shape, sweeps):
+    """The crafted edges, the early stop among them, at 0-20 sweeps."""
+    chip_smoke.hold_k10b(_polish_args(cuda, shape, True),
+                         f"on the crafted edges at {shape}, {sweeps} sweeps",
+                         sweeps)
+
+
+def test_k10b_marks_an_a_other_than_zero_one(cuda):
+    """An instance whose A holds a value other than 0 and 1 gets NaN x;
+    the bucket's other instances are polished."""
+    from pantax_tpu_torch.ops import profile_tail, tail_kernels
+
+    A, b, x, ub = _polish_args(cuda, (3, 16384, 4))
+    A[1, 100, 2] = 0.5
+    got = tail_kernels.launch_k10b(A, b, x, ub)
+    want = profile_tail.polish_batch_plain(A, b, x, ub)
+    assert torch.isnan(got[1]).all()
+    keep = [0, 2]
+    assert torch.equal(got[keep] + 0.0, want[keep] + 0.0)
 
 
 @pytest.mark.parametrize("shape", [(10, 65536, 4), (1, 524288, 4)])
@@ -1319,7 +1347,6 @@ def _stats_case(cuda, tmp_path):
     """tail_stats' arguments on a scale_db slice's paired coverage, fed
     on the card, as dispatch_tail_stats passes them."""
     from pantax_tpu_torch.benchmarks import scale_db
-    from pantax_tpu_torch.ops import profile_tail
     from pantax_tpu_torch.ops.fused import _ensure_tail_tables
 
     db = scale_db(tmp_path / "scale", n_species=3, genome_len=50_000)
@@ -1328,11 +1355,8 @@ def _stats_case(cuda, tmp_path):
     pipe = FusedPipeline(al, build_fused_tables(db, index, cuda), 2048)
     pipe.feed_paired(*simulate_pairs(index, 6000, seed=11))
     r = pipe.finish()
-    tt = _ensure_tail_tables(pipe.tables)
-    return ((r.na_d, r.ta_d, r.bc_d, tt.trio_hap, tt.path_node, tt.path_hap,
-             tt.node_species, 0.0),
-            {"G": tt.G, "S": tt.S, "order": tuple(
-                getattr(tt, f) for f in profile_tail.ORDER_FIELDS)})
+    return chip_smoke.k9_args(_ensure_tail_tables(pipe.tables), r.na_d,
+                              r.ta_d, r.bc_d, 0.0)
 
 
 def test_k9_matches_plain_on_fed_coverage(cuda, tmp_path):
@@ -1353,22 +1377,22 @@ def test_k9_matches_plain_on_crafted_tables(cuda, seed):
 
 
 def test_k9_rejects_bad_inputs(cuda):
-    from pantax_tpu_torch.ops import profile_tail
+    from pantax_tpu_torch.ops import tail_kernels
 
     args, kw = chip_smoke.k9_case(9, cuda)
-    na, ta, bc = args[:3]
+    na, ta, bc, path_node = args[0], args[1], args[2], args[4]
     G, S, order = kw["G"], kw["S"], kw["order"]
     extend.reset_launch_counts()
-    bad = [((na, ta.cpu(), bc, *args[3:]), order),
-           ((na.double(), ta, bc, *args[3:]), order),
-           ((na, ta, bc.long(), *args[3:]), order),
-           ((na, ta, bc[:-1], *args[3:]), order),
-           (args, (order[0], order[1][:-1], *order[2:])),
-           (args, (order[0].long(), *order[1:])),
-           (args, None)]
+    bad = [((na, ta.cpu(), bc, path_node), order),
+           ((na.double(), ta, bc, path_node), order),
+           ((na, ta, bc.long(), path_node), order),
+           ((na, ta, bc[:-1], path_node), order),
+           ((na, ta, bc, path_node), (order[0], order[1][:-1], *order[2:])),
+           ((na, ta, bc, path_node), (order[0].long(), *order[1:])),
+           ((na, ta, bc, path_node), (*order[:3], order[3][:-1]))]
     for a, o in bad:
         with pytest.raises(ValueError):
-            profile_tail.tail_stats(*a, G=G, S=S, order=o)
+            tail_kernels.tail_stats_cuda(*a, o, args[7], G=G, S=S)
     assert extend.LAUNCHES["tail_stats"] == 0
 
 

@@ -455,6 +455,8 @@ def test_admm_chunk_runs_without_jax(tmp_path):
 
 
 TAIL_SCRIPT = SEED_SCRIPT.split("    import numpy as np")[0] + textwrap.dedent("""
+    import types
+
     import torch
     from pantax_tpu_torch.ops import tail_kernels
     from pantax_tpu_torch.ops import extend, profile_tail
@@ -474,15 +476,16 @@ TAIL_SCRIPT = SEED_SCRIPT.split("    import numpy as np")[0] + textwrap.dedent("
                                    torch.tensor([0, 2, 3]).numpy(),
                                    torch.tensor([0]).numpy(),
                                    torch.tensor([3]).numpy(), 2, "cpu")
-    stats = profile_tail.tail_stats(
-        torch.tensor([1.0, 2.0, 0.0, 0.0]), torch.tensor([1.0, 2.0, 3.0,
-                                                          0.0, 5.0]),
-        torch.tensor([10, 20, 30, 0], dtype=torch.int32),
-        torch.tensor([1, 0, 2, 1, 0], dtype=torch.int32),
-        torch.tensor([0, 1, 2], dtype=torch.int32),
-        torch.tensor([0, 0, 1], dtype=torch.int32),
-        torch.tensor([0, 0, 0, 1], dtype=torch.int32), 0.0, G=2, S=1,
-        order=tuple(tt[f] for f in profile_tail.ORDER_FIELDS))
+    tables = types.SimpleNamespace(
+        trio_hap=torch.tensor([1, 0, 2, 1, 0], dtype=torch.int32),
+        path_node=torch.tensor([0, 1, 2], dtype=torch.int32),
+        path_hap=torch.tensor([0, 0, 1], dtype=torch.int32),
+        node_species=torch.tensor([0, 0, 0, 1], dtype=torch.int32),
+        G=2, S=1, **tt)
+    stats = profile_tail.dispatch_tail_stats(
+        tables, torch.tensor([1.0, 2.0, 0.0, 0.0]),
+        torch.tensor([1.0, 2.0, 3.0, 0.0, 5.0]),
+        torch.tensor([10, 20, 30, 0], dtype=torch.int32), 0.0)
     assert [float(t[0]) for t in stats] == [2.0, 3.5, 30.0, 2.0, 3.0, 2.0,
                                             2.0], stats
     assert extend.LAUNCHES["tail_stats_plain"] == 1

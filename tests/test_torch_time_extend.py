@@ -401,7 +401,8 @@ def test_ptxas_lines_name_each_instantiation():
 @pytest.mark.parametrize("kernel", ["k9", "k10b"])
 def test_parse_args_k9_k10b_take_a_baseline_and_no_ablation(kernel):
     """K9 and K10b are timed against a baseline source (an earlier
-    profile_tail.cu) and have no levers to ablate."""
+    profile_tail.cu) and take no other kernel's lever to ablate (K9 has
+    none; K10b's own are K10B_ABLATIONS)."""
     args = time_extend.parse_args(["--kernel", kernel, "base.cu"])
     assert (args.kernel, args.baseline, args.ablate) == (kernel, "base.cu",
                                                          None)
@@ -441,3 +442,40 @@ def test_ptxas_lines_name_the_tail_kernels():
         "frame, 0 bytes spill stores, 0 bytes spill loads",
         "tail_stats_kernel: Used 32 registers, used 1 barriers, 768 bytes "
         "smem"]
+
+
+@pytest.mark.parametrize("name", sorted(time_extend.K10B_ABLATIONS))
+def test_k10b_ablations_apply_to_the_current_source(name, tmp_path,
+                                                    monkeypatch):
+    """Each of K10b's levers comes out of csrc/profile_tail.cu as its text
+    says (each text once in the source), into a source of its own under
+    the build directory, and --kernel k10b takes it; K9's kernel is left
+    as it is."""
+    from pantax_tpu_torch.ops import tail_kernels
+    monkeypatch.setenv("PANTAX_TORCH_BUILD", str(tmp_path))
+    path = time_extend.ablated_source(name)
+    src, current = path.read_text(), tail_kernels._SRC.read_text()
+    assert path.name == f"profile_tail_no_{name}.cu" and src != current
+    for old, new in time_extend.K10B_ABLATIONS[name]:
+        assert current.count(old) == 1 and old not in src and new in src
+    polish = current.index("// K10b, the coordinate-median polish")
+    assert src.startswith(current[:polish])
+    args = time_extend.parse_args(["--kernel", "k10b", "base.cu",
+                                   "--ablate", name])
+    assert args.ablate == [name]
+
+
+def test_ptxas_lines_name_k10bs_instantiations():
+    """K10b's kernel is a template on the cluster (bool) and the rows a
+    thread holds in registers (int): both arguments are printed."""
+    log = ("ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__54b5"
+           "94ff_15_profile_tail_cu_4496dc4213polish_kernelILb1ELi8EEEvNS_10"
+           "PolishArgsE' for 'sm_90a'\n"
+           "ptxas info    : Used 56 registers, used 1 barriers\n"
+           "ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__54b5"
+           "94ff_15_profile_tail_cu_4496dc4213polish_kernelILb0ELi0EEEvNS_10"
+           "PolishArgsE' for 'sm_90a'\n"
+           "ptxas info    : Used 40 registers, used 1 barriers\n")
+    assert chip_smoke.ptxas_lines(log) == [
+        "polish_kernel<1,8>: Used 56 registers, used 1 barriers",
+        "polish_kernel<0,0>: Used 40 registers, used 1 barriers"]
