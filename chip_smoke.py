@@ -83,14 +83,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the kernels, recording their inputs: its tables byte-identical to
    phase 8's, the plain stages' the same strains with every numeric
    column within STRAIN_RTOL, both runs' strain_s printed, K9 and K10b
-   once per dispatch; K9 against the plain stats on the recorded coverage
-   and on crafted tables whose trio owners interleave (``k9_case``):
-   counts, path_cov, sp_max and sp_valid exact, the float sums within
-   K9_RTOL, two launches bit-identical; K10b against the plain polish bit
+   once per dispatch; K9 against the plain stats on the recorded coverage,
+   on crafted tables whose trio owners interleave (``k9_case``) and, in
+   float64 (``k9_want``), on its edges (K9_EDGES: a hap past its plan's
+   registers beside a species of 600,000 nodes, clusters of 2, G + S
+   past 132): counts, path_cov, sp_max and sp_valid exact, the float sums
+   within K9_RTOL, two launches bit-identical; K10b against the plain polish bit
    for bit (the sign of a zero aside) on every recorded bucket and on the
    crafted edges of ``polish_case`` at (6, 4096, 4) and (6, 65536, 4), at
    0, 1, 3, 8 and 20 sweeps, two launches bit-identical; K9 timed on the
-   recorded coverage, K10b on every recorded bucket, beside their bounds
+   recorded coverage (its ``stats_plan`` printed), K10b on every recorded bucket, beside their bounds
    (``tail_stats_bound``, ``polish_bound``), the plain versions and a
    CUDA-graph replay of the plain polish, with the sweeps each instance
    ran (``sweeps_run``, from the plain polish) and its live columns.
@@ -131,7 +133,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    over 131072 candidates, phase 3's shape) and the plain DP never; >= 99%
    of the reads aligned, >= 99% species accuracy, 10 species and 30
    strains; then the host tail on the same FusedResult must report the
-   same strains with abundances within 2e-4;
+   same strains with abundances within 2e-4; then both tails again with
+   the node-sampling cap (cfg.sample_nodes) at the median of K9's
+   sp_valid (``capped_tail``): the species over it take the device
+   tail's host solve, the others the device solve, and the two tails'
+   classification and species tables must be byte-identical, the
+   strains the same, abundances within 2e-4;
 9. drive the dup-graph path over dup_db at its defaults (10 species x 3
    strains of 15625 64 bp nodes, a repeat node every 8 path steps, so
    every haplotype revisits a node and the fused path takes the windowed
@@ -1974,6 +1981,14 @@ POLISH_OPS_ROW = 6
 # K9's float sums against the plain version's (float32 sums in another
 # order): the CPU test's bar against the JAX stats
 K9_RTOL = 1e-5
+# k9_case's edges past its defaults, (what, G, S, nodes, trios, heavy,
+# max_path): a hap of more trios than its plan's registers hold beside a
+# species of 600,000 nodes (clusters of 8, 4 trios a thread); clusters of 2;
+# G + S past the card's 132 SMs (a CTA a hap and a species)
+K9_EDGES = (("a hap past the registers, a species of 600,000 nodes",
+             8, 2, 600_000, 120_000, 0.5, 20_000),
+            ("clusters of 2", 70, 6, 40_000, 200_000, 0.0, 5_000),
+            ("G + S past 132", 140, 12, 50_000, 60_000, 0.0, 5_000))
 # the sweep counts K10b is held to the plain polish at
 POLISH_SWEEPS = (0, 1, 3, 8, 20)
 
@@ -2138,12 +2153,25 @@ K9_OUTPUTS = ("c1", "freq_mean", "path_cov", "sp_nz_cnt", "sp_nz_sum",
               "sp_max", "sp_valid")
 
 
-def hold_k9(args: tuple, kw: dict, what: str, lib=None) -> float:
+def k9_want(args: tuple, kw: dict, exact: bool = False) -> tuple:
+    """tail_stats_plain's seven outputs on ``args``; ``exact``: with na and
+    ta in float64 (the float sums exact to float32 rounding, where the
+    float32 sums of K9_EDGES' 600,000-node species and 70,000-trio hap are
+    themselves 2e-5 off), then float32."""
+    if exact:
+        args = (args[0].double(), args[1].double(), *args[2:])
+    return tuple(w.float() for w in profile_tail.tail_stats_plain(
+        *args, G=kw["G"], S=kw["S"]))
+
+
+def hold_k9(args: tuple, kw: dict, what: str, lib=None,
+            exact: bool = False) -> float:
     """K9 (uncounted; ``lib``'s build, default the current source's)
     against its plain version on the same tail_stats arguments (``kw``
-    holds G, S and order): the counts, path_cov and sp_max exact,
-    freq_mean and sp_nz_sum within K9_RTOL; two launches bit-identical.
-    Returns the largest absolute difference."""
+    holds G, S and order; ``exact``: the plain version in float64,
+    k9_want): the counts, path_cov and sp_max exact, freq_mean and
+    sp_nz_sum within K9_RTOL; two launches bit-identical.  Returns the
+    largest absolute difference."""
     na, ta, bc, _trio_hap, path_node = args[:5]
     G, S, order = kw["G"], kw["S"], kw["order"]
 
@@ -2152,7 +2180,7 @@ def hold_k9(args: tuple, kw: dict, what: str, lib=None) -> float:
                                       G=G, S=S, lib=lib)
 
     got = launch()
-    want = profile_tail.tail_stats_plain(*args, G=G, S=S)
+    want = k9_want(args, kw, exact)
     torch.cuda.synchronize()
     err = 0.0
     for name, g, w in zip(K9_OUTPUTS, got, want):
@@ -2183,12 +2211,14 @@ def k9_args(tt, na, ta, bc, min_depth: float) -> tuple:
 
 
 def k9_case(seed_: int, dev, G: int = 12, S: int = 4, nodes: int = 4000,
-            trios: int = 9000) -> tuple:
+            trios: int = 9000, heavy: float = 0.0,
+            max_path: int | None = None) -> tuple:
     """Crafted stats tables whose trio owners interleave within each
     species (and pad trios, owner G, among them), on ``dev``: S species of
     consecutive haps, the last species without nodes, node_species sorted,
-    each hap's path a random walk over its species' nodes; hap 0 owns no
-    trio, hap 1 only zero trios, hap 2 one nonzero trio (sigma 0).
+    each hap's path a random walk over its species' nodes (at most
+    ``max_path`` nodes); hap 0 owns no trio, hap 1 only zero trios, hap 2
+    one nonzero trio (sigma 0); hap 3 about ``heavy`` of all trios.
     Returns tail_stats' (args, kw) with K9's order tables."""
     rng = np.random.default_rng(seed_)
     hap_sp = np.sort(rng.integers(0, S - 1, G))
@@ -2200,6 +2230,7 @@ def k9_case(seed_: int, dev, G: int = 12, S: int = 4, nodes: int = 4000,
     n_pad = nodes + 96
     node_species = np.concatenate([node_sp, np.full(96, S, np.int32)])
     trio_hap = rng.integers(3, G + 1, trios).astype(np.int32)  # G: pads
+    trio_hap[rng.random(trios) < heavy] = 3
     trio_hap[rng.choice(trios, 45, replace=False)] = [1] * 40 + [2] * 5
     ta = np.where(rng.random(trios) < 0.3, 0.0,
                   rng.gamma(2.0, 4.0, trios)).astype(np.float32)
@@ -2213,7 +2244,8 @@ def k9_case(seed_: int, dev, G: int = 12, S: int = 4, nodes: int = 4000,
     parts = []
     for g in range(G):
         own = np.flatnonzero(node_species == hap_sp[g])
-        parts.append(rng.choice(own, size=int(rng.integers(1, 3 * len(own))))
+        size = int(rng.integers(1, 3 * len(own)))
+        parts.append(rng.choice(own, size=min(size, max_path or size))
                      .astype(np.int32))
     path_node = np.concatenate(parts)
     hap_node_off = np.zeros(G + 1, np.int64)
@@ -2319,10 +2351,12 @@ def tail_phase(build: str, dev, result, tables, index, db, cfg, out: str,
           + "; plain " + ", ".join(
               f"{k} {v:.4f}" for k, v in runs["plain"][1].items()))
 
-    # K9 on the recorded coverage and on crafted tables
+    # K9 on the recorded coverage, on crafted tables and on its edges
     args, kw = k9_args(*stats_log[0][0])
     err9 = max(hold_k9(args, kw, "on the paired device tail's coverage"),
-               hold_k9(*k9_case(9, dev), "on crafted tables"))
+               hold_k9(*k9_case(9, dev), "on crafted tables"),
+               *(hold_k9(*k9_case(21 + i, dev, *shape), what, exact=True)
+                 for i, (what, *shape) in enumerate(K9_EDGES)))
     na, ta, bc, _trio_hap, path_node = args[:5]
     G, S, order = kw["G"], kw["S"], kw["order"]
     ms9 = cuda_ms(lambda: tail_kernels.launch_k9(
@@ -2330,9 +2364,10 @@ def tail_phase(build: str, dev, result, tables, index, db, cfg, out: str,
     plain9 = cuda_ms(lambda: profile_tail.tail_stats_plain(*args, G=G, S=S),
                      5)
     bound9, by9, work9 = tail_stats_bound(path_node, order, G, S)
+    plan9 = tail_kernels.stats_plan(G, S, order[0].numel())
     print(f"K9 [{card_line()}] on the paired device tail (G {G}, S {S}, "
           f"N_pad {na.numel()}, {order[0].numel()} trios, "
-          f"{path_node.numel()} path nodes): {ms9:.4f} ms, plain "
+          f"{path_node.numel()} path nodes; {plan9}): {ms9:.4f} ms, plain "
           f"{plain9:.3f} ms, bound {bound9:.4f} ms ({by9}: {work9['bytes']} "
           f"bytes), {bound9 / ms9:.3f} of the bound")
 
@@ -2384,7 +2419,8 @@ def tail_phase(build: str, dev, result, tables, index, db, cfg, out: str,
     S10, n10, p10 = by_bucket[top]["shape"]
     bound10, by10, _work = polish_bound(S10, n10, p10, 8, issue_peak)
     tail_s = {name: runs[name][1]["strain_s"] for name in runs}
-    return ((err9, ms9, plain9, bound9, by9, {"strain_s": tail_s},
+    return ((err9, ms9, plain9, bound9, by9,
+             {"strain_s": tail_s, "plan": dataclasses.asdict(plan9)},
              f"G {G}, S {S}, N_pad {na.numel()} (the paired device tail)"),
             (err10, ms10, plain10, bound10, by10,
              {"graph_replay_ms": graph10, "strain_s": tail_s,
@@ -2780,7 +2816,73 @@ def paired_path(build: str, dev, db, index, tables, issue_peak: float):
           f"tail's two calls wrote byte-identical tables")
     if diff > 2e-4:
         raise AssertionError("device and host tail abundances differ by > 2e-4")
+    capped_tail(build, result, tables, index, db)
     return launches["banded_extend"], ((c1, l1, c2, l2), hap), k8, k9_k10b
+
+
+def capped_tail(build: str, result, tables, index, db) -> None:
+    """The device tail's sampling-cap fallback on the card (phase 8):
+    cfg.sample_nodes at the median of the species' sp_valid from K9, so the
+    species over it take the host solve (their rows sampled on the host)
+    and the others the device solve (ops/fused.py); the device tail's
+    classification and species tables byte-identical to the host tail's at
+    the same cap, the same strains, abundances within 2e-4, K9 and K10b
+    once per dispatch."""
+    from pantax_tpu_torch.profile import engine
+
+    valid = profile_tail.compute_tail_stats(
+        _ensure_tail_tables(tables), result.na_d, result.ta_d, result.bc_d,
+        0.0).sp_valid
+    cap = int(np.sort(valid)[len(valid) // 2])
+    over = int((valid > cap).sum())
+    if not 0 < over < len(valid):
+        raise AssertionError(f"capped tail: cap {cap} splits no species "
+                             f"(sp_valid {valid})")
+    prepare = engine.prepare_two_stage
+    host_solves = []
+
+    def counted(*args, **kw):
+        host_solves.append(args[1])
+        return prepare(*args, **kw)
+
+    outs = {}
+    for tail in ("device", "host"):
+        cfg = _host.ProfilingConfig.for_read_type("short")
+        cfg.solver, cfg.tail, cfg.sample_nodes = "admm", tail, cap
+        outs[tail] = os.path.join(build, f"smoke_paired_capped_{tail}_out")
+        shutil.rmtree(outs[tail], ignore_errors=True)
+        extend.reset_launch_counts()
+        if tail == "device":
+            engine.prepare_two_stage = counted
+        try:
+            profile_from_fused_result(result, tables, index, db, cfg,
+                                      outs[tail])
+            torch.cuda.synchronize()
+        finally:
+            engine.prepare_two_stage = prepare
+        launches = dict(extend.LAUNCHES)
+        check_k3(launches, f"paired capped {tail} tail")
+        if tail == "device":
+            polish = launches["polish"]
+            if not launches["tail_stats"] or not polish or not host_solves:
+                raise AssertionError(
+                    f"capped tail: K9 {launches['tail_stats']}, K10b "
+                    f"{polish} launches, {len(host_solves)} host solves")
+    files_identical(outs["host"], outs["device"], CLASS_SPECIES,
+                    "paired capped tails")
+    dev_ab, host_ab = (strain_abundance(outs[t]) for t in ("device", "host"))
+    if set(dev_ab) != set(host_ab):
+        raise AssertionError("capped tails report different strains")
+    diff = max(abs(dev_ab[k] - host_ab[k]) for k in dev_ab)
+    print(f"paired capped: sample_nodes {cap} (the median sp_valid from K9; "
+          f"{over} of {len(valid)} species over it): the device tail sent "
+          f"{len(host_solves)} species of {sorted(host_solves)} nodes to the "
+          f"host solve and the rest to the device solve (K10b {polish} "
+          f"launches); classification and species tables byte-identical to "
+          f"the host tail's, the same {len(dev_ab)} strains, abundances "
+          f"within {diff:.3g}")
+    if diff > 2e-4:
+        raise AssertionError("capped tails' abundances differ by > 2e-4")
 
 
 def dup_path(build: str, dev):

@@ -15,25 +15,37 @@
 // tail_stats_plain) runs ~40 launches of index_put_ sums.
 //
 // What bounds it: bytes.  Each input is read once (na over the species'
-// node spans, ta, the owner order, the path nodes and their bc), a few MB
-// at the smoke DB, and the arithmetic is a few instructions an element.  What keeps it
-// from the bound is that a hap's three passes over its trios depend on
-// each other (the mean before the deviations, sigma before the kept set).
+// node spans, ta, the owner order, the path nodes and their bc), ~11 MB at
+// the smoke DB, and the arithmetic is a few instructions an element.  What
+// keeps it from the bound is latency: a hap's three passes over its trios
+// depend on each other (the mean before the deviations, sigma before the
+// kept set), each trio is a chain of two loads (its index, then ta), and
+// forty haps and species are too few CTAs for 132 SMs.
 //
 // Design.  Trio owners are not sorted (they vary per trio within a
 // species), so the tables give a stable owner-sorted trio order and per-hap
 // offsets (TailTables.trio_order, hap_trio_off, built once on the host);
 // a hap's path is a slice of path_node (hap_path_off) and a species' nodes
-// a span (sp_node_span: sp_off, sp_off + sp_nvert).  One CTA a hap walks its
-// trios three times (the second and third from L2) and its path once; one
-// CTA a species walks its node slice.  Every float sum is taken in double
-// over a fixed assignment of elements to threads and reduced in a fixed
-// tree, then rounded to float32: no float atomics, so two launches give the
-// same bits (float atomics in a run-dependent order printed other strain
-// tables from one coverage).  Counts, path_cov, sp_max and sp_valid are
-// exact.  The float32 steps between the sums (mu, sigma, 3 sigma, the
-// strict < of the kept test, the final divisions) are the plain version's,
-// rounded the same way.
+// a span (sp_node_span: sp_off, sp_off + sp_nvert).  A thread block cluster
+// of C CTAs (ops/tail_kernels.py's stats_plan: the smallest C whose (G + S)
+// C CTAs fill the SMs, more where a hap's trios would not fit on chip) takes
+// a hap or a species, each CTA a fixed share of its elements.  A hap's
+// threads gather their trio values once into registers (R a thread; the
+// rest are gathered again from L2 in each pass) and issue their path
+// gathers with them, so the path's latency hides under the trio passes.
+// The three passes end in three exchanges, each CTA's partial sums stored
+// into every CTA of the cluster (the last into rank 0) with st.async onto
+// an mbarrier a round; every CTA adds the ranks' partials in rank order, so
+// every CTA derives the same mu and sigma with no broadcast.  A species'
+// span is read as float4s, its unaligned head and tail apart.  Every float
+// sum is taken in double over a fixed assignment of elements to threads
+// (a function of C, which is one of the shapes), reduced in a fixed tree
+// and then in rank order, then rounded to float32: no float atomics, so
+// two launches give the same bits (float atomics in a run-dependent order
+// printed other strain tables from one coverage).  Counts, path_cov,
+// sp_max and sp_valid are exact.  The float32 steps between the sums (mu,
+// sigma, 3 sigma, the strict < of the kept test, the final divisions) are
+// the plain version's, rounded the same way.
 //
 // K10b replaces the JAX package's _polish_batch (pantax_tpu/ops/
 // profile_tail.py:391), a jitted lax.scan of 8 sweeps of p columns, each a
@@ -114,191 +126,8 @@ constexpr int kMaxCluster = 8;      // portable cluster size
 constexpr int kMaxSmem = 232448;    // a block's shared memory on sm_90
 
 // ---------------------------------------------------------------------------
-// K9, the tail stats
+// The cluster's exchanges (K9 and K10b)
 // ---------------------------------------------------------------------------
-struct StatsArgs {
-    const float* na;           // [N] node abundance
-    const float* ta;           // [U] trio abundance
-    const int* bc;             // [N] covered bases
-    const int* trio_order;     // trios sorted by owner (stable), pads out
-    const int* hap_trio_off;   // [G + 1] a hap's slice of trio_order
-    const int* path_node;      // [Pn] global node ids grouped by hap
-    const int* hap_path_off;   // [G + 1] a hap's slice of path_node
-    const int* sp_node_span;   // [2S] a species' node slice: starts, ends
-    float min_depth;
-    int G, S;
-    float* out;  // [3G + 4S]: c1, freq_mean, path_cov [G]; sp_nz_cnt,
-                 // sp_nz_sum, sp_max, sp_valid [S]
-};
-
-struct Add {
-    template <typename T>
-    __device__ T operator()(T a, T b) const { return a + b; }
-};
-
-struct Max {
-    __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
-};
-
-__device__ __forceinline__ float neg_inf() { return __uint_as_float(0xff800000u); }
-
-// The block's reduction of v in a fixed order (each warp's tree, then the
-// warps' in a tree of warp 0): the same bits every launch.  ``scratch``
-// holds 32 values; every thread gets the result.
-template <typename T, typename Op>
-__device__ T block_reduce(T v, Op op, T id, T* scratch) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int warps = blockDim.x >> 5;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_down_sync(0xffffffffu, v, o));
-    __syncthreads();  // the scratch's previous readers are done
-    if (lane == 0) scratch[warp] = v;
-    __syncthreads();
-    if (warp == 0) {
-        v = lane < warps ? scratch[lane] : id;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-            v = op(v, __shfl_down_sync(0xffffffffu, v, o));
-        if (lane == 0) scratch[0] = v;
-    }
-    __syncthreads();
-    return scratch[0];
-}
-
-__global__ void __launch_bounds__(kStatsThreads) tail_stats_kernel(StatsArgs a) {
-    __shared__ double dbuf[32];
-    __shared__ long long lbuf[32];
-    __shared__ int ibuf[32];
-    __shared__ float fbuf[32];
-    const int tid = threadIdx.x, step = blockDim.x;
-    const int G = a.G, S = a.S;
-    if (static_cast<int>(blockIdx.x) < G) {
-        const int g = blockIdx.x;
-        const int lo = a.hap_trio_off[g], hi = a.hap_trio_off[g + 1];
-        int c = 0;
-        double s1 = 0.0;
-        for (int i = lo + tid; i < hi; i += step) {
-            const float t = a.ta[a.trio_order[i]];
-            if (t > 0.f) {
-                ++c;
-                s1 += static_cast<double>(t);
-            }
-        }
-        c = block_reduce(c, Add(), 0, ibuf);
-        s1 = block_reduce(s1, Add(), 0.0, dbuf);
-        const float c1 = __int2float_rn(c);
-        const float cm = fmaxf(c1, 1.f);
-        const float mu = __fdiv_rn(__double2float_rn(s1), cm);
-        double s2 = 0.0;
-        for (int i = lo + tid; i < hi; i += step) {
-            const float t = a.ta[a.trio_order[i]];
-            if (t > 0.f) {
-                const float d = __fsub_rn(t, mu);
-                s2 += static_cast<double>(__fmul_rn(d, d));
-            }
-        }
-        s2 = block_reduce(s2, Add(), 0.0, dbuf);
-        const float sigma = __fsqrt_rn(__fdiv_rn(__double2float_rn(s2), cm));
-        const float lim = __fmul_rn(3.f, sigma);
-        int kc = 0;
-        double ks = 0.0;
-        for (int i = lo + tid; i < hi; i += step) {
-            const float t = a.ta[a.trio_order[i]];
-            if (t > 0.f && fabsf(__fsub_rn(t, mu)) < lim) {
-                ++kc;
-                ks += static_cast<double>(t);
-            }
-        }
-        kc = block_reduce(kc, Add(), 0, ibuf);
-        ks = block_reduce(ks, Add(), 0.0, dbuf);
-        long long pc = 0;
-        const int plo = a.hap_path_off[g], phi = a.hap_path_off[g + 1];
-        for (int i = plo + tid; i < phi; i += step) pc += a.bc[a.path_node[i]];
-        pc = block_reduce(pc, Add(), 0LL, lbuf);
-        if (tid == 0) {
-            const float kcf = __int2float_rn(kc);
-            a.out[g] = c1;
-            a.out[G + g] = (sigma > 0.f && kcf > 0.f)
-                               ? __fdiv_rn(__double2float_rn(ks), fmaxf(kcf, 1.f))
-                               : 0.f;
-            a.out[2 * G + g] = __ll2float_rn(pc);
-        }
-        return;
-    }
-    const int s = blockIdx.x - G;
-    const int lo = a.sp_node_span[s], hi = a.sp_node_span[S + s];
-    int nz = 0, valid = 0;
-    double sum = 0.0;
-    float mx = neg_inf();
-    for (int i = lo + tid; i < hi; i += step) {
-        const float v = a.na[i];
-        const float opt = v > a.min_depth ? v : 0.f;
-        if (opt > 0.f) {
-            ++nz;
-            sum += static_cast<double>(opt);
-        }
-        if (v > 0.f) ++valid;
-        mx = fmaxf(mx, v);
-    }
-    nz = block_reduce(nz, Add(), 0, ibuf);
-    valid = block_reduce(valid, Add(), 0, ibuf);
-    sum = block_reduce(sum, Add(), 0.0, dbuf);
-    mx = block_reduce(mx, Max(), neg_inf(), fbuf);
-    if (tid == 0) {
-        float* o = a.out + 3 * G;
-        o[s] = __int2float_rn(nz);
-        o[S + s] = __double2float_rn(sum);
-        o[2 * S + s] = mx;
-        o[3 * S + s] = __int2float_rn(valid);
-    }
-}
-
-// ---------------------------------------------------------------------------
-// K10b, the coordinate-median polish
-// ---------------------------------------------------------------------------
-constexpr int kDigitBins = 2048;    // a digit's bins (11 bits; the last 10)
-constexpr int kGroups = kDigitBins / 32;  // the merge's groups of 32 bins
-constexpr int kGroupsLane = kGroups / 32;  // a lane's groups in the merge
-constexpr int kChunk = 8;           // rows a thread takes at once from memory
-constexpr int kRegRows = 8;         // rows a thread holds in registers at most
-constexpr int kMaxCap = 16384;      // candidate keys a CTA holds at most
-constexpr int kMinCap = 4096;       // r on chip only where this many still fit
-constexpr int kRankLoads = 4;       // a rank loop's loads in flight
-constexpr int kRankSelect = 256;    // candidates ranked at once, 4 threads
-                                    // a candidate
-
-struct PolishArgs {
-    const float* A;     // [S, n, p]
-    const float* b;     // [S, n]
-    const float* x0;    // [S, p]
-    const float* ub;    // [S, p]
-    float* scratch;     // r [S, n] where not on chip, then the bits where
-                        // not on chip; else null
-    float* x;           // [S, p] out
-    int n, p, sweeps;
-    int rows;           // rows a CTA (n / cluster)
-    int cap;            // candidate keys a CTA
-    int on_chip;        // r in shared memory (or registers)
-    int bits_on_chip;   // the live bits in shared memory (or registers)
-};
-
-// order-preserving keys: key(u) < key(v) iff u < v (for non-NaN floats;
-// -0.0 just below +0.0)
-__device__ __forceinline__ unsigned order_key(float v) {
-    const unsigned u = __float_as_uint(v);
-    return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float key_value(unsigned k) {
-    return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
-}
-
-// the bits above `shift` (none at 32): a key has the bits `prefix` above
-// `shift` where (key & high_mask(shift)) == prefix << shift
-__device__ __forceinline__ unsigned high_mask(int shift) {
-    return shift >= 32 ? 0u : ~0u << shift;
-}
-
 // a word of CTA `rank`'s shared memory at the address of `p` in this CTA
 __device__ __forceinline__ unsigned cluster_addr(const void* p, unsigned rank) {
     unsigned d;
@@ -350,6 +179,464 @@ __device__ __forceinline__ void st_async(const unsigned* dst, uint64_t* bar,
         "[%2];" ::"r"(cluster_addr(dst, rank)),
         "r"(v), "r"(cluster_addr(bar, rank))
         : "memory");
+}
+
+// The cluster barrier in two halves: each CTA arrives once its exchanges'
+// barriers are set (relaxed: fence.mbarrier_init orders the setting) and
+// waits before its first store into another CTA.
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait;" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// K9, the tail stats
+// ---------------------------------------------------------------------------
+// The design's levers, each taken out by scripts/time_extend.py --kernel k9
+// --ablate: a cluster of CTAs a hap and a species (else one CTA, 16 trio
+// values a thread in registers), a hap's trio values kept in registers
+// through its three passes (else gathered again from L2 in each), the
+// path's gathers issued before the trio passes (else after the third).
+constexpr bool kStatsCluster = true;
+constexpr bool kKeepTrios = true;
+constexpr bool kPathEarly = true;
+constexpr int kStatsRegsMax = 16;   // trio values a thread in registers at most
+constexpr int kSpanLoads = 4;       // float4s of a species a thread loads at once
+constexpr int kStatsSMs = 132;      // the H100's SMs: the grid fills them
+// the words a CTA sends in each exchange: a hap's (c, s1) and (s2) to every
+// CTA of its cluster, its (kc, ks, pc) and a species' (nz, valid, sum, max)
+// to rank 0
+constexpr int kRound1 = 3, kRound2 = 2, kRound3 = 5;
+
+struct StatsArgs {
+    const float* na;           // [N] node abundance
+    const float* ta;           // [U] trio abundance
+    const int* bc;             // [N] covered bases
+    const int* trio_order;     // trios sorted by owner (stable), pads out
+    const int* hap_trio_off;   // [G + 1] a hap's slice of trio_order
+    const int* path_node;      // [Pn] global node ids grouped by hap
+    const int* hap_path_off;   // [G + 1] a hap's slice of path_node
+    const int* sp_node_span;   // [2S] a species' node slice: starts, ends
+    float min_depth;
+    int G, S;
+    int cluster;               // CTAs a hap and a species
+    float* out;  // [3G + 4S]: c1, freq_mean, path_cov [G]; sp_nz_cnt,
+                 // sp_nz_sum, sp_max, sp_valid [S]
+};
+
+struct Add {
+    template <typename T>
+    __device__ T operator()(T a, T b) const { return a + b; }
+};
+
+struct Max {
+    __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
+};
+
+__device__ __forceinline__ float neg_inf() { return __uint_as_float(0xff800000u); }
+
+// a warp's v in a fixed tree: lane l adds lane l + o for o = 16, 8, 4, 2,
+// 1 (lane 0 holds the result)
+template <typename V, typename Op>
+__device__ __forceinline__ V warp_tree(V v, Op op) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_down_sync(0xffffffffu, v, o));
+    return v;
+}
+
+// a warp's values of scratch (lanes past `warps`: id) in the fixed tree,
+// in every lane
+template <typename V, typename Op>
+__device__ __forceinline__ V warps_tree(const V* scratch, int warps, Op op, V id) {
+    const int lane = threadIdx.x & 31;
+    V v = warp_tree(lane < warps ? scratch[lane] : id, op);
+    return __shfl_sync(0xffffffffu, v, 0);
+}
+
+__device__ __forceinline__ unsigned lo_word(double v) {
+    return static_cast<unsigned>(__double2loint(v));
+}
+
+__device__ __forceinline__ unsigned hi_word(double v) {
+    return static_cast<unsigned>(__double2hiint(v));
+}
+
+__device__ __forceinline__ double as_double(const unsigned* w) {
+    return __hiloint2double(static_cast<int>(w[1]), static_cast<int>(w[0]));
+}
+
+// Warp 0 stores this CTA's N words `v` into its slot (`rank`) of `slots`
+// in CTAs 0 .. to - 1 of the cluster, lane q into CTA q, each counted on
+// that CTA's barrier `bar`; a CTA alone (C 1) into its own.
+template <int N>
+__device__ __forceinline__ void push(unsigned* slots, uint64_t* bar, int C,
+                                     unsigned rank, int to, const unsigned (&v)[N]) {
+    const int lane = threadIdx.x & 31;
+    unsigned* dst = slots + rank * N;
+    if (C == 1) {
+        if (lane == 0) {
+#pragma unroll
+            for (int w = 0; w < N; ++w) dst[w] = v[w];
+        }
+    } else if (lane < to) {
+#pragma unroll
+        for (int w = 0; w < N; ++w) st_async(dst + w, bar, lane, v[w]);
+    }
+}
+
+// R: a thread's trio values held in registers (slots), P: its path nodes
+// gathered at once; 512 threads, clusters of a.cluster CTAs.  Element j of
+// a hap's trios (of its path, of a species' float4s) belongs to rank (j /
+// 512) % C, thread j % 512, slot j / (512 C): each thread adds its slots in
+// order, a CTA its threads in a fixed tree, every CTA the ranks in order.
+template <int R, int P>
+__global__ void __launch_bounds__(kStatsThreads, 2) tail_stats_kernel(StatsArgs a) {
+    constexpr int T = kStatsThreads, W = T / 32;
+    __shared__ uint64_t bars[3];
+    __shared__ unsigned slots[3][kMaxCluster * kRound3];
+    __shared__ int iscr[2][W];
+    __shared__ double dscr[3][W];
+    __shared__ long long lscr[W];
+    __shared__ float fscr[W];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int C = a.cluster, TC = T * C;
+    const unsigned rank = C > 1 ? cg::this_cluster().block_rank() : 0u;
+    const int item = blockIdx.x / C, G = a.G, S = a.S;
+    const bool is_hap = item < G;
+    if (C > 1) {
+        if (tid == 0) {
+            for (int i = 0; i < 3; ++i) mbar_init(bars + i);
+            asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+            if (is_hap) {
+                mbar_expect(bars, C * kRound1 * 4);
+                mbar_expect(bars + 1, C * kRound2 * 4);
+            }
+            if (rank == 0) mbar_expect(bars + 2, C * kRound3 * 4);
+        }
+        cluster_arrive();
+    }
+    // the exchange of rounds 1 and 2: every CTA holds every rank's words
+    auto receive = [&](int r) {
+        if (C > 1) mbar_wait(bars + r, 0);
+        else __syncthreads();
+    };
+    const int base = static_cast<int>(rank) * T + tid;  // slot 0's element
+
+    if (is_hap) {
+        const int g = item;
+        const int lo = a.hap_trio_off[g], n = a.hap_trio_off[g + 1] - lo;
+        const int plo = a.hap_path_off[g], pn = a.hap_path_off[g + 1] - plo;
+        const int* order = a.trio_order + lo;
+        const int* path = a.path_node + plo;
+        int pidx[P], pv[P], tidx[R];
+        float tv[R];
+        auto path_nodes = [&] {
+#pragma unroll
+            for (int k = 0; k < P; ++k) {
+                const int j = base + k * TC;
+                pidx[k] = j < pn ? path[j] : -1;
+            }
+        };
+        auto path_gather = [&] {
+#pragma unroll
+            for (int k = 0; k < P; ++k) pv[k] = pidx[k] >= 0 ? a.bc[pidx[k]] : 0;
+        };
+        // the loads in flight at once: the path's nodes and the trios'
+        // indices, then the trios' gathers (pass 1 waits on them), then
+        // the path's; the path's bc is added after the third pass
+        if (kPathEarly) path_nodes();
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+            const int j = base + k * TC;
+            tidx[k] = j < n ? order[j] : -1;
+        }
+#pragma unroll
+        for (int k = 0; k < R; ++k) tv[k] = tidx[k] >= 0 ? a.ta[tidx[k]] : 0.f;
+        if (kPathEarly) path_gather();
+        // slot k's trio value in passes 2 and 3
+        auto value = [&](int k) -> float {
+            if constexpr (kKeepTrios) {
+                return tv[k];
+            } else {
+                const int j = base + k * TC;
+                return j < n ? a.ta[order[j]] : 0.f;
+            }
+        };
+        // the slots past the registers, from L2 in every pass, 4 at once
+        auto spilled = [&](auto&& f) {
+            for (int j0 = base + R * TC; j0 < n; j0 += 4 * TC) {
+                int ix[4];
+                float t[4];
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                    const int j = j0 + u * TC;
+                    ix[u] = j < n ? order[j] : -1;
+                }
+#pragma unroll
+                for (int u = 0; u < 4; ++u) t[u] = ix[u] >= 0 ? a.ta[ix[u]] : 0.f;
+#pragma unroll
+                for (int u = 0; u < 4; ++u) f(t[u]);
+            }
+        };
+
+        // pass 1: the nonzero trios' count and sum
+        int c = 0;
+        double s1 = 0.0;
+        auto first = [&](float t) {
+            if (t > 0.f) {
+                ++c;
+                s1 += static_cast<double>(t);
+            }
+        };
+#pragma unroll
+        for (int k = 0; k < R; ++k) first(tv[k]);
+        spilled(first);
+        if (C > 1) cluster_wait();  // every CTA's barriers are set
+        c = warp_tree(c, Add());
+        s1 = warp_tree(s1, Add());
+        if (lane == 0) {
+            iscr[0][warp] = c;
+            dscr[0][warp] = s1;
+        }
+        __syncthreads();
+        if (warp == 0) {
+            const int cc = warps_tree(iscr[0], W, Add(), 0);
+            const double ss = warps_tree(dscr[0], W, Add(), 0.0);
+            const unsigned v[kRound1] = {static_cast<unsigned>(cc), lo_word(ss),
+                                         hi_word(ss)};
+            push(slots[0], bars, C, rank, C, v);
+        }
+        receive(0);
+        int ct = 0;
+        double s1t = 0.0;
+        for (int q = 0; q < C; ++q) {
+            ct += static_cast<int>(slots[0][q * kRound1]);
+            s1t += as_double(slots[0] + q * kRound1 + 1);
+        }
+        const float c1 = __int2float_rn(ct);
+        const float cm = fmaxf(c1, 1.f);
+        const float mu = __fdiv_rn(__double2float_rn(s1t), cm);
+
+        // pass 2: the squared deviations
+        double s2 = 0.0;
+        auto second = [&](float t) {
+            if (t > 0.f) {
+                const float d = __fsub_rn(t, mu);
+                s2 += static_cast<double>(__fmul_rn(d, d));
+            }
+        };
+#pragma unroll
+        for (int k = 0; k < R; ++k) second(value(k));
+        spilled(second);
+        s2 = warp_tree(s2, Add());
+        if (lane == 0) dscr[1][warp] = s2;
+        __syncthreads();
+        if (warp == 0) {
+            const double ss = warps_tree(dscr[1], W, Add(), 0.0);
+            const unsigned v[kRound2] = {lo_word(ss), hi_word(ss)};
+            push(slots[1], bars + 1, C, rank, C, v);
+        }
+        receive(1);
+        double s2t = 0.0;
+        for (int q = 0; q < C; ++q) s2t += as_double(slots[1] + q * kRound2);
+        const float sigma = __fsqrt_rn(__fdiv_rn(__double2float_rn(s2t), cm));
+        const float lim = __fmul_rn(3.f, sigma);
+
+        // pass 3: the kept set (|t - mu| < 3 sigma, strictly), then the path
+        int kc = 0;
+        double ks = 0.0;
+        auto third = [&](float t) {
+            if (t > 0.f && fabsf(__fsub_rn(t, mu)) < lim) {
+                ++kc;
+                ks += static_cast<double>(t);
+            }
+        };
+#pragma unroll
+        for (int k = 0; k < R; ++k) third(value(k));
+        spilled(third);
+        if (!kPathEarly) {
+            path_nodes();
+            path_gather();
+        }
+        long long pc = 0;
+#pragma unroll
+        for (int k = 0; k < P; ++k) pc += pv[k];
+        for (int j0 = base + P * TC; j0 < pn; j0 += 4 * TC) {
+            int ix[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                const int j = j0 + u * TC;
+                ix[u] = j < pn ? path[j] : -1;
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u) pc += ix[u] >= 0 ? a.bc[ix[u]] : 0;
+        }
+        kc = warp_tree(kc, Add());
+        ks = warp_tree(ks, Add());
+        pc = warp_tree(pc, Add());
+        if (lane == 0) {
+            iscr[1][warp] = kc;
+            dscr[2][warp] = ks;
+            lscr[warp] = pc;
+        }
+        __syncthreads();
+        if (warp == 0) {
+            const int kk = warps_tree(iscr[1], W, Add(), 0);
+            const double ss = warps_tree(dscr[2], W, Add(), 0.0);
+            const long long pp = warps_tree(lscr, W, Add(), 0LL);
+            const unsigned v[kRound3] = {
+                static_cast<unsigned>(kk), lo_word(ss), hi_word(ss),
+                static_cast<unsigned>(pp),
+                static_cast<unsigned>(static_cast<unsigned long long>(pp) >> 32)};
+            push(slots[2], bars + 2, C, rank, 1, v);
+        }
+        if (rank != 0 || tid != 0) return;  // rank 0's thread 0 writes
+        if (C > 1) mbar_wait(bars + 2, 0);
+        int kct = 0;
+        double kst = 0.0;
+        long long pct = 0;
+        for (int q = 0; q < C; ++q) {
+            const unsigned* w = slots[2] + q * kRound3;
+            kct += static_cast<int>(w[0]);
+            kst += as_double(w + 1);
+            pct += static_cast<long long>((static_cast<unsigned long long>(w[4]) << 32) | w[3]);
+        }
+        const float kcf = __int2float_rn(kct);
+        a.out[g] = c1;
+        a.out[G + g] = (sigma > 0.f && kcf > 0.f)
+                           ? __fdiv_rn(__double2float_rn(kst), fmaxf(kcf, 1.f))
+                           : 0.f;
+        a.out[2 * G + g] = __ll2float_rn(pct);
+        return;
+    }
+
+    // a species: its node span cut at 16-byte boundaries, the head (up to
+    // 3 nodes) to rank 0's threads 0-3, the tail (up to 3) to its threads
+    // 4-7, the float4s between them to every rank's threads
+    const int s = item - G;
+    const int lo = a.sp_node_span[s], hi = a.sp_node_span[S + s];
+    const float md = a.min_depth;
+    int nz = 0, valid = 0;
+    double sum = 0.0;
+    float mx = neg_inf();
+    auto take = [&](float v) {
+        const float opt = v > md ? v : 0.f;
+        if (opt > 0.f) {
+            ++nz;
+            sum += static_cast<double>(opt);
+        }
+        if (v > 0.f) ++valid;
+        mx = fmaxf(mx, v);
+    };
+    const unsigned mis = static_cast<unsigned>(
+        reinterpret_cast<uintptr_t>(a.na + lo) >> 2);  // the 4-byte word
+    const int head = min(hi - lo, static_cast<int>((0u - mis) & 3u));
+    const int a0 = lo + head, nq = (hi - a0) >> 2, a1 = a0 + 4 * nq;
+    if (rank == 0 && tid < 4 && tid < head) take(a.na[lo + tid]);
+    if (rank == 0 && tid >= 4 && tid < 8 && a1 + tid - 4 < hi) take(a.na[a1 + tid - 4]);
+    const float4* body = reinterpret_cast<const float4*>(a.na + a0);
+    for (int q0 = base; q0 < nq; q0 += kSpanLoads * TC) {
+        float4 v[kSpanLoads];
+#pragma unroll
+        for (int u = 0; u < kSpanLoads; ++u)
+            if (q0 + u * TC < nq) v[u] = body[q0 + u * TC];
+#pragma unroll
+        for (int u = 0; u < kSpanLoads; ++u)
+            if (q0 + u * TC < nq) {
+                take(v[u].x);
+                take(v[u].y);
+                take(v[u].z);
+                take(v[u].w);
+            }
+    }
+    if (C > 1) cluster_wait();  // every CTA's barriers are set
+    nz = warp_tree(nz, Add());
+    valid = warp_tree(valid, Add());
+    sum = warp_tree(sum, Add());
+    mx = warp_tree(mx, Max());
+    if (lane == 0) {
+        iscr[0][warp] = nz;
+        iscr[1][warp] = valid;
+        dscr[0][warp] = sum;
+        fscr[warp] = mx;
+    }
+    __syncthreads();
+    if (warp == 0) {
+        const int zz = warps_tree(iscr[0], W, Add(), 0);
+        const int vv = warps_tree(iscr[1], W, Add(), 0);
+        const double ss = warps_tree(dscr[0], W, Add(), 0.0);
+        const float mm = warps_tree(fscr, W, Max(), neg_inf());
+        const unsigned v[kRound3] = {static_cast<unsigned>(zz),
+                                     static_cast<unsigned>(vv), lo_word(ss),
+                                     hi_word(ss), __float_as_uint(mm)};
+        push(slots[2], bars + 2, C, rank, 1, v);
+    }
+    if (rank != 0 || tid != 0) return;  // rank 0's thread 0 writes
+    if (C > 1) mbar_wait(bars + 2, 0);
+    int zt = 0, vt = 0;
+    double st = 0.0;
+    float mt = neg_inf();
+    for (int q = 0; q < C; ++q) {
+        const unsigned* w = slots[2] + q * kRound3;
+        zt += static_cast<int>(w[0]);
+        vt += static_cast<int>(w[1]);
+        st += as_double(w + 2);
+        mt = fmaxf(mt, __uint_as_float(w[4]));
+    }
+    float* o = a.out + 3 * G;
+    o[s] = __int2float_rn(zt);
+    o[S + s] = __double2float_rn(st);
+    o[2 * S + s] = mt;
+    o[3 * S + s] = __int2float_rn(vt);
+}
+
+// ---------------------------------------------------------------------------
+// K10b, the coordinate-median polish
+// ---------------------------------------------------------------------------
+constexpr int kDigitBins = 2048;    // a digit's bins (11 bits; the last 10)
+constexpr int kGroups = kDigitBins / 32;  // the merge's groups of 32 bins
+constexpr int kGroupsLane = kGroups / 32;  // a lane's groups in the merge
+constexpr int kChunk = 8;           // rows a thread takes at once from memory
+constexpr int kRegRows = 8;         // rows a thread holds in registers at most
+constexpr int kMaxCap = 16384;      // candidate keys a CTA holds at most
+constexpr int kMinCap = 4096;       // r on chip only where this many still fit
+constexpr int kRankLoads = 4;       // a rank loop's loads in flight
+constexpr int kRankSelect = 256;    // candidates ranked at once, 4 threads
+                                    // a candidate
+
+struct PolishArgs {
+    const float* A;     // [S, n, p]
+    const float* b;     // [S, n]
+    const float* x0;    // [S, p]
+    const float* ub;    // [S, p]
+    float* scratch;     // r [S, n] where not on chip, then the bits where
+                        // not on chip; else null
+    float* x;           // [S, p] out
+    int n, p, sweeps;
+    int rows;           // rows a CTA (n / cluster)
+    int cap;            // candidate keys a CTA
+    int on_chip;        // r in shared memory (or registers)
+    int bits_on_chip;   // the live bits in shared memory (or registers)
+};
+
+// order-preserving keys: key(u) < key(v) iff u < v (for non-NaN floats;
+// -0.0 just below +0.0)
+__device__ __forceinline__ unsigned order_key(float v) {
+    const unsigned u = __float_as_uint(v);
+    return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned k) {
+    return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// the bits above `shift` (none at 32): a key has the bits `prefix` above
+// `shift` where (key & high_mask(shift)) == prefix << shift
+__device__ __forceinline__ unsigned high_mask(int shift) {
+    return shift >= 32 ? 0u : ~0u << shift;
 }
 
 // rows a thread holds in registers (0: r and the live bits in memory):
@@ -862,24 +1149,68 @@ __global__ void __launch_bounds__(kPolishThreads, 1) polish_kernel(PolishArgs a)
 
 }  // namespace
 
-// K9: one launch, G + S CTAs.  Returns a cudaError_t (0 on success);
+// K9: one launch of G + S clusters of `cluster` CTAs (1, 2, 4 or 8) of
+// 512 threads, a cluster a hap, then a cluster a species, `regs` trio
+// values a thread in registers (4, 8 or 16): ops/tail_kernels.py's
+// stats_plan, checked here again.  Returns a cudaError_t (0 on success);
 // launches on `stream`, no synchronise.
-extern "C" int tail_stats_launch(
+extern "C" int tail_stats_plan_launch(
     const void* na, const void* ta, const void* bc, const void* trio_order,
     const void* hap_trio_off, const void* path_node, const void* hap_path_off,
-    const void* sp_node_span, float min_depth, int G, int S, void* out,
-    void* stream) {
-    if (G < 1 || S < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const void* sp_node_span, float min_depth, int G, int S, int cluster,
+    int regs, void* out, void* stream) {
+    const int C = kStatsCluster ? cluster : 1;
+    const int R = kStatsCluster ? regs : kStatsRegsMax;
+    if (G < 1 || S < 1 || C < 1 || C > kMaxCluster || kMaxCluster % C ||
+        (R != 4 && R != 8 && R != kStatsRegsMax) ||
+        static_cast<long long>(G + S) * C > 0x7fffffffLL)
+        return static_cast<int>(cudaErrorInvalidValue);
     const StatsArgs a{static_cast<const float*>(na), static_cast<const float*>(ta),
                       static_cast<const int*>(bc), static_cast<const int*>(trio_order),
                       static_cast<const int*>(hap_trio_off),
                       static_cast<const int*>(path_node),
                       static_cast<const int*>(hap_path_off),
-                      static_cast<const int*>(sp_node_span), min_depth, G, S,
+                      static_cast<const int*>(sp_node_span), min_depth, G, S, C,
                       static_cast<float*>(out)};
-    tail_stats_kernel<<<G + S, kStatsThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(a);
+    void (*kernel)(StatsArgs) = R == 4   ? tail_stats_kernel<4, 8>
+                                : R == 8 ? tail_stats_kernel<8, 16>
+                                         : tail_stats_kernel<kStatsRegsMax, 16>;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(G + S) * C);
+    cfg.blockDim = dim3(kStatsThreads);
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaError_t e;
+    if (C > 1) {
+        cfg.attrs = attr;
+        cfg.numAttrs = 1;
+        int clusters = 0;
+        e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    e = cudaLaunchKernelEx(&cfg, kernel, a);
+    if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
+}
+
+// K9 at the plan of G and S alone (the smallest cluster whose CTAs fill the
+// card's SMs, 16 trio values a thread): the entry of earlier sources, whose
+// signature it keeps.
+extern "C" int tail_stats_launch(
+    const void* na, const void* ta, const void* bc, const void* trio_order,
+    const void* hap_trio_off, const void* path_node, const void* hap_path_off,
+    const void* sp_node_span, float min_depth, int G, int S, void* out,
+    void* stream) {
+    int C = 1;
+    while (C < kMaxCluster && static_cast<long long>(G + S) * C < kStatsSMs) C *= 2;
+    return tail_stats_plan_launch(na, ta, bc, trio_order, hap_trio_off, path_node,
+                                  hap_path_off, sp_node_span, min_depth, G, S, C,
+                                  kStatsRegsMax, out, stream);
 }
 
 // K10b: S clusters of `cluster` CTAs of 1024 threads an instance, n /

@@ -193,7 +193,9 @@ def tail_stats_plain(na, ta, bc, trio_hap, path_node, path_hap, node_species,
     """Plain torch version of K9: per-hap nonzero trio count and
     zscore(3)-filtered nonzero trio mean, per-hap path base coverage, and
     per-species nonzero count / sum of the min_depth-clamped node abundance,
-    max node abundance and valid-node count."""
+    max node abundance and valid-node count.  Float64 na and ta take the
+    float sums and the steps between them in float64 (the exact sums K9's
+    large cases are held to)."""
     f32 = torch.float32
     hap = trio_hap.clamp(0, max(G - 1, 0)).to(torch.int64)
     nz = (ta > 0.0).to(f32)
@@ -220,7 +222,8 @@ def tail_stats_plain(na, ta, bc, trio_hap, path_node, path_hap, node_species,
     nz_n = (na_opt > 0.0).to(f32)
     sp_nz_cnt = _seg_sum(nz_n, node_species, S)
     sp_nz_sum = _seg_sum(na_opt * nz_n, node_species, S)
-    sp_max = torch.full((S + 1,), -float("inf"), dtype=f32, device=na.device)
+    sp_max = torch.full((S + 1,), -float("inf"), dtype=na.dtype,
+                        device=na.device)
     sp_max.scatter_reduce_(0, node_species.to(torch.int64), na, "amax",
                            include_self=False)
     sp_valid = _seg_sum((na > 0.0).to(f32), node_species, S)

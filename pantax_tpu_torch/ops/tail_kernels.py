@@ -8,8 +8,10 @@ coordinate median over a bucket of solutions.  Two versions of each here:
 - the CUDA kernels, ``csrc/profile_tail.cu``, built with nvcc for sm_90a at
   first use into the git-ignored build directory (ops/extend.py's
   ``compile_kernels``) and bound with ctypes.  K9 is one launch a
-  ``dispatch_tail_stats``: a CTA a hap over its owner-sorted trios and its
-  path, a CTA a species over its node slice, every float sum in a fixed
+  ``dispatch_tail_stats``: a thread block cluster a hap and a species
+  (``stats_plan``), a hap's owner-sorted trio values gathered once into
+  registers through its three passes, its path gathered under them, the
+  passes' sums exchanged across the cluster, every float sum in a fixed
   order.  K10b is one launch a bucket a solve: a thread block cluster an
   instance (``polish_plan``), A read once into live bits, each column's
   median an exact radix select (one cluster round for the first digit,
@@ -47,6 +49,46 @@ REG_ROWS = 8            # rows a K10b thread holds in registers at most
 MAX_CAP = 16384         # candidate keys a K10b CTA holds at most
 MIN_CAP = 4096          # r on chip only where this many candidates still fit
 RANK_SELECT = 256       # candidates K10b ranks at once
+STATS_THREADS = 512     # a K9 CTA's threads
+STATS_REGS = (4, 8, 16)  # the trio values a K9 thread may hold in registers
+SMS = 132               # the H100's SMs, which K9's grid fills
+
+
+@dataclass(frozen=True)
+class StatsPlan:
+    """How K9 runs: ``cluster`` CTAs of STATS_THREADS threads a hap and a
+    species, ``regs`` trio values a thread in registers (the trios past
+    regs x STATS_THREADS x cluster of a hap are gathered from L2 in each
+    pass)."""
+
+    cluster: int
+    regs: int
+
+
+def stats_plan(G: int, S: int, trios: int) -> StatsPlan:
+    """K9's plan for G haps, S species and ``trios`` owned trios
+    (csrc/profile_tail.cu's tail_stats_plan_launch checks it again): the
+    smallest power of two up to MAX_CLUSTER whose (G + S) x cluster CTAs
+    fill the SMS, doubled while a hap of the mean size would not fit the
+    registers (STATS_REGS' largest a thread); the fewest STATS_REGS that
+    hold a hap of twice the mean (haps vary: the smoke DB's largest
+    overflows 8 a thread at 4 CTAs, which its mean fits).  A function of
+    the shapes only, so the order of every sum, and the bits, follow from
+    them.  Raises ValueError on G or S below 1 or trios below 0."""
+    if G < 1 or S < 1 or trios < 0:
+        raise ValueError(f"K9 takes G >= 1, S >= 1 and trios >= 0 (got {G},"
+                         f" {S}, {trios})")
+    cluster = 1
+    while cluster < MAX_CLUSTER and (G + S) * cluster < SMS:
+        cluster *= 2
+    per_hap = -(-trios // G)
+    while (cluster < MAX_CLUSTER
+           and per_hap > STATS_REGS[-1] * STATS_THREADS * cluster):
+        cluster *= 2
+    regs = next((r for r in STATS_REGS
+                 if r * STATS_THREADS * cluster >= 2 * per_hap),
+                STATS_REGS[-1])
+    return StatsPlan(cluster, regs)
 
 
 @dataclass(frozen=True)
@@ -136,9 +178,12 @@ def build_tail_kernels(src: Path | str | None = None) -> ctypes.CDLL:
     and load it."""
     lib = compile_kernels(src or _SRC)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
+    head = [vp] * 8 + [ctypes.c_float, i32, i32]
     lib.tail_stats_launch.restype = i32
-    lib.tail_stats_launch.argtypes = (
-        [vp] * 8 + [ctypes.c_float, i32, i32, vp, vp])
+    lib.tail_stats_launch.argtypes = head + [vp, vp]
+    if hasattr(lib, "tail_stats_plan_launch"):  # not in earlier sources
+        lib.tail_stats_plan_launch.restype = i32
+        lib.tail_stats_plan_launch.argtypes = head + [i32, i32, vp, vp]
     lib.polish_launch.restype = i32
     lib.polish_launch.argtypes = [vp] * 4 + [i32] * 6 + [vp] * 3
     return lib
@@ -165,10 +210,12 @@ def _check(named) -> torch.device:
 def launch_k9(na, ta, bc, path_node, order, min_depth: float, *, G: int,
               S: int, lib=None):
     """Check K9's arguments (before building anything) and launch
-    tail_stats_launch of ``lib`` (default: build_tail_kernels()) on the
-    current stream (no synchronise, no count).  ``order`` is TailTables'
-    (trio_order, hap_trio_off, hap_path_off, sp_node_span).  Returns
-    tail_stats_plain's seven float32 outputs, views of one fresh buffer."""
+    tail_stats_plan_launch of ``lib`` (default: build_tail_kernels()) at
+    stats_plan's plan on the current stream (no synchronise, no count); a
+    build of an earlier source without that entry through its
+    tail_stats_launch.  ``order`` is TailTables' (trio_order, hap_trio_off,
+    hap_path_off, sp_node_span).  Returns tail_stats_plain's seven float32
+    outputs, views of one fresh buffer."""
     trio_order, hap_trio_off, hap_path_off, sp_node_span = order
     if G < 1 or S < 1:
         raise ValueError(f"K9 takes G >= 1 haps and S >= 1 species (got "
@@ -181,15 +228,20 @@ def launch_k9(na, ta, bc, path_node, order, min_depth: float, *, G: int,
                   ("hap_trio_off", hap_trio_off, i32, (G + 1,)),
                   ("hap_path_off", hap_path_off, i32, (G + 1,)),
                   ("sp_node_span", sp_node_span, i32, (2 * S,))))
+    plan = stats_plan(G, S, trio_order.numel())
     lib = lib or build_tail_kernels()
     out = torch.empty(3 * G + 4 * S, dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.tail_stats_launch(
-            na.data_ptr(), ta.data_ptr(), bc.data_ptr(),
+    head = (na.data_ptr(), ta.data_ptr(), bc.data_ptr(),
             trio_order.data_ptr(), hap_trio_off.data_ptr(),
             path_node.data_ptr(), hap_path_off.data_ptr(),
-            sp_node_span.data_ptr(), float(min_depth), G, S, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            sp_node_span.data_ptr(), float(min_depth), G, S)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if hasattr(lib, "tail_stats_plan_launch"):
+            rc = lib.tail_stats_plan_launch(*head, plan.cluster, plan.regs,
+                                            out.data_ptr(), stream)
+        else:
+            rc = lib.tail_stats_launch(*head, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"tail_stats_launch failed: CUDA error {rc}")
     return (out[:G], out[G:2 * G], out[2 * G:3 * G],

@@ -56,16 +56,20 @@ against a baseline source with the same C entry points, in turns with the
 plain version (and for K10b a CUDA-graph replay of the plain polish, a
 yardstick), every build held to the plain version first
 (``chip_smoke.hold_k9``, ``hold_k10b``): K9 on ``chip_smoke.k9_case``
-tables at the smoke DB's size (SHAPES["k9"]), K10b on
-``chip_smoke.polish_case`` buckets (SHAPES["k10b"], and its crafted edges
-at K10B_CRAFTED, where instances stop early; each line prints the sweeps
-each instance runs and its live columns), beside
+tables at the smoke DB's size and a community102-like size (held to the
+plain version in float64, ``chip_smoke.k9_want``) and on the smoke DB's
+paired device tail (SHAPES["k9"]; each line prints ``stats_plan``'s
+plan), K10b on ``chip_smoke.polish_case`` buckets (SHAPES["k10b"], and its
+crafted edges at K10B_CRAFTED, where instances stop early; each line
+prints the sweeps each instance runs and its live columns), beside
 ``chip_smoke.tail_stats_bound`` and ``polish_bound``.  Given ``--ablate``
-(repeatable), K10b also times the current source without one lever of its
-design (K10B_ABLATIONS), in the same turns:
+(repeatable), each also times the current source without one lever of its
+design (K9_ABLATIONS, K10B_ABLATIONS), in the same turns:
 
     git show <commit>:pantax_tpu_torch/csrc/profile_tail.cu \
         > build/profile_tail_base.cu
+    PYTHONPATH=. python scripts/time_extend.py --kernel k9 \
+        build/profile_tail_base.cu [--ablate cluster --ablate regs ...]
     PYTHONPATH=. python scripts/time_extend.py --kernel k10b \
         build/profile_tail_base.cu [--ablate stop --ablate candidates ...]
 
@@ -159,7 +163,11 @@ SHAPES = {
     "k8": ((10, 65536, 4), (1, 65536, 4)),
     # K9: chip_smoke.k9_case's (G, S, nodes, trios) at the smoke DB's size
     # (30 haps of 10 species, the last of S without nodes; N_pad 524288)
-    "k9": ((30, 11, 524192, 500_000),),
+    # and community102-like (102 haps of 34 species: the smoke DB's counts
+    # scaled by 34/10, an estimate, not a measured database); then the
+    # smoke DB's paired device tail (phase 8's pairs fed on the card)
+    "k9": ((30, 11, 524192, 500_000), (102, 35, 1_782_000, 1_700_000),
+           "paired"),
     # K10b: (S, n_pad, p_pad) of chip_smoke.polish_case: the smoke's
     # device-tail bucket, the smallest, wide rows and the residuals in
     # global memory
@@ -327,17 +335,32 @@ K10B_ABLATIONS = {
     "rank": [("constexpr int kRankSelect = 256;",
               "constexpr int kRankSelect = 0;")],
 }
+# K9's levers, each taken out of csrc/profile_tail.cu: without "cluster" a
+# CTA takes a hap or a species alone (16 trio values a thread in
+# registers); without "regs" a hap's trio values are gathered again from
+# L2 in passes 2 and 3; with "path_late" the path's gathers are issued
+# after the third trio pass
+K9_ABLATIONS = {
+    "cluster": [("constexpr bool kStatsCluster = true;",
+                 "constexpr bool kStatsCluster = false;")],
+    "regs": [("constexpr bool kKeepTrios = true;",
+              "constexpr bool kKeepTrios = false;")],
+    "path_late": [("constexpr bool kPathEarly = true;",
+                   "constexpr bool kPathEarly = false;")],
+}
 # K10b's crafted buckets timed beside SHAPES["k10b"]: the edges of
 # chip_smoke.polish_case, where instances stop early
 K10B_CRAFTED = ((6, 65536, 4),)
 
 
-def ablated_source(name: str) -> Path:
+def ablated_source(name: str, kernel: str | None = None) -> Path:
     """The current source with ABLATIONS[name] (K1's), K3_ABLATIONS[name]
     (K3's), K6_ABLATIONS[name] (K6's), K11_ABLATIONS[name] (K11's),
-    K8_ABLATIONS[name] (K8's) or K10B_ABLATIONS[name] (K10b's) applied,
-    written under the build directory."""
-    path, table = ((seed._SRC, K3_ABLATIONS) if name in K3_ABLATIONS
+    K8_ABLATIONS[name] (K8's), K9_ABLATIONS[name] (K9's, where ``kernel``
+    is "k9": K8 and K9 share lever names) or K10B_ABLATIONS[name] (K10b's)
+    applied, written under the build directory."""
+    path, table = ((tail_kernels._SRC, K9_ABLATIONS) if kernel == "k9"
+                   else (seed._SRC, K3_ABLATIONS) if name in K3_ABLATIONS
                    else (admm._SRC, K8_ABLATIONS) if name in K8_ABLATIONS
                    else (tail_kernels._SRC, K10B_ABLATIONS)
                    if name in K10B_ABLATIONS
@@ -362,9 +385,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ablate", action="append",
                     choices=sorted(ABLATIONS) + sorted(K3_ABLATIONS)
                     + sorted(K6_ABLATIONS) + sorted(K11_ABLATIONS)
-                    + sorted(K8_ABLATIONS) + sorted(K10B_ABLATIONS),
+                    + sorted(K8_ABLATIONS) + sorted(K9_ABLATIONS)
+                    + sorted(K10B_ABLATIONS),
                     help="time the current source without this step instead "
-                         "(K3, K6, K11, K8, K10b: as well, repeatable)")
+                         "(K3, K6, K11, K8, K9, K10b: as well, repeatable)")
     ap.add_argument("--kernel", choices=sorted(SHAPES), default="k1",
                     help="K1 (text + w0), K2 (windows given), K3 (the seed "
                          "stage), K6 (the range classify + scatter), K11 "
@@ -373,9 +397,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "polish); default k1")
     args = ap.parse_args(argv)
     mine = {"k3": K3_ABLATIONS, "k6": K6_ABLATIONS, "k11": K11_ABLATIONS,
-            "k8": K8_ABLATIONS, "k9": {},
-            "k10b": K10B_ABLATIONS}.get(args.kernel,
-                                                           ABLATIONS)
+            "k8": K8_ABLATIONS, "k9": K9_ABLATIONS,
+            "k10b": K10B_ABLATIONS}.get(args.kernel, ABLATIONS)
     if any(a not in mine for a in args.ablate or ()):
         ap.error(f"--ablate for {args.kernel}: one of {sorted(mine)}")
     if args.kernel in ("k3", "k6", "k11", "k8", "k9", "k10b"):
@@ -437,7 +460,8 @@ def build_turns(args, build, default_src, notes=lambda lib: "") -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
     srcs = {"base": Path(args.baseline), "new": None}
-    srcs.update((f"no_{a}", ablated_source(a)) for a in args.ablate or ())
+    srcs.update((f"no_{a}", ablated_source(a, args.kernel))
+                for a in args.ablate or ())
     with ThreadPoolExecutor(len(srcs)) as pool:
         built = {name: pool.submit(build, src) for name, src in srcs.items()}
     libs = {name: f.result() for name, f in built.items()}
@@ -691,12 +715,15 @@ def main_tail(args, dev, issue_peak: float) -> None:
     for shape, crafted in cases:
         line = {"kernel": args.kernel.upper(), "card": smoke.card_line()}
         if args.kernel == "k9":
-            G, S, nodes, trios = shape
-            targs, kw = smoke.k9_case(sum(shape), dev, G, S, nodes, trios)
+            if shape == "paired":
+                targs, kw = k9_paired_case(dev)
+            else:
+                targs, kw = smoke.k9_case(sum(shape), dev, *shape)
             na, ta, bc, _trio_hap, path_node = targs[:5]
-            order = kw["order"]
+            G, S, order = kw["G"], kw["S"], kw["order"]
             for name, lib in libs.items():
-                smoke.hold_k9(targs, kw, f"{name} at {shape}", lib)
+                smoke.hold_k9(targs, kw, f"{name} at {shape}", lib,
+                              exact=shape != "paired")
 
             def run(lib):
                 return tail_kernels.launch_k9(na, ta, bc, path_node, order,
@@ -706,8 +733,10 @@ def main_tail(args, dev, issue_peak: float) -> None:
                 return profile_tail.tail_stats_plain(*targs, G=G, S=S)
 
             bound, by, work = smoke.tail_stats_bound(path_node, order, G, S)
-            line.update(G=G, S=S, N_pad=na.numel(), trios=order[0].numel(),
-                        path_nodes=path_node.numel(), work=work)
+            line.update(shape=shape, G=G, S=S, N_pad=na.numel(),
+                        trios=order[0].numel(), path_nodes=path_node.numel(),
+                        plan=str(tail_kernels.stats_plan(
+                            G, S, order[0].numel())), work=work)
             graph = None
         else:
             S, n, p = shape
@@ -743,6 +772,31 @@ def main_tail(args, dev, issue_peak: float) -> None:
             return smoke.cuda_ms(lambda: run(lib), 20, hold=True)
 
         time_in_turns(turns, reading, line, bound, by)
+
+
+def k9_paired_case(dev) -> tuple:
+    """K9's arguments on the smoke DB's paired device tail: phase 8's
+    pairs (chip_smoke.simulate_pairs, seed 13) fed on the card over the
+    smoke DB (built under the build directory if absent), the coverage
+    and tail tables as dispatch_tail_stats gets them."""
+    from pantax_tpu_torch import _host
+    from pantax_tpu_torch.benchmarks import scale_db
+    from pantax_tpu_torch.convert import aligner_from_reference
+    from pantax_tpu_torch.ops.fused import (
+        FusedPipeline, _ensure_tail_tables, build_fused_tables,
+    )
+
+    db = scale_db(str(extend.build_dir() / "scale_db"))
+    index = _host.build_align_index(db)
+    aligner = aligner_from_reference(index, _host.AlignConfig(), dev)
+    tables = build_fused_tables(db, index, dev)
+    pipe = FusedPipeline(aligner, tables, smoke.PAIR_BATCH)
+    pairs, _hap = smoke.simulate_pairs(index, smoke.N_PAIRS, seed=13)
+    pipe.feed_paired(*pairs)
+    r = pipe.finish()
+    return smoke.k9_args(_ensure_tail_tables(tables), r.na_d, r.ta_d, r.bc_d,
+                         _host.ProfilingConfig.for_read_type("short")
+                         .min_depth)
 
 
 def compile_k8(src):

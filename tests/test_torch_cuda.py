@@ -1376,6 +1376,120 @@ def test_k9_matches_plain_on_crafted_tables(cuda, seed):
     chip_smoke.hold_k9(*chip_smoke.k9_case(seed, cuda), f"crafted {seed}")
 
 
+@pytest.mark.parametrize("edge", chip_smoke.K9_EDGES,
+                         ids=[e[0] for e in chip_smoke.K9_EDGES])
+def test_k9_matches_plain_on_its_edges(cuda, edge):
+    """chip_smoke.K9_EDGES: a hap of more trios than its plan's registers
+    hold (the rest gathered from L2 in each pass) beside a species of
+    600,000 nodes, clusters of 2, G + S past the 132 SMs (a CTA an item),
+    against the plain stats in float64 (chip_smoke.k9_want: the float32
+    plain sums over 600,000 nodes are themselves 2e-5 off)."""
+    what, *shape = edge
+    chip_smoke.hold_k9(*chip_smoke.k9_case(21, cuda, *shape), what,
+                       exact=True)
+
+
+def _k9_unaligned(args, off: int, dev):
+    """args with na moved ``off`` floats past a 16-byte boundary."""
+    na = args[0]
+    buf = torch.zeros(na.numel() + off, dtype=na.dtype, device=dev)
+    buf[off:] = na
+    return (buf[off:], *args[1:])
+
+
+@pytest.mark.parametrize("off", [1, 2, 3])
+def test_k9_matches_plain_on_an_unaligned_na(cuda, off):
+    """na off a 16-byte boundary: each species' head and tail (1-3 nodes)
+    read apart from its float4s."""
+    args, kw = chip_smoke.k9_case(9, cuda)
+    chip_smoke.hold_k9(_k9_unaligned(args, off, cuda), kw,
+                       f"na {off} floats past 16 bytes")
+
+
+def test_k9_gives_the_models_bits(cuda):
+    """K9's seven outputs equal, bit for bit, the numpy model of its sums
+    at the plan's cluster (tests/test_torch_tail_kernels.py's
+    model_tail_stats): on k9_case's tables, on K9_EDGES and with na off a
+    16-byte boundary."""
+    from pantax_tpu_torch.ops import tail_kernels
+    from test_torch_tail_kernels import model_tail_stats
+
+    cases = [((), 0), ((), 1), ((), 3)] + [
+        (tuple(e[1:]), 0) for e in chip_smoke.K9_EDGES]
+    for shape, off in cases:
+        args, kw = chip_smoke.k9_case(9, cuda, *shape)
+        if off:
+            args = _k9_unaligned(args, off, cuda)
+        na, ta, bc, _trio_hap, path_node = args[:5]
+        G, S, order = kw["G"], kw["S"], kw["order"]
+        got = tail_kernels.launch_k9(na, ta, bc, path_node, order, args[7],
+                                     G=G, S=S)
+        C = tail_kernels.stats_plan(G, S, order[0].numel()).cluster
+        want = model_tail_stats(
+            na.cpu().numpy(), ta.cpu().numpy(), bc.cpu().numpy(),
+            path_node.cpu().numpy(), [t.cpu().numpy() for t in order],
+            args[7], G, S, C, na_offset=na.data_ptr() // 4 % 4)
+        for name, g, w in zip(chip_smoke.K9_OUTPUTS, got, want):
+            assert np.array_equal(g.cpu().numpy(), w), (shape, off, name)
+
+
+def test_capped_device_tail_matches_host_tail(cuda, tmp_path, monkeypatch):
+    """The sampling cap on the card (the CPU test
+    test_device_tail_matches_host_tail[capped]): cfg.sample_nodes between
+    two species' sp_valid from K9 sends the species over it to the device
+    tail's host solve and the others to the device solve; the
+    classification byte-identical to the host tail's, abundances within
+    2e-4."""
+    import filecmp
+
+    from pantax_tpu_torch.benchmarks import scale_db
+    from pantax_tpu_torch.ops.fused import _ensure_tail_tables
+    from pantax_tpu_torch.ops.profile_tail import compute_tail_stats
+    from pantax_tpu_torch.profile import engine
+
+    db = scale_db(tmp_path / "scale", n_species=3, genome_len=50_000)
+    index = _host.build_align_index(db)
+    al = aligner_from_reference(index, _host.AlignConfig(), cuda)
+    tables = build_fused_tables(db, index, cuda)
+    pipe = FusedPipeline(al, tables, 2048)
+    weights = np.tile([6.0, 2.0, 1.0], 3) * np.repeat([1.0, 1.5, 0.7], 3)
+    pipe.feed_paired(*simulate_pairs(index, 6000, seed=11,
+                                     hap_weights=weights))
+    r = pipe.finish()
+    extend.reset_launch_counts()
+    valid = compute_tail_stats(_ensure_tail_tables(tables), r.na_d, r.ta_d,
+                               r.bc_d, 0.0).sp_valid
+    assert extend.LAUNCHES["tail_stats"] == 1
+    cap = int(np.sort(valid)[1])
+    assert (valid > cap).any() and (valid <= cap).any()
+    prepare, host_solves = engine.prepare_two_stage, []
+
+    def counted(*args, **kw):
+        host_solves.append(args[1])  # the species' nodes
+        return prepare(*args, **kw)
+
+    outs = {}
+    for tail in ("host", "device"):
+        cfg = _host.ProfilingConfig.for_read_type("short")
+        cfg.tail, cfg.sample_nodes = tail, cap
+        extend.reset_launch_counts()
+        outs[tail] = tmp_path / tail
+        if tail == "device":
+            monkeypatch.setattr(engine, "prepare_two_stage", counted)
+        assert profile_from_fused_result(r, tables, index, db, cfg,
+                                         outs[tail])
+        la = extend.LAUNCHES
+        if tail == "device":
+            assert la["tail_stats"] == la["tail_stats_dispatch"] == 1
+            assert la["polish"] == la["polish_dispatch"] > 0
+            assert la["tail_stats_plain"] == la["polish_plain"] == 0
+            assert host_solves and all(n > cap for n in host_solves)
+    assert filecmp.cmp(outs["host"] / "reads_classification.tsv",
+                       outs["device"] / "reads_classification.tsv",
+                       shallow=False)
+    assert_tables_agree(outs["host"], outs["device"], abundance_tol=2e-4)
+
+
 def test_k9_rejects_bad_inputs(cuda):
     from pantax_tpu_torch.ops import tail_kernels
 

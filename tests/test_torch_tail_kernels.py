@@ -1,9 +1,11 @@
 """K9 and K10b's module (ops/tail_kernels.py), the device tail's dispatchers
 and the smoke's phase 3e helpers on the CPU: the dispatchers take the plain
 versions' bits and counts on CPU tensors; the wrappers refuse CPU tensors
-before they build anything; K10b's plan by bucket; a numpy model of K10b's
-selection and early stop held to the plain polish bit for bit; K9's owner
-tables; the crafted cases reach the edges they name; the bounds count
+before they build anything; K9's plan by shape and K10b's by bucket; a
+numpy model of K9's sums (each thread's slots, the CTA trees, the ranks in
+order) held to the plain stats and the JAX package's; a numpy model of
+K10b's selection and early stop held to the plain polish bit for bit; K9's
+owner tables; the crafted cases reach the edges they name; the bounds count
 their work.  The kernels themselves run in tests/test_torch_cuda.py
 (marker ``cuda``)."""
 from types import SimpleNamespace
@@ -103,6 +105,213 @@ def test_polish_plan_by_bucket(shape, plan):
 def test_polish_plan_refuses(shape):
     with pytest.raises(ValueError):
         tail_kernels.polish_plan(*shape)
+
+
+@pytest.mark.parametrize("shape,plan", [
+    ((30, 10, 488_636), (4, 16)),      # the smoke DB's paired tail
+    ((30, 11, 500_000), (4, 16)),      # k9_case at the smoke DB's size
+    ((102, 34, 1_700_000), (4, 16)),   # community102-like
+    ((102, 34, 800_000), (1, 16)),
+    ((12, 4, 9000), (8, 4)),           # k9_case's default
+    ((8, 2, 120_000), (8, 8)),         # K9_EDGES
+    ((70, 6, 200_000), (2, 8)),
+    ((140, 12, 60_000), (1, 4)),
+    ((66, 1, 4096), (2, 4)),
+    ((1, 1, 0), (8, 4)),
+    ((1, 1, 1_000_000), (8, 16)),      # past every register tier
+])
+def test_stats_plan_by_shape(shape, plan):
+    """The smallest cluster whose (G + S) x cluster CTAs fill the 132 SMs
+    (4 at the smoke DB's 40 items, 1 from 132 items), doubled while a hap
+    of the mean size would not fit 16 trios a thread (community102's ~16,700
+    trios a hap: 4); the fewest of 4, 8 and 16 trios a thread that hold a
+    hap of twice the mean."""
+    got = tail_kernels.stats_plan(*shape)
+    assert (got.cluster, got.regs) == plan
+    G, S, trios = shape
+    T, C, R = tail_kernels.STATS_THREADS, got.cluster, got.regs
+    assert C in (1, 2, 4, 8) and R in tail_kernels.STATS_REGS
+    assert (G + S) * C >= tail_kernels.SMS or C == tail_kernels.MAX_CLUSTER
+    assert R * T * C >= 2 * -(-trios // G) or R == 16
+    assert -(-trios // G) <= 16 * T * C or C == 8
+
+
+@pytest.mark.parametrize("shape", [(0, 1, 0), (1, 0, 0), (1, 1, -1)])
+def test_stats_plan_refuses(shape):
+    with pytest.raises(ValueError):
+        tail_kernels.stats_plan(*shape)
+
+
+# ---------------------------------------------------------------------------
+# a numpy model of K9's sums (csrc/profile_tail.cu's tail_stats_kernel):
+# element j of a hap's trios (of a species' float4s) belongs to rank (j //
+# T) % C, thread j % T, slot j // (T C); each thread adds its slots in
+# order, a CTA its threads in the warps' shfl_down trees, every CTA the
+# ranks in order, all in float64; the float32 steps between, rounded alone
+K9_T = tail_kernels.STATS_THREADS
+
+
+def _by_slot(vals, C: int):
+    """vals [n] (or [n, 4]) as [slot, rank, thread (, 4)], zeros past n."""
+    TC = K9_T * C
+    m = -(-len(vals) // TC)
+    out = np.zeros((m * TC,) + vals.shape[1:], vals.dtype)
+    out[:len(vals)] = vals
+    return out.reshape((m, C, K9_T) + vals.shape[1:])
+
+
+def _tree(v):
+    """The shfl_down tree over the last axis of 32 lanes: lane l adds lane
+    l + o for o = 16, 8, 4, 2, 1; lane 0's sum."""
+    o = 16
+    while o:
+        v = v[..., :o] + v[..., o:2 * o]
+        o //= 2
+    return v[..., 0]
+
+
+def _k9_sum(acc) -> float:
+    """[C, T] float64 thread sums: each CTA's warps' trees, warp 0's tree
+    over them (zeros past the warps), then the ranks in order from 0."""
+    C = acc.shape[0]
+    lanes = np.zeros((C, 32))
+    lanes[:, :K9_T // 32] = _tree(acc.reshape(C, K9_T // 32, 32))
+    tot = 0.0
+    for part in _tree(lanes):
+        tot = tot + part
+    return tot
+
+
+def _slot_sums(grid):
+    """[slot, C, T] float64 values: each thread's sum over its slots in
+    order."""
+    acc = np.zeros(grid.shape[1:])
+    for k in range(len(grid)):
+        acc = acc + grid[k]
+    return acc
+
+
+def model_tail_stats(na, ta, bc, path_node, order, min_depth: float, G: int,
+                     S: int, C: int, na_offset: int = 0):
+    """K9's seven float32 outputs at clusters of C CTAs, from numpy
+    inputs; ``na_offset``: na's first element's place in a 16-byte word
+    (the species' heads and tails follow the address)."""
+    f32 = np.float32
+    trio_order, hto, hpo, span = order
+    c1, freq, pcov = (np.zeros(G, f32) for _ in range(3))
+    for g in range(G):
+        grid = _by_slot(ta[trio_order[hto[g]:hto[g + 1]]].astype(f32), C)
+        pos = grid > 0
+        c1[g] = f32(pos.sum())
+        cm = max(c1[g], f32(1))
+        mu = f32(_k9_sum(_slot_sums(np.where(pos, grid, f32(0)).astype(
+            np.float64)))) / cm
+        d = grid - mu
+        sigma = np.sqrt(f32(_k9_sum(_slot_sums(np.where(
+            pos, d * d, f32(0)).astype(np.float64)))) / cm)
+        kept = pos & (np.abs(d) < f32(3) * sigma)
+        kc = f32(kept.sum())
+        ks = f32(_k9_sum(_slot_sums(np.where(kept, grid, f32(0)).astype(
+            np.float64))))
+        freq[g] = ks / max(kc, f32(1)) if sigma > 0 and kc > 0 else f32(0)
+        pcov[g] = f32(bc[path_node[hpo[g]:hpo[g + 1]]].astype(np.int64).sum())
+    nz, nz_sum, sp_max, valid = (np.zeros(S, f32) for _ in range(4))
+    for s in range(S):
+        lo, hi = int(span[s]), int(span[S + s])
+        v = na[lo:hi].astype(f32)
+        opt = np.where(v > f32(min_depth), v, f32(0))
+        w = np.where(opt > 0, opt, f32(0)).astype(np.float64)
+        nz[s], valid[s] = (opt > 0).sum(), (v > 0).sum()
+        sp_max[s] = v.max() if len(v) else -np.inf
+        head = min(hi - lo, -(na_offset + lo) % 4)
+        nq = (hi - lo - head) // 4
+        acc = np.zeros((C, K9_T))
+        acc[0, :head] = w[:head]                      # rank 0's threads 0-3
+        tail = w[head + 4 * nq:]
+        acc[0, 4:4 + len(tail)] = tail                # and 4-7
+        body = _by_slot(w[head:head + 4 * nq].reshape(nq, 4), C)
+        for k in range(len(body)):
+            for comp in range(4):
+                acc = acc + body[k, :, :, comp]
+        nz_sum[s] = f32(_k9_sum(acc))
+    return c1, freq, pcov, nz, nz_sum, sp_max, valid
+
+
+def _k9_model_holds(args, kw, want, na_offset: int = 0) -> None:
+    """The model at the plan's cluster against ``want`` (seven outputs):
+    the counts, path_cov, sp_max and sp_valid exact, freq_mean and
+    sp_nz_sum within chip_smoke.K9_RTOL."""
+    G, S, order = kw["G"], kw["S"], kw["order"]
+    C = tail_kernels.stats_plan(G, S, order[0].numel()).cluster
+    got = model_tail_stats(*(a.numpy() for a in args[:3]), args[4].numpy(),
+                           [t.numpy() for t in order], args[7], G, S, C,
+                           na_offset)
+    for name, g, w in zip(chip_smoke.K9_OUTPUTS, got, want):
+        w = np.asarray(w, np.float32)
+        if name in ("freq_mean", "sp_nz_sum"):
+            np.testing.assert_allclose(g, w, rtol=chip_smoke.K9_RTOL, atol=0,
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+K9_MODEL_CASES = [("default", 9, (), 1.5), ("default", 10, (), 0.0),
+                  ("default", 11, (), 2.5)] + [
+    (what, 12 + i, shape, 1.5)
+    for i, (what, *shape) in enumerate(chip_smoke.K9_EDGES)]
+
+
+@pytest.mark.parametrize("what,seed,shape,min_depth", K9_MODEL_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in K9_MODEL_CASES])
+def test_k9_model_matches_plain(what, seed, shape, min_depth, one_thread):
+    """The model of K9's sums at the plan's cluster against the plain
+    stats on k9_case's tables (hap 0 without trios, hap 1 of zero trios
+    only, hap 2 of one nonzero trio, the last species without nodes) and,
+    in float64 (chip_smoke.k9_want), on K9_EDGES (a hap past the registers
+    beside a species of 600,000 nodes, clusters of 2, G + S past 132), at
+    three min_depths."""
+    args, kw = chip_smoke.k9_case(seed, "cpu", *shape)
+    args = (*args[:7], min_depth)
+    want = chip_smoke.k9_want(args, kw, exact=bool(shape))
+    _k9_model_holds(args, kw, [w.numpy() for w in want])
+
+
+def test_k9_edges_need_the_float64_plain_sums(one_thread):
+    """Why K9_EDGES are held to the plain version in float64: its float32
+    sum over the 600,000-node species (index_put_'s, serial on one thread)
+    is more than K9_RTOL off the exact sum, which the float64 plain version
+    gives to float32 rounding."""
+    args, kw = chip_smoke.k9_case(12, "cpu", *chip_smoke.K9_EDGES[0][1:])
+    f32 = chip_smoke.k9_want(args, kw)[4][0]
+    f64 = chip_smoke.k9_want(args, kw, exact=True)[4][0]
+    na, span = args[0].numpy(), kw["order"][3].numpy()
+    v = na[span[0]:span[kw["S"]]].astype(np.float64)
+    exact = v[v > args[7]].sum()
+    assert abs(float(f32) - exact) > chip_smoke.K9_RTOL * exact
+    assert float(f64) == np.float32(exact)
+
+
+@pytest.mark.parametrize("na_offset", [1, 2, 3])
+def test_k9_model_cuts_species_at_any_offset(na_offset, one_thread):
+    """na off a 16-byte boundary: every species' head and tail, 1-3 nodes
+    each, taken apart from its float4s, the sums still the plain
+    version's."""
+    args, kw = chip_smoke.k9_case(9, "cpu")
+    want = profile_tail.tail_stats_plain(*args, G=kw["G"], S=kw["S"])
+    _k9_model_holds(args, kw, [w.numpy() for w in want], na_offset)
+
+
+def test_k9_model_matches_the_jax_stats(one_thread):
+    """The model against the JAX package's _tail_stats on the CPU, on
+    k9_case's tables, under the JAX stats' own bars."""
+    import jax.numpy as jnp
+
+    from pantax_tpu.ops.profile_tail import _tail_stats
+
+    args, kw = chip_smoke.k9_case(9, "cpu")
+    want = _tail_stats(*(jnp.asarray(a.numpy()) for a in args[:7]),
+                       args[7], G=kw["G"], S=kw["S"])
+    _k9_model_holds(args, kw, [np.asarray(w) for w in want])
 
 
 def test_owner_tables_order_the_real_trios_by_owner():

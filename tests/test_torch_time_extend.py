@@ -398,27 +398,41 @@ def test_ptxas_lines_name_each_instantiation():
         "banded_extend_kernel<16>: Used 80 registers, used 0 barriers"]
 
 
-@pytest.mark.parametrize("kernel", ["k9", "k10b"])
-def test_parse_args_k9_k10b_take_a_baseline_and_no_ablation(kernel):
+@pytest.mark.parametrize("kernel,other", [("k9", "stop"),
+                                          ("k10b", "regs")])
+def test_parse_args_k9_k10b_take_a_baseline_and_no_ablation(kernel, other):
     """K9 and K10b are timed against a baseline source (an earlier
-    profile_tail.cu) and take no other kernel's lever to ablate (K9 has
-    none; K10b's own are K10B_ABLATIONS)."""
+    profile_tail.cu) and take no other kernel's lever to ablate (K9's own
+    are K9_ABLATIONS, K10b's K10B_ABLATIONS): K9 refuses K10b's "stop",
+    K10b K8's and K9's "regs"."""
     args = time_extend.parse_args(["--kernel", kernel, "base.cu"])
     assert (args.kernel, args.baseline, args.ablate) == (kernel, "base.cu",
                                                          None)
+    mine = {"k9": time_extend.K9_ABLATIONS,
+            "k10b": time_extend.K10B_ABLATIONS}[kernel]
+    assert other not in mine
     for argv in (["--kernel", kernel],
-                 ["--kernel", kernel, "--ablate", "regs", "base.cu"]):
+                 ["--kernel", kernel, "--ablate", other, "base.cu"]):
         with pytest.raises(SystemExit):
             time_extend.parse_args(argv)
 
 
 def test_k9_k10b_shapes_are_the_smoke_tail():
-    """K9 at the smoke DB's size (30 haps, 10 species with nodes, N_pad
-    524288); K10b at the smoke's device-tail bucket, the smallest, wide
-    rows and a bucket whose residuals sit in global memory."""
+    """K9 first at the smoke DB's size (30 haps, 10 species with nodes,
+    N_pad 524288), then community102-like (the smoke DB's counts scaled by
+    34/10: 102 haps of 34 species, 4 CTAs a hap), then on the smoke DB's
+    paired device tail; K10b at the smoke's device-tail bucket, the
+    smallest, wide rows and a bucket whose residuals sit in global
+    memory."""
     from pantax_tpu_torch.ops import tail_kernels
-    (G, S, nodes, _trios), = time_extend.SHAPES["k9"]
+    smoke, community, paired = time_extend.SHAPES["k9"]
+    G, S, nodes, _trios = smoke
     assert (G, S - 1, nodes + 96) == (30, 10, 524288)
+    G, S, nodes, trios = community
+    assert (G, S - 1) == (102, 34) and trios == 34 * 500_000 // 10
+    assert nodes == pytest.approx(34 / 10 * 524192, rel=1e-3)
+    assert tail_kernels.stats_plan(G, S, trios).cluster == 4
+    assert paired == "paired"
     shapes = time_extend.SHAPES["k10b"]
     assert shapes[0] == (10, 65536, 4)
     plans = [tail_kernels.polish_plan(*shape) for shape in shapes]
@@ -463,6 +477,44 @@ def test_k10b_ablations_apply_to_the_current_source(name, tmp_path,
     args = time_extend.parse_args(["--kernel", "k10b", "base.cu",
                                    "--ablate", name])
     assert args.ablate == [name]
+
+
+@pytest.mark.parametrize("name", sorted(time_extend.K9_ABLATIONS))
+def test_k9_ablations_apply_to_the_current_source(name, tmp_path,
+                                                  monkeypatch):
+    """Each of K9's levers comes out of csrc/profile_tail.cu as its text
+    says (each text once in the source), into a source of its own under
+    the build directory, and --kernel k9 takes it; K10b's kernel is left
+    as it is.  K8 has levers of the same names: K9's are taken where the
+    kernel is k9."""
+    from pantax_tpu_torch.ops import tail_kernels
+    monkeypatch.setenv("PANTAX_TORCH_BUILD", str(tmp_path))
+    path = time_extend.ablated_source(name, "k9")
+    src, current = path.read_text(), tail_kernels._SRC.read_text()
+    assert path.name == f"profile_tail_no_{name}.cu" and src != current
+    for old, new in time_extend.K9_ABLATIONS[name]:
+        assert current.count(old) == 1 and old not in src and new in src
+    k9 = current.index("// K9, the tail stats")
+    polish = current.index("// K10b, the coordinate-median polish")
+    assert src.startswith(current[:k9])
+    assert src[src.index("// K10b, the coordinate-median polish"):] == (
+        current[polish:])
+    args = time_extend.parse_args(["--kernel", "k9", "base.cu",
+                                   "--ablate", name])
+    assert args.ablate == [name]
+
+
+def test_ptxas_lines_name_k9s_instantiations():
+    """K9's kernel is a template on its trio values and its path nodes a
+    thread in registers: both arguments are printed."""
+    log = ("ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__54b5"
+           "94ff_15_profile_tail_cu_4496dc4217tail_stats_kernelILi8ELi16EEEv"
+           "NS_9StatsArgsE' for 'sm_90a'\n"
+           "ptxas info    : Used 48 registers, used 1 barriers, 1152 bytes "
+           "smem\n")
+    assert chip_smoke.ptxas_lines(log) == [
+        "tail_stats_kernel<8,16>: Used 48 registers, used 1 barriers, 1152 "
+        "bytes smem"]
 
 
 def test_ptxas_lines_name_k10bs_instantiations():
