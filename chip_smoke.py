@@ -9,9 +9,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. build the banded-DP kernels (K1 and K2, csrc/banded_extend.cu), the
    seed stage (K3, csrc/seed_stage.cu), the classify + scatter (K6 and
    K11, csrc/classify_scatter.cu), the ADMM chunk (K8,
-   csrc/admm_chunk.cu) and the device tail's stats and polish (K9 and
-   K10b, csrc/profile_tail.cu) with nvcc, one process per source
-   started together, and print ptxas's register report, the SASS
+   csrc/admm_chunk.cu), the device tail's stats and polish (K9 and
+   K10b, csrc/profile_tail.cu) and the query's prologue and epilogue (K4
+   and K5, csrc/query_io.cu) with nvcc, one process per source started
+   together, and print ptxas's register report, the SASS
    instructions of one step of K1's and of K2's main loop at pad 4 and pad
    8, and those of K3's vote loops (cuobjdump);
 3. hold K1 against its plain torch version on the card, bit for bit on all
@@ -99,13 +100,38 @@ Phases, each of which raises on failure (the script then exits non-zero):
    Every later phase holds K9's launches to dispatch_tail_stats' calls
    and K10b's to the device polish calls, the plain versions to 0
    (``check_k9_k10b``, in ``check_k3``);
+3f. hold the query's prologue and epilogue (csrc/query_io.cu) against
+   their plain torch versions, bit for bit in every output and its dtype
+   (after phase 3c): K4a (the unpack), K4b (the candidates' read rows),
+   K5 (the single-end pick) and K5p (the paired pick), each on the
+   kernels' own chain (K4a's rows into K3, K3's candidates into K4b, its
+   rows into K1, K1's outputs into K5), over phase 5's first 65536 reads
+   at width 160 and cut to 150 and 151 columns, a paired batch of 2 x
+   65536 mates (and mate 2 cut to 150 columns: unequal widths), K4a and
+   K4b as the extension takes them (16384 long-read chunks of 512 bases,
+   K 1, int32 strands, pad 8), and ``pick_cases``' crafted candidates
+   (ties, all-NEG rows, a second best at the best's location, the
+   thresholds' float32 rounding, the projection's edges, padding rows,
+   the packing's clip, the frag_max boundary, the rescue, ok_best ties),
+   the picks' 7 columns and their packed rows; each kernel and its plain
+   version timed beside its bound (the bytes it must read and write once
+   over the HBM rate).  Every later phase holds K4a's and K4b's launches
+   to one a query or extension dispatch (K1's and K2's), K5's and K5p's
+   to one a query dispatch (K1's), the plain versions to 0
+   (``check_k4_k5``, in ``check_k3``), the subprocesses of phases 11, 12
+   and 14 included;
 4. run the port on the tiny 2-species DB on the CPU (plain versions) and on
    the GPU (kernels): packed query rows, na/ta/bc and the align_long_reads
    arrays of 16 long reads must be identical;
 5. drive the main path: profile_fused over scale_db at its defaults (10
    species x 3 strains x 1 Mb), 1M simulated 150 bp reads, batch 65536,
    host tail, ADMM; K1 must be launched once per batch and the plain DP
-   never; all 10 species and 30 strains must be reported;
+   never; all 10 species and 30 strains must be reported; then the
+   ``feed split:`` line (scripts/feed_split.py) over two more batches of
+   the same reads: device time by kernel and torch op from a
+   torch.profiler trace (utils.logging.device_trace), the device's idle
+   share, and the host's wall time a batch split into upload, dispatch
+   and bookkeeping;
 6. hold the DP over given windows (K2) against its plain version, bit for
    bit on all four outputs, at the long-read rescue pass's shape (16384
    chunks of 512 bases, pad 8, windows of 528 cut from the smoke DB's text)
@@ -264,7 +290,8 @@ per atomic that this run's live rows need, over the HBM rate; K8,
 ADMM_OPS_ROW + 2 p instructions a row a step over every row of the
 bucket against its inputs and outputs once; K9, its inputs' bytes once
 over the HBM rate; K10b, POLISH_OPS_ROW instructions a row of a column of
-a sweep against A's bytes once); the
+a sweep against A's bytes once; K4a, K4b, K5 and K5p, the bytes each must
+read and write once over the HBM rate); the
 last line is {"ok": true, "device": {...}}.  Databases and the kernel
 builds (one nvcc per source, started together) go under build/
 (git-ignored).
@@ -272,6 +299,7 @@ builds (one nvcc per source, started together) go under build/
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import logging
 import os
@@ -305,9 +333,9 @@ from pantax_tpu_torch.io.gaf import (
     filter_best_long_read_alignments, read_gaf, write_gaf,
 )
 from pantax_tpu_torch.align.aligner import Aligner, build_seed_lookup
-from pantax_tpu_torch.align.aligner import unpack_reads
+from pantax_tpu_torch.align.aligner import _text_bound, unpack_reads
 from pantax_tpu_torch.ops import (
-    admm, extend, profile_tail, scatter, seed, tail_kernels,
+    admm, extend, profile_tail, query, scatter, seed, tail_kernels,
 )
 from pantax_tpu_torch.ops.coverage_device import node_abundances_device
 from pantax_tpu_torch.ops.fused import (
@@ -320,6 +348,13 @@ from pantax_tpu_torch.profile import pao
 from pantax_tpu_torch.profile.coverage import pack_reads
 from pantax_tpu_torch.profile.records import ReadRecord
 from pantax_tpu_torch.sim import simulate_reads
+
+# scripts/feed_split.py: phase 5's split of a batch's time
+_SPEC = importlib.util.spec_from_file_location(
+    "feed_split", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "scripts", "feed_split.py"))
+FEED_SPLIT = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(FEED_SPLIT)
 
 KERNEL = {
     "name": "banded_extend",
@@ -470,7 +505,8 @@ def ptxas_lines(log: str) -> list[str]:
         # the name after its mangled length (an anonymous namespace's
         # mangled name holds the file's name before it)
         m = re.search(r"(?<=\d)((?:banded_extend|seed_stage|classify_scatter"
-                      r"|admm_chunk|tail_stats|polish)(?:_[a-z]+)*_kernel)"
+                      r"|admm_chunk|tail_stats|polish|query)(?:_[a-z]+)*"
+                      r"_kernel)"
                       r"(?:I((?:L[ib]\d+E)+)E)?",
                       ln)
         if m:
@@ -1025,7 +1061,21 @@ def seed_bound(args, issue_peak: float) -> tuple[float, str]:
                                        else "bytes")
 
 
-def seed_phase(db, index, aligner, codes, lens, dev, issue_peak: float):
+def phase3_inputs(index, dev) -> SimpleNamespace:
+    """The inputs phases 3b and 3f share: a paired batch of BATCH FR mate
+    pairs (seed 17), the long-read aligner and LONG_BATCH chunks of its
+    chunk length (seed 19)."""
+    chunk = LONG_READ_PRESETS[READ_TYPE]
+    return SimpleNamespace(
+        pairs=simulate_pairs(index, BATCH, seed=17)[0],
+        long_al=aligner_from_reference(
+            index, _host.AlignConfig.for_read_type("long"), dev),
+        long_chunks=simulate_read_batch(index, LONG_BATCH, chunk, 0.01,
+                                        seed=19)[:2])
+
+
+def seed_phase(db, index, aligner, codes, lens, dev, issue_peak: float,
+               shared: SimpleNamespace):
     """Phase 3b.  Returns (largest difference, K3 ms and plain ms at the
     main path's shape, its bound and what bounds it, K3's times by case)."""
     from pantax_tpu_torch.align import aligner as aligner_mod
@@ -1038,15 +1088,12 @@ def seed_phase(db, index, aligner, codes, lens, dev, issue_peak: float):
     w152 = seed_args(aligner, np.ascontiguousarray(codes[:BATCH, :150]),
                      np.minimum(lens[:BATCH], 150))
     errs.append(hold_k3(w152, f"at B={BATCH} L=152 {what}"))
-    (c1, l1, c2, l2), _ = simulate_pairs(index, BATCH, seed=17)
+    c1, l1, c2, l2 = shared.pairs
     paired = seed_args(aligner, np.concatenate([c1, c2]),
                        np.concatenate([l1, l2]))
     errs.append(hold_k3(paired, f"at B={2 * BATCH} L=160 (the paired rows)"))
     chunk = LONG_READ_PRESETS[READ_TYPE]
-    long_al = aligner_from_reference(
-        index, _host.AlignConfig.for_read_type("long"), dev)
-    lc, ll, _ = simulate_read_batch(index, LONG_BATCH, chunk, 0.01, seed=19)
-    long_args = seed_args(long_al, lc, ll)
+    long_args = seed_args(shared.long_al, *shared.long_chunks)
     errs.append(hold_k3(long_args, f"at B={LONG_BATCH} L={chunk} pad 8 "
                                    f"(long-read chunks)"))
     saved = aligner_mod._build_chd
@@ -1099,8 +1146,10 @@ def check_k3(launches: dict, what: str) -> None:
     is one query's), and the plain seed stage never; K6 and K11 once per
     range and windowed scatter dispatch, the plain scatters never
     (check_k6, check_k11); K8 once per ADMM chunk dispatch, the plain
-    chunk never (check_k8); and K9 and K10b once per device-tail stats and
-    polish dispatch, their plain versions never (check_k9_k10b)."""
+    chunk never (check_k8); K9 and K10b once per device-tail stats and
+    polish dispatch, their plain versions never (check_k9_k10b); and K4a
+    and K4b once per query or extension dispatch, K5 or K5p once per query
+    dispatch, their plain versions never (check_k4_k5)."""
     if (launches["seed_stage"] != launches["banded_extend"]
             or launches["seed_stage_plain"]):
         raise AssertionError(
@@ -1111,6 +1160,429 @@ def check_k3(launches: dict, what: str) -> None:
     check_k11(launches, what)
     check_k8(launches, what)
     check_k9_k10b(launches, what)
+    check_k4_k5(launches, what)
+
+
+# ---------------------------------------------------------------------------
+# phase 3f: K4 and K5, the query's prologue and epilogue
+# ---------------------------------------------------------------------------
+# K4 and K5 replace no pl.pallas_call: the unpack, the reverse complement
+# and the candidates' rows, and the pick after the DP, are XLA device code
+# inside the JAX package's jitted query functions
+KERNEL4A = {
+    "name": "query_prologue",
+    "route": "cuda",
+    "source": "pantax_tpu_torch/csrc/query_io.cu",
+    "replaces": "pantax_tpu/align/aligner.py:149",
+}
+KERNEL4B = dict(KERNEL4A, name="query_rows",
+                replaces="pantax_tpu/align/aligner.py:203")
+KERNEL5 = dict(KERNEL4A, name="query_pick",
+               replaces="pantax_tpu/align/aligner.py:581")
+KERNEL5P = dict(KERNEL4A, name="query_pick_paired",
+                replaces="pantax_tpu/align/aligner.py:683")
+QUERY_KERNELS = ("query_prologue", "query_rows", "query_pick",
+                 "query_pick_paired")
+# K4's and K5's launches by path (check_k4_k5)
+QUERY_BY_PATH: dict = {k: {} for k in QUERY_KERNELS}
+# AlignConfig's mapq_scale and min_score_frac, and frag_max, pair_bonus and
+# rescue_frac: the picks' parameters on every path
+PICK_CFG = (10.0, 0.6)
+PAIR_CFG = (1200, 4, 0.45)
+# the crafted picks' segments: tstart 10, 20, ..., 500 (a ts below 10 is
+# before the first), node j % 5, so ts 23 and 73 are one location
+SEG_M, SEG_LEN = 50, 10
+# pick_cases' names, single-end then paired
+PICK_CASES = ("ties", "same_location", "thresholds", "projection_edges",
+              "padding", "packing", "k8", "random_k1", "random_k2",
+              "random_k8")
+PAIR_CASES = ("frag_max", "rescue", "ok_best_ties", "padding_pairs",
+              "same_location_pairs", "random_pairs_k2", "random_pairs_k3")
+
+
+def check_k4_k5(launches: dict, what: str) -> None:
+    """K4a and K4b launched once per query or extension dispatch (each K1
+    or K2 launch is one's), K5 or K5p once per query dispatch (each K1
+    launch), their plain versions never; records the path's launches."""
+    n = launches["banded_extend"] + launches["banded_extend_windows"]
+    picks = launches["query_pick"] + launches["query_pick_paired"]
+    if (launches["query_prologue"] != n or launches["query_rows"] != n
+            or picks != launches["banded_extend"]
+            or any(launches[k + "_plain"] for k in QUERY_KERNELS)):
+        raise AssertionError(
+            f"{what}: K4a / K4b / K5 / K5p launches "
+            f"{[launches[k] for k in QUERY_KERNELS]} for K1 "
+            f"{launches['banded_extend']} and K2 "
+            f"{launches['banded_extend_windows']}, plain "
+            f"{[launches[k + '_plain'] for k in QUERY_KERNELS]}")
+    for k in QUERY_KERNELS:
+        if launches[k]:
+            QUERY_BY_PATH[k][what.replace(" ", "_")] = launches[k]
+
+
+def _segments() -> tuple:
+    j = np.arange(SEG_M, dtype=np.int32)
+    return (SEG_LEN + SEG_LEN * j).astype(np.int32), (j % 5).astype(np.int32)
+
+
+def _pick_rows(rows, K: int, rng) -> list:
+    """K5's inputs (score, start_off, end_off, matches, w0, cand_votes,
+    strand, tstart, tnode, read_len) from rows of (read_len, [(votes,
+    score, ts, strand, matches)] up to K; a missing candidate has no
+    votes); each ts cut into w0 + start_off at random."""
+    B = len(rows)
+    i32 = np.int32
+    score, soff, eoff, mat, w0 = (np.zeros(B * K, i32) for _ in range(5))
+    votes = np.zeros((B, K), i32)
+    strand = np.zeros((B, K), np.int8)
+    lens = np.zeros(B, i32)
+    for i, (rl, cands) in enumerate(rows):
+        lens[i] = rl
+        for k, (v, sc, ts, st, m) in enumerate(cands):
+            f = i * K + k
+            so = int(rng.integers(0, 9))
+            score[f], soff[f], mat[f], w0[f] = sc, so, m, ts - so
+            eoff[f] = so + max(rl, 1)
+            votes[i, k], strand[i, k] = v, st
+    return [score, soff, eoff, mat, w0, votes, strand, *_segments(), lens]
+
+
+def _random_pick(rng, B: int, K: int) -> list:
+    """Random candidates with planted ties, repeated locations, segment
+    starts, reads without votes and empty padding rows."""
+    tstart, tnode = _segments()
+    M = SEG_M
+    i32 = np.int32
+    score = rng.integers(-20, 160, size=B * K).astype(i32)
+    score[rng.random(B * K) < 0.3] = 100
+    soff = rng.integers(0, 9, size=B * K).astype(i32)
+    eoff = soff + rng.integers(100, 160, size=B * K).astype(i32)
+    mat = rng.integers(0, 160, size=B * K).astype(i32)
+    w0 = rng.integers(-10, SEG_LEN * (M + 2), size=B * K).astype(i32)
+    dup = rng.random(B * K) < 0.2
+    w0[dup] = np.roll(w0, 1)[dup]
+    soff[dup] = np.roll(soff, 1)[dup]
+    twin = rng.random(B * K) < 0.1   # the same location in another segment
+    w0[twin] = np.roll(w0, 1)[twin] + SEG_LEN * 5
+    soff[twin] = np.roll(soff, 1)[twin]
+    at = rng.random(B * K) < 0.1
+    w0[at] = tstart[rng.integers(0, M, size=int(at.sum()))] - soff[at]
+    votes = rng.integers(0, 4, size=(B, K)).astype(i32)
+    votes[:max(1, B // 10)] = 0
+    strand = rng.integers(0, 2, size=(B, K)).astype(np.int8)
+    lens = rng.integers(0, 161, size=B).astype(i32)
+    lens[:2] = 0
+    return [score, soff, eoff, mat, w0, votes, strand, tstart, tnode, lens]
+
+
+def pick_cases(seed_: int = 0) -> dict:
+    """K5's and K5p's crafted inputs, name -> (paired, the ten arrays of
+    K5's inputs): the candidates of B reads (K5) or of 2B mates, mate 1's
+    B rows then mate 2's (K5p), over SEG_M segments of SEG_LEN bases.
+    Picked at PICK_CFG (min score 60 at read_len 100, 45 the rescue's) and
+    PAIR_CFG (frag_max 1200, bonus 4)."""
+    rng = np.random.default_rng(seed_)
+    none = (0, 0, 0, 0, 0)
+    single = {
+        # equal best scores at two locations (s2 = s1, mapq 0), and at one
+        # location in two segments (no second: mapq 60)
+        "ties": (2, [(100, [(1, 80, 23, 0, 80), (1, 80, 55, 1, 79)]),
+                     (100, [(1, 80, 23, 0, 80), (1, 80, 73, 1, 78)]),
+                     (100, [(1, 80, 55, 1, 80), (1, 80, 55, 0, 80)])]),
+        # the second best at the best's location is skipped: the third, or
+        # none (NEG seconds)
+        "same_location": (3, [
+            (100, [(1, 90, 23, 0, 90), (1, 88, 73, 0, 88), (1, 84, 44, 1, 84)]),
+            (100, [(1, 90, 23, 0, 90), (1, 89, 73, 1, 88), none]),
+            (100, [(2, 95, 30, 0, 95), none, none]),
+            (100, [(1, 90, 44, 0, 90), (1, 86, 23, 0, 86), (0, 99, 30, 0, 99)])]),
+        # min score int32(float32(0.6) * read_len): at it, one below, and
+        # read lengths whose product rounds either way; mapq gaps 0-7
+        "thresholds": (2, [(rl, [(1, s, 33, 0, s), (1, s - g, 47, 1, 3)])
+                           for rl, s, g in ((100, 60, 1), (100, 59, 2),
+                                            (150, 90, 3), (151, 90, 7),
+                                            (5, 3, 0), (25, 15, 4),
+                                            (8192, 4915, 5), (1, 0, 6))]),
+        # a ts before the first segment (offset negative), at a segment's
+        # start, in the last segment and past the text's end
+        "projection_edges": (2, [
+            (100, [(1, 70, 3, 0, 70), (1, 69, 13, 0, 69)]),
+            (100, [(1, 70, 30, 0, 70), (1, 69, 29, 1, 69)]),
+            (100, [(1, 70, SEG_LEN * SEG_M, 0, 70), (1, 70, 10**6, 1, 70)]),
+            (100, [(1, 70, -5, 1, 70), (1, 71, 0, 0, 71)])]),
+        # the last batch's padding rows: read_len 0, every vote 0, every
+        # score NEG; the columns come from candidate 0
+        "padding": (2, [(0, [none, none])] * 3 + [(100, [(0, 80, 23, 1, 8),
+                                                      (0, 90, 44, 0, 9)])]),
+        # scores past int16 and matches past 16 bits (the packed rows clip
+        # and mask them)
+        "packing": (2, [(100, [(1, -40000, 23, 1, 70000), none]),
+                        (100, [(1, 40000, 23, 0, 65536 + 7), none])]),
+        "k8": (8, [(100, [(1, 70 + (k % 3), 23 + 50 * (k % 2), k % 2, k)
+                          for k in range(8)]),
+                   (100, [(k % 2, 75, 13 + 10 * k, 1, k) for k in range(8)])]),
+    }
+    out = {}
+    for name, (K, rows) in single.items():
+        out[name] = (False, _pick_rows(rows, K, rng))
+    for K in (1, 2, 8):
+        out[f"random_k{K}"] = (False, _random_pick(rng, 512, K))
+    mate = lambda v, s, ts, st: (v, s, ts, st, s)   # noqa: E731
+    pairs = {
+        # mates on opposite strands |ts1 - ts2| = frag_max (consistent:
+        # pair mapq 50) and frag_max + 1 (not: mate 1's own, 10), on the
+        # same strand (not)
+        "frag_max": (2, [
+            ([mate(1, 90, 1000, 0), mate(1, 89, 7000, 0)],
+             [mate(1, 90, 2200, 1), none]),
+            ([mate(1, 90, 1000, 0), mate(1, 89, 7000, 0)],
+             [mate(1, 90, 2201, 1), none]),
+            ([mate(1, 90, 2200, 1), mate(1, 89, 7000, 0)],
+             [mate(1, 90, 1000, 0), none]),
+            ([mate(1, 90, 1000, 0), mate(1, 89, 7000, 0)],
+             [mate(1, 90, 1500, 0), none])]),
+        # a weak mate 1 (under 60, at or over 45) kept by a consistent
+        # strong mate 2; not where the pair is inconsistent, nor under 45
+        "rescue": (2, [
+            ([mate(1, 50, 1000, 0), none], [mate(1, 95, 1300, 1), none]),
+            ([mate(1, 45, 1000, 0), none], [mate(1, 95, 1300, 1), none]),
+            ([mate(1, 44, 1000, 0), none], [mate(1, 95, 1300, 1), none]),
+            ([mate(1, 50, 1000, 0), none], [mate(1, 95, 1300, 0), none]),
+            ([mate(1, 95, 1000, 0), none], [mate(1, 50, 1300, 1), none]),
+            ([mate(1, 50, 1000, 0), none], [mate(1, 55, 1300, 1), none])]),
+        # pair scores tied between a consistent pair (bonus 4) and one that
+        # is not: the first index over the flattened K x K wins
+        "ok_best_ties": (2, [
+            ([mate(1, 100, 1000, 0), mate(1, 100, 9000, 0)],
+             [mate(1, 100, 50000, 0), mate(1, 96, 9100, 1)]),
+            ([mate(1, 100, 9000, 0), mate(1, 100, 1000, 0)],
+             [mate(1, 96, 9100, 1), mate(1, 100, 50000, 0)]),
+            ([mate(1, 96, 9000, 1), mate(1, 100, 1000, 0)],
+             [mate(1, 100, 9100, 0), mate(1, 100, 60000, 0)])]),
+        "padding_pairs": (2, [([none, none], [none, none])] * 2 + [
+            ([none, none], [mate(1, 90, 1300, 1), none]),
+            ([mate(1, 90, 1300, 1), none], [none, none])]),
+        # the joint second best skips pairs whose mates are both at the
+        # chosen locations (ts 23 and 73 are one location)
+        "same_location_pairs": (2, [
+            ([mate(1, 90, 23, 0), mate(1, 90, 73, 0)],
+             [mate(1, 90, 400, 1), mate(1, 80, 300, 1)]),
+            ([mate(1, 90, 23, 0), mate(1, 88, 73, 1)],
+             [mate(1, 90, 400, 1), mate(1, 90, 400, 0)])]),
+    }
+    for name, (K, rows) in pairs.items():
+        # a mate without a voted candidate is a padding row: read_len 0
+        mates = [(100 if any(c[0] for c in r[m]) else 0, r[m])
+                 for m in (0, 1) for r in rows]
+        out[name] = (True, _pick_rows(mates, K, rng))
+    for K in (2, 3):
+        out[f"random_pairs_k{K}"] = (True, _random_pick(rng, 2 * 256, K))
+    return out
+
+
+def pick_args(case, dev) -> tuple:
+    """A pick case's arrays as tensors on ``dev`` and its parameters, as
+    K5's (or K5p's) launch takes them."""
+    paired, arrays = case
+    t = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in arrays)
+    return t + PICK_CFG + (PAIR_CFG if paired else ())
+
+
+def _same(ker, plain, what: str) -> int:
+    """Two outputs (tensors, or tuples of them) bit for bit, dtypes
+    included; returns the largest absolute difference (0)."""
+    if isinstance(ker, torch.Tensor):
+        ker, plain = (ker,), (plain,)
+    err = 0
+    for i, (k, p) in enumerate(zip(ker, plain)):
+        if k.dtype != p.dtype or k.shape != p.shape or not torch.equal(k, p):
+            raise AssertionError(f"{what}: output {i} differs from the plain "
+                                 f"version's ({k.dtype} {tuple(k.shape)}, "
+                                 f"{p.dtype} {tuple(p.shape)})")
+        if k.numel():
+            err = max(err, int((k.long() - p.long()).abs().max()))
+    return err
+
+
+def hold_k4a(lib, args, what: str) -> int:
+    ker = query.launch_k4a(lib, *args)
+    err = _same(ker, query.query_prologue_plain(*args), f"K4a {what}")
+    print(f"K4a == plain {what} ({tuple(ker[0].shape)} bit-identical)")
+    return err
+
+
+def hold_k4b(lib, args, what: str) -> int:
+    ker = query.launch_k4b(lib, *args)
+    err = _same(ker, query.query_rows_plain(*args), f"K4b {what}")
+    print(f"K4b == plain {what} ({tuple(ker[0].shape)} rows bit-identical)")
+    return err
+
+
+def hold_k5(lib, args, what: str) -> int:
+    """K5 (or K5p, by the arguments' count) against its plain version, the
+    7 columns and the packed rows."""
+    paired = len(args) > 12
+    launch = query.launch_k5p if paired else query.launch_k5
+    plain = query.query_pick_paired_plain if paired else query.query_pick_plain
+    err = max(_same(launch(lib, *args, packed=p), plain(*args, packed=p),
+                    f"{'K5p' if paired else 'K5'} {what}{' packed' * p}")
+              for p in (False, True))
+    print(f"{'K5p' if paired else 'K5'} == plain {what} (7 columns and "
+          f"the packed rows bit-identical)")
+    return err
+
+
+def k4a_bytes(args) -> int:
+    """K4a's bytes on its arguments (codes, read_len[, codes2, read_len2]),
+    each once: the codes and read_len in, the rows (and a pair's read_len)
+    out."""
+    mats = [args[i:i + 2] for i in range(0, len(args), 2)]
+    R = sum(c.shape[0] for c, _ in mats)
+    Lw = max(-(-c.shape[1] // 4) * 4 for c, _ in mats)
+    return (sum(c.numel() + 4 * n.numel() for c, n in mats) + R * Lw
+            + (4 * R if len(mats) > 1 else 0))
+
+
+def k4b_bytes(args) -> int:
+    """K4b's bytes on its arguments, each once: codes_fwd, read_len,
+    strand and diag in, the candidates' rows and w0 (and len_rep where
+    K > 1) out."""
+    codes_fwd, read_len, strand, _diag, _pad, _w_hi, width = args
+    N = strand.numel()
+    return (codes_fwd.numel() + 4 * read_len.numel()
+            + N * strand.element_size() + 4 * N + N * width + 4 * N
+            + (4 * N if N > read_len.numel() else 0))
+
+
+def pick_bytes(args, packed: bool = False) -> int:
+    """K5's (K5p's) bytes, each once: K1's four outputs, w0 and the votes
+    (int32), the strands, read_len, the 32-byte sectors of tstart and
+    tnode its projection must read (each candidate's segment start and
+    the next, its node), and 22 bytes a read of columns (16 packed)."""
+    score, soff, w0, tstart = args[0], args[1], args[4], args[7]
+    N, R = score.numel(), args[9].numel()
+    ts = (w0 + soff).cpu().numpy()
+    starts = tstart.cpu().numpy()
+    i0 = np.clip(np.searchsorted(starts, ts, side="right") - 1, 0,
+                 len(starts) - 1)
+    sectors = (len(np.unique(np.concatenate(
+        [i0, np.minimum(i0 + 1, len(starts) - 1)]) // 8))
+        + len(np.unique(i0 // 8)))
+    return 24 * N + N + 4 * R + 32 * sectors + R * (16 if packed else 22)
+
+
+def bound_ms(nbytes: int) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _query_case(lib, al, c, n, what: str, errs: dict, c2=None, n2=None):
+    """One query dispatch's K4a, K4b and K5 (K5p where ``c2`` is given)
+    held to their plain versions on the kernels' own chain: K4a's rows
+    feed K3, K3's candidates K4b, K4b's rows K1, K1's outputs K5.  Returns
+    the arguments of each (for the timings)."""
+    a4a = (c, n) if c2 is None else (c, n, c2, n2)
+    errs["query_prologue"].append(hold_k4a(lib, a4a, what))
+    fwd, lens = query.launch_k4a(lib, *a4a)
+    s = al.static()
+    pad = s[7]
+    diag, votes, strand = seed.seed_candidates_cuda(
+        fwd, lens, al.run_table, al.seed_pos, al.bucket_lo, s)
+    Lr = fwd.shape[1]
+    W, T = _text_bound(al.text, Lr, pad)
+    a4b = (fwd, lens, strand, diag, pad, T - W, -(-Lr // 16) * 16)
+    errs["query_rows"].append(hold_k4b(lib, a4b, what))
+    rows, len_rep, w0 = query.launch_k4b(lib, *a4b)
+    dp = extend.banded_extend_cuda(al.text, w0, rows, len_rep, pad, *s[8:11],
+                                   lr=Lr)
+    a5 = (*dp, w0, votes, strand, al.tstart, al.tnode, lens, *PICK_CFG,
+          *(() if c2 is None else PAIR_CFG))
+    key = "query_pick" if c2 is None else "query_pick_paired"
+    errs[key].append(hold_k5(lib, a5, what))
+    return a4a, a4b, a5
+
+
+def query_phase(aligner, index, codes: np.ndarray, lens: np.ndarray,
+                shared: SimpleNamespace) -> dict:
+    """Phase 3f: K4a, K4b, K5 and K5p held to their plain versions bit for
+    bit on phase 5's first batch (and cut to widths 150 and 151), the
+    paired batch (and mate 2 cut to 150 columns), 16384 long-read chunks
+    of 512 bases at pad 8 (K4a and K4b as the extension takes them: K = 1,
+    int32 strands) and pick_cases; each timed with its plain version
+    beside its bound.  Returns {kernel: (largest difference, ms, plain
+    ms, bound ms, shape, times by case)}."""
+    lib = query.build_query_kernels()
+    card = card_line()
+    errs = {k: [] for k in QUERY_KERNELS}
+    up = aligner.upload
+    main = _query_case(lib, aligner, *up(codes[:BATCH], lens[:BATCH]),
+                       f"at B={BATCH} L={codes.shape[1]}", errs)
+    for w in (150, 151):
+        cw = np.full((BATCH, w), 4, np.int8)
+        cw[:, :150] = codes[:BATCH, :150]
+        _query_case(lib, aligner, *up(cw, np.minimum(lens[:BATCH], 150)),
+                    f"at B={BATCH} L={w}", errs)
+    c1, l1, c2, l2 = shared.pairs
+    paired = _query_case(lib, aligner, *up(c1, l1),
+                         f"at 2 x {BATCH} mates L={c1.shape[1]}", errs,
+                         *up(c2, l2))
+    errs["query_prologue"].append(hold_k4a(
+        lib, (*up(c1, l1), *up(np.ascontiguousarray(c2[:, :150]), l2)),
+        f"at 2 x {BATCH} mates of widths {c1.shape[1]} and 150"))
+    chunk = LONG_READ_PRESETS[READ_TYPE]
+    long_al = shared.long_al
+    rng = np.random.default_rng(23)
+    a4a_long = up(*shared.long_chunks)
+    errs["query_prologue"].append(hold_k4a(
+        lib, a4a_long, f"at B={LONG_BATCH} L={chunk} (long-read chunks)"))
+    fwd = query.launch_k4a(lib, *a4a_long)[0]
+    pad = long_al.cfg.extension_band
+    W, T = _text_bound(long_al.text, chunk, pad)
+    a4b_long = (fwd, a4a_long[1],
+                long_al.put(rng.integers(0, 2, size=LONG_BATCH), np.int32),
+                long_al.put(rng.integers(-100, index.text_len,
+                                         size=LONG_BATCH), np.int32), 0,
+                T - W, chunk)
+    errs["query_rows"].append(hold_k4b(
+        lib, a4b_long, f"at B={LONG_BATCH} L={chunk} pad {pad} (the "
+                       f"extension's rows: K 1, int32 strands)"))
+    for name, case in pick_cases().items():
+        key = "query_pick_paired" if case[0] else "query_pick"
+        errs[key].append(hold_k5(lib, pick_args(case, aligner.device),
+                                 f"on the crafted case {name}"))
+
+    plan = {  # kernel: (launch, plain, args by case, bytes)
+        "query_prologue": (query.launch_k4a, query.query_prologue_plain,
+                           {"main": main[0], "paired": paired[0],
+                            "long": a4a_long}, k4a_bytes),
+        "query_rows": (query.launch_k4b, query.query_rows_plain,
+                       {"main": main[1], "paired": paired[1],
+                        "long": a4b_long}, k4b_bytes),
+        "query_pick": (query.launch_k5, query.query_pick_plain,
+                       {"main": main[2]}, pick_bytes),
+        "query_pick_paired": (query.launch_k5p, query.query_pick_paired_plain,
+                              {"main": paired[2]}, pick_bytes),
+    }
+    out = {}
+    for key, (launch, plain, cases, nbytes) in plan.items():
+        times = {}
+        for case, args in cases.items():
+            times[case] = cuda_ms(lambda: launch(lib, *args), 50, hold=True)
+            times[f"bound_{case}"] = bound_ms(nbytes(args))
+        args = cases["main"]
+        plain_ms = cuda_ms(lambda: plain(*args), 5, hold=True)
+        shape = {"query_prologue": f"B {BATCH}, L {codes.shape[1]}",
+                 "query_rows": f"{BATCH} x K 2, L 160, width 160",
+                 "query_pick": f"B {BATCH}, K 2, M {aligner.tstart.shape[0]}",
+                 "query_pick_paired": f"2 x {BATCH} mates, K 2"}[key]
+        out[key] = (max(errs[key]), times["main"], plain_ms,
+                    times["bound_main"], shape, times)
+        print(f"{key} [{card}]: {times['main']:.4f} ms, plain torch "
+              f"{plain_ms:.3f} ms, bound {times['bound_main']:.4f} ms (bytes) "
+              f"at {shape}; " + ", ".join(
+                  f"{c} {times[c]:.4f} ms (bound {times['bound_' + c]:.4f})"
+                  for c in cases if c != "main"))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2561,8 +3033,13 @@ def main_path(build: str, dev, issue_peak: float):
     # K1 at the main path's shape, over this DB's text
     err1, ms, plain_ms = check_kernel(index.text, dev, 2 * BATCH, 160, 4,
                                       seed=1, timed=True)
-    k3 = seed_phase(db, index, aligner, codes, lens, dev, issue_peak)
+    shared = phase3_inputs(index, dev)
+    k3 = seed_phase(db, index, aligner, codes, lens, dev, issue_peak, shared)
     k6 = k6_phase(build, dev, aligner, index, tables, codes, lens)
+    t0 = time.time()
+    k45 = query_phase(aligner, index, codes, lens, shared)
+    print(f"phase 3f: {time.time() - t0:.1f} s")
+    del shared
 
     cfg = _host.ProfilingConfig.for_read_type("short")
     cfg.tail = "host"
@@ -2596,7 +3073,10 @@ def main_path(build: str, dev, issue_peak: float):
     # reads_classification.tsv rows are R<read index>
     check_tables(out, np.asarray(index.hap_species, dtype=object)[hap],
                  N_READS, stage["n_aligned"], "aligned")
-    return ((launches["banded_extend"], err1, ms, plain_ms), k3, k6,
+    split = FEED_SPLIT.feed_split(aligner, tables, codes, lens, BATCH, 2,
+                                  os.path.join(build, "feed_trace"))
+    print(f"feed split: {json.dumps({'card': card_line(), **split})}")
+    return ((launches["banded_extend"], err1, ms, plain_ms), k3, k6, k45,
             (db, index, tables), (codes, lens, hap, out))
 
 
@@ -4128,15 +4608,16 @@ def main() -> None:
           f"TB/s")
     build = str(extend.build_dir())
     t0 = time.time()
-    with ThreadPoolExecutor(5) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(6) as pool:  # one nvcc per source, together
         built = [pool.submit(extend.build_kernels),
                  pool.submit(seed.build_seed_kernel),
                  pool.submit(scatter.build_scatter_kernels),
                  pool.submit(admm.build_admm_kernel),
-                 pool.submit(tail_kernels.build_tail_kernels)]
-        lib, lib3, lib6, lib8, lib9 = (f.result() for f in built)
-    print(f"kernel build (K1 and K2, K3, K6 and K11, K8, K9 and K10b; five "
-          f"nvcc processes) {time.time() - t0:.2f} s")
+                 pool.submit(tail_kernels.build_tail_kernels),
+                 pool.submit(query.build_query_kernels)]
+        lib, lib3, lib6, lib8, lib9, lib4 = (f.result() for f in built)
+    print(f"kernel build (K1 and K2, K3, K6 and K11, K8, K9 and K10b, K4 and "
+          f"K5; six nvcc processes) {time.time() - t0:.2f} s")
     print(f"SASS of K1 and K2: {sass_counts(lib._name)}")
     k1_sass = {f"pad{pad}": step_sass(lib._name, 2 * pad) for pad in (4, 8)}
     k2_sass = {f"pad{pad}": step_sass(lib._name, 2 * pad,
@@ -4148,7 +4629,7 @@ def main() -> None:
     print(f"K3 vote loop SASS (seed_stage_kernel<2>): {json.dumps(k3_sass)}")
     for ln in (ptxas_lines(lib.build_log) + ptxas_lines(lib3.build_log)
                + ptxas_lines(lib6.build_log) + ptxas_lines(lib8.build_log)
-               + ptxas_lines(lib9.build_log)):
+               + ptxas_lines(lib9.build_log) + ptxas_lines(lib4.build_log)):
         print(f"  ptxas: {ln}")
 
     rng = np.random.default_rng(0)
@@ -4156,7 +4637,7 @@ def main() -> None:
                             np.full(1024, 4, np.int8)])
     err2, _, _ = check_kernel(text8, dev, 4096, 96, 8, seed=2, timed=False)
     cross_device_check(build, dev)
-    (launches, err1, ms, plain_ms), k3, k6, (db, index, tables), short = \
+    (launches, err1, ms, plain_ms), k3, k6, k45, (db, index, tables), short = \
         main_path(build, dev, issue_peak)
     err3, ms3, plain_ms3, bound3, by3, k3_times = k3
     err_c = check_kernel_clamped(index.text, dev)
@@ -4244,6 +4725,14 @@ def main() -> None:
                bound_ms=res[3], bound_by=res[4], library_ms=None,
                shape=res[6], **res[5])
           for kernel, res in ((KERNEL9, k9), (KERNEL10B, k10b))),
+        *(dict(kernel, launches=sum(QUERY_BY_PATH[kernel["name"]].values()),
+               launches_by_path=QUERY_BY_PATH[kernel["name"]],
+               max_abs_err=k45[kernel["name"]][0], ms=k45[kernel["name"]][1],
+               plain_ms=k45[kernel["name"]][2],
+               bound_ms=k45[kernel["name"]][3], bound_by="bytes",
+               library_ms=None, shape=k45[kernel["name"]][4],
+               ms_by_case=k45[kernel["name"]][5])
+          for kernel in (KERNEL4A, KERNEL4B, KERNEL5, KERNEL5P)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

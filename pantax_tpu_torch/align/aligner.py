@@ -1,22 +1,25 @@
 """Aligner, PyTorch port of pantax_tpu/align/aligner.py.
 
-The query path per read batch (``query_batch``): unpack and reverse
-complement, the seed stage (K3, ops/seed.py: canonical k-mer hashing and
-seed selection, seed lookup by CHD perfect hash or bucketed bisection,
-diagonal vote on both strands and the strand union), banded DP extension
-(K1, ops/extend.py), node projection, and the best / location-deduped
-second-best scores that give mapq.  Every step
-keeps the JAX function's dtypes and tie order (first index on argmax), so the
-packed [4, B] result rows are bit-identical to ``_query_batch_packed``.
+The query path per read batch (``query_batch``), five launches on the
+card: the unpack (K4a, ops/query.py), the seed stage (K3, ops/seed.py:
+canonical k-mer hashing and seed selection, seed lookup by CHD perfect
+hash or bucketed bisection, diagonal vote on both strands and the strand
+union), the candidates' read rows on their strands (K4b), banded DP
+extension (K1, ops/extend.py) and the pick (K5: node projection, the best
+/ location-deduped second-best scores that give mapq, the per-read
+columns or their packed rows).  Every step keeps the JAX function's dtypes
+and tie order (first index on argmax), so the packed [4, B] result rows
+are bit-identical to ``_query_batch_packed``.
 
 Mate pairs (``query_batch_paired``) take one candidate pass over both mates
-and score the K x K candidate pairs jointly (fragment bonus, rescue, pair
-mapq); their packed [8, B] rows are bit-identical to
+and score the K x K candidate pairs jointly (K5p: fragment bonus, rescue,
+pair mapq); their packed [8, B] rows are bit-identical to
 ``_query_batch_paired_packed``.
 
 The seed-free extension at host-predicted windows (``extend_batch``, the
-long-read rescue pass) gathers its windows from the text and runs the DP
-over them (K2); its rows are bit-identical to ``_extend_batch``.
+long-read rescue pass) unpacks its reads (K4a), takes each on its strand
+(K4b), gathers its windows from the text and runs the DP over them (K2);
+its rows are bit-identical to ``_extend_batch``.
 
 On a device mesh (``Aligner(mesh=)``) each entry point that launches K1
 or K2 splits its rows into contiguous blocks, one per mesh device, runs
@@ -50,7 +53,11 @@ from .. import _host
 from ..io.fastx import iter_fastx, stream_fastx_buffers, stream_paired_parsed
 from ..io.gaf import GafRecord
 from ..ops.extend import (
-    NEG, banded_extend, banded_extend_windows, extract_windows, packed_layout,
+    banded_extend, banded_extend_windows, extract_windows, packed_layout,
+)
+from ..ops.query import (  # noqa: F401 (rev_codes, unpack_reads: the plain
+    frac_of, pack_result_rows, query_pick,  # steps, kept importable here)
+    query_pick_paired, query_prologue, query_rows, rev_codes, unpack_reads,
 )
 from ..ops.seed import _CHD_GOLD, _M32, kmer_hashes, seed_candidates
 from ..parallel.mesh import check_primary, row_blocks
@@ -61,7 +68,7 @@ __all__ = [
     "Aligner", "BatchResult", "build_bucket_table", "build_seed_lookup",
     "extend_batch", "extract_windows", "kmer_hashes", "pack_result_rows",
     "pack_text2d", "packed_layout", "query_batch", "query_batch_paired",
-    "seed_candidates", "unpack_result_rows",
+    "rev_codes", "seed_candidates", "unpack_reads", "unpack_result_rows",
 ]
 
 
@@ -177,183 +184,68 @@ def build_seed_lookup(seed_keys: np.ndarray, seed_pos: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
-# the query (plain torch around the kernels)
+# the query: K4a, K3, K4b, K1 (or K2), K5 (ops/query.py, ops/seed.py,
+# ops/extend.py)
 # ---------------------------------------------------------------------------
-def unpack_reads(codes, read_len):
-    """int8 codes [B, L] -> [B, L4]: width rounded up to a multiple of 4 and
-    every column at or past read_len set to 4, as the reference's read wire
-    (pack_codes / pack_codes2 + _unpack_reads_j) delivers them."""
-    B, L = codes.shape
-    if L % 4:
-        codes = torch.nn.functional.pad(codes, (0, 4 - L % 4), value=4)
-    cols = torch.arange(codes.shape[1], device=codes.device)
-    return torch.where(cols < read_len[:, None], codes, 4).to(torch.int8)
-
-
-def rev_codes(codes, lens):
-    """Left-aligned reverse complement of right-padded codes (a gather)."""
-    B, Lr = codes.shape
-    cols = torch.arange(Lr, device=codes.device)
-    src = (lens.to(torch.int64)[:, None] - 1 - cols).clamp(0, Lr - 1)
-    rev = torch.gather(codes, 1, src)
-    ok = (cols < lens[:, None]) & (rev < 4)
-    return torch.where(ok, 3 - rev, 4).to(torch.int8)
-
-
 def _text_bound(text, Lr: int, pad: int) -> tuple[int, int]:
     """(W, T): window width and the reference's text2d bound on w0 + W."""
     W = Lr + 2 * pad
     return W, text.shape[0] - (W + 255) // 256 * 256
 
 
-def all_candidates(text, run_table, seed_pos, bucket_lo, tstart, tnode,
-                   codes_fwd, codes_rev, read_len, cfg_static):
-    """Scored candidates per read, both strands folded: (scores, ts, te,
-    matches, strand, node, off), all [B, K]."""
+def all_candidates(text, run_table, seed_pos, bucket_lo, codes_fwd,
+                   read_len, cfg_static):
+    """The K candidates of each read, both strands folded (K3), their read
+    rows (K4b) and their DP (K1): ((score, start_off, end_off, matches),
+    w0, all [B K]; cand_votes int32 [B, K], strand int8 [B, K]), what the
+    reference's _all_candidates computes before its tail (K5's)."""
     top_k, pad, match, mismatch, gap = cfg_static[6:11]
-    B, Lr = codes_fwd.shape
+    Lr = codes_fwd.shape[1]
     W, T = _text_bound(text, Lr, pad)
     cand_diag, cand_votes, strand = seed_candidates(
         codes_fwd, read_len, run_table, seed_pos, bucket_lo, cfg_static)
-
-    K = top_k
-    read_rep = torch.where((strand == 1)[:, :, None], codes_rev[:, None, :],
-                           codes_fwd[:, None, :]).reshape(B * K, Lr)
-    if Lr % 16:
-        # K1 loads read rows 16 bytes at a time: pad them with N; the DP
-        # runs over the first Lr columns, in width Lr's packed layout
-        read_rep = torch.nn.functional.pad(read_rep, (0, -Lr % 16), value=4)
-    len_rep = read_len.repeat_interleave(K)
-    flat_w0 = (cand_diag - pad).clamp(0, T - W).reshape(-1).contiguous()
-    score, start_off, end_off, matches = banded_extend(
-        text, flat_w0, read_rep.contiguous(), len_rep, pad, match, mismatch,
-        gap, lr=Lr,
-    )
-    scores = torch.where(cand_votes > 0, score.reshape(B, K), NEG)
-    ts = (flat_w0 + start_off).reshape(B, K)
-    te = (flat_w0 + end_off).reshape(B, K)
-    matches = matches.reshape(B, K)
-
-    i0 = torch.searchsorted(tstart, ts, right=True) - 1
-    i0 = i0.clamp(0, tnode.shape[0] - 1)
-    return scores, ts, te, matches, strand, tnode[i0], ts - tstart[i0]
-
-
-def _frac_of(frac: float, read_len):
-    """int32(float32(frac) * read_len): the float32 product truncated to
-    int32, as XLA computes the reference's score thresholds."""
-    f32 = torch.float32
-    return (torch.tensor(frac, dtype=f32) * read_len.to(f32)).to(torch.int32)
-
-
-def _gap_mapq(best, second, mapq_scale: float):
-    """mapq from the best and second-best score: 60 without a second,
-    else clip(int32(float32(scale) * (best - second)), 0, 60)."""
-    gap_q = torch.tensor(mapq_scale, dtype=torch.float32) * (best - second).to(
-        torch.float32)
-    return torch.where(second <= NEG // 2, 60,
-                       gap_q.to(torch.int32).clamp(0, 60)).to(torch.int32)
+    # K1 loads read rows 16 bytes at a time: K4b pads them with N; the DP
+    # runs over the first Lr columns, in width Lr's packed layout
+    rows, len_rep, w0 = query_rows(codes_fwd, read_len, strand, cand_diag,
+                                   pad, T - W, -(-Lr // 16) * 16)
+    dp = banded_extend(text, w0, rows, len_rep, pad, match, mismatch, gap,
+                       lr=Lr)
+    return dp, w0, cand_votes, strand
 
 
 def query_batch(text, run_table, seed_pos, bucket_lo, tstart, tnode,
-                codes, read_len, cfg_static):
+                codes, read_len, cfg_static, packed: bool = False):
     """Counterpart of the reference's ``_query_batch``: per-read (ts, te,
     score, matches, mapq, strand, aligned) with the reference's dtypes
-    (int32 x5, int8, bool).  ``codes`` int8 [B, L], ``read_len`` int32 [B]."""
-    mapq_scale, min_score_frac = cfg_static[11], cfg_static[12]
-    codes_fwd = unpack_reads(codes, read_len)
-    codes_rev = rev_codes(codes_fwd, read_len)
-    scores, ts, te, matches, strand, node, off = all_candidates(
-        text, run_table, seed_pos, bucket_lo, tstart, tnode,
-        codes_fwd, codes_rev, read_len, cfg_static,
-    )
-    best = torch.argmax(scores, dim=1, keepdim=True)
-
-    def take(a):
-        return torch.gather(a, 1, best)[:, 0]
-
-    s1 = take(scores)
-    same_loc = (node == take(node)[:, None]) & (off == take(off)[:, None])
-    s2 = torch.where(same_loc, NEG, scores).amax(dim=1)
-    aligned = s1 >= _frac_of(min_score_frac, read_len)
-    mapq = _gap_mapq(s1, s2, mapq_scale)
-    return (take(ts), take(te), s1, take(matches),
-            torch.where(aligned, mapq, 0), take(strand), aligned)
+    (int32 x5, int8, bool), or (``packed``) its ``_query_batch_packed``
+    rows, int32 [4, B].  ``codes`` int8 [B, L], ``read_len`` int32 [B]."""
+    codes_fwd, _ = query_prologue(codes, read_len)
+    dp, w0, votes, strand = all_candidates(
+        text, run_table, seed_pos, bucket_lo, codes_fwd, read_len, cfg_static)
+    return query_pick(*dp, w0, votes, strand, tstart, tnode, read_len,
+                      cfg_static[11], cfg_static[12], packed)
 
 
 def query_batch_paired(text, run_table, seed_pos, bucket_lo, tstart, tnode,
                        codes1, len1, codes2, len2, cfg_static,
-                       frag_max: int, pair_bonus: int, rescue_frac: float):
+                       frag_max: int, pair_bonus: int, rescue_frac: float,
+                       packed: bool = False):
     """Counterpart of the reference's ``_query_batch_paired``: joint
     fragment-model alignment of B mate pairs.  Both mates' candidates come
-    from one ``all_candidates`` pass over the 2B reads (one K1 launch); a
+    from one candidate pass over the 2B reads (one K1 launch); a
     candidate pair on opposite strands within ``frag_max`` earns
     ``pair_bonus``; the best pair (first index over the flattened K*K axis)
     places both mates; a weak mate of a consistent fragment is kept at
-    ``rescue_frac``.  Returns two 7-tuples (mate 1, mate 2) as query_batch.
-    Mate code matrices of different widths are padded with 4 to the wider."""
-    mapq_scale, min_score_frac = cfg_static[11], cfg_static[12]
-    B = len1.shape[0]
-    f1, f2 = unpack_reads(codes1, len1), unpack_reads(codes2, len2)
-    Lw = max(f1.shape[1], f2.shape[1])
-    codes_fwd = torch.cat([
-        torch.nn.functional.pad(f, (0, Lw - f.shape[1]), value=4)
-        for f in (f1, f2)])
-    lens = torch.cat([len1, len2])
-    codes_rev = rev_codes(codes_fwd, lens)
-    scores, ts, te, matches, strand, node, off = all_candidates(
-        text, run_table, seed_pos, bucket_lo, tstart, tnode,
-        codes_fwd, codes_rev, lens, cfg_static,
-    )
-    K = scores.shape[1]
-    s1, s2 = scores[:B], scores[B:]
-    ts1, ts2 = ts[:B], ts[B:]
-    n1, n2 = node[:B], node[B:]
-    o1, o2 = off[:B], off[B:]
-    ok = ((strand[:B, :, None] != strand[B:, None, :])
-          & ((ts1[:, :, None] - ts2[:, None, :]).abs() <= frag_max)
-          & (s1 > NEG // 2)[:, :, None] & (s2 > NEG // 2)[:, None, :])
-    pairf = (s1[:, :, None] + s2[:, None, :]
-             + ok.to(torch.int32) * pair_bonus).reshape(B, K * K)
-    best = torch.argmax(pairf, dim=1, keepdim=True)  # first index on ties
-    bi, bj = best // K, best % K
-
-    def t1(a):
-        return torch.gather(a[:B], 1, bi)[:, 0]
-
-    def t2(a):
-        return torch.gather(a[B:], 1, bj)[:, 0]
-
-    p_best = torch.gather(pairf, 1, best)[:, 0]
-    ok_best = torch.gather(ok.reshape(B, K * K), 1, best)[:, 0]
-
-    # joint second best: the best pair whose mates are not both at the
-    # chosen graph locations
-    same1 = (n1 == t1(node)[:, None]) & (o1 == t1(off)[:, None])
-    same2 = (n2 == t2(node)[:, None]) & (o2 == t2(off)[:, None])
-    same_pair = (same1[:, :, None] & same2[:, None, :]).reshape(B, K * K)
-    p_second = torch.where(same_pair, NEG, pairf).amax(dim=1)
-    pair_mapq = _gap_mapq(p_best, p_second, mapq_scale)
-
-    s1b, s2b = t1(scores), t2(scores)
-    al1 = s1b >= _frac_of(min_score_frac, len1)
-    al2 = s2b >= _frac_of(min_score_frac, len2)
-    # fragment rescue: a consistent weak mate is kept when its partner
-    # clears the normal threshold on its own
-    aligned1 = al1 | (ok_best & al2 & (s1b >= _frac_of(rescue_frac, len1)))
-    aligned2 = al2 | (ok_best & al1 & (s2b >= _frac_of(rescue_frac, len2)))
-    # per-mate mapq: the joint gap for a consistent fragment, else the
-    # mate's own single-end gap
-    own1 = _gap_mapq(s1b, torch.where(same1, NEG, s1).amax(dim=1), mapq_scale)
-    own2 = _gap_mapq(s2b, torch.where(same2, NEG, s2).amax(dim=1), mapq_scale)
-    mapq1 = torch.where(ok_best, pair_mapq, own1)
-    mapq2 = torch.where(ok_best, pair_mapq, own2)
-    return (
-        (t1(ts), t1(te), s1b, t1(matches), torch.where(aligned1, mapq1, 0),
-         t1(strand), aligned1),
-        (t2(ts), t2(te), s2b, t2(matches), torch.where(aligned2, mapq2, 0),
-         t2(strand), aligned2),
-    )
+    ``rescue_frac``.  Returns the 7 per-read columns of the 2B reads (mate
+    1's B rows, then mate 2's), or (``packed``) the reference's
+    ``_query_batch_paired_packed`` rows, int32 [8, B].  Mate code matrices
+    of different widths are padded with 4 to the wider."""
+    codes_fwd, lens = query_prologue(codes1, len1, codes2, len2)
+    dp, w0, votes, strand = all_candidates(
+        text, run_table, seed_pos, bucket_lo, codes_fwd, lens, cfg_static)
+    return query_pick_paired(*dp, w0, votes, strand, tstart, tnode, lens,
+                             cfg_static[11], cfg_static[12], frag_max,
+                             pair_bonus, rescue_frac, packed)
 
 
 def extend_batch(text, codes, read_len, w0, strand, cfg_static):
@@ -362,29 +254,17 @@ def extend_batch(text, codes, read_len, w0, strand, cfg_static):
     clipped into the text; mapq 0.  Packed int32 [4, B] rows."""
     pad, match, mismatch, gap = cfg_static[7:11]
     min_score_frac = cfg_static[12]
-    codes_fwd = unpack_reads(codes, read_len)
-    codes_rev = rev_codes(codes_fwd, read_len)
-    read = torch.where((strand == 1)[:, None], codes_rev, codes_fwd)
-    W, T = _text_bound(text, read.shape[1], pad)
-    w0c = w0.to(torch.int32).clamp(0, T - W)
+    codes_fwd, _ = query_prologue(codes, read_len)
+    Lr = codes_fwd.shape[1]
+    W, T = _text_bound(text, Lr, pad)
+    read, _, w0c = query_rows(codes_fwd, read_len, strand, w0, 0, T - W, Lr)
     score, start_off, end_off, matches = banded_extend_windows(
-        extract_windows(text, w0c, W), read.contiguous(), read_len, pad,
-        match, mismatch, gap,
+        extract_windows(text, w0c, W), read, read_len, pad, match, mismatch,
+        gap,
     )
     return pack_result_rows((w0c + start_off, w0c + end_off, score, matches,
                              torch.zeros_like(score), strand,
-                             score >= _frac_of(min_score_frac, read_len)))
-
-
-def pack_result_rows(res7):
-    """The 7-tuple query result as one int32 [4, B]: text_start, text_end,
-    (score << 16 | matches), (mapq << 2 | strand << 1 | aligned); scores are
-    clipped to int16 (only the NEG sentinel clips)."""
-    ts, te, score, matches, mapq, strand, aligned = res7
-    i32 = torch.int32
-    hi = (score.clamp(-32768, 32767).to(i32) * 65536) | (matches.to(i32) & 0xFFFF)
-    flags = (mapq.to(i32) << 2) | (strand.to(i32) << 1) | aligned.to(i32)
-    return torch.stack([ts.to(i32), te.to(i32), hi, flags])
+                             score >= frac_of(min_score_frac, read_len)))
 
 
 @dataclass
@@ -452,6 +332,17 @@ def _cat_rows(outs, device):
                  for i in range(len(outs[0])))
 
 
+def _cat_mates(outs, device):
+    """The per-block outputs of a sharded paired call, 7 columns of [2b]
+    rows each (the block's mate 1 rows, then its mate 2 rows), as 7 columns
+    on ``device``: every block's mate 1 rows in block order, then every
+    block's mate 2 rows."""
+    return tuple(
+        torch.cat([o[i][:o[i].shape[0] // 2].to(device) for o in outs]
+                  + [o[i][o[i].shape[0] // 2:].to(device) for o in outs])
+        for i in range(len(outs[0])))
+
+
 def _parse_chunk(path, buf: bytes):
     from ..utils.native import fastx_parse_native
 
@@ -508,11 +399,11 @@ class Aligner(nn.Module):
                     self.tstart, self.tnode)
         return self._replicas[device]
 
-    def _on_mesh(self, fn, *rows):
+    def _on_mesh(self, fn, *rows, join=None):
         """fn(tables, *rows) for one batch of ``rows`` (tensors on the
         primary, rows first): on the primary without a mesh, else once per
-        row block on its mesh device, the outputs concatenated on the
-        primary in row order."""
+        row block on its mesh device, the outputs joined on the primary in
+        row order (``join``, _cat_rows unless given)."""
         if self.mesh is None or len(self.mesh) == 1:
             return fn(self._tables(), *rows)
         blocks = row_blocks(rows[0].shape[0], self.mesh)
@@ -525,8 +416,9 @@ class Aligner(nn.Module):
                     "multiple of the mesh size)", rows[0].shape[0],
                     len(self.mesh), self.device)
             return fn(self._tables(), *rows)
-        return _cat_rows([fn(self._tables(d), *(r[s].to(d) for r in rows))
-                          for d, s in blocks], self.device)
+        return (join or _cat_rows)(
+            [fn(self._tables(d), *(r[s].to(d) for r in rows))
+             for d, s in blocks], self.device)
 
     @property
     def device(self) -> torch.device:
@@ -562,23 +454,35 @@ class Aligner(nn.Module):
 
     def query_packed(self, codes, read_len):
         """Packed int32 [4, B] rows (the reference's _query_batch_packed)."""
-        return pack_result_rows(self.query(codes, read_len))
+        static = self.static()
+        return self._on_mesh(
+            lambda t, c, n: query_batch(*t, c, n, static, packed=True),
+            codes, read_len)
 
-    def query_paired(self, codes1, len1, codes2, len2):
-        """The joint mate-pair query on batches already on the device: two
-        per-read 7-tuples (mate 1, mate 2)."""
+    def _query_paired(self, packed: bool, *rows):
         c, static = self.cfg, self.static()
         return self._on_mesh(
             lambda t, c1, n1, c2, n2: query_batch_paired(
                 *t, c1, n1, c2, n2, static, c.frag_max, c.pair_bonus,
-                c.rescue_frac),
-            codes1, len1, codes2, len2)
+                c.rescue_frac, packed),
+            *rows, join=_cat_rows if packed else _cat_mates)
+
+    def query_paired_columns(self, codes1, len1, codes2, len2):
+        """The joint mate-pair query on batches already on the device: the
+        per-read 7 columns of the 2B reads, mate 1's B rows then mate 2's."""
+        return self._query_paired(False, codes1, len1, codes2, len2)
+
+    def query_paired(self, codes1, len1, codes2, len2):
+        """The joint mate-pair query on batches already on the device: two
+        per-read 7-tuples (mate 1, mate 2)."""
+        cols = self.query_paired_columns(codes1, len1, codes2, len2)
+        B = len1.shape[0]
+        return tuple(a[:B] for a in cols), tuple(a[B:] for a in cols)
 
     def query_paired_packed(self, codes1, len1, codes2, len2):
         """Packed int32 [8, B] rows, mate 1's four then mate 2's (the
         reference's _query_batch_paired_packed)."""
-        r1, r2 = self.query_paired(codes1, len1, codes2, len2)
-        return torch.cat([pack_result_rows(r1), pack_result_rows(r2)])
+        return self._query_paired(True, codes1, len1, codes2, len2)
 
     def align_paired_codes(self, codes1: np.ndarray, lens1: np.ndarray,
                            codes2: np.ndarray, lens2: np.ndarray):

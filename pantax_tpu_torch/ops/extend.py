@@ -54,7 +54,8 @@ _SH_MATCH = 5
 # kernel is launched, the plain count where the plain version runs in its
 # place (K1, K2 here; K3, the seed stage, in ops/seed.py; K6 and K11, the
 # classify + scatter, in ops/scatter.py; K8, the ADMM chunk, in
-# ops/admm.py).  The two "scatter_*_dispatch" counts are the fused
+# ops/admm.py; K4 and K5, the query's prologue and epilogue, in
+# ops/query.py).  The two "scatter_*_dispatch" counts are the fused
 # pipeline's scatter calls by formulation (ops/fused.py), whatever runs
 # them: on the card each is one K6 or K11 launch.  "admm_chunk_dispatch"
 # counts the strain solvers' chunk calls (profile/pao.py's
@@ -68,7 +69,11 @@ LAUNCHES = {"banded_extend": 0, "banded_extend_plain": 0,
             "scatter_range_dispatch": 0, "scatter_window_dispatch": 0,
             "admm_chunk": 0, "admm_chunk_plain": 0, "admm_chunk_dispatch": 0,
             "tail_stats": 0, "tail_stats_plain": 0, "tail_stats_dispatch": 0,
-            "polish": 0, "polish_plain": 0, "polish_dispatch": 0}
+            "polish": 0, "polish_plain": 0, "polish_dispatch": 0,
+            "query_prologue": 0, "query_prologue_plain": 0,
+            "query_rows": 0, "query_rows_plain": 0,
+            "query_pick": 0, "query_pick_plain": 0,
+            "query_pick_paired": 0, "query_pick_paired_plain": 0}
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "banded_extend.cu"
 _NVCC_FLAGS = (

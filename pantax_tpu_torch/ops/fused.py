@@ -330,8 +330,8 @@ def fused_step_paired(aligner, tables: FusedTables, codes1, len1, codes2,
     mate intervals (mate 1 then mate 2) into ``acc`` (in place), as
     fused_step; returns the five [2B] per-read columns and the [2B]
     overflow mask or None."""
-    r1, r2 = aligner.query_paired(codes1, len1, codes2, len2)
-    ts, te, mapq, aligned = (torch.cat([r1[i], r2[i]]) for i in (0, 1, 4, 6))
+    ts, te, _score, _matches, mapq, _strand, aligned = \
+        aligner.query_paired_columns(codes1, len1, codes2, len2)
     return _scatter_step(ts, te, mapq, aligned, aligner, tables, acc, L_cap)
 
 

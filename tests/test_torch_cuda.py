@@ -16,7 +16,7 @@ from pantax_tpu_torch.benchmarks import (
 from pantax_tpu_torch.convert import aligner_from_reference
 from pantax_tpu_torch.align import aligner as aligner_mod
 from pantax_tpu_torch.align.aligner import unpack_reads
-from pantax_tpu_torch.ops import extend, seed
+from pantax_tpu_torch.ops import extend, query, seed
 from pantax_tpu_torch.ops.fused import (
     FusedPipeline, build_fused_tables, profile_from_fused_result,
 )
@@ -42,7 +42,10 @@ NO_SCATTER = {"classify_scatter_ranges": 0, "classify_scatter_ranges_plain": 0,
               # and K9's and K10b's, the device tail's stats and polish
               "tail_stats": 0, "tail_stats_plain": 0,
               "tail_stats_dispatch": 0, "polish": 0, "polish_plain": 0,
-              "polish_dispatch": 0}
+              "polish_dispatch": 0,
+              # and K4's and K5's, the query's prologue and epilogue
+              **{k + tail: 0 for k in chip_smoke.QUERY_KERNELS
+                 for tail in ("", "_plain")}}
 
 
 @pytest.fixture
@@ -1535,3 +1538,106 @@ def test_device_tail_launches_k9_and_k10b_once_per_dispatch(cuda, tmp_path):
         outs.append(out)
     for name in ("strain_abundance.txt", "ori_strain_abundance.txt"):
         assert ((outs[0] / name).read_bytes() == (outs[1] / name).read_bytes())
+
+
+# ---------------------------------------------------------------------------
+# K4 and K5 (csrc/query_io.cu): the query's prologue and epilogue
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def query_lib():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return query.build_query_kernels()
+
+
+@pytest.mark.parametrize("width", [150, 151, 160])
+def test_query_kernels_match_plain_on_a_batch(cuda, query_lib, tiny_index,
+                                              width):
+    """K4a, K4b and K5 on one query dispatch's own chain (K4a's rows feed
+    K3, K4b's rows K1, K1's outputs K5) and K5p on a paired one, each
+    bit for bit against its plain version, at code widths 150, 151 and
+    160 (mate 2 cut to 150 columns in the pairs)."""
+    al = aligner_from_reference(tiny_index, _host.AlignConfig(), cuda)
+    codes, lens, _ = simulate_read_batch(tiny_index, 4099, 150, 0.01, seed=3)
+    cw = np.full((4099, width), 4, np.int8)
+    cw[:, :150] = codes[:, :150]
+    lens[:3] = (0, 1, 149)
+    errs = {k: [] for k in chip_smoke.QUERY_KERNELS}
+    chip_smoke._query_case(query_lib, al, *al.upload(cw, lens),
+                           f"width {width}", errs)
+    c1, l1, c2, l2 = simulate_pairs(tiny_index, 2049, seed=4)
+    chip_smoke._query_case(query_lib, al, *al.upload(c1, l1), "paired",
+                           errs, *al.upload(np.ascontiguousarray(
+                               c2[:, :150]), l2))
+    assert max(max(v) for v in errs.values() if v) == 0
+
+
+def test_query_extension_rows_match_plain(cuda, query_lib, tiny_index):
+    """K4a and K4b as the extension takes them: 512-base chunks, K 1,
+    int32 strands, window starts clipped at pad 0, against the plain
+    versions."""
+    al = aligner_from_reference(
+        tiny_index, _host.AlignConfig.for_read_type("long"), cuda)
+    codes, lens, _ = simulate_read_batch(tiny_index, 1000, 512, 0.01, seed=6)
+    lens[:2] = (0, 300)
+    rng = np.random.default_rng(2)
+    c, n = al.upload(codes, lens)
+    chip_smoke.hold_k4a(query_lib, (c, n), "chunks")
+    fwd = query.launch_k4a(query_lib, c, n)[0]
+    args = (fwd, n, al.put(rng.integers(0, 3, size=1000), np.int32),
+            al.put(rng.integers(-100, len(tiny_index.text), size=1000),
+                   np.int32), 0, len(tiny_index.text) - 2048, 512)
+    chip_smoke.hold_k4b(query_lib, args, "extension rows")
+
+
+@pytest.mark.parametrize("name", chip_smoke.PICK_CASES + chip_smoke.PAIR_CASES)
+def test_pick_kernels_crafted_cases_match_plain(cuda, query_lib, name):
+    """K5 and K5p on pick_cases (the CPU tests hold the plain versions to
+    the reference on the same cases): 7 columns and packed rows."""
+    case = chip_smoke.pick_cases()[name]
+    assert chip_smoke.hold_k5(query_lib, chip_smoke.pick_args(case, cuda),
+                              name) == 0
+
+
+def test_query_entry_points_launch_kernels_on_cuda(cuda, tiny_index):
+    """A single-end, a paired and an extension dispatch on the card: one
+    K4a and one K4b launch each, one K5 or K5p a query, no plain run."""
+    al = aligner_from_reference(tiny_index, _host.AlignConfig(), cuda)
+    codes, lens, _ = simulate_read_batch(tiny_index, 256, 150, 0.01, seed=3)
+    c1, l1, c2, l2 = simulate_pairs(tiny_index, 256, seed=4)
+    extend.reset_launch_counts()
+    al.query_packed(*al.upload(codes, lens))
+    al.query(*al.upload(codes, lens))
+    al.query_paired_packed(*al.upload(c1, l1), *al.upload(c2, l2))
+    al.extend_packed(codes, lens, np.zeros(256, np.int64),
+                     np.zeros(256, np.int8))
+    torch.cuda.synchronize()
+    got = {k: extend.LAUNCHES[k] for k in NO_SCATTER
+           if k.startswith("query_")}
+    assert got == {"query_prologue": 4, "query_prologue_plain": 0,
+                   "query_rows": 4, "query_rows_plain": 0,
+                   "query_pick": 2, "query_pick_plain": 0,
+                   "query_pick_paired": 1, "query_pick_paired_plain": 0}
+    chip_smoke.check_k4_k5(dict(extend.LAUNCHES), "entry points")
+
+
+def test_query_kernels_reject_bad_inputs(cuda, query_lib):
+    """The wrappers raise ValueError on a wrong dtype, a non-contiguous
+    tensor, mixed devices and K past 8."""
+    c = torch.zeros((8, 32), dtype=torch.int8, device=cuda)
+    n = torch.full((8,), 32, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        query.launch_k4a(query_lib, c.to(torch.int32), n)
+    with pytest.raises(ValueError):
+        query.launch_k4a(query_lib, c.t(), n)
+    with pytest.raises(ValueError):
+        query.launch_k4a(query_lib, c, n.cpu())
+    with pytest.raises(ValueError):
+        query.launch_k4b(query_lib, c, n,
+                         torch.zeros((8, 9), dtype=torch.int8, device=cuda),
+                         torch.zeros((8, 9), dtype=torch.int32, device=cuda),
+                         4, 10, 32)
+    args = chip_smoke.pick_args(chip_smoke.pick_cases()["ties"], cuda)
+    with pytest.raises(ValueError):
+        query.launch_k5(query_lib, *args[:5], args[5].to(torch.int64),
+                        *args[6:])

@@ -509,3 +509,50 @@ def test_tail_kernels_run_without_jax(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NOJAX_TAIL_OK" in proc.stdout
+
+
+QUERY_SCRIPT = SEED_SCRIPT.split("    import numpy as np")[0] + textwrap.dedent("""
+    import numpy as np
+    import torch
+    from pantax_tpu_torch.ops import extend, query
+
+    rng = np.random.default_rng(0)
+    i32 = torch.int32
+    codes = torch.from_numpy(rng.integers(0, 5, size=(6, 150)).astype(np.int8))
+    lens = torch.tensor([0, 150, 75, 149, 1, 150], dtype=i32)
+    fwd, n = query.query_prologue(codes, lens, codes[:, :100], lens // 2)
+    assert fwd.shape == (12, 152) and n.tolist()[6:] == (lens // 2).tolist()
+    strand = torch.tensor([[0, 1]] * 12, dtype=torch.int8)
+    diag = torch.arange(24, dtype=i32).reshape(12, 2) * 40
+    rows, len_rep, w0 = query.query_rows(fwd, n, strand, diag, 4, 600, 160)
+    assert rows.shape == (24, 160) and int(w0.max()) == 600
+    tstart = torch.arange(0, 1000, 10, dtype=i32)
+    tnode = torch.arange(100, dtype=i32) % 7
+    dp = [torch.from_numpy(rng.integers(0, 150, size=24).astype(np.int32))
+          for _ in range(4)]
+    votes = torch.ones((12, 2), dtype=i32)
+    cols = query.query_pick_paired(*dp, w0, votes, strand, tstart, tnode, n,
+                                   10.0, 0.6, 1200, 4, 0.45)
+    assert len(cols) == 7 and cols[0].shape == (12,)
+    packed = query.query_pick(*dp, w0, votes, strand, tstart, tnode, n, 10.0,
+                              0.6, packed=True)
+    assert packed.shape == (4, 12) and packed.dtype == i32
+    assert extend.LAUNCHES["query_pick"] == 0
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    assert not leaked, leaked
+    print("NOJAX_QUERY_OK")
+""")
+
+
+def test_query_io_runs_without_jax(tmp_path):
+    """pantax_tpu_torch.ops.query (K4's and K5's module) imports and runs
+    its plain versions through its four entry points with jax, pandas,
+    pyarrow and the JAX package blocked."""
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([REPO,
+                                           os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", QUERY_SCRIPT], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NOJAX_QUERY_OK" in proc.stdout
