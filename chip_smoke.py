@@ -109,13 +109,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    at width 160 and cut to 150 and 151 columns, a paired batch of 2 x
    65536 mates (and mate 2 cut to 150 columns: unequal widths), K4a and
    K4b as the extension takes them (16384 long-read chunks of 512 bases,
-   K 1, int32 strands, pad 8), and ``pick_cases``' crafted candidates
-   (ties, all-NEG rows, a second best at the best's location, the
-   thresholds' float32 rounding, the projection's edges, padding rows,
-   the packing's clip, the frag_max boundary, the rescue, ok_best ties),
-   the picks' 7 columns and their packed rows; each kernel and its plain
+   K 1, int32 strands, pad 8), ``k4b_cases``' crafted rows (every
+   read_len % 16, read_len 0, the width and past it, every byte value, at
+   widths 150-512) and ``pick_cases``' crafted candidates (ties, all-NEG
+   rows, a second best at the best's location, the thresholds' float32
+   rounding, the projection's edges and its bucket table's: the int32
+   extremes, every bucket boundary, M 1 and 2; padding rows, the
+   packing's clip, the frag_max boundary, the rescue, ok_best ties), the
+   picks' 7 columns and their packed rows; each kernel and its plain
    version timed beside its bound (the bytes it must read and write once
-   over the HBM rate).  Every later phase holds K4a's and K4b's launches
+   over the HBM rate) and its share of it, then K5's bucket table of the
+   smoke DB's segments built again, its time and bytes printed.  Every
+   later phase holds K4a's and K4b's launches
    to one a query or extension dispatch (K1's and K2's), K5's and K5p's
    to one a query dispatch (K1's), the plain versions to 0
    (``check_k4_k5``, in ``check_k3``), the subprocesses of phases 11, 12
@@ -507,10 +512,11 @@ def ptxas_lines(log: str) -> list[str]:
         m = re.search(r"(?<=\d)((?:banded_extend|seed_stage|classify_scatter"
                       r"|admm_chunk|tail_stats|polish|query)(?:_[a-z]+)*"
                       r"_kernel)"
-                      r"(?:I((?:L[ib]\d+E)+)E)?",
+                      r"(?:I((?:L[ib]\d+E|[ai])+)E)?",
                       ln)
         if m:
-            args = ",".join(re.findall(r"\d+", m[2] or ""))
+            args = ",".join(v or {"a": "int8", "i": "int"}[t] for v, t in
+                            re.findall(r"L[ib](\d+)E|([ai])", m[2] or ""))
             entry = f"{m[1]}<{args}>" if args else m[1]
         elif "stack frame" in ln:
             frame = ln.strip()
@@ -1190,14 +1196,17 @@ QUERY_BY_PATH: dict = {k: {} for k in QUERY_KERNELS}
 PICK_CFG = (10.0, 0.6)
 PAIR_CFG = (1200, 4, 0.45)
 # the crafted picks' segments: tstart 10, 20, ..., 500 (a ts below 10 is
-# before the first), node j % 5, so ts 23 and 73 are one location
+# before the first), node j % 5, so ts 23 and 73 are one location; the
+# text ends SEG_LEN past the last start (pick_args' bucket table)
 SEG_M, SEG_LEN = 50, 10
+I32_MIN, I32_MAX = -2**31, 2**31 - 1
 # pick_cases' names, single-end then paired
 PICK_CASES = ("ties", "same_location", "thresholds", "projection_edges",
               "padding", "packing", "k8", "random_k1", "random_k2",
-              "random_k8")
+              "random_k8", "bucket_edges", "segments_m1", "segments_m2")
 PAIR_CASES = ("frag_max", "rescue", "ok_best_ties", "padding_pairs",
-              "same_location_pairs", "random_pairs_k2", "random_pairs_k3")
+              "same_location_pairs", "random_pairs_k2", "random_pairs_k3",
+              "bucket_edge_pairs")
 
 
 def check_k4_k5(launches: dict, what: str) -> None:
@@ -1220,16 +1229,17 @@ def check_k4_k5(launches: dict, what: str) -> None:
             QUERY_BY_PATH[k][what.replace(" ", "_")] = launches[k]
 
 
-def _segments() -> tuple:
-    j = np.arange(SEG_M, dtype=np.int32)
+def _segments(M: int = SEG_M) -> tuple:
+    j = np.arange(M, dtype=np.int32)
     return (SEG_LEN + SEG_LEN * j).astype(np.int32), (j % 5).astype(np.int32)
 
 
-def _pick_rows(rows, K: int, rng) -> list:
+def _pick_rows(rows, K: int, rng, M: int = SEG_M) -> list:
     """K5's inputs (score, start_off, end_off, matches, w0, cand_votes,
     strand, tstart, tnode, read_len) from rows of (read_len, [(votes,
     score, ts, strand, matches)] up to K; a missing candidate has no
-    votes); each ts cut into w0 + start_off at random."""
+    votes) over M segments; each ts cut into w0 + start_off at random
+    (start_off 0 where w0 would pass INT32_MIN)."""
     B = len(rows)
     i32 = np.int32
     score, soff, eoff, mat, w0 = (np.zeros(B * K, i32) for _ in range(5))
@@ -1240,11 +1250,28 @@ def _pick_rows(rows, K: int, rng) -> list:
         lens[i] = rl
         for k, (v, sc, ts, st, m) in enumerate(cands):
             f = i * K + k
-            so = int(rng.integers(0, 9))
+            so = min(int(rng.integers(0, 9)), ts - I32_MIN)
             score[f], soff[f], mat[f], w0[f] = sc, so, m, ts - so
             eoff[f] = so + max(rl, 1)
             votes[i, k], strand[i, k] = v, st
-    return [score, soff, eoff, mat, w0, votes, strand, *_segments(), lens]
+    return [score, soff, eoff, mat, w0, votes, strand, *_segments(M), lens]
+
+
+def _edge_ts(M: int) -> list:
+    """The projection's edges over M segments (pick_args' table:
+    buckets of 2^win_shift positions up to nb << win_shift): the int32
+    extremes, below 0 and below the first start, every bucket boundary and
+    its neighbours, every start, the text's end, the last bound and past
+    it."""
+    tstart, _ = _segments(M)
+    text_len = int(tstart[-1]) + SEG_LEN
+    seg = query.segment_lookup(torch.from_numpy(tstart), text_len)
+    bounds = np.arange(seg.pos_lo.shape[0], dtype=np.int64) << seg.win_shift
+    ts = np.concatenate([[I32_MIN, I32_MIN + 1, -SEG_LEN, -1],
+                         bounds, bounds - 1, bounds + 1, tstart, tstart - 1,
+                         [text_len - 1, text_len, 10**6, I32_MAX - 1,
+                          I32_MAX]])
+    return sorted({int(t) for t in ts})
 
 
 def _random_pick(rng, B: int, K: int) -> list:
@@ -1327,6 +1354,16 @@ def pick_cases(seed_: int = 0) -> dict:
         out[name] = (False, _pick_rows(rows, K, rng))
     for K in (1, 2, 8):
         out[f"random_k{K}"] = (False, _random_pick(rng, 512, K))
+    # the bucketed projection's edges (_edge_ts), 8 a read over the 50
+    # segments, 2 a read over 1 and over 2 (scores tie in threes: a
+    # second at another location or at the same)
+    for name, M, K in (("bucket_edges", SEG_M, 8), ("segments_m1", 1, 2),
+                       ("segments_m2", 2, 2)):
+        ts = _edge_ts(M)
+        ts += ts[:-len(ts) % K]  # whole rows
+        rows = [(100, [(1, 70 + (j + k) % 3, ts[j + k], (j + k) % 2, 70)
+                       for k in range(K)]) for j in range(0, len(ts), K)]
+        out[name] = (False, _pick_rows(rows, K, rng, M))
     mate = lambda v, s, ts, st: (v, s, ts, st, s)   # noqa: E731
     pairs = {
         # mates on opposite strands |ts1 - ts2| = frag_max (consistent:
@@ -1377,16 +1414,28 @@ def pick_cases(seed_: int = 0) -> dict:
         out[name] = (True, _pick_rows(mates, K, rng))
     for K in (2, 3):
         out[f"random_pairs_k{K}"] = (True, _random_pick(rng, 2 * 256, K))
+    # mates at the projection's edges: ts pairs across INT32_MIN / MAX
+    # (their difference wraps), at the buckets' bounds and past the text
+    edges = _edge_ts(SEG_M)
+    far = [(I32_MIN, I32_MAX), (I32_MAX, I32_MIN), (-1, 0), (0, 1200),
+           (edges[len(edges) // 2], edges[len(edges) // 2 + 1]),
+           (510, 512), (512, 1712), (10**6, 10**6 + 1200)]
+    rows = [([mate(1, 90, t1, 0), mate(1, 88, t2, 1)],
+             [mate(1, 90, t2, 1), mate(1, 89, t1, 0)]) for t1, t2 in far]
+    out["bucket_edge_pairs"] = (True, _pick_rows(
+        [(100, r[m]) for m in (0, 1) for r in rows], 2, rng))
     return out
 
 
 def pick_args(case, dev) -> tuple:
-    """A pick case's arrays as tensors on ``dev`` and its parameters, as
-    K5's (or K5p's) launch takes them."""
+    """A pick case's arrays as tensors on ``dev``, the bucket table of its
+    segments (its text ending SEG_LEN past the last start) after tnode,
+    and its parameters, as K5's (or K5p's) launch takes them."""
     paired, arrays = case
     t = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
               for a in arrays)
-    return t + PICK_CFG + (PAIR_CFG if paired else ())
+    seg = query.segment_lookup(t[7], int(t[7][-1]) + SEG_LEN)
+    return t[:9] + (seg,) + t[9:] + PICK_CFG + (PAIR_CFG if paired else ())
 
 
 def _same(ker, plain, what: str) -> int:
@@ -1422,15 +1471,68 @@ def hold_k4b(lib, args, what: str) -> int:
 def hold_k5(lib, args, what: str) -> int:
     """K5 (or K5p, by the arguments' count) against its plain version, the
     7 columns and the packed rows."""
-    paired = len(args) > 12
+    paired = len(args) > 13
     launch = query.launch_k5p if paired else query.launch_k5
     plain = query.query_pick_paired_plain if paired else query.query_pick_plain
-    err = max(_same(launch(lib, *args, packed=p), plain(*args, packed=p),
+    err = max(_same(launch(lib, *args, packed=p),
+                    plain(*args, packed=p),
                     f"{'K5p' if paired else 'K5'} {what}{' packed' * p}")
               for p in (False, True))
     print(f"{'K5p' if paired else 'K5'} == plain {what} (7 columns and "
           f"the packed rows bit-identical)")
     return err
+
+
+# k4b_cases' code widths and names
+K4B_WIDTHS = (150, 151, 152, 160, 512)
+K4B_CASES = tuple(f"{form}_{L}" for L in K4B_WIDTHS
+                  for form in ("query", "extension"))
+
+
+def k4b_cases(seed_: int = 0) -> dict:
+    """K4b's crafted rows, name -> its arguments as numpy arrays and ints
+    (codes_fwd, read_len, strand, diag, pad, w_hi, width): K4a's rows
+    (codes of widths 150, 151, 152, 160 and 512, rounded up to 4, 4 past
+    read_len) with every read_len % 16 up to the width, read_len 0, the
+    width and past it, two rows cycling through every byte value (read_len
+    the width, and past it); as the
+    query takes them (K 2, int8 strands 0-2, rows padded to 16) and as the
+    extension does (K 1, int32 strands, rows at the codes' width)."""
+    rng = np.random.default_rng(seed_)
+    out = {}
+    for L in K4B_WIDTHS:
+        Lc = -(-L // 4) * 4
+        lens = np.concatenate([np.arange(0, L + 1, 16)[:, None]
+                               + np.arange(16)[None, :]]).ravel()
+        lens = np.concatenate([lens[lens <= L], [0, L, Lc, Lc + 1, Lc + 77,
+                                                 I32_MAX]]).astype(np.int32)
+        R = len(lens)
+        codes = rng.integers(0, 4, size=(R, L)).astype(np.int8)
+        codes[rng.random((R, L)) < 0.02] = 4
+        fwd = np.full((R, Lc), 4, np.int8)
+        fwd[:, :L] = codes
+        fwd[np.arange(Lc)[None, :] >= lens[:, None]] = 4
+        fwd[[-4, -1]] = (np.arange(Lc) % 256 - 128).astype(np.int8)
+        for form, K in (("query", 2), ("extension", 1)):
+            if K == 2:
+                strand = rng.integers(0, 3, size=(R, 2)).astype(np.int8)
+                strand[:, 1] = 1
+                diag = rng.integers(I32_MIN, I32_MAX, size=(R, 2),
+                                    dtype=np.int64).astype(np.int32)
+                args = (fwd, lens, strand, diag, 4, 10**6, -(-Lc // 16) * 16)
+            else:
+                strand = (np.arange(R) % 2).astype(np.int32)
+                diag = rng.integers(-100, 10**6, size=R).astype(np.int32)
+                args = (fwd, lens, strand, diag, 0, 10**5, Lc)
+            out[f"{form}_{L}"] = args
+    return out
+
+
+def k4b_args(case, dev) -> tuple:
+    """A k4b_cases entry's arrays as tensors on ``dev``, its ints as they
+    are."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 if isinstance(a, np.ndarray) else a for a in case)
 
 
 def k4a_bytes(args) -> int:
@@ -1461,7 +1563,7 @@ def pick_bytes(args, packed: bool = False) -> int:
     tnode its projection must read (each candidate's segment start and
     the next, its node), and 22 bytes a read of columns (16 packed)."""
     score, soff, w0, tstart = args[0], args[1], args[4], args[7]
-    N, R = score.numel(), args[9].numel()
+    N, R = score.numel(), args[10].numel()
     ts = (w0 + soff).cpu().numpy()
     starts = tstart.cpu().numpy()
     i0 = np.clip(np.searchsorted(starts, ts, side="right") - 1, 0,
@@ -1495,8 +1597,8 @@ def _query_case(lib, al, c, n, what: str, errs: dict, c2=None, n2=None):
     rows, len_rep, w0 = query.launch_k4b(lib, *a4b)
     dp = extend.banded_extend_cuda(al.text, w0, rows, len_rep, pad, *s[8:11],
                                    lr=Lr)
-    a5 = (*dp, w0, votes, strand, al.tstart, al.tnode, lens, *PICK_CFG,
-          *(() if c2 is None else PAIR_CFG))
+    a5 = (*dp, w0, votes, strand, al.tstart, al.tnode, al.segment_lookup,
+          lens, *PICK_CFG, *(() if c2 is None else PAIR_CFG))
     key = "query_pick" if c2 is None else "query_pick_paired"
     errs[key].append(hold_k5(lib, a5, what))
     return a4a, a4b, a5
@@ -1508,9 +1610,10 @@ def query_phase(aligner, index, codes: np.ndarray, lens: np.ndarray,
     bit on phase 5's first batch (and cut to widths 150 and 151), the
     paired batch (and mate 2 cut to 150 columns), 16384 long-read chunks
     of 512 bases at pad 8 (K4a and K4b as the extension takes them: K = 1,
-    int32 strands) and pick_cases; each timed with its plain version
-    beside its bound.  Returns {kernel: (largest difference, ms, plain
-    ms, bound ms, shape, times by case)}."""
+    int32 strands), k4b_cases and pick_cases; each timed with its plain
+    version beside its bound and its share of it; then K5's bucket table
+    built again on the card, its time and bytes printed.  Returns {kernel:
+    (largest difference, ms, plain ms, bound ms, shape, times by case)}."""
     lib = query.build_query_kernels()
     card = card_line()
     errs = {k: [] for k in QUERY_KERNELS}
@@ -1546,6 +1649,10 @@ def query_phase(aligner, index, codes: np.ndarray, lens: np.ndarray,
     errs["query_rows"].append(hold_k4b(
         lib, a4b_long, f"at B={LONG_BATCH} L={chunk} pad {pad} (the "
                        f"extension's rows: K 1, int32 strands)"))
+    for name, case in k4b_cases().items():
+        errs["query_rows"].append(hold_k4b(
+            lib, k4b_args(case, aligner.device),
+            f"on the crafted rows {name}"))
     for name, case in pick_cases().items():
         key = "query_pick_paired" if case[0] else "query_pick"
         errs[key].append(hold_k5(lib, pick_args(case, aligner.device),
@@ -1560,7 +1667,8 @@ def query_phase(aligner, index, codes: np.ndarray, lens: np.ndarray,
                         "long": a4b_long}, k4b_bytes),
         "query_pick": (query.launch_k5, query.query_pick_plain,
                        {"main": main[2]}, pick_bytes),
-        "query_pick_paired": (query.launch_k5p, query.query_pick_paired_plain,
+        "query_pick_paired": (query.launch_k5p,
+                              query.query_pick_paired_plain,
                               {"main": paired[2]}, pick_bytes),
     }
     out = {}
@@ -1569,6 +1677,7 @@ def query_phase(aligner, index, codes: np.ndarray, lens: np.ndarray,
         for case, args in cases.items():
             times[case] = cuda_ms(lambda: launch(lib, *args), 50, hold=True)
             times[f"bound_{case}"] = bound_ms(nbytes(args))
+            times[f"share_{case}"] = times[f"bound_{case}"] / times[case]
         args = cases["main"]
         plain_ms = cuda_ms(lambda: plain(*args), 5, hold=True)
         shape = {"query_prologue": f"B {BATCH}, L {codes.shape[1]}",
@@ -1578,10 +1687,19 @@ def query_phase(aligner, index, codes: np.ndarray, lens: np.ndarray,
         out[key] = (max(errs[key]), times["main"], plain_ms,
                     times["bound_main"], shape, times)
         print(f"{key} [{card}]: {times['main']:.4f} ms, plain torch "
-              f"{plain_ms:.3f} ms, bound {times['bound_main']:.4f} ms (bytes) "
-              f"at {shape}; " + ", ".join(
-                  f"{c} {times[c]:.4f} ms (bound {times['bound_' + c]:.4f})"
+              f"{plain_ms:.3f} ms, bound {times['bound_main']:.4f} ms (bytes, "
+              f"{times['share_main']:.1%}) at {shape}; " + ", ".join(
+                  f"{c} {times[c]:.4f} ms (bound {times['bound_' + c]:.4f}, "
+                  f"{times['share_' + c]:.1%})"
                   for c in cases if c != "main"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seg = query.segment_lookup(aligner.tstart, index.text_len)
+    torch.cuda.synchronize()
+    print(f"K5's bucket table [{card}]: {time.perf_counter() - t0:.4f} s to "
+          f"build, {seg.pos_lo.numel() * 4} bytes ({seg.pos_lo.numel() - 1} "
+          f"buckets of {1 << seg.win_shift} positions) for "
+          f"{aligner.tstart.shape[0]} segments over {index.text_len} bases")
     return out
 
 
@@ -3027,7 +3145,7 @@ def main_path(build: str, dev, issue_peak: float):
           f"text {index.text_len} bases, {len(index.hap_names)} haplotypes")
     cfg_align = _host.AlignConfig()
     aligner = aligner_from_reference(index, cfg_align, dev)
-    tables = build_fused_tables(db, index, dev)
+    tables = build_fused_tables(db, index, dev, aligner.segment_lookup)
     codes, lens, hap = simulate_read_batch(index, N_READS, 150, 0.01, seed=3)
 
     # K1 at the main path's shape, over this DB's text

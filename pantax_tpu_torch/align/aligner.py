@@ -7,9 +7,11 @@ hash or bucketed bisection, diagonal vote on both strands and the strand
 union), the candidates' read rows on their strands (K4b), banded DP
 extension (K1, ops/extend.py) and the pick (K5: node projection, the best
 / location-deduped second-best scores that give mapq, the per-read
-columns or their packed rows).  Every step keeps the JAX function's dtypes
-and tie order (first index on argmax), so the packed [4, B] result rows
-are bit-identical to ``_query_batch_packed``.
+columns or their packed rows).  K5 projects through the bucket table of
+the segment starts (ops/query.py's segment_lookup), which the Aligner
+builds once on its device beside tstart and tnode.  Every step keeps the
+JAX function's dtypes and tie order (first index on argmax), so the
+packed [4, B] result rows are bit-identical to ``_query_batch_packed``.
 
 Mate pairs (``query_batch_paired``) take one candidate pass over both mates
 and score the K x K candidate pairs jointly (K5p: fragment bonus, rescue,
@@ -56,8 +58,9 @@ from ..ops.extend import (
     banded_extend, banded_extend_windows, extract_windows, packed_layout,
 )
 from ..ops.query import (  # noqa: F401 (rev_codes, unpack_reads: the plain
-    frac_of, pack_result_rows, query_pick,  # steps, kept importable here)
-    query_pick_paired, query_prologue, query_rows, rev_codes, unpack_reads,
+    SegmentLookup, frac_of, pack_result_rows,  # steps, kept importable here)
+    query_pick, query_pick_paired, query_prologue, query_rows, rev_codes,
+    segment_lookup, unpack_reads,
 )
 from ..ops.seed import _CHD_GOLD, _M32, kmer_hashes, seed_candidates
 from ..parallel.mesh import check_primary, row_blocks
@@ -214,20 +217,22 @@ def all_candidates(text, run_table, seed_pos, bucket_lo, codes_fwd,
 
 
 def query_batch(text, run_table, seed_pos, bucket_lo, tstart, tnode,
-                codes, read_len, cfg_static, packed: bool = False):
+                seg_lookup, codes, read_len, cfg_static,
+                packed: bool = False):
     """Counterpart of the reference's ``_query_batch``: per-read (ts, te,
     score, matches, mapq, strand, aligned) with the reference's dtypes
     (int32 x5, int8, bool), or (``packed``) its ``_query_batch_packed``
-    rows, int32 [4, B].  ``codes`` int8 [B, L], ``read_len`` int32 [B]."""
+    rows, int32 [4, B].  ``seg_lookup`` is the bucket table of tstart
+    (segment_lookup), ``codes`` int8 [B, L], ``read_len`` int32 [B]."""
     codes_fwd, _ = query_prologue(codes, read_len)
     dp, w0, votes, strand = all_candidates(
         text, run_table, seed_pos, bucket_lo, codes_fwd, read_len, cfg_static)
-    return query_pick(*dp, w0, votes, strand, tstart, tnode, read_len,
-                      cfg_static[11], cfg_static[12], packed)
+    return query_pick(*dp, w0, votes, strand, tstart, tnode, seg_lookup,
+                      read_len, cfg_static[11], cfg_static[12], packed)
 
 
 def query_batch_paired(text, run_table, seed_pos, bucket_lo, tstart, tnode,
-                       codes1, len1, codes2, len2, cfg_static,
+                       seg_lookup, codes1, len1, codes2, len2, cfg_static,
                        frag_max: int, pair_bonus: int, rescue_frac: float,
                        packed: bool = False):
     """Counterpart of the reference's ``_query_batch_paired``: joint
@@ -243,9 +248,10 @@ def query_batch_paired(text, run_table, seed_pos, bucket_lo, tstart, tnode,
     codes_fwd, lens = query_prologue(codes1, len1, codes2, len2)
     dp, w0, votes, strand = all_candidates(
         text, run_table, seed_pos, bucket_lo, codes_fwd, lens, cfg_static)
-    return query_pick_paired(*dp, w0, votes, strand, tstart, tnode, lens,
-                             cfg_static[11], cfg_static[12], frag_max,
-                             pair_bonus, rescue_frac, packed)
+    return query_pick_paired(*dp, w0, votes, strand, tstart, tnode,
+                             seg_lookup, lens, cfg_static[11],
+                             cfg_static[12], frag_max, pair_bonus,
+                             rescue_frac, packed)
 
 
 def extend_batch(text, codes, read_len, w0, strand, cfg_static):
@@ -383,6 +389,9 @@ class Aligner(nn.Module):
         put("bucket_lo", bucket_lo, np.int32)
         put("tstart", index.tstart, np.int32)
         put("tnode", index.tnode, np.int32)
+        seg = segment_lookup(self.tstart, index.text_len)
+        self.register_buffer("pos_lo", seg.pos_lo)
+        self.pos_shift, self.pos_steps = seg.win_shift, seg.steps
         self.mesh = mesh
         check_primary(self.mesh, dev)
         self._replicas = {}
@@ -392,12 +401,18 @@ class Aligner(nn.Module):
         self._warned_indivisible = False
 
     def _tables(self, device=None) -> tuple:
-        """(text, run_table, seed_pos, bucket_lo, tstart, tnode) on
-        ``device`` (default: the primary)."""
+        """(text, run_table, seed_pos, bucket_lo, tstart, tnode,
+        segment_lookup) on ``device`` (default: the primary)."""
         if device is None or device == self.device:
             return (self.text, self.run_table, self.seed_pos, self.bucket_lo,
-                    self.tstart, self.tnode)
+                    self.tstart, self.tnode, self.segment_lookup)
         return self._replicas[device]
+
+    @property
+    def segment_lookup(self) -> SegmentLookup:
+        """The bucket table of tstart that K5's projection searches (and
+        FusedTables shares for K6's)."""
+        return SegmentLookup(self.pos_lo, self.pos_shift, self.pos_steps)
 
     def _on_mesh(self, fn, *rows, join=None):
         """fn(tables, *rows) for one batch of ``rows`` (tensors on the

@@ -378,7 +378,7 @@ def run_e2e_benchmark(db, n_reads: int, batch: int, error_rate: float = 0.01,
     cfg = _host.ProfilingConfig.for_read_type("short")
     codes, lens, _hap = simulate_read_batch(index, n_reads, 150, error_rate,
                                             seed=3)
-    tables = build_fused_tables(db, index, dev)
+    tables = build_fused_tables(db, index, dev, aligner.segment_lookup)
     shutil.rmtree(out_dir, ignore_errors=True)
     profile_fused(aligner, codes, lens, index, db, cfg, out_dir, batch,
                   tables=tables)
@@ -426,7 +426,7 @@ def run_long_e2e_benchmark(db, n_long: int = 100_000, long_len: int = 8192,
     index = _host.build_align_index(db)
     aligner = _aligner(index, "long", dev)
     cfg = _host.ProfilingConfig.for_read_type("long")
-    tables = build_fused_tables(db, index, dev)
+    tables = build_fused_tables(db, index, dev, aligner.segment_lookup)
     chunk = LONG_READ_PRESETS[read_type]
     stride = LONG_READ_SEED_STRIDE[read_type]
     reads, _hap = simulate_long_reads(index, n_long, long_len, seed=9)
@@ -489,7 +489,7 @@ def run_mixed_benchmark(db, n_short: int = 9_900_000, n_long: int = 100_000,
     aligner = _aligner(index, "short", dev)
     aligner_long = _aligner(index, "long", dev)
     cfg = _host.ProfilingConfig.for_read_type("short")
-    tables = build_fused_tables(db, index, dev)
+    tables = build_fused_tables(db, index, dev, aligner.segment_lookup)
     codes, lens, _hap = simulate_read_batch(index, n_short, 150, 0.01, seed=5)
     long_reads, _lhap = simulate_long_reads(index, n_long, long_len, seed=9)
     chunk = LONG_READ_PRESETS[read_type]

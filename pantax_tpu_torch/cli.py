@@ -434,7 +434,7 @@ def _warm_kernels(args, db, index, dev, mesh) -> None:
 
     with stage_timer("kernel warmup (query + fused step)"):
         zc = np.full((B, 160), 4, dtype=np.int8)
-        tables = build_fused_tables(db, index, dev)
+        tables = build_fused_tables(db, index, dev, aligner.segment_lookup)
         pipe = FusedPipeline(aligner, tables, B)
         for lens in (np.zeros(B, np.int64), np.full(B, 160, np.int64)):
             aligner.align_codes(zc, lens)
@@ -540,7 +540,7 @@ def _run_fastpath_long(args, db, index, tmp: Path, t0: float, dev,
                    else max(GROUP_BASES // n_proc, MIN_GROUP_BASES))
     aligner = _aligner(index, "long", dev, mesh)
     with stage_timer("fused tables"):
-        tables = build_fused_tables(db, index, dev)
+        tables = build_fused_tables(db, index, dev, aligner.segment_lookup)
     pipe = FusedPipeline(aligner, tables, batch=args.batch_size)
     with stage_timer("long-read alignment+coverage (fastpath)"):
         for gi, group in enumerate(iter_read_groups(args.reads,
@@ -642,7 +642,8 @@ def _run_fastpath_fused(args, db, index, aligner, tmp: Path, t0: float,
         return stream_fastx_buffers(rf, CHUNK_BYTES)
 
     with stage_timer("fused tables"):
-        tables = build_fused_tables(db, index, aligner.device)
+        tables = build_fused_tables(db, index, aligner.device,
+                                    aligner.segment_lookup)
     pipe = FusedPipeline(aligner, tables, batch=args.batch_size)
 
     with stage_timer("alignment+coverage (fused)"):

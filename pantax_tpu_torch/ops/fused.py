@@ -57,6 +57,7 @@ from torch import nn
 from .. import _host
 from .coverage_device import _add, build_padded_tables, coverage_finalize
 from .extend import LAUNCHES
+from .query import SegmentLookup, segment_lookup
 from .scatter import (  # noqa: F401 (locate_segment: the reference's name)
     classify_scatter, classify_scatter_ranges, locate_segment,
     scatter_records,
@@ -67,18 +68,11 @@ from .scatter import (  # noqa: F401 (locate_segment: the reference's name)
 # host-side tables (numpy counterparts of the reference's, array-equal)
 # ---------------------------------------------------------------------------
 def build_pos_lookup(tstart: np.ndarray, text_len: int):
-    """(pos_lo int32 [nb+1], win_shift, steps) for locate_segment."""
-    M = len(tstart)
-    b = int(np.clip(int(np.ceil(np.log2(max(M, 2)))) + 2, 8, 22))
-    t_bits = int(np.ceil(np.log2(max(text_len, 2))))
-    win_shift = max(t_bits - b, 0)
-    nb = 1 << max(t_bits - win_shift, 1)
-    bounds = np.arange(nb + 1, dtype=np.int64) << win_shift
-    pos_lo = np.searchsorted(tstart.astype(np.int64), bounds, side="right")
-    pos_lo = pos_lo.astype(np.int32)
-    occ = int(np.diff(pos_lo).max()) if nb else 0
-    steps = int(np.ceil(np.log2(occ + 1))) if occ > 0 else 0
-    return pos_lo, win_shift, steps
+    """(pos_lo int32 [nb+1], win_shift, steps) for locate_segment: the
+    host's segment_lookup (ops/query.py)."""
+    seg = segment_lookup(torch.from_numpy(np.asarray(tstart, np.int64)),
+                         text_len)
+    return seg.pos_lo.numpy(), seg.win_shift, seg.steps
 
 
 def _window_has_dup_nodes(index, W: int = 64) -> bool:
@@ -198,8 +192,9 @@ class FusedTables(nn.Module):
                           ("nodes_len", nodes_len),
                           ("base_offset", base_offset),
                           ("trio_len", trio_len), ("trio_seg", trio_seg)):
-            self.register_buffer(
-                name, torch.from_numpy(np.array(arr, dtype=np.int32)).to(dev))
+            t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(
+                np.array(arr, dtype=np.int32))
+            self.register_buffer(name, t.to(dev, torch.int32))
         self.register_buffer("seg_rec", None if tstart is None else
                              scatter_records(self, torch.from_numpy(
                                  np.asarray(tstart, np.int32)),
@@ -210,8 +205,12 @@ class FusedTables(nn.Module):
         return self.nodes_len.device
 
 
-def build_fused_tables(db, index, device) -> FusedTables:
-    """Global coverage/classification tables + per-species metadata."""
+def build_fused_tables(db, index, device,
+                       lookup: SegmentLookup | None = None) -> FusedTables:
+    """Global coverage/classification tables + per-species metadata.
+    ``lookup``, the bucket table of the index's segment starts that an
+    Aligner of this index holds on ``device`` (Aligner.segment_lookup), is
+    shared in place of a table of their own."""
     ranges = _host.load_species_range(db.range_file)
     N = max(r.end for r in ranges)
     nodes_len = np.ones(N, dtype=np.int64)
@@ -237,8 +236,10 @@ def build_fused_tables(db, index, device) -> FusedTables:
     range_of_species = {r.species: j for j, r in enumerate(ranges)}
     hap_range = np.array([range_of_species.get(s, -1) for s in index.hap_species],
                          dtype=np.int32)
-    pos_lo, win_shift, steps = build_pos_lookup(
-        index.tstart.astype(np.int64), index.text_len)
+    if lookup is None:
+        lookup = segment_lookup(torch.from_numpy(
+            np.asarray(index.tstart, np.int64)), index.text_len)
+    pos_lo, win_shift, steps = lookup
     # a haplotype that visits some node twice: the range decomposition would
     # count bases the reference credits only at the first occurrence
     hap_dup = np.zeros(len(index.hap_species), dtype=bool)
@@ -724,7 +725,8 @@ def profile_fused(aligner, codes, lens, index, db, cfg, out_dir, batch: int,
     ``stage_out`` receives align_cover_s, the read and batch counts and
     profile_from_fused_result's stage seconds."""
     if tables is None:
-        tables = build_fused_tables(db, index, device=aligner.device)
+        tables = build_fused_tables(db, index, aligner.device,
+                                    aligner.segment_lookup)
     t0 = time.time()
     pipe = FusedPipeline(aligner, tables, batch)
     pipe.feed(codes, lens)

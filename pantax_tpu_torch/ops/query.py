@@ -20,7 +20,9 @@ each with two versions here:
   clipped into the text;
 - ``query_pick`` (K5): the node projection of each candidate, the best
   and the location-deduped second best, the score threshold and mapq: the
-  per-read 7 columns, or the packed [4, B] rows;
+  per-read 7 columns, or the packed [4, B] rows.  On the card it searches
+  the bucket table of the segment starts (``segment_lookup``, built once
+  per Aligner) in place of all of them;
 - ``query_pick_paired`` (K5p): the mate pairs' joint pick (fragment
   bonus, pair mapq, rescue, each mate's own mapq): the 7 columns of the
   2B reads (mate 1's B, then mate 2's), or the packed [8, B] rows.
@@ -38,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -132,6 +135,48 @@ def project(ts, tstart, tnode):
     return tnode[i0], ts - tstart[i0]
 
 
+class SegmentLookup(NamedTuple):
+    """The bucket table of the segment starts that K5's projection (and
+    K6's, ops/scatter.py) searches: pos_lo int32 [nb + 1], pos_lo[b] the
+    count of starts at or before b << win_shift, on the segments' device;
+    ``steps`` the bisection steps that its fullest bucket takes."""
+
+    pos_lo: torch.Tensor
+    win_shift: int
+    steps: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.pos_lo.device
+
+    def to(self, device) -> "SegmentLookup":
+        return self._replace(pos_lo=self.pos_lo.to(device))
+
+
+def segment_lookup(tstart, text_len: int) -> SegmentLookup:
+    """The bucket table of sorted segment starts [M] in [0, text_len),
+    built where tstart lies: 2^b buckets of 2^win_shift positions over the
+    text's power-of-two span, b = ceil(log2 M) + 2 clipped into [8, 22],
+    and torch.searchsorted of their bounds (the reference's
+    build_pos_lookup).  K5 takes a ts before 0 as before every start and
+    one past the last bucket as past every start, so the starts must lie
+    in the text."""
+    M = tstart.shape[0]
+    if M < 1 or int(tstart[0]) < 0 or int(tstart[-1]) >= text_len or (
+            M > 1 and bool((tstart[1:] < tstart[:-1]).any())):
+        raise ValueError(f"segment starts must be sorted in [0, {text_len})")
+    b = int(np.clip(int(np.ceil(np.log2(max(M, 2)))) + 2, 8, 22))
+    t_bits = int(np.ceil(np.log2(max(text_len, 2))))
+    win_shift = max(t_bits - b, 0)
+    nb = 1 << max(t_bits - win_shift, 1)
+    bounds = torch.arange(nb + 1, dtype=torch.int64,
+                          device=tstart.device) << win_shift
+    pos_lo = torch.searchsorted(tstart.to(torch.int64), bounds,
+                                right=True).to(torch.int32)
+    occ = int((pos_lo[1:] - pos_lo[:-1]).max())
+    return SegmentLookup(pos_lo, win_shift, occ.bit_length())
+
+
 def pack_result_rows(res7):
     """The 7-tuple query result as one int32 [4, B]: text_start, text_end,
     (score << 16 | matches), (mapq << 2 | strand << 1 | aligned); scores are
@@ -157,11 +202,14 @@ def _candidates(score, start_off, end_off, matches, w0, cand_votes, strand,
 
 
 def query_pick_plain(score, start_off, end_off, matches, w0, cand_votes,
-                     strand, tstart, tnode, read_len, mapq_scale: float,
-                     min_score_frac: float, packed: bool = False):
+                     strand, tstart, tnode, lookup, read_len,
+                     mapq_scale: float, min_score_frac: float,
+                     packed: bool = False):
     """Plain torch version of K5: the per-read (ts, te, score, matches,
     mapq, strand, aligned), int32 x5, int8, bool [B], or (``packed``)
-    pack_result_rows of them."""
+    pack_result_rows of them.  ``lookup``, the bucket table of tstart
+    that the kernel searches, goes unused: this version searches all of
+    tstart."""
     scores, ts, te, matches, strand, node, off = _candidates(
         score, start_off, end_off, matches, w0, cand_votes, strand, tstart,
         tnode)
@@ -181,8 +229,8 @@ def query_pick_plain(score, start_off, end_off, matches, w0, cand_votes,
 
 
 def query_pick_paired_plain(score, start_off, end_off, matches, w0,
-                            cand_votes, strand, tstart, tnode, read_len,
-                            mapq_scale: float, min_score_frac: float,
+                            cand_votes, strand, tstart, tnode, lookup,
+                            read_len, mapq_scale: float, min_score_frac: float,
                             frag_max: int, pair_bonus: int,
                             rescue_frac: float, packed: bool = False):
     """Plain torch version of K5p over the candidates of 2B reads (mate 1's
@@ -263,7 +311,7 @@ def build_query_kernels(src: Path | str | None = None) -> ctypes.CDLL:
     lib.query_rows_launch.restype = i32
     lib.query_rows_launch.argtypes = [
         vp, i32, i32, vp, vp, i32, i32, vp, i32, i32, i32, vp, vp, vp, vp]
-    pick = [vp] * 9 + [i32, vp, i32, i32, f32, f32]
+    pick = [vp] * 9 + [i32, vp, i32, i32, vp, i32, i32, f32, f32]
     lib.query_pick_launch.restype = i32
     lib.query_pick_launch.argtypes = pick + [vp] * 9
     lib.query_pick_paired_launch.restype = i32
@@ -330,8 +378,10 @@ def launch_k4b(lib, codes_fwd, read_len, strand, diag, pad: int, w_hi: int,
     """Check K4b's arguments and launch ``lib``'s query_rows_launch on the
     current stream (no synchronise, no count); returns (rows, len_rep, w0)
     as query_rows_plain.  ``strand`` int8 [R, K] with ``diag`` int32 [R,
-    K] (the query), or int32 [R] with int32 [R] (the extension).  The rows
-    are a fresh buffer (16-byte aligned), ``width`` wide."""
+    K] (the query), or int32 [R] with int32 [R] (the extension).  The codes
+    are K4a's rows: a multiple of 4 wide, starting on a 4-byte boundary.
+    The rows are a fresh buffer (16-byte aligned), ``width`` wide, a
+    multiple of 4."""
     dev = codes_fwd.device
     R, Lc = codes_fwd.shape
     if strand.dim() == 2:
@@ -349,6 +399,10 @@ def launch_k4b(lib, codes_fwd, read_len, strand, diag, pad: int, w_hi: int,
         raise ValueError(f"K4b takes K 1..{MAX_TOP_K}, rows of at least one "
                          f"column and width >= {Lc} (got K {K}, width "
                          f"{width})")
+    if Lc % 4 or width % 4 or codes_fwd.data_ptr() % 4:
+        raise ValueError(f"K4b takes K4a's rows, a multiple of 4 wide on "
+                         f"4-byte boundaries, into rows a multiple of 4 "
+                         f"wide (got {Lc} columns, width {width})")
     N = R * K
     rows = torch.empty((N, width), dtype=torch.int8, device=dev)
     len_rep = read_len if K == 1 else torch.empty(N, dtype=torch.int32,
@@ -373,10 +427,11 @@ def _pick_outputs(n: int, dev, packed: bool, paired: bool = False):
 
 
 def _pick_args(score, start_off, end_off, matches, w0, cand_votes, strand,
-               tstart, tnode, read_len, reads: int) -> tuple:
+               tstart, tnode, lookup, read_len, reads: int) -> tuple:
     """Check the pick's inputs (K1's four [R K] outputs, w0, the [R, K]
-    votes and strands, the segment tables, read_len [R], R = ``reads``)
-    and return (device, K, the C arguments up to read_len)."""
+    votes and strands, the segment tables and their bucket table,
+    read_len [R], R = ``reads``) and return (device, K, the C arguments up
+    to read_len)."""
     dev = score.device
     R, K = cand_votes.shape
     _check(dev, *((name, t, torch.int32, 1) for name, t in (
@@ -396,10 +451,15 @@ def _pick_args(score, start_off, end_off, matches, w0, cand_votes, strand,
     M = tstart.shape[0]
     if M < 1 or tnode.shape[0] != M:
         raise ValueError("tstart and tnode must hold the same segments")
+    _check(dev, ("pos_lo", lookup.pos_lo, torch.int32, 1))
+    nb = lookup.pos_lo.shape[0] - 1
+    if nb < 1 or nb & (nb - 1):
+        raise ValueError(f"pos_lo must hold 2^k + 1 bounds (got {nb + 1})")
     return dev, K, (score.data_ptr(), start_off.data_ptr(),
                     end_off.data_ptr(), matches.data_ptr(), w0.data_ptr(),
                     cand_votes.data_ptr(), strand.data_ptr(),
                     tstart.data_ptr(), tnode.data_ptr(), M,
+                    lookup.pos_lo.data_ptr(), nb + 1, lookup.win_shift,
                     read_len.data_ptr())
 
 
@@ -415,14 +475,16 @@ def _f32(x: float) -> float:
 
 
 def launch_k5(lib, score, start_off, end_off, matches, w0, cand_votes,
-              strand, tstart, tnode, read_len, mapq_scale: float,
+              strand, tstart, tnode, lookup, read_len, mapq_scale: float,
               min_score_frac: float, packed: bool = False):
     """Check K5's arguments and launch ``lib``'s query_pick_launch on the
     current stream (no synchronise, no count); returns what
-    query_pick_plain returns."""
+    query_pick_plain returns.  ``lookup`` is the bucket table of tstart
+    (segment_lookup)."""
     B = read_len.shape[0]
     dev, K, args = _pick_args(score, start_off, end_off, matches, w0,
-                              cand_votes, strand, tstart, tnode, read_len, B)
+                              cand_votes, strand, tstart, tnode, lookup,
+                              read_len, B)
     out = _pick_outputs(B, dev, packed)
     _call(lib, "query_pick_launch", dev, *args, B, K, _f32(mapq_scale),
           _f32(min_score_frac), *_out_ptrs(out, packed))
@@ -430,7 +492,7 @@ def launch_k5(lib, score, start_off, end_off, matches, w0, cand_votes,
 
 
 def launch_k5p(lib, score, start_off, end_off, matches, w0, cand_votes,
-               strand, tstart, tnode, read_len, mapq_scale: float,
+               strand, tstart, tnode, lookup, read_len, mapq_scale: float,
                min_score_frac: float, frag_max: int, pair_bonus: int,
                rescue_frac: float, packed: bool = False):
     """Check K5p's arguments and launch ``lib``'s query_pick_paired_launch
@@ -440,7 +502,8 @@ def launch_k5p(lib, score, start_off, end_off, matches, w0, cand_votes,
     if R % 2:
         raise ValueError(f"K5p takes 2B reads, mate 1's then mate 2's (got {R})")
     dev, K, args = _pick_args(score, start_off, end_off, matches, w0,
-                              cand_votes, strand, tstart, tnode, read_len, R)
+                              cand_votes, strand, tstart, tnode, lookup,
+                              read_len, R)
     out = _pick_outputs(R, dev, packed, paired=True)
     _call(lib, "query_pick_paired_launch", dev, *args, R // 2, K,
           _f32(mapq_scale), _f32(min_score_frac), _f32(rescue_frac),
@@ -479,13 +542,15 @@ def query_rows(codes_fwd, read_len, strand, diag, pad: int, w_hi: int,
 
 
 def query_pick(score, start_off, end_off, matches, w0, cand_votes, strand,
-               tstart, tnode, read_len, mapq_scale: float,
+               tstart, tnode, lookup, read_len, mapq_scale: float,
                min_score_frac: float, packed: bool = False):
     """K5: the single-end pick of B reads' K candidates (K1's flat outputs,
-    their window starts, K3's votes and strands): the 7 per-read columns,
-    or (``packed``) the [4, B] rows."""
+    their window starts, K3's votes and strands) over the segments and
+    their bucket table (segment_lookup): the 7 per-read columns, or
+    (``packed``) the [4, B] rows."""
     args = (score, start_off, end_off, matches, w0, cand_votes, strand,
-            tstart, tnode, read_len, mapq_scale, min_score_frac, packed)
+            tstart, tnode, lookup, read_len, mapq_scale, min_score_frac,
+            packed)
     if score.device.type == "cpu":
         LAUNCHES["query_pick_plain"] += 1
         return query_pick_plain(*args)
@@ -495,15 +560,16 @@ def query_pick(score, start_off, end_off, matches, w0, cand_votes, strand,
 
 
 def query_pick_paired(score, start_off, end_off, matches, w0, cand_votes,
-                      strand, tstart, tnode, read_len, mapq_scale: float,
-                      min_score_frac: float, frag_max: int, pair_bonus: int,
-                      rescue_frac: float, packed: bool = False):
+                      strand, tstart, tnode, lookup, read_len,
+                      mapq_scale: float, min_score_frac: float,
+                      frag_max: int, pair_bonus: int, rescue_frac: float,
+                      packed: bool = False):
     """K5p: the joint pick of B mate pairs from the candidates of their 2B
     reads: the 7 columns [2B] (mate 1's rows, then mate 2's), or
     (``packed``) the [8, B] rows."""
     args = (score, start_off, end_off, matches, w0, cand_votes, strand,
-            tstart, tnode, read_len, mapq_scale, min_score_frac, frag_max,
-            pair_bonus, rescue_frac, packed)
+            tstart, tnode, lookup, read_len, mapq_scale, min_score_frac,
+            frag_max, pair_bonus, rescue_frac, packed)
     if score.device.type == "cpu":
         LAUNCHES["query_pick_paired_plain"] += 1
         return query_pick_paired_plain(*args)

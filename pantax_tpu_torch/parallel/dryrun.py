@@ -48,7 +48,8 @@ def dryrun_multichip(n: int, device, root) -> dict:
     def run(mesh, tag, L_cap=None):
         aligner = aligner_from_reference(index, _host.AlignConfig(), device,
                                          mesh=mesh)
-        tables = build_fused_tables(db, index, device)
+        tables = build_fused_tables(db, index, device,
+                                    aligner.segment_lookup)
         pipe = FusedPipeline(aligner, tables, B, L_cap=L_cap)
         pipe.feed(codes, lens)
         result = pipe.finish()

@@ -8,12 +8,12 @@ dryrun.py).
 
 ``fn`` is the aligner's query step (2-bit reads to k-mer seeds, the CHD
 seed lookup, the diagonal vote, the window fetch and banded DP, K1 on the
-card, and the query epilogue); ``args`` are the index tables of tiny_db
-and 256 reads of 128 bases sampled within its haplotypes, on the device.
+card, and the query epilogue, its projection through the bucket table of
+the segment starts that the aligner built); ``args`` are the index tables
+of tiny_db and 256 reads of 128 bases sampled within its haplotypes, on
+the device.
 """
 from __future__ import annotations
-
-from functools import partial
 
 import numpy as np
 
@@ -45,7 +45,13 @@ def entry(device=None, root=None):
     index = _host.build_align_index(tiny_db(root))
     aligner = aligner_from_reference(index, _host.AlignConfig(), dev)
     codes, lens = _reads_from_index(index, 256, 128)
-    fn = partial(query_batch, cfg_static=aligner.static())
+    seg, static = aligner.segment_lookup, aligner.static()
+
+    def fn(text, run_table, seed_pos, bucket_lo, tstart, tnode, codes,
+           read_len):
+        return query_batch(text, run_table, seed_pos, bucket_lo, tstart,
+                           tnode, seg, codes, read_len, static)
+
     args = (aligner.text, aligner.run_table, aligner.seed_pos,
             aligner.bucket_lo, aligner.tstart, aligner.tnode,
             *aligner.upload(codes, lens))

@@ -191,7 +191,7 @@ def main(argv=None) -> int:
     db = scale_db(args.db_dir)
     index = _host.build_align_index(db)
     aligner = aligner_from_reference(index, _host.AlignConfig(), dev)
-    tables = build_fused_tables(db, index, dev)
+    tables = build_fused_tables(db, index, dev, aligner.segment_lookup)
     n = (1 + 2 * args.batches) * args.batch
     codes, lens, _ = simulate_read_batch(index, n, 150, 0.01, seed=3)
     print(f"set-up {time.time() - t0:.1f} s; code {pantax_tpu_torch.__file__}")

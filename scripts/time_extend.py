@@ -73,6 +73,29 @@ design (K9_ABLATIONS, K10B_ABLATIONS), in the same turns:
     PYTHONPATH=. python scripts/time_extend.py --kernel k10b \
         build/profile_tail_base.cu [--ablate stop --ablate candidates ...]
 
+K4b (``--kernel k4b``) and K5 (``--kernel k5``), the query's candidate
+rows and its pick (``csrc/query_io.cu``), time the current source against
+a baseline source (an earlier ``query_io.cu``; where its picks take no
+bucket table of the segment starts, EarlierPicks binds them), in turns
+with the plain version, on the kernels' own
+chain over the smoke DB (built under the build directory if absent), as
+smoke phase 3f makes them (``chip_smoke._query_case``): K4b at phase 5's
+batch (65536 reads x K 2, codes 160 wide, int8 strands, pad 4), the
+paired query's (2 x 65536 mates) and the long chunks' extension rows
+(16384 x 512, K 1, int32 strands); K5 at 65536 reads x K 2 and K5p at
+65536 pairs, over the smoke DB's 850,989 segments.  Every build is held
+bit for bit to the plain version first (``chip_smoke.hold_k4b``,
+``hold_k5``); the bound is ``chip_smoke.k4b_bytes`` / ``pick_bytes`` over
+the HBM rate.  ``--ablate`` (repeatable) times the current source without
+one lever (K4B_ABLATIONS, K5_ABLATIONS) in the same turns:
+
+    git show <commit>:pantax_tpu_torch/csrc/query_io.cu \
+        > build/query_io_base.cu
+    PYTHONPATH=. python scripts/time_extend.py --kernel k4b \
+        build/query_io_base.cu [--ablate grid_index --ablate word_loads ...]
+    PYTHONPATH=. python scripts/time_extend.py --kernel k5 \
+        build/query_io_base.cu [--ablate bucket]
+
 K1 (the default) at the main path's shape (131072 candidates of 160
 bases, pad 4) and the long-read seeded pass's (32768 candidates of 512
 bases, pad 8), on ``chip_smoke.dp_case`` candidates (read lengths uniform
@@ -137,7 +160,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as smoke  # noqa: E402
 from pantax_tpu_torch.device import require_cuda  # noqa: E402
 from pantax_tpu_torch.ops import (  # noqa: E402
-    admm, extend, profile_tail, scatter, seed, tail_kernels,
+    admm, extend, profile_tail, query, scatter, seed, tail_kernels,
 )
 from pantax_tpu_torch.profile import pao  # noqa: E402
 
@@ -172,6 +195,10 @@ SHAPES = {
     # device-tail bucket, the smallest, wide rows and the residuals in
     # global memory
     "k10b": ((10, 65536, 4), (1, 4096, 4), (1, 65536, 32), (1, 524288, 4)),
+    # K4b and K5: phase 3f's cases (query_cases) by name: phase 5's batch,
+    # the paired query's, the long chunks' extension rows (K4b only)
+    "k4b": ("main", "paired", "long"),
+    "k5": ("main", "paired"),
 }
 # K8's bits plan past the smoke's bucket: the smallest bucket and wide
 # 0/1 rows
@@ -185,7 +212,8 @@ K8_TABLE = ((1, 4), (10, 4), (1, 32))
 KERNELS = {"k1": "banded_extend_kernel", "k2": "banded_extend_windows_kernel",
            "k3": "seed_stage_kernel", "k6": "classify_scatter_ranges_kernel",
            "k11": "classify_scatter_kernel", "k8": "admm_chunk_kernel",
-           "k9": "tail_stats_kernel", "k10b": "polish_kernel"}
+           "k9": "tail_stats_kernel", "k10b": "polish_kernel",
+           "k4b": "query_rows_kernel", "k5": "query_pick_kernel"}
 K8_STEPS = 250  # the solvers' chunk
 TEXT_LEN = 30_000_000
 ITERS = 200  # launches per timed reading
@@ -348,6 +376,25 @@ K9_ABLATIONS = {
     "path_late": [("constexpr bool kPathEarly = true;",
                    "constexpr bool kPathEarly = false;")],
 }
+# K4b's levers, each taken out of csrc/query_io.cu: without "grid_index"
+# a flat grid of a thread a chunk, the candidate and the read divided out
+# of a 64-bit index; without "word_loads" the forward strand's chunk in 16
+# byte loads; without "byte_perm" the reverse strand's chunk a byte at a
+# time, its source walked back
+K4B_ABLATIONS = {
+    "grid_index": [("#define PANTAX_K4B_GRID_INDEX 1",
+                    "#define PANTAX_K4B_GRID_INDEX 0")],
+    "word_loads": [("constexpr bool kWordLoads = true;",
+                    "constexpr bool kWordLoads = false;")],
+    "byte_perm": [("constexpr bool kRegisterReverse = true;",
+                   "constexpr bool kRegisterReverse = false;")],
+}
+# K5's (and K5p's) lever: without "bucket" the projection bisects all M
+# starts
+K5_ABLATIONS = {
+    "bucket": [("constexpr bool kBucketSearch = true;",
+                "constexpr bool kBucketSearch = false;")],
+}
 # K10b's crafted buckets timed beside SHAPES["k10b"]: the edges of
 # chip_smoke.polish_case, where instances stop early
 K10B_CRAFTED = ((6, 65536, 4),)
@@ -357,9 +404,12 @@ def ablated_source(name: str, kernel: str | None = None) -> Path:
     """The current source with ABLATIONS[name] (K1's), K3_ABLATIONS[name]
     (K3's), K6_ABLATIONS[name] (K6's), K11_ABLATIONS[name] (K11's),
     K8_ABLATIONS[name] (K8's), K9_ABLATIONS[name] (K9's, where ``kernel``
-    is "k9": K8 and K9 share lever names) or K10B_ABLATIONS[name] (K10b's)
+    is "k9": K8 and K9 share lever names), K10B_ABLATIONS[name] (K10b's),
+    K4B_ABLATIONS[name] or K5_ABLATIONS[name] (csrc/query_io.cu's)
     applied, written under the build directory."""
     path, table = ((tail_kernels._SRC, K9_ABLATIONS) if kernel == "k9"
+                   else (query._SRC, K4B_ABLATIONS) if name in K4B_ABLATIONS
+                   else (query._SRC, K5_ABLATIONS) if name in K5_ABLATIONS
                    else (seed._SRC, K3_ABLATIONS) if name in K3_ABLATIONS
                    else (admm._SRC, K8_ABLATIONS) if name in K8_ABLATIONS
                    else (tail_kernels._SRC, K10B_ABLATIONS)
@@ -386,22 +436,26 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=sorted(ABLATIONS) + sorted(K3_ABLATIONS)
                     + sorted(K6_ABLATIONS) + sorted(K11_ABLATIONS)
                     + sorted(K8_ABLATIONS) + sorted(K9_ABLATIONS)
-                    + sorted(K10B_ABLATIONS),
+                    + sorted(K10B_ABLATIONS) + sorted(K4B_ABLATIONS)
+                    + sorted(K5_ABLATIONS),
                     help="time the current source without this step instead "
-                         "(K3, K6, K11, K8, K9, K10b: as well, repeatable)")
+                         "(K3, K6, K11, K8, K9, K10b, K4b, K5: as well, "
+                         "repeatable)")
     ap.add_argument("--kernel", choices=sorted(SHAPES), default="k1",
                     help="K1 (text + w0), K2 (windows given), K3 (the seed "
                          "stage), K6 (the range classify + scatter), K11 "
                          "(the windowed classify + scatter), K8 (the ADMM "
-                         "chunk), K9 (the device tail's stats) or K10b (its "
-                         "polish); default k1")
+                         "chunk), K9 (the device tail's stats), K10b (its "
+                         "polish), K4b (the query's candidate rows) or K5 "
+                         "(its pick, and K5p); default k1")
     args = ap.parse_args(argv)
     mine = {"k3": K3_ABLATIONS, "k6": K6_ABLATIONS, "k11": K11_ABLATIONS,
             "k8": K8_ABLATIONS, "k9": K9_ABLATIONS,
-            "k10b": K10B_ABLATIONS}.get(args.kernel, ABLATIONS)
+            "k10b": K10B_ABLATIONS, "k4b": K4B_ABLATIONS,
+            "k5": K5_ABLATIONS}.get(args.kernel, ABLATIONS)
     if any(a not in mine for a in args.ablate or ()):
         ap.error(f"--ablate for {args.kernel}: one of {sorted(mine)}")
-    if args.kernel in ("k3", "k6", "k11", "k8", "k9", "k10b"):
+    if args.kernel in ("k3", "k6", "k11", "k8", "k9", "k10b", "k4b", "k5"):
         if args.baseline is None:
             ap.error(f"{args.kernel.upper()} takes a baseline source")
     elif (args.baseline is None) == (args.ablate is None) or len(
@@ -799,6 +853,119 @@ def k9_paired_case(dev) -> tuple:
                          .min_depth)
 
 
+def query_cases(dev) -> dict:
+    """K4b's and K5's arguments at SHAPES["k4b"] and SHAPES["k5"], on the
+    kernels' own chain (K4a, K3, K4b, K1) over the smoke DB (built under
+    the build directory if absent), as smoke phase 3f makes them: phase
+    5's first batch (seed 3), the paired batch (seed 17), the long
+    chunks' extension rows (seed 19, w0 and strands at random, seed 23)."""
+    from pantax_tpu_torch import _host
+    from pantax_tpu_torch.align.aligner import _text_bound
+    from pantax_tpu_torch.align.long_read import LONG_READ_PRESETS
+    from pantax_tpu_torch.benchmarks import scale_db, simulate_read_batch
+    from pantax_tpu_torch.convert import aligner_from_reference
+
+    db = scale_db(str(extend.build_dir() / "scale_db"))
+    index = _host.build_align_index(db)
+    al = aligner_from_reference(index, _host.AlignConfig(), dev)
+    long_al = aligner_from_reference(
+        index, _host.AlignConfig.for_read_type("long"), dev)
+    lib = query.build_query_kernels()
+    errs = {k: [] for k in smoke.QUERY_KERNELS}
+    codes, lens, _ = simulate_read_batch(index, smoke.BATCH, 150, 0.01,
+                                         seed=3)
+    main = smoke._query_case(lib, al, *al.upload(codes, lens), "main", errs)
+    c1, l1, c2, l2 = smoke.simulate_pairs(index, smoke.BATCH, seed=17)[0]
+    paired = smoke._query_case(lib, al, *al.upload(c1, l1), "paired", errs,
+                               *al.upload(c2, l2))
+    chunk = LONG_READ_PRESETS[smoke.READ_TYPE]
+    codes, lens, _ = simulate_read_batch(index, smoke.LONG_BATCH, chunk,
+                                         0.01, seed=19)
+    c, n = long_al.upload(codes, lens)
+    W, T = _text_bound(long_al.text, chunk, long_al.cfg.extension_band)
+    rng = np.random.default_rng(23)
+    long = (query.launch_k4a(lib, c, n)[0], n,
+            long_al.put(rng.integers(0, 2, size=smoke.LONG_BATCH), np.int32),
+            long_al.put(rng.integers(-100, index.text_len,
+                                     size=smoke.LONG_BATCH), np.int32),
+            0, T - W, chunk)
+    return {"k4b": {"main": main[1], "paired": paired[1], "long": long},
+            "k5": {"main": main[2], "paired": paired[2]}}
+
+
+def main_query(args, dev) -> None:
+    """K4b or K5 (``args.kernel``): the baseline, the current source and
+    its ablations in turns with the plain version at each case of
+    query_cases, every build held bit for bit to the plain version
+    first."""
+    libs = build_turns(args, compile_query, query._SRC)
+    cases = query_cases(dev)
+    card = smoke.card_line()
+    for tag, qargs in cases[args.kernel].items():
+        paired = len(qargs) > 13
+        if args.kernel == "k4b":
+            for name, lib in libs.items():
+                smoke.hold_k4b(lib, qargs, f"({name} build, {tag})")
+            launch, plain = query.launch_k4b, query.query_rows_plain
+            nbytes = smoke.k4b_bytes(qargs)
+            line = {"kernel": "K4b", "case": tag,
+                    "rows": list(qargs[0].shape), "K": qargs[2].shape[-1]
+                    if qargs[2].dim() == 2 else 1, "width": qargs[6]}
+        else:
+            for name, lib in libs.items():
+                smoke.hold_k5(lib, qargs, f"({name} build, {tag})")
+            launch = query.launch_k5p if paired else query.launch_k5
+            plain = (query.query_pick_paired_plain if paired
+                     else query.query_pick_plain)
+            nbytes = smoke.pick_bytes(qargs)
+            line = {"kernel": "K5p" if paired else "K5", "case": tag,
+                    "reads": int(qargs[10].shape[0]), "K": qargs[5].shape[1],
+                    "segments": int(qargs[7].shape[0]),
+                    "buckets": int(qargs[9].pos_lo.shape[0] - 1)}
+        line["card"] = card
+
+        def reading(lib):
+            if lib == "plain":
+                return smoke.cuda_ms(lambda: plain(*qargs), 5, hold=True)
+            return smoke.cuda_ms(lambda: launch(lib, *qargs), ITERS,
+                                 hold=True)
+
+        time_in_turns(dict(libs, plain="plain"), reading, line,
+                      smoke.bound_ms(nbytes), "bytes")
+
+
+class EarlierPicks:
+    """A build of an earlier query_io.cu whose K5 and K5p entries take no
+    bucket table of the segment starts: query.launch_k5 / launch_k5p
+    drive them through this object, which leaves out the table's three C
+    arguments (pos_lo, its length and win_shift, after M); every other
+    entry is the build's."""
+
+    def __init__(self, lib):
+        import ctypes
+        self.lib = lib
+        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        pick = [vp] * 9 + [i32, vp, i32, i32, f32, f32]
+        for name, params in (("query_pick_launch", []),
+                             ("query_pick_paired_launch", [f32, i32, i32])):
+            fn = lib[name]  # a function object of its own, not lib's
+            fn.restype, fn.argtypes = i32, pick + params + [vp] * 9
+            setattr(self, name, lambda *a, fn=fn: fn(*a[:10], *a[13:]))
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+
+def compile_query(src):
+    """Build csrc/query_io.cu from ``src`` (None: the current source)
+    with query.build_query_kernels; a source whose picks take no bucket
+    table (no pos_lo in its text) comes back as EarlierPicks."""
+    lib = query.build_query_kernels(src)
+    if src is not None and "pos_lo" not in Path(src).read_text():
+        return EarlierPicks(lib)
+    return lib
+
+
 def compile_k8(src):
     """Build K8 from ``src`` (None: the current source) and set the
     argument types of its C entry, the current one or a baseline's."""
@@ -826,6 +993,9 @@ def main() -> None:
         return
     if args.kernel in ("k9", "k10b"):
         main_tail(args, dev, issue_peak)
+        return
+    if args.kernel in ("k4b", "k5"):
+        main_query(args, dev)
         return
     if args.kernel == "k3":
         main_k3(args, dev, issue_peak)

@@ -1590,6 +1590,30 @@ def test_query_extension_rows_match_plain(cuda, query_lib, tiny_index):
     chip_smoke.hold_k4b(query_lib, args, "extension rows")
 
 
+@pytest.mark.parametrize("name", chip_smoke.K4B_CASES)
+def test_k4b_crafted_rows_match_plain(cuda, query_lib, name):
+    """K4b on k4b_cases (the CPU tests hold a model of its word-wise
+    arithmetic to the plain version on the same rows): every read_len %
+    16, read_len 0, the width and past it, every byte value, at code
+    widths 150-512, as the query and as the extension takes them."""
+    chip_smoke.hold_k4b(query_lib, chip_smoke.k4b_args(
+        chip_smoke.k4b_cases()[name], cuda), name)
+
+
+def test_segment_lookup_on_card_equals_cpu(cuda, tiny_index):
+    """The Aligner's bucket table, built on the card, is the one built on
+    the CPU: pos_lo[b] the starts at or before b << win_shift."""
+    al = aligner_from_reference(tiny_index, _host.AlignConfig(), cuda)
+    seg = al.segment_lookup
+    cpu = query.segment_lookup(al.tstart.cpu(), tiny_index.text_len)
+    assert seg.pos_lo.device.type == "cuda"
+    assert (seg.win_shift, seg.steps) == (cpu.win_shift, cpu.steps)
+    assert torch.equal(cpu.pos_lo, seg.pos_lo.cpu())
+    bounds = np.arange(cpu.pos_lo.shape[0], dtype=np.int64) << seg.win_shift
+    assert np.array_equal(seg.pos_lo.cpu().numpy(), np.searchsorted(
+        tiny_index.tstart, bounds, side="right"))
+
+
 @pytest.mark.parametrize("name", chip_smoke.PICK_CASES + chip_smoke.PAIR_CASES)
 def test_pick_kernels_crafted_cases_match_plain(cuda, query_lib, name):
     """K5 and K5p on pick_cases (the CPU tests hold the plain versions to
@@ -1623,7 +1647,9 @@ def test_query_entry_points_launch_kernels_on_cuda(cuda, tiny_index):
 
 def test_query_kernels_reject_bad_inputs(cuda, query_lib):
     """The wrappers raise ValueError on a wrong dtype, a non-contiguous
-    tensor, mixed devices and K past 8."""
+    tensor, mixed devices, K past 8, K4b's codes or rows not a multiple of
+    4 wide, and a bucket table of the segments on the CPU or not 2^k + 1
+    bounds long."""
     c = torch.zeros((8, 32), dtype=torch.int8, device=cuda)
     n = torch.full((8,), 32, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
@@ -1637,7 +1663,21 @@ def test_query_kernels_reject_bad_inputs(cuda, query_lib):
                          torch.zeros((8, 9), dtype=torch.int8, device=cuda),
                          torch.zeros((8, 9), dtype=torch.int32, device=cuda),
                          4, 10, 32)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        query.launch_k4b(query_lib, c[:, :30].contiguous(), n,
+                         torch.zeros((8, 2), dtype=torch.int8, device=cuda),
+                         torch.zeros((8, 2), dtype=torch.int32, device=cuda),
+                         4, 10, 32)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        query.launch_k4b(query_lib, c, n,
+                         torch.zeros((8, 2), dtype=torch.int8, device=cuda),
+                         torch.zeros((8, 2), dtype=torch.int32, device=cuda),
+                         4, 10, 34)
     args = chip_smoke.pick_args(chip_smoke.pick_cases()["ties"], cuda)
     with pytest.raises(ValueError):
         query.launch_k5(query_lib, *args[:5], args[5].to(torch.int64),
                         *args[6:])
+    seg = args[9]
+    for bad in (seg.to("cpu"), seg._replace(pos_lo=seg.pos_lo[:-1])):
+        with pytest.raises(ValueError):
+            query.launch_k5(query_lib, *args[:9], bad, *args[10:])

@@ -531,11 +531,12 @@ QUERY_SCRIPT = SEED_SCRIPT.split("    import numpy as np")[0] + textwrap.dedent(
     dp = [torch.from_numpy(rng.integers(0, 150, size=24).astype(np.int32))
           for _ in range(4)]
     votes = torch.ones((12, 2), dtype=i32)
-    cols = query.query_pick_paired(*dp, w0, votes, strand, tstart, tnode, n,
-                                   10.0, 0.6, 1200, 4, 0.45)
+    seg = query.segment_lookup(tstart, 1000)
+    cols = query.query_pick_paired(*dp, w0, votes, strand, tstart, tnode,
+                                   seg, n, 10.0, 0.6, 1200, 4, 0.45)
     assert len(cols) == 7 and cols[0].shape == (12,)
-    packed = query.query_pick(*dp, w0, votes, strand, tstart, tnode, n, 10.0,
-                              0.6, packed=True)
+    packed = query.query_pick(*dp, w0, votes, strand, tstart, tnode, seg, n,
+                              10.0, 0.6, packed=True)
     assert packed.shape == (4, 12) and packed.dtype == i32
     assert extend.LAUNCHES["query_pick"] == 0
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]

@@ -127,15 +127,16 @@ def test_default_mesh_and_its_primary(tiny):
 @pytest.mark.parametrize("entry", ["single", "extend"])
 def test_mesh_of_distinct_devices(tiny, entry):
     """A mesh of ``cpu`` and ``cpu:0``: two device objects, so the aligner
-    holds a copy of the index tables for the second, moves its row block
-    there and back, and the coverage sums its block's accumulators across;
-    the rows and the coverage equal those without a mesh."""
+    holds a copy of the index tables (and the segments' bucket table) for
+    the second, moves its row block there and back, and the coverage sums
+    its block's accumulators across; the rows and the coverage equal those
+    without a mesh."""
     make, port, _ = ENTRIES[entry]
     args = make(tiny)
     mesh = make_mesh([CPU, torch.device("cpu", 0)])
     al = tiny.aligner(mesh)
     assert list(al._replicas) == [mesh[1]]
-    assert len(al._replicas[mesh[1]]) == 6
+    assert len(al._replicas[mesh[1]]) == 7  # and K5's bucket table
     key = ("banded_extend_windows_plain" if entry == "extend"
            else "banded_extend_plain")
     before = extend.LAUNCHES[key]

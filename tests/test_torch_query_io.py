@@ -7,7 +7,10 @@ and the strand selects of ``_all_candidates`` and ``_extend_batch``, and
 ``_query_batch`` / ``_query_batch_paired`` (their ``_all_candidates``
 replaced by a stub that hands them ``chip_smoke.pick_cases``'
 candidates) with ``_pack_result_rows``; the
-node projection against ``jnp.searchsorted``; the entry points' plain
+node projection against ``jnp.searchsorted``; K5's bucket table against
+the reference's build_pos_lookup, and the kernels' bucketed search and K4b's
+word-wise rows modelled in Python against the plain versions; the entry
+points' plain
 route and counts on CPU tensors; the launch wrappers' refusals; the feed
 split's reading of a profiler trace.  The kernels themselves run in
 tests/test_torch_cuda.py (marker ``cuda``) and chip_smoke.py's phase 3f."""
@@ -227,6 +230,229 @@ def test_projection_matches_searchsorted(M):
     _eq(off, np.asarray(jnp.asarray(ts) - jnp.asarray(tstart)[i0]))
 
 
+# ---------------------------------------------------------------------------
+# K5's bucketed projection and K4b's word-wise rows, modelled in numpy
+# ---------------------------------------------------------------------------
+def _scale_slice(tmp_path):
+    """The segment starts of a small scale_db (2 species x 2 strains of
+    50 kb) and its text's length."""
+    from pantax_tpu_torch import _host
+    from pantax_tpu_torch.benchmarks import scale_db
+
+    db = scale_db(str(tmp_path / "scale"), n_species=2, strains_per=2,
+                  genome_len=50_000)
+    index = _host.build_align_index(db)
+    return np.asarray(index.tstart), index.text_len
+
+
+def _tiny_starts(tmp_path):
+    from pantax_tpu_torch import _host
+    from pantax_tpu_torch.benchmarks import tiny_db
+
+    index = _host.build_align_index(tiny_db(str(tmp_path / "tiny")))
+    return np.asarray(index.tstart), index.text_len
+
+
+def _crafted_starts(M):
+    def make(tmp_path):
+        tstart = chip_smoke._segments(M)[0]
+        return tstart, int(tstart[-1]) + chip_smoke.SEG_LEN
+    return make
+
+
+_STARTS = {"tiny_db": _tiny_starts, "scale_db": _scale_slice,
+           "m1": _crafted_starts(1), "m2": _crafted_starts(2),
+           "m50": _crafted_starts(50)}
+
+
+@pytest.mark.parametrize("name", sorted(_STARTS))
+def test_segment_lookup_is_the_references_pos_lookup(one_thread, tmp_path,
+                                                     name):
+    """segment_lookup (torch.searchsorted of the bucket bounds, built
+    where tstart lies) gives the reference's build_pos_lookup: pos_lo
+    array-equal, win_shift and steps, on the tiny DB, a small scale_db,
+    and 1, 2 and 50 crafted segments; pos_lo[b] counts the starts at or
+    before b << win_shift."""
+    from pantax_tpu.ops.fused import build_pos_lookup
+
+    tstart, text_len = _STARTS[name](tmp_path)
+    got = query.segment_lookup(_t(tstart.astype(np.int32)), text_len)
+    pos_lo, win_shift, steps = build_pos_lookup(tstart.astype(np.int64),
+                                                text_len)
+    _eq(got.pos_lo, np.asarray(pos_lo, np.int32))
+    assert (got.win_shift, got.steps) == (win_shift, steps)
+    bounds = np.arange(len(pos_lo), dtype=np.int64) << win_shift
+    _eq(got.pos_lo, np.searchsorted(tstart, bounds, side="right").astype(
+        np.int32))
+
+
+def test_fused_tables_share_the_aligners_bucket_table(one_thread,
+                                                      tmp_path):
+    """build_fused_tables given an Aligner's segment_lookup holds that very
+    buffer (one copy on the device), with the win_shift and steps of the
+    table it builds on its own."""
+    from pantax_tpu_torch import _host
+    from pantax_tpu_torch.benchmarks import tiny_db
+    from pantax_tpu_torch.convert import aligner_from_reference
+    from pantax_tpu_torch.ops.fused import build_fused_tables
+
+    db = tiny_db(str(tmp_path))
+    index = _host.build_align_index(db)
+    al = aligner_from_reference(index, _host.AlignConfig(), "cpu")
+    shared = build_fused_tables(db, index, "cpu", al.segment_lookup)
+    own = build_fused_tables(db, index, "cpu")
+    assert shared.pos_lo is al.pos_lo and own.pos_lo is not al.pos_lo
+    assert torch.equal(own.pos_lo, al.pos_lo)
+    assert (shared.win_shift, shared.pos_steps) == (own.win_shift,
+                                                    own.pos_steps)
+
+
+def test_segment_lookup_refuses_starts_outside_the_text():
+    """K5 takes a ts before 0 as before every start and one past the last
+    bucket as past every start: starts below 0, at or past the text's end
+    or out of order are refused."""
+    for tstart, text_len in (([-1, 5], 10), ([0, 10], 10), ([0, 7, 5], 10),
+                             ([], 10)):
+        with pytest.raises(ValueError, match="sorted"):
+            query.segment_lookup(torch.tensor(tstart, dtype=torch.int32),
+                                 text_len)
+
+
+def _model_segment(tstart, pos_lo, win_shift, ts):
+    """csrc/query_io.cu's segment_of in Python: a ts before 0 is segment 0,
+    one past the last bucket segment M - 1, else the bisection inside its
+    bucket [pos_lo[b], pos_lo[b + 1]), clipped into [0, M - 1]."""
+    M, nb = len(tstart), len(pos_lo) - 1
+    out = []
+    for x in ts:
+        x = int(x)
+        if x < 0:
+            out.append(0)
+            continue
+        b = x >> win_shift
+        if b >= nb:
+            out.append(M - 1)
+            continue
+        lo, hi = min(int(pos_lo[b]), M), min(int(pos_lo[b + 1]), M)
+        while lo < hi:
+            mid = (lo + hi) >> 1
+            if tstart[mid] <= x:
+                lo = mid + 1
+            else:
+                hi = mid
+        out.append(min(max(lo - 1, 0), M - 1))
+    return np.asarray(out, dtype=np.int64)
+
+
+@pytest.mark.parametrize("name", sorted(_STARTS))
+def test_bucketed_search_model_matches_project(one_thread, tmp_path, name):
+    """The kernel's bucketed search, modelled in Python, gives project's
+    node and offset on crafted ts: the int32 extremes, negative, below the
+    first start, on every bucket boundary and beside it, at every start,
+    at and past the text's end and the last bucket's bound."""
+    tstart, text_len = _STARTS[name](tmp_path)
+    tstart = tstart.astype(np.int32)
+    tnode = (np.arange(len(tstart)) % 7 + 1).astype(np.int32)
+    seg = query.segment_lookup(_t(tstart), text_len)
+    pos_lo = seg.pos_lo.numpy()
+    bounds = np.arange(len(pos_lo), dtype=np.int64) << seg.win_shift
+    ts = np.unique(np.concatenate([
+        [-2**31, -2**31 + 1, -7, -1, 0, 1, int(tstart[0]) - 1],
+        bounds[::max(1, len(bounds) // 4096)], bounds[-3:],
+        bounds[::max(1, len(bounds) // 4096)] - 1, bounds[-3:] + 1,
+        tstart[::max(1, len(tstart) // 4096)],
+        tstart[::max(1, len(tstart) // 4096)] + 1,
+        [text_len - 1, text_len, text_len + 1, 2**31 - 2, 2**31 - 1]]))
+    ts = ts[(ts >= -2**31) & (ts < 2**31)].astype(np.int32)
+    i0 = _model_segment(tstart, pos_lo, seg.win_shift, ts)
+    node, off = query.project(_t(ts), _t(tstart), _t(tnode))
+    _eq(node, tnode[i0])
+    _eq(off, (ts.astype(np.int64) - tstart[i0]).astype(np.int32))
+
+
+_N4 = 0x04040404
+
+
+def _byte_perm(x, y, s):
+    v = (y << 32) | x
+    return sum(((v >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i)
+               for i in range(4))
+
+
+def _complement4(x):
+    """Per byte, as an int8 code b: 3 - b (wrapping) where b < 4, else 4
+    (__vcmplts4 and __vsub4)."""
+    out = 0
+    for i in range(4):
+        b = (x >> (8 * i)) & 0xFF
+        signed = b - 256 if b > 127 else b
+        out |= ((3 - b) & 0xFF if signed < 4 else 4) << (8 * i)
+    return out
+
+
+def _keep_bytes(x, v):
+    m = 0xFFFFFFFF if v >= 4 else 0 if v <= 0 else (1 << (8 * v)) - 1
+    return (x & m) | (_N4 & ~m & 0xFFFFFFFF)
+
+
+def _model_rows(fwd, lens, strand, width):
+    """csrc/query_io.cu's K4b rows in Python, 16 columns at a time: the
+    forward strand's words, 4 past the codes' width; the reverse strand's
+    five aligned words up to the one of source byte l - 1 - c0, each
+    output word a byte permute of two, complemented four bytes at a time,
+    kept before read_len; a read_len past the width a byte at a time."""
+    R, Lc = fwd.shape
+    words = fwd.view(np.uint32).astype(np.int64)
+    K = 1 if strand.ndim == 1 else strand.shape[1]
+    st = strand.reshape(-1)
+    rows = np.zeros((R * K, width), np.uint8)
+    for n in range(R * K):
+        r, l = n // K, int(lens[n // K])
+        for c0 in range(0, width, 16):
+            if st[n] != 1:
+                out = [int(words[r, c0 // 4 + q]) if c0 + 4 * q < Lc else _N4
+                       for q in range(4)]
+            elif l <= Lc:
+                hi = l - 1 - c0
+                if hi < 0:
+                    out = [_N4] * 4
+                else:
+                    top = hi >> 2
+                    w = [int(words[r, top - 4 + i]) if top - 4 + i >= 0
+                         else _N4 for i in range(5)]
+                    s = (hi & 3) + 1
+                    sel = (s + 3) | ((s + 2) << 4) | ((s + 1) << 8) | (s << 12)
+                    out = [_keep_bytes(_complement4(_byte_perm(
+                        w[3 - q], w[4 - q], sel)), l - c0 - 4 * q)
+                        for q in range(4)]
+            else:
+                b = [4] * 16
+                for j in range(16):
+                    c = c0 + j
+                    if c < Lc and c < l:
+                        x = int(fwd[r, min(l - 1 - c, Lc - 1)])
+                        b[j] = (3 - x) & 0xFF if x < 4 else 4
+                out = [b[4 * q] | b[4 * q + 1] << 8 | b[4 * q + 2] << 16
+                       | b[4 * q + 3] << 24 for q in range(4)]
+            chunk = np.array(out, dtype=np.uint32).view(np.uint8)
+            m = min(16, width - c0)
+            rows[n, c0:c0 + m] = chunk[:m]
+    return rows.view(np.int8)
+
+
+@pytest.mark.parametrize("name", chip_smoke.K4B_CASES)
+def test_k4b_word_model_matches_plain(one_thread, name):
+    """K4b's word-wise arithmetic, modelled in Python, gives
+    query_rows_plain's rows on k4b_cases: codes of widths 150-512 (K4a's,
+    a multiple of 4), every read_len % 16, read_len 0, the width and past
+    it, every byte value, the query's rows (K 2, padded to 16) and the
+    extension's (K 1, int32 strands)."""
+    args = chip_smoke.k4b_args(chip_smoke.k4b_cases()[name], "cpu")
+    fwd, lens, strand, _diag, _pad, _w_hi, width = args
+    want = query.query_rows_plain(*args)[0]
+    _eq(_model_rows(fwd.numpy(), lens.numpy(), strand.numpy(), width), want)
+
+
 def test_entry_points_take_the_plain_versions_on_the_cpu(one_thread):
     """The four entry points on CPU tensors: the plain versions' bits,
     counted as plain runs and never as launches."""
@@ -272,7 +498,7 @@ def test_launch_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         query.launch_k5(None, *sa)
     with pytest.raises(ValueError, match="2B reads"):
-        query.launch_k5p(None, *sa[:9], sa[9][:3], *sa[10:],
+        query.launch_k5p(None, *sa[:10], sa[10][:3], *sa[11:],
                          *chip_smoke.PAIR_CFG)
 
 

@@ -1,7 +1,7 @@
-"""The K1 / K2 / K3 / K6 / K11 / K8 timing tools on the CPU: the arguments,
-shapes and ablated sources of ``scripts/time_extend.py`` and the SASS loop
-readers of ``chip_smoke.py`` (the card runs them; here only their text
-handling is held)."""
+"""The K1 / K2 / K3 / K6 / K11 / K8 / K9 / K10b / K4b / K5 timing tools on
+the CPU: the arguments, shapes and ablated sources of
+``scripts/time_extend.py`` and the SASS loop readers of ``chip_smoke.py``
+(the card runs them; here only their text handling is held)."""
 import importlib.util
 import os
 import stat
@@ -531,3 +531,116 @@ def test_ptxas_lines_name_k10bs_instantiations():
     assert chip_smoke.ptxas_lines(log) == [
         "polish_kernel<1,8>: Used 56 registers, used 1 barriers",
         "polish_kernel<0,0>: Used 40 registers, used 1 barriers"]
+
+
+@pytest.mark.parametrize("kernel,name", [
+    *(("k4b", n) for n in sorted(time_extend.K4B_ABLATIONS)),
+    *(("k5", n) for n in sorted(time_extend.K5_ABLATIONS))])
+def test_query_ablations_apply_to_the_current_source(kernel, name, tmp_path,
+                                                     monkeypatch):
+    """Each of K4b's and K5's levers comes out of csrc/query_io.cu as its
+    text says (each text once in the source), into a source of its own
+    under the build directory, and --kernel k4b (or k5) takes it; the
+    other kernel refuses it, and both refuse to run without a
+    baseline."""
+    from pantax_tpu_torch.ops import query
+    monkeypatch.setenv("PANTAX_TORCH_BUILD", str(tmp_path))
+    path = time_extend.ablated_source(name, kernel)
+    src, current = path.read_text(), query._SRC.read_text()
+    assert path.name == f"query_io_no_{name}.cu" and src != current
+    table = {"k4b": time_extend.K4B_ABLATIONS,
+             "k5": time_extend.K5_ABLATIONS}[kernel]
+    for old, new in table[name]:
+        assert current.count(old) == 1 and old not in src and new in src
+    args = time_extend.parse_args(["--kernel", kernel, "base.cu",
+                                   "--ablate", name])
+    assert (args.kernel, args.baseline, args.ablate) == (kernel, "base.cu",
+                                                         [name])
+    other = "k5" if kernel == "k4b" else "k4b"
+    for argv in (["--kernel", other, "base.cu", "--ablate", name],
+                 ["--kernel", kernel, "--ablate", name]):
+        with pytest.raises(SystemExit):
+            time_extend.parse_args(argv)
+
+
+def test_query_shapes_are_phase_3f():
+    """K4b at phase 3f's three cases (phase 5's batch, the paired query's,
+    the long chunks' extension rows), K5 at the single-end and the paired
+    pick; the kernels' names are the source's."""
+    from pantax_tpu_torch.ops import query
+    assert time_extend.SHAPES["k4b"] == ("main", "paired", "long")
+    assert time_extend.SHAPES["k5"] == ("main", "paired")
+    src = query._SRC.read_text()
+    for k in ("k4b", "k5"):
+        assert f"__global__ void {time_extend.KERNELS[k]}(" in src
+
+
+def test_an_earlier_sources_picks_take_no_bucket_table(tmp_path,
+                                                      monkeypatch):
+    """compile_query gives a baseline without pos_lo in its text (an
+    earlier query_io.cu) as EarlierPicks: its K5 and K5p entries get their
+    own argument types and the C arguments that launch_k5 / launch_k5p
+    pass, less the bucket table's three after M; its other entries and
+    attributes are the build's.  The current source's picks take the
+    table, and its build comes back as it is."""
+    from pantax_tpu_torch.ops import query
+
+    calls = []
+
+    class Entry:
+        def __init__(self, name):
+            self.name = name
+
+        def __call__(self, *a):
+            calls.append((self.name, a))
+            return 0
+
+    class Build:
+        build_log = "ptxas"
+        query_rows_launch = Entry("query_rows_launch")
+
+        def __getitem__(self, name):
+            return Entry(name)
+
+    built = []
+    monkeypatch.setattr(query, "build_query_kernels",
+                        lambda src: built.append(src) or Build())
+    base = tmp_path / "query_io_base.cu"
+    base.write_text('extern "C" int query_pick_launch(const void* tstart);')
+    lib = time_extend.compile_query(base)
+    assert isinstance(lib, time_extend.EarlierPicks) and built == [base]
+    assert lib.build_log == "ptxas"
+    assert lib.query_rows_launch is Build.query_rows_launch
+    args = tuple(range(30))
+    for name, n in (("query_pick_launch", 27), ("query_pick_paired_launch",
+                                                30)):
+        getattr(lib, name)(*args[:n])
+        assert calls[-1] == (name, args[:10] + args[13:n])
+    assert type(time_extend.compile_query(None)) is Build
+    src = query._SRC.read_text()
+    for entry in ("query_pick_launch", "query_pick_paired_launch"):
+        head = src[src.index(f'extern "C" int {entry}('):]
+        assert "const void* pos_lo, int n_pos, int win_shift" in head[
+            :head.index("{")]
+
+
+def test_ptxas_lines_name_the_query_kernels():
+    """K4b's kernel is a template on its strands' type and K5's on K: each
+    instantiation is named."""
+    log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117"
+           "query_rows_kernelIaEEvNS_8RowsArgsE' for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 30 registers, used 0 barriers\n"
+           "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117"
+           "query_rows_kernelIiEEvNS_8RowsArgsE' for 'sm_90a'\n"
+           "ptxas info    : Used 31 registers, used 0 barriers\n"
+           "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117"
+           "query_pick_kernelILi2EEEvNS_6PickInENS_8SegmentsEiff3Out' "
+           "for 'sm_90a'\n"
+           "ptxas info    : Used 40 registers, used 0 barriers\n")
+    assert chip_smoke.ptxas_lines(log) == [
+        "query_rows_kernel<int8>: Used 30 registers, used 0 barriers; 0 "
+        "bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "query_rows_kernel<int>: Used 31 registers, used 0 barriers",
+        "query_pick_kernel<2>: Used 40 registers, used 0 barriers"]
